@@ -1,0 +1,326 @@
+"""Mega-population gossip engine (``run_simulation(engine="sharded")``).
+
+Counterpart of ``repro/core/sharded_engine.py`` with the dense packing on
+one device. The protocol is split the way a router splits a network:
+
+* **control plane on the host** — which message reaches which node in which
+  round depends only on the threefry draws, the churn matrix and the
+  delay/drop outcomes. The engine draws each cycle's destinations and
+  arrivals on the device with the same threefry calls as the reference
+  engine (``_draw_chunk``), pulls the integer tables to the host and
+  resolves the K winner rounds in numpy (``_HostRouter``, a copy of the
+  reference's). The message economy falls out of the same pass.
+* **data plane on the device** — per chunk of cycles between two eval
+  points, a Python loop over the chunk's cycles (the reference's
+  ``lax.scan``) gathers the winning payloads from the dense (T, K, N)
+  routing table, applies the K receives with the fused receive kernel
+  (``repro_torch.kernels.gossip_cycle``; its plain version on CPU
+  tensors), and refreshes the in-flight buffer row with each node's
+  freshest model. The carry is updated in place, as the JAX chunk function
+  donates it. Launches are asynchronous, so routing chunk i+1 on the host
+  overlaps the device's work on chunk i; the eval results are read once,
+  after the last chunk.
+
+Determinism: the same seed gives the same host stream, the same per-cycle
+draws and the same winner semantics as both reference engines, so the
+economy is exactly theirs and the curves agree.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import random
+from repro_torch.configs.gossip_linear import GossipLinearConfig
+from repro_torch.core import cache as cache_mod
+from repro_torch.core.cache import ModelCache
+from repro_torch.core.simulation import (SimResult, _eval, check_slice,
+                                         draw_sends, eval_points,
+                                         message_wire_bytes,
+                                         payload_buffer_bytes, sim_setup)
+from repro_torch.kernels import gossip_cycle
+from repro_torch.utils.device import resolve_device
+
+
+def key_schedule(seed: int, cycles: int, device) -> torch.Tensor:
+    """The reference driver's per-cycle subkeys as one (cycles, 2) tensor:
+    bitwise ``for c: key, sub = split(key)``."""
+    k = random.key(seed, device=device)
+    subs = []
+    for _ in range(cycles):
+        k, sub = random.split(k)
+        subs.append(sub)
+    return torch.stack(subs)
+
+
+def _draw_chunk(keys, onlines, clock0: int, *, n: int, drop: float,
+                delay_max: int, sampler: str):
+    """(T, 2) keys and (T, n) online rows -> (T, n) int32 destination and
+    arrival tables, on the keys' device: the per-cycle draw sequence of
+    ``cycle_core``, bit for bit."""
+    dsts, arrivals = [], []
+    for t in range(keys.shape[0]):
+        dst, arr = draw_sends(keys[t], n, clock0 + t, onlines[t], drop=drop,
+                              delay_max=delay_max, sampler=sampler)
+        dsts.append(dst)
+        arrivals.append(arr)
+    return torch.stack(dsts), torch.stack(arrivals)
+
+
+class _HostRouter:
+    """Host-side control-plane state, carried between chunks as three flat
+    int32 pending arrays: flat slot id (row*n + sender), destination and
+    absolute arrival cycle, snapshotted at send time (a slot row is never
+    overwritten before its arrival cycle's deliveries run)."""
+
+    def __init__(self, delay_max: int):
+        self.delay_max = delay_max
+        self.p_slot = _EMPTY_I32
+        self.p_dst = _EMPTY_I32
+        self.p_arr = _EMPTY_I32
+
+    def route_chunk(self, dsts, arrivals, online_rows, clock0: int,
+                    k_rounds: int):
+        """Resolve winner-per-destination rounds for a chunk of cycles, in
+        one batched numpy pass: every candidate message arriving inside the
+        chunk is ranked within its (cycle, destination) group by descending
+        flat slot id, and rank r < K receives in round r — the semantics of
+        ``select_receivers``.
+
+        Returns ``(win, stats)``: the winner tuple ``(t, round, dst, slot)``
+        of parallel int32 arrays, and the chunk's message economy with
+        ``delivered_cycles``, the (T,) per-cycle delivered counts."""
+        T, n = dsts.shape
+        D, K = self.delay_max, k_rounds
+
+        t_send, senders = np.nonzero(arrivals >= 0)
+        slot = (((clock0 + t_send) % D) * n + senders).astype(np.int32)
+        sent = int(senders.size)
+        cand_slot = np.concatenate([self.p_slot, slot])
+        cand_dst = np.concatenate([self.p_dst,
+                                   dsts[t_send, senders].astype(np.int32)])
+        cand_arr = np.concatenate([self.p_arr,
+                                   arrivals[t_send, senders].astype(np.int32)])
+        future = cand_arr >= clock0 + T
+        self.p_slot = cand_slot[future]
+        self.p_dst = cand_dst[future]
+        self.p_arr = cand_arr[future]
+        due = ~future
+        c_slot = cand_slot[due]
+        c_dst = cand_dst[due]
+        c_t = cand_arr[due] - clock0
+
+        # a message due while its destination is offline leaves the system
+        on = online_rows[c_t, c_dst]
+        lost = int(c_slot.size - int(on.sum()))
+        c_slot, c_dst, c_t = c_slot[on], c_dst[on], c_t[on]
+
+        # sort by (cycle, dst) group, ascending slot id inside each group:
+        # rank-from-group-end r is the r-th largest slot id
+        group = c_t.astype(np.int64) * n + c_dst
+        order = np.lexsort((c_slot, group))
+        g_s = group[order]
+        rank = np.searchsorted(g_s, g_s, side="right") - 1 \
+            - np.arange(g_s.size)
+        wm = rank < K
+        win = (c_t[order][wm].astype(np.int32), rank[wm].astype(np.int32),
+               c_dst[order][wm], c_slot[order][wm])
+        delivered = int(wm.sum())
+        stats = dict(sent=sent, delivered=delivered, lost=lost,
+                     overflow=int(g_s.size - delivered),
+                     delivered_cycles=np.bincount(
+                         win[0], minlength=T).astype(np.int64))
+        return win, stats
+
+    @property
+    def in_flight(self) -> int:
+        """Messages sent but not yet due."""
+        return int(self.p_slot.size)
+
+
+_EMPTY_I32 = np.empty(0, np.int32)
+
+
+def dense_table(win, T: int, K: int, n: int) -> np.ndarray:
+    """The dense (T, K, n) routing table from a winner tuple: entry
+    [t, r, dst] holds the flat slot id of dst's round-r receive at cycle
+    t, -1 = no receive. At N=10^6 it is the router's largest allocation."""
+    t_w, r_w, dst_w, slot_w = win
+    src_slot = np.full((T, K, n), -1, np.int32)
+    src_slot[t_w, r_w, dst_w] = slot_w
+    return src_slot
+
+
+# ---------------------------------------------------------------------------
+# data plane
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Carry:
+    """The data-plane state between cycles, updated in place: the fields
+    of the reference chunk function's carry for the float32 wire."""
+    last_w: torch.Tensor       # (N, d) f32
+    last_t: torch.Tensor       # (N,) i32
+    fresh_w: torch.Tensor      # (N, d) f32 freshest model
+    fresh_t: torch.Tensor      # (N,) i32
+    cache: ModelCache
+    buf_w: torch.Tensor        # (D, N, d) f32 in-flight payloads
+    buf_t: torch.Tensor        # (D, N) i32
+    clock: int
+
+
+def init_carry(n: int, d: int, cache_size: int, delay_max: int,
+               device) -> Carry:
+    z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=device)
+    return Carry(z(n, d), z(n, dt=torch.int32), z(n, d),
+                 z(n, dt=torch.int32),
+                 cache_mod.init_cache(n, cache_size, d, device),
+                 z(delay_max, n, d), z(delay_max, n, dt=torch.int32), 0)
+
+
+def run_dense_chunk(carry: Carry, table, X, y, *, variant: str,
+                    lam: float) -> Carry:
+    """Run the chunk's cycles over the dense (T, K, N) routing table, in
+    place — the reference's ``dense_body`` under ``lax.scan`` with the fused
+    receive kernel. ``X``/``y`` are (N, d)/(N,) or (N, k, d)/(N, k) for k
+    records per node (cycle c uses record ``c % k``)."""
+    D, n, d = carry.buf_w.shape
+    C = carry.cache.w.shape[1]
+    rows = torch.arange(n, device=carry.buf_w.device)
+    flat_w = carry.buf_w.view(D * n, d)
+    flat_t = carry.buf_t.view(D * n)
+    c = carry.cache
+    for t in range(table.shape[0]):
+        src = table[t]                                  # (K, n) int32
+        idx = torch.clamp_min(src, 0).long()
+        valid = (src >= 0).to(torch.int32)
+        if X.ndim == 3:
+            rec = carry.clock % X.shape[1]
+            Xc, yc = X[:, rec, :].contiguous(), y[:, rec].contiguous()
+        else:
+            Xc, yc = X, y
+        gossip_cycle.fused_receive_apply(
+            carry.last_w, carry.last_t, c.w, c.t, c.ptr, c.count,
+            flat_w[idx], flat_t[idx], valid, Xc, yc, variant=variant,
+            lam=lam)
+        slot = ((c.ptr - 1) % C).long()                 # freshest slot
+        carry.fresh_w = c.w[rows, slot]
+        carry.fresh_t = c.t[rows, slot]
+        row = carry.clock % D
+        carry.buf_w[row] = carry.fresh_w
+        carry.buf_t[row] = carry.fresh_t
+        carry.clock += 1
+    return carry
+
+
+# ---------------------------------------------------------------------------
+# driver
+# ---------------------------------------------------------------------------
+
+
+def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
+                           cycles: int = 200, eval_every: int = 10,
+                           seed: int = 0, eval_nodes: int = 100,
+                           sampler: str = "uniform", k_rounds: int = 4,
+                           device=None, use_kernel: Optional[bool] = None,
+                           compact_mode: Optional[str] = None, mesh=None,
+                           use_send_kernel: Optional[bool] = None
+                           ) -> SimResult:
+    """Run the protocol with the mega-population engine on one device.
+
+    The receive step is the fused kernel on CUDA and its plain version on
+    the CPU; ``use_kernel=True`` asserts the kernel (raises on the CPU) and
+    ``use_kernel=False`` asserts the plain version (raises on CUDA, where
+    the receive step is always the kernel). The reference's other options
+    are not ported yet and raise: ``compact_mode`` other than "dense"
+    (ROADMAP.md queue 1 item 5), ``mesh`` (queue 1 item 11),
+    ``use_send_kernel`` (queue 2 item 2), and a learner other than Pegasos
+    (the vector apply, queue 1 item 5)."""
+    dev = resolve_device(device)
+    if use_kernel is not None and use_kernel != (dev.type == "cuda"):
+        raise ValueError(
+            f"use_kernel={use_kernel} on {dev}: the receive step is the CUDA "
+            "kernel on CUDA tensors and its plain version on CPU tensors")
+    if compact_mode not in (None, "dense"):
+        raise NotImplementedError(
+            f"compact_mode={compact_mode!r}: the compact packings are "
+            "ROADMAP.md queue 1 item 5")
+    if mesh is not None:
+        raise NotImplementedError("mesh=: node sharding over several devices "
+                                  "is ROADMAP.md queue 1 item 11")
+    if use_send_kernel:
+        raise NotImplementedError("use_send_kernel: the send kernel is "
+                                  "ROADMAP.md queue 2 item 2")
+    if cfg.learner != "pegasos":
+        raise NotImplementedError(
+            f"learner={cfg.learner!r} on the sharded engine: the vector "
+            "apply for non-Pegasos learners is ROADMAP.md queue 1 item 5")
+    check_slice(cfg)
+
+    n, d = X.shape[0], X.shape[-1]
+    D = max(cfg.delay_max_cycles, 1)
+    online_mat, eval_idx, X, y, X_test, y_test = sim_setup(
+        cfg, X, y, X_test, y_test, cycles=cycles, seed=seed,
+        eval_nodes=eval_nodes, device=dev)
+    carry = init_carry(n, d, cfg.cache_size, D, dev)
+
+    res = SimResult([], [], [], [], 0, cfg)
+    res.buf_payload_bytes = payload_buffer_bytes(D, n, d)
+    pts = eval_points(cycles, eval_every)
+    if not pts:
+        return res
+
+    keys = key_schedule(seed, cycles, dev)
+    router = _HostRouter(D)
+    bounds = list(zip([0] + pts[:-1], pts))
+
+    def draw(i):
+        lo, hi = bounds[i]
+        dsts, arrivals = _draw_chunk(
+            keys[lo:hi], torch.as_tensor(online_mat[lo:hi], device=dev), lo,
+            n=n, drop=cfg.drop_prob, delay_max=D, sampler=sampler)
+        return dsts.cpu().numpy(), arrivals.cpu().numpy()
+
+    def route(i, drawn):
+        lo, hi = bounds[i]
+        win, stats = router.route_chunk(*drawn, online_mat[lo:hi], lo,
+                                        k_rounds)
+        table = torch.from_numpy(dense_table(win, hi - lo, k_rounds, n))
+        if dev.type == "cuda":
+            # pinned + non_blocking: the upload queues behind the device's
+            # work instead of making the host wait for it
+            table = table.pin_memory().to(dev, non_blocking=True)
+        return table, stats
+
+    # Draws run one chunk ahead. Chunk i+1's tables are read back before
+    # chunk i is enqueued, so the read waits only for chunk i-1, which ran
+    # while the host routed chunk i; routing chunk i+1 then overlaps the
+    # device's chunk i. The host holds one chunk of draws at a time.
+    evals = []
+    pending = route(0, draw(0))
+    for i, p in enumerate(pts):
+        table, stats = pending
+        drawn = draw(i + 1) if i + 1 < len(pts) else None
+        run_dense_chunk(carry, table, X, y, variant=cfg.variant, lam=cfg.lam)
+        evals.append(_eval(carry.cache, eval_idx, X_test, y_test))
+        if drawn is not None:
+            pending = route(i + 1, drawn)   # overlaps the device's chunk i
+        res.sent_total += stats["sent"]
+        res.delivered_total += stats["delivered"]
+        res.lost_total += stats["lost"]
+        res.overflow_total += stats["overflow"]
+        res.delivered_per_cycle.extend(
+            int(x) for x in stats["delivered_cycles"])
+        res.cycles.append(p)
+    for err_f, err_v, sim in evals:
+        res.err_fresh.append(float(err_f))
+        res.err_voted.append(float(err_v))
+        res.similarity.append(float(sim))
+    res.in_flight_total = router.in_flight
+    res.compaction = dict(chunk_modes={"dense": len(pts)})
+    res.wire_bytes_total = res.sent_total * message_wire_bytes(d)
+    return res

@@ -1,0 +1,405 @@
+"""Protocol simulator for gossip learning (Algorithm 1): the reference
+engine.
+
+Counterpart of ``repro/core/simulation.py`` for the float32 wire without
+faults: one Python-driven cycle at a time over the whole population, with
+message drop, delay quantized to whole cycles, lognormal churn and a
+per-node model cache. Simultaneous arrivals at one node are applied in K
+winner-per-destination rounds. For a given seed it draws the same threefry
+values as the JAX package (``repro_torch.random``), so the message economy
+is exactly the reference's and the error curves agree.
+
+On the card this engine is the oracle that ``chip_smoke.py`` holds the
+kernel path of ``repro_torch.core.sharded_engine`` against.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass, field
+from typing import Dict, List, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch import random
+from repro_torch.configs.gossip_linear import GossipLinearConfig
+from repro_torch.core import cache as cache_mod
+from repro_torch.core import peer_sampling
+from repro_torch.core.cache import ModelCache
+from repro_torch.core.learners import LinearModel, make_update
+from repro_torch.core.merge import create_model
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.metrics import cosine_similarity
+
+
+class SimState(NamedTuple):
+    last_w: torch.Tensor       # (N, d)  lastModel
+    last_t: torch.Tensor       # (N,)
+    cache: ModelCache
+    buf_w: torch.Tensor        # (D, N, d) in-flight payloads, slot = cycle % D
+    buf_t: torch.Tensor        # (D, N)
+    buf_dst: torch.Tensor      # (D, N) int32 destination
+    buf_arrival: torch.Tensor  # (D, N) int32 absolute arrival cycle, -1 = none
+    clock: int
+
+
+def init_state(n: int, d: int, cache_size: int, delay_max: int,
+               device) -> SimState:
+    """The all-zero population at cycle 0 (float32 wire)."""
+    z = functools.partial(torch.zeros, device=device)
+    return SimState(
+        last_w=z((n, d), dtype=torch.float32),
+        last_t=z((n,), dtype=torch.int32),
+        cache=cache_mod.init_cache(n, cache_size, d, device),
+        buf_w=z((delay_max, n, d), dtype=torch.float32),
+        buf_t=z((delay_max, n), dtype=torch.int32),
+        buf_dst=z((delay_max, n), dtype=torch.int32),
+        buf_arrival=torch.full((delay_max, n), -1, dtype=torch.int32,
+                               device=device),
+        clock=0,
+    )
+
+
+def check_slice(cfg: GossipLinearConfig, *, serve_hook=None,
+                telemetry=None) -> None:
+    """Raise for the reference options this slice of the port does not run
+    yet, naming the ROADMAP.md item that ports each."""
+    if cfg.wire_dtype not in (None, "f32"):
+        raise NotImplementedError(
+            f"wire_dtype={cfg.wire_dtype!r}: the wire codecs are ROADMAP.md "
+            "queue 1 item 4")
+    if cfg.fault_model is not None or cfg.defense != "none":
+        raise NotImplementedError(
+            "fault models and defenses are ROADMAP.md queue 1 item 6")
+    if serve_hook is not None:
+        raise NotImplementedError("serve_hook: serving is ROADMAP.md queue 1 "
+                                  "item 8")
+    if telemetry is not None:
+        raise NotImplementedError("telemetry is ROADMAP.md queue 1 item 7")
+
+
+def select_receivers(buf_dst, buf_arrival, online, clock: int,
+                     k_rounds: int):
+    """Winner-per-destination selection for up to ``k_rounds`` receives:
+    in round k a node accepts the due message with the k-th largest flat
+    slot id. Returns ``(src_slot, valid, delivered, overflow, lost)`` with
+    ``src_slot`` (K, N) int64 into the flattened buffer and ``valid`` (K, N)
+    bool; the three counts are 0-dim tensors."""
+    D, n = buf_dst.shape
+    flat_dst = buf_dst.reshape(-1).long()
+    flat_arr = buf_arrival.reshape(-1)
+    due = flat_arr == clock
+    dst_on = online[flat_dst]
+    arriving = due & dst_on
+    lost = (due & ~dst_on).sum()
+    slot_ids = torch.arange(1, D * n + 1, dtype=torch.int32,
+                            device=buf_dst.device)
+    remaining = arriving
+    delivered = torch.zeros((), dtype=torch.int64, device=buf_dst.device)
+    slots, valids = [], []
+    for _ in range(k_rounds):
+        tag = torch.where(remaining, slot_ids, 0)
+        taken = torch.zeros(n, dtype=torch.int32, device=buf_dst.device)
+        taken = taken.scatter_reduce(0, flat_dst, tag, "amax")
+        valids.append(taken > 0)
+        slots.append(torch.clamp_min(taken - 1, 0).long())
+        taken_at = taken[flat_dst]
+        win = remaining & (tag == taken_at) & (taken_at > 0)
+        remaining = remaining & ~win
+        delivered = delivered + win.sum()
+    overflow = remaining.sum()
+    return (torch.stack(slots), torch.stack(valids), delivered, overflow,
+            lost)
+
+
+def apply_receives(last_w, last_t, cache: ModelCache, msg_w, msg_t, valid,
+                   X, y, *, variant: str, update):
+    """Up to K sequential receives per node (Algorithm 1 ON RECEIVE): for
+    each valid (node, round) ``modelCache.add(createModel(m, lastModel));
+    lastModel <- m``. msg_w: (K, N, d); msg_t, valid: (K, N)."""
+    for k in range(msg_w.shape[0]):
+        has = valid[k]
+        m1 = LinearModel(msg_w[k], msg_t[k])
+        m2 = LinearModel(last_w, last_t)
+        new = create_model(variant, update, m1, m2, X, y)
+        cache = cache_mod.cache_add(cache, has, new.w, new.t)
+        last_w = torch.where(has[:, None], m1.w, last_w)
+        last_t = torch.where(has, m1.t, last_t)
+    return last_w, last_t, cache
+
+
+def draw_sends(key, n: int, clock: int, online, *, drop: float,
+               delay_max: int, sampler: str):
+    """One cycle's send draws, in ``cycle_core``'s order: split the cycle
+    key into 4 (k_recv, k_dst, k_delay, k_drop), then destination, delay
+    and drop. Returns ``(dst, arrival)`` (N,) int32 with arrival = -1 where
+    the node does not send (offline, dropped, or idle: dst == self)."""
+    _, k_dst, k_delay, k_drop = random.split(key, 4)
+    if sampler == "matching":
+        dst = peer_sampling.perfect_matching(k_dst, n)
+    else:
+        dst = peer_sampling.uniform_peers(k_dst, n)
+    if delay_max > 1:
+        delay = random.randint(k_delay, (n,), 1, delay_max + 1)
+    else:
+        delay = torch.ones(n, dtype=torch.int32, device=dst.device)
+    if drop > 0:
+        dropped = random.bernoulli(k_drop, drop, (n,))
+    else:
+        dropped = torch.zeros(n, dtype=torch.bool, device=dst.device)
+    idle = dst == torch.arange(n, dtype=dst.dtype, device=dst.device)
+    send_ok = online & ~dropped & ~idle
+    arrival = torch.where(send_ok, clock + delay, -1).to(torch.int32)
+    return dst.to(torch.int32), arrival
+
+
+def simulate_cycle(state: SimState, X, y, online, key, *, variant: str,
+                   learner: str, lam: float, eta: float, drop: float,
+                   delay_max: int, k_rounds: int, sampler: str):
+    """One gossip cycle for the whole population. Returns (state, stats):
+    over a run ``sum(sent) == sum(delivered + lost + overflow) +
+    in-flight``."""
+    n, d = state.last_w.shape
+    D = delay_max
+    update = make_update(learner, lam=lam, eta=eta)
+    if X.ndim == 3:                   # multi-record nodes: clock-th record
+        rec = state.clock % X.shape[1]
+        X = X[:, rec, :]
+        y = y[:, rec]
+
+    src_slot, valid, delivered, overflow, lost = select_receivers(
+        state.buf_dst, state.buf_arrival, online, state.clock, k_rounds)
+    msg_w = state.buf_w.reshape(-1, d)[src_slot]         # (K, N, d) winners
+    msg_t = state.buf_t.reshape(-1)[src_slot]
+    last_w, last_t, cache = apply_receives(
+        state.last_w, state.last_t, state.cache, msg_w, msg_t, valid, X, y,
+        variant=variant, update=update)
+
+    fresh_w, fresh_t = cache_mod.freshest(cache)
+    dst, arrival = draw_sends(key, n, state.clock, online, drop=drop,
+                              delay_max=D, sampler=sampler)
+    slot = state.clock % D
+    buf_w, buf_t = state.buf_w.clone(), state.buf_t.clone()
+    buf_dst, buf_arrival = state.buf_dst.clone(), state.buf_arrival.clone()
+    buf_w[slot] = fresh_w
+    buf_t[slot] = fresh_t
+    buf_dst[slot] = dst
+    buf_arrival[slot] = arrival
+    stats = {"delivered": delivered, "overflow": overflow,
+             "sent": (arrival >= 0).sum(), "lost": lost}
+    return SimState(last_w, last_t, cache, buf_w, buf_t, buf_dst,
+                    buf_arrival, state.clock + 1), stats
+
+
+# ---------------------------------------------------------------------------
+# churn traces (numpy, a copy of the reference's trace version 2)
+# ---------------------------------------------------------------------------
+
+
+CHURN_TRACE_VERSION = 2
+
+
+def churn_trace(rng: np.random.Generator, n: int, cycles: int,
+                online_fraction: float, mean_online: float = 50.0,
+                sigma: float = 1.5) -> np.ndarray:
+    """(cycles, N) boolean online matrix from alternating lognormal sessions
+    (the Stutzbach-Rejaie churn model), offline durations scaled so the
+    stationary online fraction is ``online_fraction``. Consumes ``rng``
+    exactly like ``repro.core.simulation.churn_trace`` (version 2), so a
+    seed gives the same trace in both packages."""
+    if online_fraction >= 1.0:
+        return np.ones((cycles, n), dtype=bool)
+    if cycles == 0:
+        return np.zeros((0, n), dtype=bool)
+    mean_off = mean_online * (1.0 - online_fraction) / online_fraction
+    mu_on = np.log(mean_online) - sigma ** 2 / 2
+    mu_off = np.log(max(mean_off, 1e-9)) - sigma ** 2 / 2
+    phase = rng.integers(0, max(int(mean_online), 1), size=n)
+    state0 = rng.random(n) < online_fraction
+
+    med_pair = np.exp(mu_on) + np.exp(mu_off)
+    horizon = cycles + int(mean_online)
+    step = int(np.clip(np.ceil(horizon / max(med_pair, 1.0)) + 2, 4, 4096))
+
+    def draw_sessions(cols_done: int, m: int, init_state) -> np.ndarray:
+        # session j has state init ^ (j odd); durations = max(1, int(lognormal))
+        j = cols_done + np.arange(m)
+        on = init_state[:, None] ^ (j[None, :] % 2 == 1)
+        mu = np.where(on, np.float32(mu_on), np.float32(mu_off))
+        z = rng.standard_normal((init_state.size, m), dtype=np.float32)
+        return np.maximum(np.exp(mu + np.float32(sigma) * z).astype(np.int32), 1)
+
+    # counts[c, i] = session boundaries of node i at cycle c; boundaries at
+    # or before cycle 0 only flip the cycle-0 state (flip0)
+    counts = np.zeros((cycles, n), np.int16)
+    flip0 = np.zeros(n, bool)
+
+    def scatter_boundaries(node_ids, bounds):
+        r, c = np.nonzero((bounds > 0) & (bounds < cycles))
+        np.add.at(counts, (bounds[r, c], node_ids[r]), 1)
+        flip0[node_ids] ^= ((bounds <= 0).sum(axis=1) & 1).astype(bool)
+
+    bounds = draw_sessions(0, step, state0).cumsum(axis=1) - phase[:, None]
+    scatter_boundaries(np.arange(n), bounds)
+    last = bounds[:, -1]
+    sub = np.flatnonzero(last < cycles)
+    lsub = last[sub]
+    cols = step
+    while sub.size:
+        bounds = (lsub[:, None]
+                  + draw_sessions(cols, step, state0[sub]).cumsum(axis=1))
+        scatter_boundaries(sub, bounds)
+        cols += step
+        lsub = bounds[:, -1]
+        keep = lsub < cycles
+        sub, lsub = sub[keep], lsub[keep]
+
+    parity = counts.cumsum(axis=0, dtype=np.int16) & 1
+    return (state0 ^ flip0)[None, :] ^ parity.astype(bool)
+
+
+# ---------------------------------------------------------------------------
+# driver
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SimResult:
+    cycles: List[int]
+    err_fresh: List[float]      # PREDICT, mean over eval nodes
+    err_voted: List[float]      # VOTEDPREDICT, mean over eval nodes
+    similarity: List[float]     # mean pairwise cosine over eval-node models
+    overflow_total: int
+    config: GossipLinearConfig
+    sent_total: int = 0
+    delivered_total: int = 0
+    lost_total: int = 0         # arrived while destination offline
+    # messages sent but not yet due when the run ends; the economy is
+    # sent_total == delivered + lost + overflow + in_flight_total
+    in_flight_total: int = 0
+    wire_bytes_total: int = 0
+    buf_payload_bytes: int = 0
+    delivered_per_cycle: List[int] = field(default_factory=list)
+    compaction: Dict[str, object] = field(default_factory=dict)
+
+
+def message_wire_bytes(d: int) -> int:
+    """Bytes per transmitted model on the float32 wire: d coefficients plus
+    the int32 counter."""
+    return 4 * d + 4
+
+
+def payload_buffer_bytes(delay_max: int, n: int, d: int) -> int:
+    """Footprint of the in-flight (D, N, d) float32 payload buffer."""
+    return delay_max * n * 4 * d
+
+
+@functools.lru_cache(maxsize=2)
+def _host_scenario(seed: int, n: int, cycles: int, online_fraction: float,
+                   eval_nodes: int):
+    """Memoized host-side scenario draw (churn trace, eval subset); callers
+    treat the returned arrays as read-only."""
+    rng = np.random.default_rng(seed)
+    online_mat = churn_trace(rng, n, cycles, online_fraction)
+    eval_idx = rng.choice(n, size=min(eval_nodes, n), replace=False)
+    return online_mat, eval_idx
+
+
+def sim_setup(cfg: GossipLinearConfig, X, y, X_test, y_test, *, cycles: int,
+              seed: int, eval_nodes: int, device):
+    """Shared host-side setup for both engines: the churn trace and the
+    eval-node subset come from ONE ``default_rng(seed)`` stream, exactly as
+    in the reference, and the data moves to ``device`` as float32."""
+    n = X.shape[0]
+    online_mat, eval_idx = _host_scenario(seed, n, cycles,
+                                          cfg.online_fraction, eval_nodes)
+    f32 = functools.partial(torch.as_tensor, dtype=torch.float32,
+                            device=device)
+    return (online_mat, torch.as_tensor(eval_idx, device=device),
+            f32(X), f32(y), f32(X_test), f32(y_test))
+
+
+def eval_points(cycles: int, eval_every: int) -> List[int]:
+    """The cycle counts after which both engines evaluate the population."""
+    return [c + 1 for c in range(cycles)
+            if (c + 1) % eval_every == 0 or c == cycles - 1]
+
+
+def _eval(cache: ModelCache, eval_idx, X_test, y_test):
+    """(err_fresh, err_voted, similarity) over the eval nodes, as 0-dim
+    tensors on the cache's device."""
+    sub = ModelCache(cache.w[eval_idx], cache.t[eval_idx],
+                     cache.ptr[eval_idx], cache.count[eval_idx])
+    fresh = cache_mod.predict_fresh(sub, X_test)
+    voted = cache_mod.voted_predict(sub, X_test)
+    err_f = (fresh != y_test[None, :]).to(torch.float32).mean(dim=1).mean()
+    err_v = (voted != y_test[None, :]).to(torch.float32).mean(dim=1).mean()
+    w, _ = cache_mod.freshest(sub)
+    return err_f, err_v, cosine_similarity(w)
+
+
+def run_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
+                   cycles: int = 200, eval_every: int = 10, seed: int = 0,
+                   eval_nodes: int = 100, sampler: str = "uniform",
+                   k_rounds: int = 4, engine: str = "reference",
+                   serve_hook=None, telemetry=None, device=None,
+                   **engine_kwargs) -> SimResult:
+    """Run the full protocol for ``cycles`` gossip cycles.
+
+    The entry point for both engines, with the reference's arguments (``X``
+    may be (N, d) or (N, k, d) for k records per node) plus ``device``:
+    the run happens on the CUDA device unless ``device`` names another
+    (``device="cpu"``); without CUDA and without ``device`` it raises.
+
+    ``engine="reference"`` runs this module's Python-driven cycle loop;
+    ``engine="sharded"`` runs ``repro_torch.core.sharded_engine`` (host
+    router + the fused receive kernel on CUDA), forwarding its extra
+    keyword arguments. Returns a :class:`SimResult`."""
+    dev = resolve_device(device)
+    check_slice(cfg, serve_hook=serve_hook, telemetry=telemetry)
+    if engine == "sharded":
+        from repro_torch.core.sharded_engine import run_sharded_simulation
+        return run_sharded_simulation(
+            cfg, X, y, X_test, y_test, cycles=cycles, eval_every=eval_every,
+            seed=seed, eval_nodes=eval_nodes, sampler=sampler,
+            k_rounds=k_rounds, device=dev, **engine_kwargs)
+    if engine != "reference":
+        raise ValueError(f"unknown engine {engine!r} "
+                         "(expected 'reference' or 'sharded')")
+    if engine_kwargs:
+        raise TypeError("unexpected keyword arguments for the reference "
+                        f"engine: {sorted(engine_kwargs)}")
+
+    n, d = X.shape[0], X.shape[-1]
+    online_mat, eval_idx, X, y, X_test, y_test = sim_setup(
+        cfg, X, y, X_test, y_test, cycles=cycles, seed=seed,
+        eval_nodes=eval_nodes, device=dev)
+    D = max(cfg.delay_max_cycles, 1)
+    state = init_state(n, d, cfg.cache_size, D, dev)
+    key = random.key(seed, device=dev)
+
+    res = SimResult([], [], [], [], 0, cfg)
+    res.buf_payload_bytes = payload_buffer_bytes(D, n, d)
+    for c in range(cycles):
+        key, sub = random.split(key)
+        online = torch.as_tensor(online_mat[c], device=dev)
+        state, stats = simulate_cycle(
+            state, X, y, online, sub, variant=cfg.variant,
+            learner=cfg.learner, lam=cfg.lam, eta=cfg.eta,
+            drop=cfg.drop_prob, delay_max=D, k_rounds=k_rounds,
+            sampler=sampler)
+        delivered = int(stats["delivered"])
+        res.sent_total += int(stats["sent"])
+        res.delivered_total += delivered
+        res.delivered_per_cycle.append(delivered)
+        res.lost_total += int(stats["lost"])
+        res.overflow_total += int(stats["overflow"])
+        if (c + 1) % eval_every == 0 or c == cycles - 1:
+            err_f, err_v, sim = _eval(state.cache, eval_idx, X_test, y_test)
+            res.cycles.append(c + 1)
+            res.err_fresh.append(float(err_f))
+            res.err_voted.append(float(err_v))
+            res.similarity.append(float(sim))
+    res.in_flight_total = int((state.buf_arrival >= state.clock).sum())
+    res.wire_bytes_total = res.sent_total * message_wire_bytes(d)
+    return res

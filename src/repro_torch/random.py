@@ -1,0 +1,118 @@
+"""Threefry-2x32 keys and draws, bit for bit equal to ``jax.random``.
+
+The protocol's routing (destination, delay, drop) comes from these draws,
+so the port must reproduce JAX's default *partitionable* threefry scheme
+exactly (``jax_threefry_partitionable=True``):
+
+* a key is a pair of uint32 words; ``key(seed)`` is ``(seed >> 32, seed)``;
+* ``split(key, n)`` hashes the counters ``(0, i)`` and returns the pairs
+  ``(bits1[i], bits2[i])`` as the new keys;
+* 32-bit ``random_bits`` hashes ``(0, i)`` for each flat position ``i``
+  and returns ``bits1 ^ bits2``.
+
+PyTorch has only partial ``uint32`` arithmetic, so the words live in
+``int64`` tensors holding values in ``[0, 2**32)``: every add is masked
+with ``& 0xFFFFFFFF`` and every shift is logical (the values are never
+negative). A key is an ``int64`` tensor of shape ``(2,)`` (or ``(..., 2)``
+for a stack of keys); every draw runs on the key's device, and gives the
+same bits on every device.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.utils.device import resolve_device
+
+MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+
+
+def _rotl(v, r: int):
+    return ((v << r) | (v >> (32 - r))) & MASK32
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 (20 rounds) on int64 tensors of uint32 values — the
+    op order of ``repro.core.wire_codec.threefry2x32``. Keys broadcast
+    against the counters."""
+    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
+    a = (x0 + ks[0]) & MASK32
+    b = (x1 + ks[1]) & MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            a = (a + b) & MASK32
+            b = _rotl(b, r) ^ a
+        a = (a + ks[(i + 1) % 3]) & MASK32
+        b = (b + ks[(i + 2) % 3] + (i + 1)) & MASK32
+    return a, b
+
+
+def key(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.key(seed)`` as its raw ``(2,)`` key data."""
+    seed = int(seed)
+    return torch.tensor([(seed >> 32) & MASK32, seed & MASK32],
+                        dtype=torch.int64, device=resolve_device(device))
+
+
+def _hash_counters(k, size: int):
+    """Threefry of the counters ``(0, i)``, ``i < size`` (sizes stay far
+    below 2**32, so the high counter word is 0)."""
+    lo = torch.arange(size, dtype=torch.int64, device=k.device)
+    return threefry2x32(k[0], k[1], torch.zeros_like(lo), lo)
+
+
+def split(k, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` -> (num, 2) keys."""
+    b1, b2 = _hash_counters(k, num)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def random_bits(k, shape) -> torch.Tensor:
+    """32-bit ``jax.random.bits(key, shape)`` as int64 values."""
+    shape = tuple(shape)
+    b1, b2 = _hash_counters(k, math.prod(shape))
+    return (b1 ^ b2).reshape(shape)
+
+
+def uniform(k, shape) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` in float32 on ``[0, 1)``: the top
+    23 bits fill the mantissa of a float in ``[1, 2)``, minus 1."""
+    fbits = (random_bits(k, shape) >> 9) | 0x3F800000
+    return fbits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def randint(k, shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` -> int32.
+
+    Two 32-bit draws (from ``split(key)``) folded into ``[minval,
+    maxval)`` with JAX's uint32 wraparound arithmetic."""
+    k1, k2 = split(k)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    span = (maxval - minval) & MASK32 if maxval > minval else 1
+    mult = (2 ** 16) % span
+    mult = (mult * mult) % span
+    off = (((hi % span) * mult) & MASK32) + lo % span
+    off = (off & MASK32) % span
+    return (minval + off).to(torch.int32)
+
+
+def bernoulli(k, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` in f32."""
+    u = uniform(k, shape)
+    return u < torch.tensor(p, dtype=torch.float32, device=u.device)
+
+
+def permutation(k, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` -> int64 permutation of
+    ``arange(n)``: ``ceil(3 ln n / ln(2**32 - 1))`` stable sorts by fresh
+    32-bit keys."""
+    x = torch.arange(n, dtype=torch.int64, device=k.device)
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(MASK32)))
+    for _ in range(rounds):
+        k, sub = split(k)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x

@@ -1,0 +1,126 @@
+"""The port's threefry draws (``repro_torch.random``) against ``jax.random``.
+
+The protocol's routing (destination, delay, drop) comes from these draws,
+so every function must equal JAX's default partitionable threefry bit for
+bit."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.sharded_engine import _draw_chunk as jax_draw_chunk
+from repro.core.sharded_engine import key_schedule as jax_key_schedule
+from repro_torch import random
+from repro_torch.core import sharded_engine as pt_engine
+
+SEEDS = [0, 1, 7, 2 ** 31 - 1]
+SIZES = [1, 2, 3, 33, 64, 1000, 4097]
+
+
+def pt_key(seed):
+    return random.key(seed, device="cpu")
+
+
+def as_u32(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().astype(np.uint32)
+
+
+def test_threefry_partitionable_is_the_reference_scheme():
+    assert jax.config.jax_threefry_partitionable
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_key_matches(seed):
+    want = np.asarray(jax.random.key_data(jax.random.key(seed)))
+    assert np.array_equal(as_u32(pt_key(seed)), want)
+
+
+@pytest.mark.parametrize("num", [2, 3, 4, 33])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split_matches(seed, num):
+    want = np.asarray(jax.random.key_data(
+        jax.random.split(jax.random.key(seed), num)))
+    got = random.split(pt_key(seed), num)
+    assert got.shape == (num, 2)
+    assert np.array_equal(as_u32(got), want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_random_bits_match(seed):
+    jk = jax.random.key(seed)
+    for shape in [(s,) for s in SIZES] + [(3, 11), (2, 5, 7)]:
+        want = np.asarray(jax.random.bits(jk, shape, jnp.uint32))
+        got = random.random_bits(pt_key(seed), shape)
+        assert got.shape == shape
+        assert np.array_equal(as_u32(got), want), shape
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_uniform_matches_bitwise(seed):
+    jk = jax.random.key(seed)
+    for s in SIZES:
+        want = np.asarray(jax.random.uniform(jk, (s,)))
+        got = random.uniform(pt_key(seed), (s,))
+        assert got.dtype == torch.float32
+        assert np.array_equal(got.numpy().view(np.uint32),
+                              want.view(np.uint32)), s
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_randint_matches(seed):
+    jk = jax.random.key(seed)
+    for n in SIZES:
+        for lo, hi in [(0, n - 1), (1, n + 1), (-3, n)]:
+            want = np.asarray(jax.random.randint(jk, (n,), lo, hi))
+            got = random.randint(pt_key(seed), (n,), lo, hi)
+            assert got.dtype == torch.int32
+            assert np.array_equal(got.numpy(), want), (n, lo, hi)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_bernoulli_matches(seed):
+    jk = jax.random.key(seed)
+    for p in [0.2, 0.5, 0.8]:
+        for s in SIZES:
+            want = np.asarray(jax.random.bernoulli(jk, p, (s,)))
+            got = random.bernoulli(pt_key(seed), p, (s,))
+            assert np.array_equal(got.numpy(), want), (p, s)
+
+
+@pytest.mark.parametrize("n", [2, 33, 1000])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_permutation_matches(seed, n):
+    want = np.asarray(jax.random.permutation(jax.random.key(seed), n))
+    got = random.permutation(pt_key(seed), n)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(np.sort(got.numpy()), np.arange(n))
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_key_schedule_matches(seed):
+    want = np.asarray(jax.random.key_data(jax_key_schedule(seed, 6)))
+    got = pt_engine.key_schedule(seed, 6, "cpu")
+    assert np.array_equal(as_u32(got), want)
+
+
+@pytest.mark.parametrize("sampler,n,drop,delay_max", [
+    ("uniform", 64, 0.5, 10),
+    ("uniform", 33, 0.0, 1),
+    ("matching", 33, 0.2, 3),
+    ("matching", 64, 0.0, 1),
+])
+def test_draw_chunk_tables_match(sampler, n, drop, delay_max):
+    T, clock0, seed = 5, 7, 3
+    online = np.random.default_rng(0).random((T, n)) < 0.8
+    jkeys = jax_key_schedule(seed, clock0 + T)[clock0:]
+    want_dst, want_arr = jax_draw_chunk(
+        jkeys, jnp.asarray(online), jnp.int32(clock0), n=n, drop=drop,
+        delay_max=delay_max, sampler=sampler)
+    keys = pt_engine.key_schedule(seed, clock0 + T, "cpu")[clock0:]
+    dst, arr = pt_engine._draw_chunk(keys, torch.as_tensor(online), clock0,
+                                     n=n, drop=drop, delay_max=delay_max,
+                                     sampler=sampler)
+    assert dst.dtype == arr.dtype == torch.int32
+    assert np.array_equal(dst.numpy(), np.asarray(want_dst))
+    assert np.array_equal(arr.numpy(), np.asarray(want_arr))
