@@ -19,10 +19,11 @@ class GossipLinearConfig:
     rate), ``cache_size`` (the VOTEDPREDICT cache), ``variant`` (CREATEMODEL
     "rw" | "mu" | "um"). Failure model (Section VI-A): ``drop_prob``,
     ``delay_max_cycles`` (delay uniform in [1, max] cycles),
-    ``online_fraction`` (lognormal churn; 1.0 disables it). ``wire_dtype``,
-    ``fault_model``, ``byzantine_frac`` and ``defense`` are the reference's
-    wire-codec and fault options; the port accepts only their defaults so
-    far (ROADMAP.md queue 1 items 4 and 6)."""
+    ``online_fraction`` (lognormal churn; 1.0 disables it). ``wire_dtype``
+    names a wire codec of ``repro_torch.core.wire_codec`` (``None`` is
+    f32). ``fault_model``, ``byzantine_frac`` and ``defense`` are the
+    reference's fault options; the port accepts only their defaults so far
+    (ROADMAP.md queue 1 item 6)."""
     name: str
     dim: int
     n_nodes: int

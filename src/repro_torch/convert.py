@@ -4,10 +4,14 @@ The reference's sharded chunk function carries a 14-tuple
 (``repro/core/sharded_engine.py``, the carry built in
 ``run_sharded_simulation``): ``last_w, last_t, fresh_w, fresh_t, cache.w,
 cache.t, cache.ptr, cache.count, buf_w, buf_t, buf_scale, buf_zp, ef,
-clock``. For the float32 wire the scale, zero-point and error-feedback
-lanes are empty (0, 0) arrays. These helpers move that carry, as numpy
-arrays, into the port's :class:`~repro_torch.core.sharded_engine.Carry` and
-back, and rebuild a config from ``dataclasses.asdict`` of the reference's.
+clock``. ``buf_w`` holds the wire codec's payload (f32, bf16, f16, int8 or
+packed uint8), ``buf_scale``/``buf_zp`` are f16 and ``ef`` f32; a lane the
+codec does not carry is an empty (0, 0) array. These helpers move that
+carry, as numpy arrays, into the port's
+:class:`~repro_torch.core.sharded_engine.Carry` and back, each lane in its
+own dtype, and rebuild a config from ``dataclasses.asdict`` of the
+reference's. numpy has no bfloat16 of its own: a bf16 ``buf_w`` comes in
+as the reference's array and goes back out as its raw bits (uint16).
 """
 from __future__ import annotations
 
@@ -24,41 +28,58 @@ from repro_torch.core.sharded_engine import Carry
 CARRY_FIELDS = ("last_w", "last_t", "fresh_w", "fresh_t", "cache_w",
                 "cache_t", "ptr", "count", "buf_w", "buf_t", "buf_scale",
                 "buf_zp", "ef", "clock")
-_FLOAT = {"last_w", "fresh_w", "cache_w", "buf_w"}
+_DTYPES = {"last_w": torch.float32, "fresh_w": torch.float32,
+           "cache_w": torch.float32, "buf_scale": torch.float16,
+           "buf_zp": torch.float16, "ef": torch.float32}
+_PAYLOAD = {np.dtype(np.float32): torch.float32,
+            np.dtype(np.float16): torch.float16,
+            np.dtype(np.int8): torch.int8, np.dtype(np.uint8): torch.uint8}
+
+
+def _payload_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """``buf_w`` in its own dtype; a bfloat16 array (the reference's
+    ``ml_dtypes`` type) is moved by its bits."""
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.tensor(bits, device=device).view(torch.bfloat16)
+    try:
+        dtype = _PAYLOAD[a.dtype]
+    except KeyError:
+        raise ValueError(f"buf_w of dtype {a.dtype} is no wire codec's "
+                         "payload") from None
+    return torch.tensor(a, dtype=dtype, device=device)
 
 
 def state_from_arrays(arrays: Sequence, device) -> Carry:
     """The reference chunk carry (14 arrays in ``CARRY_FIELDS`` order) as
-    the port's tensors on ``device``. Non-empty scale, zero-point or
-    error-feedback lanes belong to the quantized wire codecs, which the
-    port does not run yet, and raise."""
+    the port's tensors on ``device``."""
     if len(arrays) != len(CARRY_FIELDS):
         raise ValueError(f"expected {len(CARRY_FIELDS)} carry arrays "
                          f"({', '.join(CARRY_FIELDS)}), got {len(arrays)}")
     a = {k: np.asarray(v) for k, v in zip(CARRY_FIELDS, arrays)}
-    for lane in ("buf_scale", "buf_zp", "ef"):
-        if a[lane].size:
-            raise NotImplementedError(
-                f"non-empty {lane}: quantized wire codecs are ROADMAP.md "
-                "queue 1 item 4")
-    t = {k: torch.tensor(a[k], dtype=torch.float32 if k in _FLOAT
-                         else torch.int32, device=device)
-         for k in CARRY_FIELDS[:10]}
+    t = {k: torch.tensor(a[k], dtype=_DTYPES.get(k, torch.int32),
+                         device=device)
+         for k in CARRY_FIELDS[:13] if k != "buf_w"}
     return Carry(t["last_w"], t["last_t"], t["fresh_w"], t["fresh_t"],
                  ModelCache(t["cache_w"], t["cache_t"], t["ptr"],
                             t["count"]),
-                 t["buf_w"], t["buf_t"], int(a["clock"]))
+                 _payload_tensor(a["buf_w"], device), t["buf_t"],
+                 t["buf_scale"], t["buf_zp"], t["ef"], int(a["clock"]))
 
 
 def to_arrays(carry: Carry) -> tuple:
-    """The port's carry as the reference's 14-tuple of numpy arrays."""
-    np_ = lambda x: x.detach().cpu().numpy()
-    empty16 = np.zeros((0, 0), np.float16)
+    """The port's carry as the reference's 14-tuple of numpy arrays (a
+    bf16 ``buf_w`` as its uint16 bits)."""
+    def np_(x):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(np.uint16)
+        return x.numpy()
     return (np_(carry.last_w), np_(carry.last_t), np_(carry.fresh_w),
             np_(carry.fresh_t), np_(carry.cache.w), np_(carry.cache.t),
             np_(carry.cache.ptr), np_(carry.cache.count), np_(carry.buf_w),
-            np_(carry.buf_t), empty16, empty16.copy(),
-            np.zeros((0, 0), np.float32), np.asarray(carry.clock, np.int32))
+            np_(carry.buf_t), np_(carry.buf_scale), np_(carry.buf_zp),
+            np_(carry.ef), np.asarray(carry.clock, np.int32))
 
 
 def config_from_dict(d: Mapping) -> GossipLinearConfig:

@@ -12,14 +12,16 @@ one device. The protocol is split the way a router splits a network:
   reference's). The message economy falls out of the same pass.
 * **data plane on the device** — per chunk of cycles between two eval
   points, a Python loop over the chunk's cycles (the reference's
-  ``lax.scan``) gathers the winning payloads from the dense (T, K, N)
-  routing table, applies the K receives with the fused receive kernel
-  (``repro_torch.kernels.gossip_cycle``; its plain version on CPU
-  tensors), and refreshes the in-flight buffer row with each node's
-  freshest model. The carry is updated in place, as the JAX chunk function
-  donates it. Launches are asynchronous, so routing chunk i+1 on the host
-  overlaps the device's work on chunk i; the eval results are read once,
-  after the last chunk.
+  ``lax.scan``) gathers the winning payloads (in the wire codec's
+  representation, with their scale and zero-point) from the dense
+  (T, K, N) routing table, applies the K receives with the fused receive
+  kernel, which decodes them (``repro_torch.kernels.gossip_cycle``; its
+  plain version on CPU tensors), and refreshes the in-flight buffer row
+  with each node's freshest model, encoded by the send kernel
+  (``quantize_send``) for the quantized codecs. The carry is updated in
+  place, as the JAX chunk function donates it. Launches are asynchronous,
+  so routing chunk i+1 on the host overlaps the device's work on chunk i;
+  the eval results are read once, after the last chunk.
 
 Determinism: the same seed gives the same host stream, the same per-cycle
 draws and the same winner semantics as both reference engines, so the
@@ -38,9 +40,10 @@ from repro_torch.configs.gossip_linear import GossipLinearConfig
 from repro_torch.core import cache as cache_mod
 from repro_torch.core.cache import ModelCache
 from repro_torch.core.simulation import (SimResult, _eval, check_slice,
-                                         draw_sends, eval_points,
-                                         message_wire_bytes,
+                                         draw_sends, ef_residual_norm,
+                                         eval_points, message_wire_bytes,
                                          payload_buffer_bytes, sim_setup)
+from repro_torch.core.wire_codec import WireCodec, get_codec
 from repro_torch.kernels import gossip_cycle
 from repro_torch.utils.device import resolve_device
 
@@ -54,6 +57,14 @@ def key_schedule(seed: int, cycles: int, device) -> torch.Tensor:
         k, sub = random.split(k)
         subs.append(sub)
     return torch.stack(subs)
+
+
+def recv_keys(keys) -> torch.Tensor:
+    """(T, 2) cycle keys -> (T, 2) ``k_recv = split(key, 4)[0]`` of each,
+    on the keys' device: slot 0 of the split hashes the counter (0, 0)."""
+    zero = torch.zeros_like(keys[:, 0])
+    b1, b2 = random.threefry2x32(keys[:, 0], keys[:, 1], zero, zero)
+    return torch.stack([b1, b2], dim=-1)
 
 
 def _draw_chunk(keys, onlines, clock0: int, *, n: int, drop: float,
@@ -162,37 +173,56 @@ def dense_table(win, T: int, K: int, n: int) -> np.ndarray:
 @dataclass
 class Carry:
     """The data-plane state between cycles, updated in place: the fields
-    of the reference chunk function's carry for the float32 wire."""
+    of the reference chunk function's carry."""
     last_w: torch.Tensor       # (N, d) f32
     last_t: torch.Tensor       # (N,) i32
     fresh_w: torch.Tensor      # (N, d) f32 freshest model
     fresh_t: torch.Tensor      # (N,) i32
     cache: ModelCache
-    buf_w: torch.Tensor        # (D, N, d) f32 in-flight payloads
+    buf_w: torch.Tensor        # (D, N, P) in-flight payloads (codec dtype)
     buf_t: torch.Tensor        # (D, N) i32
+    buf_scale: torch.Tensor    # (D, N) f16 scale  ((0, 0) when the codec
+    buf_zp: torch.Tensor       # (D, N) f16 zp      does not carry the lane)
+    ef: torch.Tensor           # (N, d) f32 sender EF residual ((0, 0) if none)
     clock: int
 
 
-def init_carry(n: int, d: int, cache_size: int, delay_max: int,
-               device) -> Carry:
+def init_carry(n: int, d: int, cache_size: int, delay_max: int, device,
+               codec: WireCodec) -> Carry:
+    """The all-zero carry at cycle 0, its buffer in ``codec``'s lanes."""
     z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=device)
+    lane = lambda has, *s: s if has else (0, 0)
     return Carry(z(n, d), z(n, dt=torch.int32), z(n, d),
                  z(n, dt=torch.int32),
                  cache_mod.init_cache(n, cache_size, d, device),
-                 z(delay_max, n, d), z(delay_max, n, dt=torch.int32), 0)
+                 z(delay_max, n, codec.payload_cols(d),
+                   dt=codec.payload_dtype),
+                 z(delay_max, n, dt=torch.int32),
+                 z(*lane(codec.has_scale, delay_max, n), dt=torch.float16),
+                 z(*lane(codec.has_zp, delay_max, n), dt=torch.float16),
+                 z(*lane(codec.ef, n, d)), 0)
 
 
-def run_dense_chunk(carry: Carry, table, X, y, *, variant: str,
-                    lam: float) -> Carry:
+def run_dense_chunk(carry: Carry, table, X, y, *, variant: str, lam: float,
+                    wire=None, keys=None, send_mask=None) -> Carry:
     """Run the chunk's cycles over the dense (T, K, N) routing table, in
     place — the reference's ``dense_body`` under ``lax.scan`` with the fused
-    receive kernel. ``X``/``y`` are (N, d)/(N,) or (N, k, d)/(N, k) for k
-    records per node (cycle c uses record ``c % k``)."""
-    D, n, d = carry.buf_w.shape
+    receive kernel and, for the quantized codecs, the send kernel.
+    ``X``/``y`` are (N, d)/(N,) or (N, k, d)/(N, k) for k records per node
+    (cycle c uses record ``c % k``). ``wire`` names the buffer's codec;
+    ``int8_sr`` needs ``keys``, the chunk's (T, 2) cycle keys (its noise
+    key is ``split(key, 4)[0]``), and the ``_ef`` codecs ``send_mask``, the
+    (T, N) ``arrival >= 0`` table: the EF residual refreshes only where a
+    node sends. Both stay on the device."""
+    codec = get_codec(wire)
+    D, n, P = carry.buf_w.shape
     C = carry.cache.w.shape[1]
     rows = torch.arange(n, device=carry.buf_w.device)
-    flat_w = carry.buf_w.view(D * n, d)
+    flat_w = carry.buf_w.view(D * n, P)
     flat_t = carry.buf_t.view(D * n)
+    flat_sc = carry.buf_scale.view(-1)
+    flat_zp = carry.buf_zp.view(-1)
+    kr = recv_keys(keys) if codec.stochastic else None
     c = carry.cache
     for t in range(table.shape[0]):
         src = table[t]                                  # (K, n) int32
@@ -205,13 +235,28 @@ def run_dense_chunk(carry: Carry, table, X, y, *, variant: str,
             Xc, yc = X, y
         gossip_cycle.fused_receive_apply(
             carry.last_w, carry.last_t, c.w, c.t, c.ptr, c.count,
-            flat_w[idx], flat_t[idx], valid, Xc, yc, variant=variant,
-            lam=lam)
+            flat_w[idx], flat_t[idx], valid, Xc, yc,
+            msg_scale=flat_sc[idx] if codec.has_scale else None,
+            msg_zp=flat_zp[idx] if codec.has_zp else None,
+            wire=codec.name, variant=variant, lam=lam)
         slot = ((c.ptr - 1) % C).long()                 # freshest slot
         carry.fresh_w = c.w[rows, slot]
         carry.fresh_t = c.t[rows, slot]
         row = carry.clock % D
-        carry.buf_w[row] = carry.fresh_w
+        if codec.quantized:
+            out = gossip_cycle.quantize_send(
+                carry.fresh_w, codec.name,
+                key=kr[t] if codec.stochastic else None,
+                ef=carry.ef if codec.ef else None)
+            carry.buf_w[row] = out[0]
+            carry.buf_scale[row] = out[1]
+            if codec.has_zp:
+                carry.buf_zp[row] = out[2]
+            if codec.ef:
+                carry.ef = torch.where(send_mask[t][:, None], out[2],
+                                       carry.ef)
+        else:
+            carry.buf_w[row] = carry.fresh_w            # the codec's cast
         carry.buf_t[row] = carry.fresh_t
         carry.clock += 1
     return carry
@@ -235,16 +280,24 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     The receive step is the fused kernel on CUDA and its plain version on
     the CPU; ``use_kernel=True`` asserts the kernel (raises on the CPU) and
     ``use_kernel=False`` asserts the plain version (raises on CUDA, where
-    the receive step is always the kernel). The reference's other options
-    are not ported yet and raise: ``compact_mode`` other than "dense"
-    (ROADMAP.md queue 1 item 5), ``mesh`` (queue 1 item 11),
-    ``use_send_kernel`` (queue 2 item 2), and a learner other than Pegasos
-    (the vector apply, queue 1 item 5)."""
+    the receive step is always the kernel). ``use_send_kernel`` does the
+    same for the send kernel of the quantized wire codecs, and is refused
+    for the float codecs, which send a plain cast. The reference's other
+    options are not ported yet and raise: ``compact_mode`` other than
+    "dense" (ROADMAP.md queue 1 item 5), ``mesh`` (queue 1 item 11), and a
+    learner other than Pegasos (the vector apply, queue 1 item 5)."""
     dev = resolve_device(device)
-    if use_kernel is not None and use_kernel != (dev.type == "cuda"):
-        raise ValueError(
-            f"use_kernel={use_kernel} on {dev}: the receive step is the CUDA "
-            "kernel on CUDA tensors and its plain version on CPU tensors")
+    codec = get_codec(cfg.wire_dtype)
+    if use_send_kernel and not codec.quantized:
+        raise ValueError("use_send_kernel needs a quantized (int8 or "
+                         "sub-4-bit) wire dtype: float wire dtypes send a "
+                         "plain cast")
+    for opt, val in (("use_kernel", use_kernel),
+                     ("use_send_kernel", use_send_kernel)):
+        if val is not None and val != (dev.type == "cuda"):
+            raise ValueError(
+                f"{opt}={val} on {dev}: each step is its CUDA kernel on "
+                "CUDA tensors and its plain version on CPU tensors")
     if compact_mode not in (None, "dense"):
         raise NotImplementedError(
             f"compact_mode={compact_mode!r}: the compact packings are "
@@ -252,9 +305,6 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     if mesh is not None:
         raise NotImplementedError("mesh=: node sharding over several devices "
                                   "is ROADMAP.md queue 1 item 11")
-    if use_send_kernel:
-        raise NotImplementedError("use_send_kernel: the send kernel is "
-                                  "ROADMAP.md queue 2 item 2")
     if cfg.learner != "pegasos":
         raise NotImplementedError(
             f"learner={cfg.learner!r} on the sharded engine: the vector "
@@ -266,10 +316,10 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     online_mat, eval_idx, X, y, X_test, y_test = sim_setup(
         cfg, X, y, X_test, y_test, cycles=cycles, seed=seed,
         eval_nodes=eval_nodes, device=dev)
-    carry = init_carry(n, d, cfg.cache_size, D, dev)
+    carry = init_carry(n, d, cfg.cache_size, D, dev, codec)
 
     res = SimResult([], [], [], [], 0, cfg)
-    res.buf_payload_bytes = payload_buffer_bytes(D, n, d)
+    res.buf_payload_bytes = payload_buffer_bytes(D, n, d, cfg.wire_dtype)
     pts = eval_points(cycles, eval_every)
     if not pts:
         return res
@@ -279,22 +329,27 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     bounds = list(zip([0] + pts[:-1], pts))
 
     def draw(i):
+        """Chunk i's tables on the host, and (for the EF codecs) its send
+        mask ``arrival >= 0`` kept on the device: the reference's
+        ``send_ok``, without uploading it again."""
         lo, hi = bounds[i]
         dsts, arrivals = _draw_chunk(
             keys[lo:hi], torch.as_tensor(online_mat[lo:hi], device=dev), lo,
             n=n, drop=cfg.drop_prob, delay_max=D, sampler=sampler)
-        return dsts.cpu().numpy(), arrivals.cpu().numpy()
+        mask = arrivals >= 0 if codec.ef else None
+        return dsts.cpu().numpy(), arrivals.cpu().numpy(), mask
 
     def route(i, drawn):
         lo, hi = bounds[i]
-        win, stats = router.route_chunk(*drawn, online_mat[lo:hi], lo,
-                                        k_rounds)
+        dsts, arrivals, mask = drawn
+        win, stats = router.route_chunk(dsts, arrivals, online_mat[lo:hi],
+                                        lo, k_rounds)
         table = torch.from_numpy(dense_table(win, hi - lo, k_rounds, n))
         if dev.type == "cuda":
             # pinned + non_blocking: the upload queues behind the device's
             # work instead of making the host wait for it
             table = table.pin_memory().to(dev, non_blocking=True)
-        return table, stats
+        return table, stats, mask
 
     # Draws run one chunk ahead. Chunk i+1's tables are read back before
     # chunk i is enqueued, so the read waits only for chunk i-1, which ran
@@ -303,9 +358,11 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     evals = []
     pending = route(0, draw(0))
     for i, p in enumerate(pts):
-        table, stats = pending
+        table, stats, mask = pending
         drawn = draw(i + 1) if i + 1 < len(pts) else None
-        run_dense_chunk(carry, table, X, y, variant=cfg.variant, lam=cfg.lam)
+        lo, hi = bounds[i]
+        run_dense_chunk(carry, table, X, y, variant=cfg.variant, lam=cfg.lam,
+                        wire=codec.name, keys=keys[lo:hi], send_mask=mask)
         evals.append(_eval(carry.cache, eval_idx, X_test, y_test))
         if drawn is not None:
             pending = route(i + 1, drawn)   # overlaps the device's chunk i
@@ -322,5 +379,7 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
         res.similarity.append(float(sim))
     res.in_flight_total = router.in_flight
     res.compaction = dict(chunk_modes={"dense": len(pts)})
-    res.wire_bytes_total = res.sent_total * message_wire_bytes(d)
+    res.wire_bytes_total = res.sent_total * message_wire_bytes(
+        d, cfg.wire_dtype)
+    res.ef_residual_norm = ef_residual_norm(carry.ef)
     return res

@@ -1,11 +1,14 @@
 """Protocol simulator for gossip learning (Algorithm 1): the reference
 engine.
 
-Counterpart of ``repro/core/simulation.py`` for the float32 wire without
-faults: one Python-driven cycle at a time over the whole population, with
-message drop, delay quantized to whole cycles, lognormal churn and a
-per-node model cache. Simultaneous arrivals at one node are applied in K
-winner-per-destination rounds. For a given seed it draws the same threefry
+Counterpart of ``repro/core/simulation.py`` on every registered wire codec
+(``repro_torch.core.wire_codec``), without faults: one Python-driven cycle
+at a time over the whole population, with message drop, delay quantized to
+whole cycles, lognormal churn and a per-node model cache. Simultaneous
+arrivals at one node are applied in K winner-per-destination rounds.
+Messages are encoded at send time (``fresh + ef`` for the error-feedback
+codecs, the cycle's ``k_recv`` key for ``int8_sr``) and decoded before the
+f32 merge. For a given seed it draws the same threefry
 values as the JAX package (``repro_torch.random``), so the message economy
 is exactly the reference's and the error curves agree.
 
@@ -28,6 +31,7 @@ from repro_torch.core import peer_sampling
 from repro_torch.core.cache import ModelCache
 from repro_torch.core.learners import LinearModel, make_update
 from repro_torch.core.merge import create_model
+from repro_torch.core.wire_codec import get_codec
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.metrics import cosine_similarity
 
@@ -36,26 +40,39 @@ class SimState(NamedTuple):
     last_w: torch.Tensor       # (N, d)  lastModel
     last_t: torch.Tensor       # (N,)
     cache: ModelCache
-    buf_w: torch.Tensor        # (D, N, d) in-flight payloads, slot = cycle % D
+    buf_w: torch.Tensor        # (D, N, P) in-flight payloads, slot = cycle % D
+    #                            (P = codec.payload_cols(d), codec dtype)
     buf_t: torch.Tensor        # (D, N)
+    buf_scale: torch.Tensor    # (D, N) f16 per-message scale  ((0, 0) when
+    buf_zp: torch.Tensor       # (D, N) f16 zero-point          not carried)
     buf_dst: torch.Tensor      # (D, N) int32 destination
     buf_arrival: torch.Tensor  # (D, N) int32 absolute arrival cycle, -1 = none
+    ef: torch.Tensor           # (N, d) f32 sender EF residual ((0, 0) if none)
     clock: int
 
 
-def init_state(n: int, d: int, cache_size: int, delay_max: int,
-               device) -> SimState:
-    """The all-zero population at cycle 0 (float32 wire)."""
+def init_state(n: int, d: int, cache_size: int, delay_max: int, device,
+               wire_dtype=None) -> SimState:
+    """The all-zero population at cycle 0. The payload buffer is in the
+    wire codec's representation; the scale, zero-point and EF lanes are
+    (0, 0) where the codec does not carry them."""
+    codec = get_codec(wire_dtype)
     z = functools.partial(torch.zeros, device=device)
+    lane = lambda has, shape: shape if has else (0, 0)
     return SimState(
         last_w=z((n, d), dtype=torch.float32),
         last_t=z((n,), dtype=torch.int32),
         cache=cache_mod.init_cache(n, cache_size, d, device),
-        buf_w=z((delay_max, n, d), dtype=torch.float32),
+        buf_w=z((delay_max, n, codec.payload_cols(d)),
+                dtype=codec.payload_dtype),
         buf_t=z((delay_max, n), dtype=torch.int32),
+        buf_scale=z(lane(codec.has_scale, (delay_max, n)),
+                    dtype=torch.float16),
+        buf_zp=z(lane(codec.has_zp, (delay_max, n)), dtype=torch.float16),
         buf_dst=z((delay_max, n), dtype=torch.int32),
         buf_arrival=torch.full((delay_max, n), -1, dtype=torch.int32,
                                device=device),
+        ef=z(lane(codec.ef, (n, d)), dtype=torch.float32),
         clock=0,
     )
 
@@ -64,10 +81,7 @@ def check_slice(cfg: GossipLinearConfig, *, serve_hook=None,
                 telemetry=None) -> None:
     """Raise for the reference options this slice of the port does not run
     yet, naming the ROADMAP.md item that ports each."""
-    if cfg.wire_dtype not in (None, "f32"):
-        raise NotImplementedError(
-            f"wire_dtype={cfg.wire_dtype!r}: the wire codecs are ROADMAP.md "
-            "queue 1 item 4")
+    get_codec(cfg.wire_dtype)          # unknown codec names raise ValueError
     if cfg.fault_model is not None or cfg.defense != "none":
         raise NotImplementedError(
             "fault models and defenses are ROADMAP.md queue 1 item 6")
@@ -155,12 +169,18 @@ def draw_sends(key, n: int, clock: int, online, *, drop: float,
 
 def simulate_cycle(state: SimState, X, y, online, key, *, variant: str,
                    learner: str, lam: float, eta: float, drop: float,
-                   delay_max: int, k_rounds: int, sampler: str):
+                   delay_max: int, k_rounds: int, sampler: str,
+                   wire_dtype=None):
     """One gossip cycle for the whole population. Returns (state, stats):
     over a run ``sum(sent) == sum(delivered + lost + overflow) +
-    in-flight``."""
+    in-flight``. ``wire_dtype`` names the codec the buffer holds: winners
+    are decoded before the merge, and the fresh models (plus the EF
+    residual) are encoded on the way out, ``int8_sr`` with ``k_recv`` =
+    ``split(key, 4)[0]``; the residual refreshes only where the node
+    sends."""
     n, d = state.last_w.shape
     D = delay_max
+    codec = get_codec(wire_dtype)
     update = make_update(learner, lam=lam, eta=eta)
     if X.ndim == 3:                   # multi-record nodes: clock-th record
         rec = state.clock % X.shape[1]
@@ -169,7 +189,10 @@ def simulate_cycle(state: SimState, X, y, online, key, *, variant: str,
 
     src_slot, valid, delivered, overflow, lost = select_receivers(
         state.buf_dst, state.buf_arrival, online, state.clock, k_rounds)
-    msg_w = state.buf_w.reshape(-1, d)[src_slot]         # (K, N, d) winners
+    payload = state.buf_w.reshape(-1, state.buf_w.shape[-1])[src_slot]
+    msc = state.buf_scale.reshape(-1)[src_slot] if codec.has_scale else None
+    mzp = state.buf_zp.reshape(-1)[src_slot] if codec.has_zp else None
+    msg_w = codec.decode(payload, msc, mzp, d)           # (K, N, d) winners
     msg_t = state.buf_t.reshape(-1)[src_slot]
     last_w, last_t, cache = apply_receives(
         state.last_w, state.last_t, state.cache, msg_w, msg_t, valid, X, y,
@@ -178,17 +201,30 @@ def simulate_cycle(state: SimState, X, y, online, key, *, variant: str,
     fresh_w, fresh_t = cache_mod.freshest(cache)
     dst, arrival = draw_sends(key, n, state.clock, online, drop=drop,
                               delay_max=D, sampler=sampler)
+    send_ok = arrival >= 0
+    x_send = fresh_w + state.ef if codec.ef else fresh_w
+    k_recv = random.split(key, 4)[0] if codec.stochastic else None
+    q, sc, zp = codec.encode(x_send, key=k_recv)
+    ef = state.ef
+    if codec.ef:
+        ef = torch.where(send_ok[:, None], x_send - codec.decode(q, sc, zp, d),
+                         ef)
     slot = state.clock % D
     buf_w, buf_t = state.buf_w.clone(), state.buf_t.clone()
+    buf_scale, buf_zp = state.buf_scale.clone(), state.buf_zp.clone()
     buf_dst, buf_arrival = state.buf_dst.clone(), state.buf_arrival.clone()
-    buf_w[slot] = fresh_w
+    buf_w[slot] = q
     buf_t[slot] = fresh_t
+    if codec.has_scale:
+        buf_scale[slot] = sc
+    if codec.has_zp:
+        buf_zp[slot] = zp
     buf_dst[slot] = dst
     buf_arrival[slot] = arrival
     stats = {"delivered": delivered, "overflow": overflow,
-             "sent": (arrival >= 0).sum(), "lost": lost}
-    return SimState(last_w, last_t, cache, buf_w, buf_t, buf_dst,
-                    buf_arrival, state.clock + 1), stats
+             "sent": send_ok.sum(), "lost": lost}
+    return SimState(last_w, last_t, cache, buf_w, buf_t, buf_scale, buf_zp,
+                    buf_dst, buf_arrival, ef, state.clock + 1), stats
 
 
 # ---------------------------------------------------------------------------
@@ -281,17 +317,33 @@ class SimResult:
     buf_payload_bytes: int = 0
     delivered_per_cycle: List[int] = field(default_factory=list)
     compaction: Dict[str, object] = field(default_factory=dict)
+    # root-mean L2 norm of the per-node EF residual at the end of the run
+    # (0.0 for codecs without EF state)
+    ef_residual_norm: float = 0.0
 
 
-def message_wire_bytes(d: int) -> int:
-    """Bytes per transmitted model on the float32 wire: d coefficients plus
-    the int32 counter."""
-    return 4 * d + 4
+def ef_residual_norm(ef) -> float:
+    """Root-mean-square per-node L2 norm of the EF residual lane."""
+    if ef.numel() == 0:
+        return 0.0
+    return float(torch.sqrt(torch.mean(torch.sum(ef.to(torch.float32) ** 2,
+                                                 dim=-1))))
 
 
-def payload_buffer_bytes(delay_max: int, n: int, d: int) -> int:
-    """Footprint of the in-flight (D, N, d) float32 payload buffer."""
-    return delay_max * n * 4 * d
+def message_wire_bytes(d: int, wire_dtype_name) -> int:
+    """Bytes per transmitted model: the codec's packed coefficients, the
+    int32 counter and the codec's scale (and zero-point) bytes."""
+    codec = get_codec(wire_dtype_name)
+    return codec.payload_bytes(d) + 4 + codec.overhead_bytes
+
+
+def payload_buffer_bytes(delay_max: int, n: int, d: int,
+                         wire_dtype_name) -> int:
+    """Footprint of the in-flight (D, N, P) payload buffer in the codec's
+    representation, with its (D, N) f16 scale and zero-point lanes (the EF
+    residual is sender state and is not counted)."""
+    codec = get_codec(wire_dtype_name)
+    return delay_max * n * (codec.payload_bytes(d) + codec.overhead_bytes)
 
 
 @functools.lru_cache(maxsize=2)
@@ -375,11 +427,12 @@ def run_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
         cfg, X, y, X_test, y_test, cycles=cycles, seed=seed,
         eval_nodes=eval_nodes, device=dev)
     D = max(cfg.delay_max_cycles, 1)
-    state = init_state(n, d, cfg.cache_size, D, dev)
+    state = init_state(n, d, cfg.cache_size, D, dev,
+                       wire_dtype=cfg.wire_dtype)
     key = random.key(seed, device=dev)
 
     res = SimResult([], [], [], [], 0, cfg)
-    res.buf_payload_bytes = payload_buffer_bytes(D, n, d)
+    res.buf_payload_bytes = payload_buffer_bytes(D, n, d, cfg.wire_dtype)
     for c in range(cycles):
         key, sub = random.split(key)
         online = torch.as_tensor(online_mat[c], device=dev)
@@ -387,7 +440,7 @@ def run_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
             state, X, y, online, sub, variant=cfg.variant,
             learner=cfg.learner, lam=cfg.lam, eta=cfg.eta,
             drop=cfg.drop_prob, delay_max=D, k_rounds=k_rounds,
-            sampler=sampler)
+            sampler=sampler, wire_dtype=cfg.wire_dtype)
         delivered = int(stats["delivered"])
         res.sent_total += int(stats["sent"])
         res.delivered_total += delivered
@@ -401,5 +454,7 @@ def run_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
             res.err_voted.append(float(err_v))
             res.similarity.append(float(sim))
     res.in_flight_total = int((state.buf_arrival >= state.clock).sum())
-    res.wire_bytes_total = res.sent_total * message_wire_bytes(d)
+    res.wire_bytes_total = res.sent_total * message_wire_bytes(
+        d, cfg.wire_dtype)
+    res.ef_residual_norm = ef_residual_norm(state.ef)
     return res

@@ -1,21 +1,28 @@
-"""Fused gossip-cycle receive step: K sequential receives per node.
+"""Fused gossip-cycle kernels: the K-receive step and the send-side encode.
 
-Counterpart of ``repro/kernels/gossip_cycle.py::fused_receive_apply`` (the
-Pallas TPU kernel) for float32 messages without a defense screen. For
-every node and every valid round k: ``modelCache.add(createModel(m_k,
-lastModel)); lastModel <- m_k`` (Algorithm 1 ON RECEIVE) with the Pegasos
-update, in the CREATEMODEL variants rw / mu / um.
+Counterpart of ``repro/kernels/gossip_cycle.py`` (the Pallas TPU kernels)
+without the defense screens.
 
-* ``fused_receive_apply`` dispatches on the tensors' device: CUDA tensors
-  go to the hand-written kernel in ``csrc/gossip_cycle.cu`` (built by
-  ``nvcc`` for sm_90a at first use), CPU tensors to the plain version.
-  There is no fallback: a CUDA tensor reaches the kernel or an exception.
-* ``fused_receive_apply_plain`` is the same function in plain PyTorch,
-  following ``_cycle_kernel``'s op order; the CPU tests hold it to the JAX
-  kernel, and ``chip_smoke.py`` holds the CUDA kernel to it on the card.
+* ``fused_receive_apply``: for every node and every valid round k,
+  ``modelCache.add(createModel(m_k, lastModel)); lastModel <- m_k``
+  (Algorithm 1 ON RECEIVE) with the Pegasos update, in the CREATEMODEL
+  variants rw / mu / um. Messages arrive in any wire codec's payload
+  (``wire=``): f32/bf16/f16 are upcast, affine int8 is dequantized from its
+  f16 scale and zero-point, packed int4 and ternary are unpacked and
+  scaled, so message traffic is paid at wire width.
+* ``quantize_send``: the encode of a quantized wire codec for a population
+  of fresh models — affine int8 (``int8``; ``int8_sr`` with the cycle's
+  threefry noise made in the kernel), or the packed symmetric codecs with
+  the error-feedback residual from the same pass.
 
-Both update ``last_w, last_t, cache_w, cache_t, ptr, count`` in place and
-return them. The kernel's design and its bound are described in its source.
+Each wrapper dispatches on the tensors' device: CUDA tensors go to the
+hand-written kernels in ``csrc/gossip_cycle.cu`` and ``csrc/quantize_send.cu``
+(built by ``nvcc`` for sm_90a at first use), CPU tensors to the plain
+version beside it. There is no fallback: a CUDA tensor reaches a kernel or
+an exception. The plain versions follow the Pallas kernels' op order; the
+CPU tests hold them to the JAX kernels, and ``chip_smoke.py`` holds the
+CUDA kernels to them on the card. The kernels' designs and bounds are
+described in their sources.
 """
 from __future__ import annotations
 
@@ -24,7 +31,15 @@ import functools
 
 import torch
 
+from repro_torch.core.wire_codec import (get_codec, quantize_wire,
+                                         unpack_int4, unpack_ternary)
+
 VARIANTS = {"rw": 0, "mu": 1, "um": 2}
+# the receive kernel's decode modes (template argument of the CUDA kernel)
+DECODE_MODES = {"f32": 0, "bf16": 1, "f16": 2, "affine8": 3, "int4": 4,
+                "ternary": 5}
+_FLOAT_MODES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                torch.float16: "f16"}
 
 
 def _pegasos(w, t, x, y, lam: float):
@@ -37,11 +52,47 @@ def _pegasos(w, t, x, y, lam: float):
     return decay * w + upd, t
 
 
+def _wire_mode(wire, msg_scale, msg_zp) -> str:
+    """The reference's static decode mode for a codec name: "float",
+    "affine8", "int4" or "ternary". Scale and zero-point without a name
+    mean affine int8; a scale alone is ambiguous (the packed codecs must
+    name themselves) and raises."""
+    if wire is not None:
+        codec = get_codec(wire)
+        if not codec.quantized:
+            return "float"
+        if codec.has_zp:
+            return "affine8"
+        return "int4" if codec.group == 2 else "ternary"
+    if msg_scale is not None and msg_zp is not None:
+        return "affine8"
+    if msg_scale is not None:
+        raise ValueError("msg_scale without msg_zp needs an explicit "
+                         "wire= codec name (scale-only codecs are packed)")
+    return "float"
+
+
+def _decode_msg(raw, msc, mzp, d: int, mode: str):
+    """(K, N, P) payload -> (K, N, d) f32 coefficients, in ``_decode_msg``'s
+    op order: cast, then multiply by the scale, then add the zero-point."""
+    if mode == "float":
+        return raw.to(torch.float32)
+    if mode == "affine8":
+        return (raw.to(torch.float32) * msc.to(torch.float32)[..., None]
+                + mzp.to(torch.float32)[..., None])
+    unpack = unpack_int4 if mode == "int4" else unpack_ternary
+    return (unpack(raw, d).to(torch.float32)
+            * msc.to(torch.float32)[..., None])
+
+
 def fused_receive_apply_plain(last_w, last_t, cache_w, cache_t, ptr, count,
-                              msg_w, msg_t, valid, x, y, *, variant: str,
+                              msg_w, msg_t, valid, x, y, *, msg_scale=None,
+                              msg_zp=None, wire=None, variant: str,
                               lam: float):
     """The receive step in plain PyTorch, in place; see the module note."""
-    n, c, _ = cache_w.shape
+    n, c, d = cache_w.shape
+    msg_w = _decode_msg(msg_w, msg_scale, msg_zp, d,
+                        _wire_mode(wire, msg_scale, msg_zp))
     rows = torch.arange(n, device=last_w.device)
     lw, lt = last_w.clone(), last_t.clone()
     for k in range(msg_w.shape[0]):
@@ -70,33 +121,13 @@ def fused_receive_apply_plain(last_w, last_t, cache_w, cache_t, ptr, count,
     return last_w, last_t, cache_w, cache_t, ptr, count
 
 
-def _check(last_w, last_t, cache_w, cache_t, ptr, count, msg_w, msg_t,
-           valid, x, y, variant):
-    if variant not in VARIANTS:
-        raise ValueError(f"unknown CREATEMODEL variant {variant!r}")
-    if last_w.ndim != 2 or cache_w.ndim != 3 or msg_w.ndim != 3:
-        raise ValueError("expected last_w (N, d), cache_w (N, C, d) and "
-                         "msg_w (K, N, d)")
-    n, d = last_w.shape
-    c = cache_w.shape[1]
-    k = msg_w.shape[0]
-    spec = {
-        "last_w": (last_w, torch.float32, (n, d)),
-        "last_t": (last_t, torch.int32, (n,)),
-        "cache_w": (cache_w, torch.float32, (n, c, d)),
-        "cache_t": (cache_t, torch.int32, (n, c)),
-        "ptr": (ptr, torch.int32, (n,)),
-        "count": (count, torch.int32, (n,)),
-        "msg_w": (msg_w, torch.float32, (k, n, d)),
-        "msg_t": (msg_t, torch.int32, (k, n)),
-        "valid": (valid, torch.int32, (k, n)),
-        "x": (x, torch.float32, (n, d)),
-        "y": (y, torch.float32, (n,)),
-    }
+def _check_tensors(ref, spec):
+    """Every tensor of ``spec`` (name -> (tensor, dtype, shape)) on
+    ``ref``'s device, of its dtype and shape, and contiguous."""
     for name, (a, dtype, shape) in spec.items():
-        if a.device != last_w.device:
-            raise ValueError(f"{name} is on {a.device}, last_w on "
-                             f"{last_w.device}")
+        if a.device != ref.device:
+            raise ValueError(f"{name} is on {a.device}, expected "
+                             f"{ref.device}")
         if a.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {a.dtype}")
         if tuple(a.shape) != shape:
@@ -106,65 +137,258 @@ def _check(last_w, last_t, cache_w, cache_t, ptr, count, msg_w, msg_t,
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_receive(last_w, last_t, cache_w, cache_t, ptr, count, msg_w,
+                   msg_t, valid, x, y, msg_scale, msg_zp, wire, variant):
+    """Validate the receive step's operands; returns its decode mode (a
+    key of ``DECODE_MODES``)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown CREATEMODEL variant {variant!r}")
+    if last_w.ndim != 2 or cache_w.ndim != 3 or msg_w.ndim != 3:
+        raise ValueError("expected last_w (N, d), cache_w (N, C, d) and "
+                         "msg_w (K, N, P)")
+    n, d = last_w.shape
+    c = cache_w.shape[1]
+    k = msg_w.shape[0]
+    mode = _wire_mode(wire, msg_scale, msg_zp)
+    if mode == "float":
+        if msg_scale is not None or msg_zp is not None:
+            raise ValueError("float wire codecs carry no scale or zero-point")
+        if msg_w.dtype not in _FLOAT_MODES:
+            raise TypeError(f"msg_w must be float32, bfloat16 or float16 on "
+                            f"a float wire, got {msg_w.dtype}")
+        if wire is not None and msg_w.dtype != get_codec(wire).payload_dtype:
+            raise TypeError(f"msg_w must be {get_codec(wire).payload_dtype} "
+                            f"for wire={wire!r}, got {msg_w.dtype}")
+        dtype, cols = msg_w.dtype, d
+        kernel_mode = _FLOAT_MODES[dtype]
+    elif mode == "affine8":
+        if msg_scale is None or msg_zp is None:
+            raise ValueError(f"wire={wire!r} needs msg_scale and msg_zp")
+        dtype, cols, kernel_mode = torch.int8, d, "affine8"
+    else:
+        if msg_scale is None:
+            raise ValueError(f"wire={wire!r} needs msg_scale")
+        if msg_zp is not None:
+            raise ValueError(f"wire={wire!r} carries no zero-point")
+        dtype, cols = torch.uint8, get_codec(wire).payload_cols(d)
+        kernel_mode = mode
+    spec = {
+        "last_w": (last_w, torch.float32, (n, d)),
+        "last_t": (last_t, torch.int32, (n,)),
+        "cache_w": (cache_w, torch.float32, (n, c, d)),
+        "cache_t": (cache_t, torch.int32, (n, c)),
+        "ptr": (ptr, torch.int32, (n,)),
+        "count": (count, torch.int32, (n,)),
+        "msg_w": (msg_w, dtype, (k, n, cols)),
+        "msg_t": (msg_t, torch.int32, (k, n)),
+        "valid": (valid, torch.int32, (k, n)),
+        "x": (x, torch.float32, (n, d)),
+        "y": (y, torch.float32, (n,)),
+    }
+    if msg_scale is not None:
+        spec["msg_scale"] = (msg_scale, torch.float16, (k, n))
+    if msg_zp is not None:
+        spec["msg_zp"] = (msg_zp, torch.float16, (k, n))
+    _check_tensors(last_w, spec)
+    return kernel_mode
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel():
+def _lib(name: str):
+    """The loaded library of ``csrc/<name>.cu`` and its error-string
+    function (built at first use)."""
     from repro_torch.kernels import _build
 
-    lib = _build.load("gossip_cycle")
-    fn = lib.gossip_cycle_fused_receive_apply
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err = lib.gossip_cycle_error_string
+    lib = _build.load(name)
+    err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
+    return lib, err
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(lib_name: str, fn_name: str, argtypes: tuple):
+    """A kernel's C entry point with its argument types declared."""
+    lib, err = _lib(lib_name)
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
     return fn, err
 
 
-def _launch(last_w, last_t, cache_w, cache_t, ptr, count, msg_w, msg_t,
-            valid, x, y, variant: str, lam: float):
-    fn, err = _kernel()
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(code: int, err, what: str):
+    if code != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{err(code).decode()} (cudaError {code})")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+_VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _launch_receive(last_w, last_t, cache_w, cache_t, ptr, count, msg_w,
+                    msg_t, valid, x, y, msg_scale, msg_zp, mode: str,
+                    variant: str, lam: float):
+    fn, err = _entry("gossip_cycle", "gossip_cycle_fused_receive_apply",
+                     (_VP,) * 13 + (_INT,) * 5 + (_FLOAT, _INT, _INT, _VP))
     n, d = last_w.shape
     with torch.cuda.device(last_w.device):
-        stream = torch.cuda.current_stream(last_w.device).cuda_stream
         code = fn(last_w.data_ptr(), last_t.data_ptr(), cache_w.data_ptr(),
                   cache_t.data_ptr(), ptr.data_ptr(), count.data_ptr(),
-                  msg_w.data_ptr(), msg_t.data_ptr(), valid.data_ptr(),
-                  x.data_ptr(), y.data_ptr(), n, d, cache_w.shape[1],
-                  msg_w.shape[0], lam, VARIANTS[variant], stream)
-    if code != 0:
-        raise RuntimeError("gossip_cycle kernel launch failed: "
-                           f"{err(code).decode()} (cudaError {code})")
-    _WRAPPER.launches += 1
+                  msg_w.data_ptr(), _ptr(msg_scale), _ptr(msg_zp),
+                  msg_t.data_ptr(), valid.data_ptr(), x.data_ptr(),
+                  y.data_ptr(), n, d, cache_w.shape[1], msg_w.shape[0],
+                  msg_w.shape[2], lam, VARIANTS[variant], DECODE_MODES[mode],
+                  _stream(last_w))
+    _raise_on(code, err, "gossip_cycle")
+    _RECEIVE.launches += 1
 
 
 def fused_receive_apply(last_w, last_t, cache_w, cache_t, ptr, count,
-                        msg_w, msg_t, valid, x, y, *, variant: str,
-                        lam: float):
+                        msg_w, msg_t, valid, x, y, *, msg_scale=None,
+                        msg_zp=None, wire=None, variant: str, lam: float):
     """Fused K-receive apply for one cycle, in place.
 
     last_w, x: (N, d) f32; last_t, ptr, count: (N,) i32; cache_w: (N, C, d)
-    f32; cache_t: (N, C) i32; msg_w: (K, N, d) f32; msg_t, valid: (K, N)
-    i32; y: (N,) f32. Returns ``(last_w, last_t, cache_w, cache_t, ptr,
-    count)``, the same tensors, updated. Every tensor must be contiguous
-    and on one device. The reference kernel's quantized wire modes and
-    defense screens are not ported yet (ROADMAP.md queue 2 item 1); the
-    engines refuse such configurations before they reach this step."""
-    _check(last_w, last_t, cache_w, cache_t, ptr, count, msg_w, msg_t,
-           valid, x, y, variant)
+    f32; cache_t: (N, C) i32; msg_t, valid: (K, N) i32; y: (N,) f32.
+    ``msg_w`` is the (K, N, P) payload of the codec ``wire`` names: f32,
+    bf16 or f16 (P = d) for the float codecs, int8 (P = d) with f16
+    ``msg_scale``/``msg_zp`` (K, N) for int8/int8_sr, uint8 (P = ceil(d/2)
+    or ceil(d/5)) with ``msg_scale`` for int4/ternary and their ``_ef``
+    variants. Returns ``(last_w, last_t, cache_w, cache_t, ptr, count)``,
+    the same tensors, updated. Every tensor must be contiguous and on one
+    device. The reference kernel's defense screens are not ported yet
+    (ROADMAP.md queue 2 item 1); the engines refuse such configurations
+    before they reach this step."""
+    mode = _check_receive(last_w, last_t, cache_w, cache_t, ptr, count,
+                          msg_w, msg_t, valid, x, y, msg_scale, msg_zp, wire,
+                          variant)
     args = (last_w, last_t, cache_w, cache_t, ptr, count, msg_w, msg_t,
             valid, x, y)
     if last_w.device.type == "cpu":
-        return fused_receive_apply_plain(*args, variant=variant, lam=lam)
+        return fused_receive_apply_plain(*args, msg_scale=msg_scale,
+                                         msg_zp=msg_zp, wire=wire,
+                                         variant=variant, lam=lam)
     if last_w.device.type != "cuda":
         raise NotImplementedError(
             f"no receive kernel for device {last_w.device}")
-    _launch(*args, variant, float(lam))
+    _launch_receive(*args, msg_scale, msg_zp, mode, variant, float(lam))
     return last_w, last_t, cache_w, cache_t, ptr, count
 
 
+# ---------------------------------------------------------------------------
+# send side
+# ---------------------------------------------------------------------------
+
+
+def send_kernel_name(name: str) -> str:
+    """Which send kernel encodes codec ``name`` with or without EF: the
+    keys of ``quantize_send.launches`` ("affine8", "packed_ef", "packed"),
+    rows #2, #3 and #4 of the TPU-kernel table in PERF.md."""
+    codec = get_codec(name)
+    if codec.has_zp:
+        return "affine8"
+    return "packed_ef" if codec.ef else "packed"
+
+
+def quantize_send_plain(w, name: str, key=None, ef=None):
+    """The send encode in plain PyTorch: the codec's ``encode`` of ``w``
+    (``w + ef`` under error feedback), and the residual ``x - q·scale``
+    when ``ef`` is given; see :func:`quantize_send`."""
+    codec = get_codec(name)
+    if codec.has_zp:
+        return quantize_wire(w, name, key=key)
+    x = w + ef if ef is not None else w
+    q, scale = codec.quantize_codes(x)
+    payload = codec._pack(q)
+    if ef is None:
+        return payload, scale
+    return payload, scale, x - q.to(torch.float32) * scale.to(
+        torch.float32)[:, None]
+
+
+def _check_send(w, name, key, ef):
+    codec = get_codec(name)
+    if not codec.quantized:
+        raise ValueError(f"quantize_send needs a quantized wire codec, got "
+                         f"{name!r}: float codecs send a plain cast")
+    if w.ndim != 2:
+        raise ValueError(f"w must be (N, d), got shape {tuple(w.shape)}")
+    spec = {"w": (w, torch.float32, tuple(w.shape))}
+    if codec.has_zp and ef is not None:
+        raise ValueError(f"{name!r} keeps no error-feedback state: ef is "
+                         "only accepted by the packed codecs")
+    if ef is not None:
+        spec["ef"] = (ef, torch.float32, tuple(w.shape))
+    if codec.stochastic:
+        if key is None:
+            raise ValueError("int8_sr quantization needs a PRNG key")
+        spec["key"] = (key, torch.int64, (2,))
+    _check_tensors(w, spec)
+    return codec
+
+
+def _launch_send(w, codec, key, ef):
+    n, d = w.shape
+    kernel = send_kernel_name(codec.name)
+    dev = w.device
+    scale = torch.empty(n, dtype=torch.float16, device=dev)
+    with torch.cuda.device(dev):
+        if kernel == "affine8":
+            fn, err = _entry("quantize_send", "quantize_send_affine8",
+                             (_VP,) * 5 + (_INT,) * 3 + (_VP,))
+            q = torch.empty((n, d), dtype=torch.int8, device=dev)
+            zp = torch.empty(n, dtype=torch.float16, device=dev)
+            code = fn(w.data_ptr(), _ptr(key if codec.stochastic else None),
+                      q.data_ptr(), scale.data_ptr(), zp.data_ptr(), n, d,
+                      int(codec.stochastic), _stream(w))
+            out = (q, scale, zp)
+        else:
+            fn, err = _entry("quantize_send", "quantize_send_packed",
+                             (_VP,) * 5 + (_INT,) * 3 + (_VP,))
+            payload = torch.empty((n, codec.payload_cols(d)),
+                                  dtype=torch.uint8, device=dev)
+            resid = torch.empty_like(w) if ef is not None else None
+            code = fn(w.data_ptr(), _ptr(ef), payload.data_ptr(),
+                      scale.data_ptr(), _ptr(resid), n, d, codec.group,
+                      _stream(w))
+            out = (payload, scale) if ef is None else (payload, scale, resid)
+    _raise_on(code, err, "quantize_send")
+    _SEND.launches[kernel] += 1
+    return out
+
+
+def quantize_send(w, name: str, key=None, ef=None):
+    """Send-side encode of a quantized wire codec for (N, d) f32 models.
+
+    For the affine int8 codecs returns ``(q, scale, zp)`` (int8 (N, d), f16
+    (N,), f16 (N,)), equal bit for bit to ``quantize_wire(w, name, key)``;
+    "int8_sr" takes ``key``, the cycle's ``k_recv`` as an int64 (2,) tensor
+    of uint32 words on ``w``'s device (never read to the host). For the
+    packed codecs returns ``(payload, scale)`` (uint8 (N, ceil(d/g)), f16
+    (N,)), or ``(payload, scale, resid)`` when ``ef`` (the (N, d) f32
+    error-feedback residual) is given: ``w + ef`` is encoded and ``resid =
+    (w + ef) - decode(...)``; the caller applies the send mask. The outputs
+    are new tensors (the caller copies them into its buffer row)."""
+    codec = _check_send(w, name, key, ef)
+    if w.device.type == "cpu":
+        return quantize_send_plain(w, name, key=key, ef=ef)
+    if w.device.type != "cuda":
+        raise NotImplementedError(f"no send kernel for device {w.device}")
+    return _launch_send(w, codec, key, ef)
+
+
 # Kernel launches so far; only the CUDA path counts. Bound to the wrapper
-# object itself, so the count survives a caller wrapping the module
-# attribute (chip_smoke.py does, to keep a copy of one launch's inputs).
+# objects themselves, so the counts survive a caller wrapping the module
+# attributes (chip_smoke.py does, to keep a copy of one launch's inputs).
 fused_receive_apply.launches = 0
-_WRAPPER = fused_receive_apply
+quantize_send.launches = {"affine8": 0, "packed_ef": 0, "packed": 0}
+_RECEIVE = fused_receive_apply
+_SEND = quantize_send

@@ -5,10 +5,13 @@ so the port must reproduce JAX's default *partitionable* threefry scheme
 exactly (``jax_threefry_partitionable=True``):
 
 * a key is a pair of uint32 words; ``key(seed)`` is ``(seed >> 32, seed)``;
-* ``split(key, n)`` hashes the counters ``(0, i)`` and returns the pairs
-  ``(bits1[i], bits2[i])`` as the new keys;
-* 32-bit ``random_bits`` hashes ``(0, i)`` for each flat position ``i``
-  and returns ``bits1 ^ bits2``.
+* ``split(key, n)`` hashes the counters ``(i >> 32, i & 0xFFFFFFFF)`` and
+  returns the pairs ``(bits1[i], bits2[i])`` as the new keys;
+* 32-bit ``random_bits`` hashes the same counter pair for each flat
+  position ``i`` (the full 64-bit index, as ``iota_2x32_shape`` counts) and
+  returns ``bits1 ^ bits2``. A draw is therefore positional: ``uniform_at``
+  evaluates ``uniform(key, shape)`` at any flat positions without drawing
+  the rest, which is how the ``int8_sr`` send kernel makes its noise.
 
 PyTorch has only partial ``uint32`` arithmetic, so the words live in
 ``int64`` tensors holding values in ``[0, 2**32)``: every add is masked
@@ -57,11 +60,16 @@ def key(seed: int, device=None) -> torch.Tensor:
                         dtype=torch.int64, device=resolve_device(device))
 
 
+def _hash_positions(k, p):
+    """Threefry of the counters ``(p >> 32, p & 0xFFFFFFFF)`` for int64 flat
+    positions ``p`` — the 64-bit counter split of ``iota_2x32_shape``."""
+    return threefry2x32(k[0], k[1], p >> 32, p & MASK32)
+
+
 def _hash_counters(k, size: int):
-    """Threefry of the counters ``(0, i)``, ``i < size`` (sizes stay far
-    below 2**32, so the high counter word is 0)."""
-    lo = torch.arange(size, dtype=torch.int64, device=k.device)
-    return threefry2x32(k[0], k[1], torch.zeros_like(lo), lo)
+    """Threefry of the counters of flat positions ``0 .. size - 1``."""
+    return _hash_positions(
+        k, torch.arange(size, dtype=torch.int64, device=k.device))
 
 
 def split(k, num: int = 2) -> torch.Tensor:
@@ -77,11 +85,38 @@ def random_bits(k, shape) -> torch.Tensor:
     return (b1 ^ b2).reshape(shape)
 
 
-def uniform(k, shape) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in float32 on ``[0, 1)``: the top
-    23 bits fill the mantissa of a float in ``[1, 2)``, minus 1."""
-    fbits = (random_bits(k, shape) >> 9) | 0x3F800000
+def _bits_to_unit_float(bits):
+    """uint32 bits (as int64) -> float32 on ``[0, 1)``: the top 23 bits fill
+    the mantissa of a float in ``[1, 2)``, minus 1."""
+    fbits = (bits >> 9) | 0x3F800000
     return fbits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform(k, shape) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` in float32 on ``[0, 1)``."""
+    return _bits_to_unit_float(random_bits(k, shape))
+
+
+def uniform_at(k, p) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` evaluated at int64 flat positions
+    ``p`` of any shape: ``uniform_at(k, p) == uniform(k, shape).reshape(-1)
+    [p]`` bitwise, at O(p.numel()) threefry work. The counter of position
+    ``p`` is ``(p >> 32, p & 0xFFFFFFFF)``, so positions past 2**32 (an
+    (N, d) draw at N = 10^6, d = 9947) hash what JAX hashes there."""
+    b1, b2 = _hash_positions(k, p.to(torch.int64))
+    return _bits_to_unit_float(b1 ^ b2)
+
+
+def sr_noise_for_rows(k, rows, d: int, n: int) -> torch.Tensor:
+    """The ``int8_sr`` noise ``uniform(k, (n, d))[rows]`` for the given row
+    indices only: (len(rows), d) float32, bitwise equal to the full draw.
+    ``n``, the full draw's row count, is the reference helper's argument;
+    the partitionable scheme counts flat positions, so the noise of a row
+    does not depend on it (rows must lie in ``[0, n)``)."""
+    rows = torch.as_tensor(rows, dtype=torch.int64, device=k.device)
+    p = rows[:, None] * d + torch.arange(d, dtype=torch.int64,
+                                         device=k.device)[None, :]
+    return uniform_at(k, p)
 
 
 def randint(k, shape, minval: int, maxval: int) -> torch.Tensor:
