@@ -12,12 +12,19 @@ and ``nvcc``. The phases, each of which raises on failure:
 1. each kernel against its plain PyTorch version on the card, at the
    shapes of the paper's datasets (d = 10, 57, 9947) and a K > C case: the
    receive kernel on the f32 wire and in every decode mode (bf16, f16,
-   affine int8, int4, ternary), and the send kernels for int8, int8_sr,
-   int4, int4_ef, ternary and ternary_ef (bitwise);
+   affine int8, int4, ternary), and with each defense screen (norm_clip,
+   cosine_gate) after the f32, affine int8, int4 and ternary decodes on
+   rows crafted for every verdict (gated and clipped counts equal); the
+   bf16/f16 decodes timed at N = 10^6; the voted-predict kernel at the
+   serving shapes (bitwise, with zero scores and exact-half ties); the send
+   kernels for int8, int8_sr, int4, int4_ef, ternary and ternary_ef
+   (bitwise);
 2. the sharded engine with the kernels against the port's reference engine
    on the card (N = 20 000, the paper's extreme scenario) on the f32 wire
    and on int8_sr, int4_ef and ternary, and the first chunk's threefry draw
-   tables made on the card against the CPU's;
+   tables made on the card against the CPU's; then under Byzantine faults
+   with a defense (fault counters equal too), and a run with a serving hook
+   against one without (bit for bit) on both engines;
 3. the main path at full width: ``run_simulation(engine="sharded")`` at
    N = 10^6 nodes, d = 10, extreme scenario, MU, K = 4, cache 10, 20
    cycles; launches, curves, the message economy, wall time, node-cycles/s
@@ -28,7 +35,17 @@ and ``nvcc``. The phases, each of which raises on failure:
    each, 20 receive and 20 send launches, the economy, the wire and buffer
    bytes against f32's, wall time, peak memory, and each kernel's time per
    launch on the path's own last-launch inputs beside its bound and its
-   plain version's time, and a profiled rerun.
+   plain version's time, and a profiled rerun;
+5. the protocol under attack, served live: the phase-3 path with 10 %
+   sign_flip Byzantine nodes and the norm_clip screen, and a
+   ``GossipServer`` (batches of 256 on the voted-predict kernel) fed 2048
+   test queries at each eval point: launches, fault counters, economy,
+   node-cycles/s, the snapshot copies' time, queries/s, p50/p99 batch
+   latency, served accuracy, peak memory, the screened receive kernel's
+   and the voted-predict kernel's (M = 256 and 65 536) time per launch
+   beside their bounds (the voted-predict kernel's replayed from a CUDA
+   graph, so that the host's cost of a call is left out, and also per
+   call as the server makes it), and a profiled rerun.
 
 Prints one JSON line of per-kernel results, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -56,6 +73,18 @@ META = ("msg_scale", "msg_zp")
 DECODE_WIRES = {"bf16": "bf16", "f16": "f16", "affine8": "int8",
                 "int4": "int4", "ternary": "ternary"}
 SEND_CODECS = ("int8", "int8_sr", "int4", "int4_ef", "ternary", "ternary_ef")
+DEFENSE_MODES = ("norm_clip", "cosine_gate")
+# the screens are checked after each decode family: f32, affine int8,
+# int4 and ternary
+SCREEN_WIRES = {"affine8": "int8", "int4": "int4", "ternary": "ternary"}
+VOTED_SHAPES = ((256, 10, 10), (4099, 10, 57), (64, 10, 9947),
+                (65_536, 10, 10))
+# phase 2's fault runs (fault model, wire, defense) at N = 20 000
+FAULT_RUNS = (("sign_flip", None, "norm_clip"),
+              ("sign_flip", None, "cosine_gate"),
+              ("random_payload", "int8_sr", "cosine_gate"),
+              ("stale_replay", "int8_sr", "norm_clip"),
+              ("bitflip", "int4_ef", "norm_clip"))
 MAIN_WIRES = ("int8_sr", "int4_ef", "ternary")
 # rows #2-#4 of the TPU-kernel table in PERF.md: each send kernel and the
 # Pallas call it replaces (phase 4 drives them with MAIN_WIRES in order)
@@ -88,11 +117,40 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def receive_inputs(seed, n, d, c, k, device, wire=None):
+def graph_time_ms(fn, reps: int, replays: int = 5) -> float:
+    """ms per call of ``fn``, ``reps`` calls captured in one CUDA graph and
+    the graph replayed: the device's time for launches already queued,
+    without the host's cost of making each call."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (reps * replays)
+    del graph
+    return ms
+
+
+def receive_inputs(seed, n, d, c, k, device, wire=None, crafted=False):
     """A mid-run state with a random valid mask, made with numpy. With
     ``wire``, the messages are that codec's payload (encoded by the port's
     plain codec on ``device``), with ``msg_scale``/``msg_zp`` where the
-    codec carries them."""
+    codec carries them. ``crafted`` adds rows for the defense screens
+    (``craft_screen_rows``)."""
     import numpy as np
     import torch
     from repro_torch.core.wire_codec import get_codec
@@ -105,28 +163,74 @@ def receive_inputs(seed, n, d, c, k, device, wire=None):
         msg_w=f(k, n, d) * 3, msg_t=i(0, 40, k, n),
         valid=(rng.random((k, n)) < 0.6).astype(np.int32), x=f(n, d),
         y=np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32))
+    bad_rows = craft_screen_rows(arrs) if crafted else None
     out = {key: torch.from_numpy(v).to(device) for key, v in arrs.items()}
     if wire is not None:
         q, sc, zp = get_codec(wire).encode(out["msg_w"])
         out["msg_w"] = q
         out.update({k_: v for k_, v in zip(META, (sc, zp)) if v is not None})
+    if bad_rows is not None and bad_rows.size:
+        # non-finite messages: in the payload of a float wire, through the
+        # f16 scale of a quantized one
+        r = torch.from_numpy(bad_rows).to(device)
+        if "msg_scale" in out:
+            out["msg_scale"][0, r[0::2]] = float("inf")
+            out["msg_scale"][0, r[1::2]] = float("nan")
+        else:
+            out["msg_w"][0, r[0::2], 0] = float("inf")
+            out["msg_w"][0, r[1::2], -1] = float("nan")
     return out
 
 
-def compare_kernel(inputs, variant, lam, atol, rtol=1e-5, wire=None):
+def craft_screen_rows(arrs):
+    """Rows that reach every verdict of the defense screens, written into
+    the numpy inputs in place (six blocks of nodes from node 0, each
+    block's rounds all valid): an oversized message (clipped) followed by
+    more rounds (merged against the rescaled lastModel); a zero lastModel
+    with messages above and below the floor of 1; a message anti-aligned
+    with lastModel (gated by cosine_gate); a subnormal message of the
+    opposite sign to lastModel (flushed by the screen, so not gated).
+    Returns the rows of the fifth block, which get a non-finite message in
+    round 0 once the payload is encoded."""
+    import numpy as np
+    lw, msg, valid = arrs["last_w"], arrs["msg_w"], arrs["valid"]
+    n, d = lw.shape
+    b = min(16, n // 6)
+    if b == 0:
+        return np.zeros(0, np.int64)
+    big, zero_lw, anti, tiny, bad, _ = (np.arange(j * b, (j + 1) * b)
+                                        for j in range(6))
+    valid[:, :6 * b] = 1
+    msg[0, big] *= 1e3                        # clipped, then round 1
+    lw[zero_lw] = 0.0                         # the floor thr = 1
+    msg[0, zero_lw[::2]] = 0.1 / np.sqrt(d)   # norm 0.1: passes
+    msg[0, anti] = -lw[anti]                  # cos = -1
+    msg[0, tiny] = np.where(lw[tiny] > 0, -1e-40, 1e-40).astype(np.float32)
+    return bad
+
+
+def compare_kernel(inputs, variant, lam, atol, rtol=1e-5, wire=None,
+                   defense="none"):
     """Run the kernel and the plain version on copies of ``inputs`` on the
-    card; integer state must be equal, float state within tolerance.
-    Returns the max abs error over the float state."""
+    card; integer state and the screen's gated/clipped counts must be
+    equal, float state within tolerance. Returns the max abs error over
+    the float state and the (gated, clipped) totals."""
     import torch
     from repro_torch.kernels import gossip_cycle as gc
     a = {k: v.clone() for k, v in inputs.items()}
     b = {k: v.clone() for k, v in inputs.items()}
-    kw = dict(variant=variant, lam=lam, wire=wire)
-    gc.fused_receive_apply(*(a[k] for k in ORDER),
-                           **{k: a[k] for k in META if k in a}, **kw)
-    gc.fused_receive_apply_plain(*(b[k] for k in ORDER),
-                                 **{k: b[k] for k in META if k in b}, **kw)
+    kw = dict(variant=variant, lam=lam, wire=wire, defense=defense)
+    out = gc.fused_receive_apply(*(a[k] for k in ORDER),
+                                 **{k: a[k] for k in META if k in a}, **kw)
+    want = gc.fused_receive_apply_plain(
+        *(b[k] for k in ORDER), **{k: b[k] for k in META if k in b}, **kw)
     torch.cuda.synchronize()
+    for label, g, p in zip(("gated", "clipped"), out[6:], want[6:]):
+        if not torch.equal(g, p):
+            bad = int((g != p).sum())
+            raise AssertionError(f"{variant} {defense}: {label} counts "
+                                 f"differ in {bad} nodes")
+    counts = (int(want[6].sum()), int(want[7].sum()))
     err = 0.0
     for k in STATE:
         if k in INT_FIELDS:
@@ -140,7 +244,55 @@ def compare_kernel(inputs, variant, lam, atol, rtol=1e-5, wire=None):
             err = max(err, float((a[k] - b[k]).abs().max()))
             if not torch.allclose(a[k], b[k], rtol=rtol, atol=atol):
                 raise AssertionError(f"{variant}: {k} off by {err}")
-    return err
+    return err, counts
+
+
+def voted_inputs(seed, m, c, d, device):
+    """A snapshot of M nodes and M queries, made with numpy: w (M, C, d),
+    count (M,) in [1, C], X (M, d) and assign (M,) (with repeats). Node 0
+    holds an all-zero cache (every score 0, votes +1); nodes 1 and 2 hold
+    count 2 with one positive and one negative score for every query
+    assigned to them (p_ratio exactly 0.5, answered +1); node 3 count 4
+    with one positive score (0.25, answered -1). Queries 0-3 are assigned
+    to nodes 0-3, and copies of X[1], X[2], X[3] steer the slots."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((m, c, d), dtype=np.float32)
+    count = rng.integers(1, c + 1, size=m, dtype=np.int32)
+    X = rng.standard_normal((m, d), dtype=np.float32)
+    assign = rng.integers(0, m, size=m, dtype=np.int32)
+    assign[:4] = np.arange(4)
+    w[0] = 0.0
+    for node in (1, 2):
+        count[node] = 2
+        w[node, 0], w[node, 1] = X[node], -X[node]
+    count[3] = 4
+    w[3, 0], w[3, 1:4] = X[3], -X[3]
+    t = lambda a: torch.from_numpy(a).to(device)
+    return t(w), t(count), t(X), t(assign)
+
+
+def compare_voted(w, count, X, assign):
+    """The voted-predict kernel against its plain version on the card, on
+    the snapshot rows (``assign``) and on the gathered rows (the TPU
+    kernel's form: ``assign = arange(M)``): answers must be equal bit for
+    bit. Returns the answers."""
+    import torch
+    from repro_torch.kernels import voted_predict as vp
+    a = assign.long()
+    want = vp.voted_predict_batched_plain(w[a], count[a], X)
+    rows = torch.arange(len(a), dtype=torch.int32, device=a.device)
+    for got in (vp.voted_predict_batched(w, count, X, assign=assign),
+                vp.voted_predict_batched(w[a].contiguous(),
+                                         count[a].contiguous(), X, rows)):
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            bad = int((got != want).sum())
+            raise AssertionError(f"voted_predict_batched differs from the "
+                                 f"plain version in {bad} of {len(want)} "
+                                 "answers")
+    return want
 
 
 def send_inputs(seed, n, d, device):
@@ -192,9 +344,11 @@ def compare_engines(cfg, X, y, n: int, device, **kw):
     """Run the port's reference engine and its sharded engine (the kernels
     on the card) on the same inputs: the receive kernel, and on a quantized
     wire the codec's send kernel, must launch once a cycle; both economies
-    add up and agree exactly, the wire and buffer bytes agree, the curves
-    agree within 0.02 and the EF residual norms within rtol 1e-4. Returns
-    the sharded result and the max curve difference."""
+    add up and agree exactly, as do the fault counters (Byzantine sends,
+    gated and clipped messages), the wire and buffer bytes agree, the
+    curves agree within 0.02 and the EF residual norms within rtol 1e-4.
+    Returns the sharded result, the max curve difference and the reference
+    result."""
     from repro_torch.core.simulation import run_simulation
     from repro_torch.core.wire_codec import get_codec
     from repro_torch.kernels import gossip_cycle as gc
@@ -225,6 +379,9 @@ def compare_engines(cfg, X, y, n: int, device, **kw):
     if econ(ref) != econ(sh):
         raise AssertionError(f"economy differs: {econ(ref)[:5]} vs "
                              f"{econ(sh)[:5]}")
+    if ref.fault_stats != sh.fault_stats:
+        raise AssertionError(f"fault counters differ: {ref.fault_stats} vs "
+                             f"{sh.fault_stats}")
     if (ref.wire_bytes_total, ref.buf_payload_bytes) != (
             sh.wire_bytes_total, sh.buf_payload_bytes):
         raise AssertionError("wire or buffer bytes differ")
@@ -239,7 +396,87 @@ def compare_engines(cfg, X, y, n: int, device, **kw):
                          <= 1e-4 * ef_ref):
         raise AssertionError(f"EF residual norms differ: {ef_sh} vs "
                              f"{ef_ref}")
-    return sh, curve_diff
+    return sh, curve_diff, ref
+
+
+def feed_server(server, X_test, y_test, queries: int, seed: int = 17):
+    """A ``serve_hook`` that adopts each snapshot into ``server`` and
+    submits ``queries`` test points drawn with replacement from a numpy
+    stream, as ``benchmarks/serving.py`` does; returns (hook, labels), the
+    labels of the submitted queries filled in as they are drawn."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    labels = []
+
+    def hook(cycle, snapshot):
+        server.serve_hook(cycle, snapshot)
+        idx = rng.integers(0, len(X_test), queries)
+        labels.append(y_test[idx])
+        server.submit(X_test[idx])
+    return hook, labels
+
+
+def hooked_equals_unhooked(cfg, X, y, n: int, device, engine: str,
+                           unhooked, **kw):
+    """The ``engine`` run with a serving hook (a ``GossipServer`` answering
+    512 queries at each eval point on the voted-predict kernel) must give
+    bit for bit the curves, economy and fault counters of ``unhooked``.
+    Returns the number of queries served."""
+    from repro_torch.core.simulation import run_simulation
+    from repro_torch.launch.gossip_serve import GossipServer
+    server = GossipServer(batch_size=256)
+    hook, _ = feed_server(server, X[n:], y[n:], 512)
+    res = run_simulation(cfg, X[:n], y[:n], X[n:], y[n:], engine=engine,
+                         device=device, serve_hook=hook, **kw)
+    server.flush()
+    same = lambda r: (r.err_fresh, r.err_voted, r.similarity, r.sent_total,
+                      r.delivered_total, r.fault_stats)
+    if same(res) != same(unhooked):
+        raise AssertionError(f"{engine}: a hooked run differs from an "
+                             "unhooked one")
+    return server.stats().queries
+
+
+def voted_bound(count, assign, d: int):
+    """Least bytes and operations of one voted-predict launch: each
+    distinct assigned node's count and its count valid cache rows read
+    once, each query's x and assign entry read and its answer written;
+    2 d operations a valid row of each query."""
+    import torch
+    a = assign.long()
+    nodes = torch.unique(a)
+    rows = int(count[nodes].sum())
+    m = a.numel()
+    nbytes = 4 * nodes.numel() + 4 * d * rows + m * (4 * d + 4 + 4)
+    ops = 2 * d * int(count[a].sum())
+    ms, by = bound(nbytes, ops)
+    return ms, by, nbytes
+
+
+def time_voted(snap, X_test, m: int, seed: int):
+    """The voted-predict kernel on a snapshot at M queries (test points
+    drawn with numpy, nodes assigned as the server assigns them): bitwise
+    agreement with the plain version, ms per launch and the plain
+    version's ms (``serving.serve_voted``: gather and plain vote), both
+    replayed from a CUDA graph, the kernel's ms per call as the server
+    makes it (the wrapper's host time included) and the bound."""
+    import numpy as np
+    import torch
+    from repro_torch.core import serving
+    from repro_torch.kernels import voted_predict as vp
+    rng = np.random.default_rng(seed)
+    dev = snap.w.device
+    Xq = torch.from_numpy(X_test[rng.integers(0, len(X_test), m)]).to(dev)
+    aq = torch.from_numpy(serving.assign_queries(
+        m, snap.count.shape[0], seed=seed)).to(dev)
+    compare_voted(snap.w, snap.count, Xq, aq)
+    kernel = lambda: vp.voted_predict_batched(snap.w, snap.count, Xq, aq)
+    ms = graph_time_ms(kernel, reps=50)
+    call_ms = cuda_time_ms(kernel, reps=50)
+    plain_ms = graph_time_ms(lambda: serving.serve_voted(
+        snap.w, snap.count, Xq, aq), reps=20)
+    bound_ms, bound_by, nbytes = voted_bound(snap.count, aq, Xq.shape[1])
+    return ms, call_ms, plain_ms, bound_ms, bound_by, nbytes
 
 
 def bound(nbytes: float, ops: float):
@@ -251,23 +488,32 @@ def bound(nbytes: float, ops: float):
             "bytes" if ms_bytes >= ms_ops else "operations")
 
 
-def receive_bound(valid, variant: str, d: int, msg_bytes: int = None):
+def receive_bound(valid, variant: str, d: int, msg_bytes: int = None,
+                  defense: str = "none", gated: int = 0):
     """Least bytes and flops of one receive launch on these inputs: the
     valid lanes; per valid (node, round) the message (``msg_bytes``: its
     payload row with its scale and zero-point, 4 d on the f32 wire) and
     counter read and one cache row and counter written; per node with a
-    valid round its x, y, ptr, count, last_t read (last_w too for mu/um)
-    and last_w, last_t, ptr, count written."""
+    valid round its x, y, ptr, count, last_t read (last_w too for mu/um,
+    and under a defense, which screens against it) and last_w, last_t,
+    ptr, count written; under a defense also the (2, N) gated and clipped
+    counts written, and the screen's sums (sq, rn, dot) and rescale, about
+    7 operations an element of a valid round; a ``gated`` message is read
+    and screened but writes no cache row and is not merged."""
     k, n = valid.shape
     if msg_bytes is None:
         msg_bytes = 4 * d
+    screened = defense != "none"
     v = int((valid > 0).sum())
     r = int(((valid > 0).sum(0) > 0).sum())
-    nbytes = (4 * k * n + v * ((msg_bytes + 4) + (4 * d + 4))
-              + r * ((4 * d + 4) + (4 * d if variant != "rw" else 0)
-                     + 4 * d + 3 * 4 + 3 * 4))
+    nbytes = (4 * k * n + v * (msg_bytes + 4) + (v - gated) * (4 * d + 4)
+              + r * ((4 * d + 4)
+                     + (4 * d if variant != "rw" or screened else 0)
+                     + 4 * d + 3 * 4 + 3 * 4)
+              + (8 * n if screened else 0))
     per_elem = {"rw": 5, "mu": 7, "um": 12}[variant]    # merge, margin, step
-    ms, by = bound(nbytes, v * per_elem * d)
+    ops = (v - gated) * per_elem * d + (v * 7 * d if screened else 0)
+    ms, by = bound(nbytes, ops)
     return ms, by, nbytes
 
 
@@ -317,16 +563,18 @@ def profile_run(run, tag: str, card: str):
                 top=[dict(name=k, ms=t, count=c) for k, t, c in top])
 
 
-def main_path(cfg, X, y, n: int, cycles: int, device):
-    """One main-path run (``run_simulation(engine="sharded")`` on the card)
-    with every launch count set to 0 just before it and read just after,
-    keeping a copy of the last receive and send launches' inputs. Returns
-    (result, wall s, peak bytes, receive launches, send launches by
-    kernel, captured receive inputs, captured send inputs)."""
+def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None):
+    """One main-path run (``run_simulation(engine="sharded")`` on the card,
+    with ``serve_hook`` if given) with every launch count set to 0 just
+    before it and read just after, keeping a copy of the last receive and
+    send launches' inputs. Returns (result, wall s, peak bytes, receive
+    launches, send launches by kernel, captured receive inputs, captured
+    send inputs, voted-predict launches)."""
     import numpy as np
     import torch
     from repro_torch.core.simulation import run_simulation
     from repro_torch.kernels import gossip_cycle as gc
+    from repro_torch.kernels import voted_predict as vp
 
     recv, send = gc.fused_receive_apply, gc.quantize_send
     got_recv, got_send = {}, {}
@@ -338,6 +586,7 @@ def main_path(cfg, X, y, n: int, cycles: int, device):
             got_recv.update({k: kw[k].clone() for k in META
                              if kw.get(k) is not None})
             got_recv["wire"] = kw.get("wire")
+            got_recv["defense"] = kw.get("defense", "none")
         return recv(*a, **kw)
 
     def capture_send(w, name, key=None, ef=None):
@@ -350,16 +599,18 @@ def main_path(cfg, X, y, n: int, cycles: int, device):
     torch.cuda.reset_peak_memory_stats()
     gc.fused_receive_apply, gc.quantize_send = capture_recv, capture_send
     try:
-        recv.launches = 0
+        recv.launches = vp.voted_predict_batched.launches = 0
         for k in send.launches:
             send.launches[k] = 0
         t0 = time.perf_counter()
         res = run_simulation(cfg, X[:n], y[:n], X[n:], y[n:],
                              engine="sharded", cycles=cycles, eval_every=10,
-                             seed=0, k_rounds=4, device=device)
+                             seed=0, k_rounds=4, device=device,
+                             serve_hook=serve_hook)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, sends = recv.launches, dict(send.launches)
+        voted = vp.voted_predict_batched.launches
     finally:
         gc.fused_receive_apply, gc.quantize_send = recv, send
     peak = torch.cuda.max_memory_allocated()
@@ -373,20 +624,23 @@ def main_path(cfg, X, y, n: int, cycles: int, device):
     if not (len(res.cycles) == 2 and all(np.isfinite(curves))
             and all(0.0 <= e <= 0.5 for e in res.err_fresh + res.err_voted)):
         raise AssertionError(f"bad curves {curves}")
-    return res, wall, peak, launches, sends, got_recv, got_send
+    return res, wall, peak, launches, sends, got_recv, got_send, voted
 
 
 def time_receive(captured, variant: str, lam: float, d: int):
-    """The receive kernel on captured main-path inputs: agreement with the
-    plain version there, ms per launch, the plain version's ms, and the
-    bound. Returns (max abs err, ms, plain ms, bound ms, bound_by,
-    bytes)."""
+    """The receive kernel on captured main-path inputs (with their
+    ``wire`` and ``defense``): agreement with the plain version there, ms
+    per launch, the plain version's ms, and the bound. Returns (max abs
+    err, ms, plain ms, bound ms, bound_by, bytes)."""
     from repro_torch.core.wire_codec import get_codec
     from repro_torch.kernels import gossip_cycle as gc
     wire = captured.get("wire")
-    inputs = {k: v for k, v in captured.items() if k != "wire"}
-    err = compare_kernel(inputs, variant, lam, 1e-5, wire=wire)
-    kw = dict(variant=variant, lam=lam, wire=wire)
+    defense = captured.get("defense", "none")
+    inputs = {k: v for k, v in captured.items()
+              if k not in ("wire", "defense")}
+    err, (gated, _) = compare_kernel(inputs, variant, lam, 1e-5, wire=wire,
+                                     defense=defense)
+    kw = dict(variant=variant, lam=lam, wire=wire, defense=defense)
 
     def runner(fn):
         st = {k: v.clone() for k, v in inputs.items()}
@@ -399,7 +653,7 @@ def time_receive(captured, variant: str, lam: float, d: int):
     codec = get_codec(wire)
     bound_ms, bound_by, nbytes = receive_bound(
         inputs["valid"], variant, d,
-        codec.payload_bytes(d) + codec.overhead_bytes)
+        codec.payload_bytes(d) + codec.overhead_bytes, defense, gated)
     return err, ms, plain_ms, bound_ms, bound_by, nbytes
 
 
@@ -479,13 +733,62 @@ def main() -> int:
         for mode, wire in (("f32", None), *DECODE_WIRES.items()):
             inputs = receive_inputs(si, n, d, c, k, dev, wire=wire)
             for variant in ("rw", "mu", "um"):
-                err = compare_kernel(inputs, variant, 1e-3, atol, wire=wire)
+                err, _ = compare_kernel(inputs, variant, 1e-3, atol,
+                                        wire=wire)
                 max_err = max(max_err, err)
                 print(f"[1] fused_receive_apply {mode} N={n} d={d} C={c} "
                       f"K={k} {variant}: ints equal, max abs err {err:.3e} "
                       f"(atol {atol:g}, rtol 1e-5)")
             del inputs
         torch.cuda.empty_cache()
+    # the defense screens, on inputs with crafted rows for every verdict
+    for si, (n, d, c, k, atol) in enumerate(shapes):
+        for defense in DEFENSE_MODES:
+            for mode, wire in (("f32", None), *SCREEN_WIRES.items()):
+                inputs = receive_inputs(si, n, d, c, k, dev, wire=wire,
+                                        crafted=True)
+                for variant in ("rw", "mu", "um"):
+                    err, (g, cl) = compare_kernel(inputs, variant, 1e-3,
+                                                  atol, wire=wire,
+                                                  defense=defense)
+                    if g == 0 or (defense == "norm_clip") != (cl > 0):
+                        raise AssertionError(
+                            f"{defense} {mode}: crafted rows gave gated {g} "
+                            f"clipped {cl}")
+                    max_err = max(max_err, err)
+                    print(f"[1] fused_receive_apply {defense} {mode} N={n} "
+                          f"d={d} C={c} K={k} {variant}: ints and counts "
+                          f"equal (gated {g}, clipped {cl}), max abs err "
+                          f"{err:.3e}")
+                del inputs
+        torch.cuda.empty_cache()
+    # the bf16/f16 decode modes, which no main-path phase runs: time and
+    # bound at the main path's size
+    results["decode_modes"] = {}
+    for mode in ("bf16", "f16"):
+        inputs = receive_inputs(0, 1_000_000, 10, 10, 4, dev, wire=mode)
+        inputs["wire"] = mode
+        e_, ms_, plain_, bound_, by_, bytes_ = time_receive(inputs, "mu",
+                                                            1e-3, 10)
+        print(f"[1] {card}: fused_receive_apply {mode} decode at N=10^6 "
+              f"d=10 C=10 K=4 mu: {ms_:.4f} ms/launch vs bound "
+              f"{bound_:.4f} ms ({by_}, {bytes_} B); plain version "
+              f"{plain_:.4f} ms; max abs err {e_:.3e}")
+        results["decode_modes"][mode] = dict(ms=ms_, plain_ms=plain_,
+                                             bound_ms=bound_, bound_by=by_)
+        del inputs
+    torch.cuda.empty_cache()
+    # the voted-predict kernel: bitwise, at the serving shapes
+    for m, c, d in VOTED_SHAPES:
+        w, count, Xq, aq = voted_inputs(m + d, m, c, d, dev)
+        ans = compare_voted(w, count, Xq, aq)
+        if ans[:4].tolist() != [1.0, 1.0, 1.0, -1.0]:
+            raise AssertionError(f"voted_predict_batched: zero-score, tie "
+                                 f"and below-tie answers {ans[:4].tolist()}")
+        print(f"[1] voted_predict_batched M={m} C={c} d={d}: answers "
+              "bitwise equal to the plain version (snapshot and gathered "
+              "forms; zero scores and exact-half ties answer +1)")
+    del w, count, Xq, aq
     key = random.key(12345, device=dev)
     for n, d in ((4099, 10), (4099, 57), (2000, 9947), (257, 1), (257, 7)):
         w, ef = send_inputs(n + d, n, d, dev)
@@ -525,7 +828,7 @@ def main() -> int:
         name="smoke-20k", dim=10, n_nodes=n2, n_test=1000,
         class_ratio=(1, 1), lam=1e-3, variant="mu", cache_size=10),
         "extreme")
-    sh, curve_diff = compare_engines(cfg2, X, y, n2, dev, cycles=20,
+    sh, curve_diff, _ = compare_engines(cfg2, X, y, n2, dev, cycles=20,
                                      eval_every=10, seed=0, k_rounds=4)
     print(f"[2] N={n2} extreme 20 cycles: economy equal (sent "
           f"{sh.sent_total}, delivered {sh.delivered_total}, lost "
@@ -536,7 +839,7 @@ def main() -> int:
                              err_fresh=sh.err_fresh, err_voted=sh.err_voted)
     for wire in MAIN_WIRES:
         cfgw = dataclasses.replace(cfg2, wire_dtype=wire)
-        shw, dw = compare_engines(cfgw, X, y, n2, dev, cycles=20,
+        shw, dw, _ = compare_engines(cfgw, X, y, n2, dev, cycles=20,
                                   eval_every=10, seed=0, k_rounds=4)
         print(f"[2] {wire} N={n2} extreme 20 cycles: economy equal (sent "
               f"{shw.sent_total}, delivered {shw.delivered_total}); wire "
@@ -562,6 +865,33 @@ def main() -> int:
         raise AssertionError("permutation differs between CUDA and CPU")
     print("[2] first chunk's key schedule and draw tables (and a "
           "permutation) bitwise equal on CUDA and CPU")
+    # Byzantine faults and the defense screens, then serving hooks
+    results["phase2"]["faults"] = {}
+    for fault, wire, defense in FAULT_RUNS:
+        cfgf = dataclasses.replace(cfg2, wire_dtype=wire, fault_model=fault,
+                                   byzantine_frac=0.1, defense=defense)
+        tag = f"{fault}/{wire or 'f32'}/{defense}"
+        shf, df, reff = compare_engines(cfgf, X, y, n2, dev, cycles=20,
+                                        eval_every=10, seed=0, k_rounds=4)
+        fs = shf.fault_stats
+        if fs["corrupted"] == 0 or fs["gated"] + fs["clipped"] == 0:
+            raise AssertionError(f"{tag}: no fault reached the screen {fs}")
+        print(f"[2] {tag} N={n2} extreme 20 cycles: economy and fault "
+              f"counters equal ({fs}); max curve difference {df:.3e}; "
+              f"err_fresh {shf.err_fresh} err_voted {shf.err_voted}")
+        results["phase2"]["faults"][tag] = dict(
+            curve_diff=df, fault_stats=fs, sent=shf.sent_total,
+            err_fresh=shf.err_fresh, err_voted=shf.err_voted)
+        if fault == "sign_flip" and defense == "norm_clip":
+            for engine, unhooked in (("sharded", shf), ("reference", reff)):
+                q = hooked_equals_unhooked(cfgf, X, y, n2, dev, engine,
+                                           unhooked, cycles=20,
+                                           eval_every=10, seed=0,
+                                           k_rounds=4)
+                print(f"[2] {tag} {engine} engine with a serving hook "
+                      f"({q} queries): curves, economy and fault counters "
+                      "bit for bit those of the run without it")
+    torch.cuda.empty_cache()
 
     # ---- 3. full size ------------------------------------------------------
     n3, cycles = 1_000_000, 20
@@ -573,8 +903,8 @@ def main() -> int:
         class_ratio=(1, 1), lam=1e-3, variant="mu", cache_size=10),
         "extreme")
 
-    res, wall, peak, launches, _, captured, _ = main_path(cfg3, X, y, n3,
-                                                          cycles, dev)
+    res, wall, peak, launches, _, captured, _, _ = main_path(
+        cfg3, X, y, n3, cycles, dev)
     rate = n3 * cycles / wall
     print(f"[3] {card}: N={n3} d=10 extreme MU K=4 C=10 {cycles} cycles: "
           f"launches {launches}; cycles {res.cycles} err_fresh "
@@ -627,7 +957,7 @@ def main() -> int:
     for wire in MAIN_WIRES:
         cfg4 = dataclasses.replace(cfg3, wire_dtype=wire)
         kernel = gc.send_kernel_name(wire)
-        res, wall, peak, launches, sends, cap_r, cap_s = main_path(
+        res, wall, peak, launches, sends, cap_r, cap_s, _ = main_path(
             cfg4, X, y, n3, cycles, dev)
         if sends[kernel] != cycles or sum(sends.values()) != cycles:
             raise AssertionError(f"{wire}: main path launched the send "
@@ -689,12 +1019,119 @@ def main() -> int:
             profile=prof)
         torch.cuda.empty_cache()
 
+    # ---- 5. faults, a defense and live serving at full size -------------
+    from repro_torch.core import serving
+    from repro_torch.launch.gossip_serve import GossipServer
+    cfg5 = dataclasses.replace(cfg3, fault_model="sign_flip",
+                               byzantine_frac=0.1, defense="norm_clip")
+    server = GossipServer(batch_size=256)
+    hook, labels = feed_server(server, X[n3:], y[n3:], 2048)
+    take = serving.snapshot_from_carry
+    clone_s = []
+
+    def timed_snapshot(carry):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = take(carry)
+        torch.cuda.synchronize()
+        clone_s.append(time.perf_counter() - t0)
+        return snap
+
+    serving.snapshot_from_carry = timed_snapshot
+    try:
+        res, wall, peak, launches, _, cap_r, _, voted = main_path(
+            cfg5, X, y, n3, cycles, dev, serve_hook=hook)
+    finally:
+        serving.snapshot_from_carry = take
+    server.flush()
+    st = server.stats()
+    acc = float(np.mean(server.answers() == np.concatenate(labels)))
+    fs = res.fault_stats
+    if fs["corrupted"] == 0 or fs["clipped"] == 0:
+        raise AssertionError(f"phase 5: fault counters {fs}")
+    if voted != st.batches or voted == 0:
+        raise AssertionError(f"phase 5: the server answered {st.batches} "
+                             f"batches with {voted} voted-predict launches")
+    if not 0.5 < acc <= 1.0:
+        raise AssertionError(f"phase 5: served accuracy {acc}")
+    rate = n3 * cycles / wall
+    print(f"[5] {card}: N={n3} d=10 extreme MU K=4 C=10 {cycles} cycles, "
+          f"sign_flip 10% + norm_clip, served: launches receive {launches}, "
+          f"voted_predict {voted}; err_fresh {res.err_fresh} err_voted "
+          f"{res.err_voted}; fault counters {fs}")
+    print(f"[5] {card}: economy sent {res.sent_total} = delivered "
+          f"{res.delivered_total} + lost {res.lost_total} + overflow "
+          f"{res.overflow_total} + in flight {res.in_flight_total}")
+    print(f"[5] {card}: wall {wall:.3f} s, {rate:.0f} node-cycles/s, peak "
+          f"device memory {peak / 2**30:.2f} GiB; snapshot copies "
+          f"{[round(t * 1e3, 3) for t in clone_s]} ms")
+    print(f"[5] {card}: served {st.queries} queries in {st.batches} batches "
+          f"of 256: {st.queries_per_sec:.0f} queries/s over the batch "
+          f"latencies, p50 {st.p50_latency_s * 1e3:.4f} ms, p99 "
+          f"{st.p99_latency_s * 1e3:.4f} ms; voted accuracy {acc:.4f}")
+    c_err, c_ms, c_plain, c_bound, c_by, c_bytes = time_receive(
+        cap_r, cfg5.variant, cfg5.lam, 10)
+    max_err = max(max_err, c_err)
+    print(f"[5] {card}: fused_receive_apply norm_clip at N={n3}: "
+          f"{c_ms:.4f} ms/launch vs bound {c_bound:.4f} ms ({c_by}, "
+          f"{c_bytes} B); plain version {c_plain:.4f} ms; max abs err vs "
+          f"plain {c_err:.3e}")
+    del cap_r
+    voted_rows = {}
+    for m in (256, 65_536):
+        v_ms, v_call, v_plain, v_bound, v_by, v_bytes = time_voted(
+            server.snapshot, X[n3:], m, seed=m)
+        voted_rows[m] = dict(ms=v_ms, call_ms=v_call, plain_ms=v_plain,
+                             bound_ms=v_bound, bound_by=v_by,
+                             bound_bytes=v_bytes)
+        print(f"[5] {card}: voted_predict_batched M={m} on the N={n3} "
+              f"snapshot: {v_ms:.4f} ms/launch in a CUDA graph vs bound "
+              f"{v_bound:.4f} ms ({v_by}, {v_bytes} B), {v_call:.4f} ms "
+              f"per call; plain version {v_plain:.4f} ms in a graph; "
+              "bitwise equal to plain")
+    prof5 = profile_run(
+        lambda: run_simulation(
+            cfg5, X[:n3], y[:n3], X[n3:], y[n3:], engine="sharded",
+            cycles=cycles, eval_every=10, seed=0, k_rounds=4, device="cuda",
+            serve_hook=feed_server(GossipServer(batch_size=256), X[n3:],
+                                   y[n3:], 2048)[0]), "5", card)
+    results["phase5"] = dict(
+        wall_s=wall, node_cycles_per_s=rate, peak_bytes=peak,
+        launches=launches, voted_launches=voted, fault_stats=fs,
+        err_fresh=res.err_fresh, err_voted=res.err_voted,
+        sent=res.sent_total, delivered=res.delivered_total,
+        lost=res.lost_total, overflow=res.overflow_total,
+        in_flight=res.in_flight_total, snapshot_copy_s=clone_s,
+        queries=st.queries, batches=st.batches,
+        queries_per_s=st.queries_per_sec, p50_s=st.p50_latency_s,
+        p99_s=st.p99_latency_s, voted_accuracy=acc,
+        receive=dict(ms=c_ms, plain_ms=c_plain, bound_ms=c_bound,
+                     bound_bytes=c_bytes, max_abs_err=c_err),
+        voted=voted_rows, profile=prof5)
+    del server
+    torch.cuda.empty_cache()
+    kernels[0]["max_abs_err"] = max_err
+    kernels.append(dict(
+        name="fused_receive_apply[norm_clip]", route="cuda",
+        source="src/repro_torch/kernels/csrc/gossip_cycle.cu",
+        replaces="src/repro/kernels/gossip_cycle.py:272",
+        launches=launches, max_abs_err=c_err, ms=c_ms, plain_ms=c_plain,
+        bound_ms=c_bound, bound_by=c_by, library_ms=None))
+
     for kernel, replaces in SEND_ROWS.items():
         kernels.append(dict(
             name=f"quantize_send[{kernel}]", route="cuda",
             source="src/repro_torch/kernels/csrc/quantize_send.cu",
             replaces=replaces, max_abs_err=0.0, library_ms=None,
             **send_rows[kernel]))
+    v256 = voted_rows[256]
+    kernels.append(dict(
+        name="voted_predict_batched", route="cuda",
+        source="src/repro_torch/kernels/csrc/voted_predict.cu",
+        replaces="src/repro/kernels/voted_predict.py:73", launches=voted,
+        max_abs_err=0.0, ms=v256["ms"], plain_ms=v256["plain_ms"],
+        bound_ms=v256["bound_ms"], bound_by=v256["bound_by"],
+        library_ms=None))
     results["kernels"] = kernels
     if opts.out:
         out = Path(opts.out)

@@ -21,9 +21,10 @@ class GossipLinearConfig:
     ``delay_max_cycles`` (delay uniform in [1, max] cycles),
     ``online_fraction`` (lognormal churn; 1.0 disables it). ``wire_dtype``
     names a wire codec of ``repro_torch.core.wire_codec`` (``None`` is
-    f32). ``fault_model``, ``byzantine_frac`` and ``defense`` are the
-    reference's fault options; the port accepts only their defaults so far
-    (ROADMAP.md queue 1 item 6)."""
+    f32). ``fault_model`` (a name of ``repro_torch.core.faults.
+    FAULT_MODELS``), ``byzantine_frac`` (in [0, 1]) and ``defense`` (one
+    of ``faults.DEFENSES``) are the reference's fault options; a run
+    rejects bad values with the reference's messages."""
     name: str
     dim: int
     n_nodes: int

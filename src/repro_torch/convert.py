@@ -10,7 +10,8 @@ codec does not carry is an empty (0, 0) array. These helpers move that
 carry, as numpy arrays, into the port's
 :class:`~repro_torch.core.sharded_engine.Carry` and back, each lane in its
 own dtype, and rebuild a config from ``dataclasses.asdict`` of the
-reference's. numpy has no bfloat16 of its own: a bf16 ``buf_w`` comes in
+reference's. ``snapshot_from_arrays`` does the same for the reference's
+serving ``QuerySnapshot``. numpy has no bfloat16 of its own: a bf16 ``buf_w`` comes in
 as the reference's array and goes back out as its raw bits (uint16).
 """
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch.configs.gossip_linear import GossipLinearConfig
 from repro_torch.core.cache import ModelCache
+from repro_torch.core.serving import QuerySnapshot
 from repro_torch.core.sharded_engine import Carry
 
 CARRY_FIELDS = ("last_w", "last_t", "fresh_w", "fresh_t", "cache_w",
@@ -80,6 +82,20 @@ def to_arrays(carry: Carry) -> tuple:
             np_(carry.cache.ptr), np_(carry.cache.count), np_(carry.buf_w),
             np_(carry.buf_t), np_(carry.buf_scale), np_(carry.buf_zp),
             np_(carry.ef), np.asarray(carry.clock, np.int32))
+
+
+def snapshot_from_arrays(arrays: Sequence, device) -> QuerySnapshot:
+    """The reference's ``QuerySnapshot`` (its six fields as numpy arrays,
+    in ``QuerySnapshot._fields`` order) as the port's, on ``device``."""
+    if len(arrays) != len(QuerySnapshot._fields):
+        raise ValueError(f"expected {len(QuerySnapshot._fields)} snapshot "
+                         f"arrays ({', '.join(QuerySnapshot._fields)}), got "
+                         f"{len(arrays)}")
+    w, t, count, fresh_w, fresh_t, clock = (np.asarray(a) for a in arrays)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=device)
+    return QuerySnapshot(f32(w), i32(t), i32(count), f32(fresh_w),
+                         i32(fresh_t), int(clock))
 
 
 def config_from_dict(d: Mapping) -> GossipLinearConfig:

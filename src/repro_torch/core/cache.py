@@ -52,6 +52,15 @@ def freshest(cache: ModelCache):
     return cache.w[rows, slot], cache.t[rows, slot]
 
 
+def cache_oldest(cache: ModelCache):
+    """The oldest still-valid model per node (slot ``ptr - count``): what a
+    ``stale_replay`` Byzantine node retransmits, with its counter."""
+    n, c, _ = cache.w.shape
+    rows = torch.arange(n, device=cache.w.device)
+    slot = ((cache.ptr - cache.count) % c).long()
+    return cache.w[rows, slot], cache.t[rows, slot]
+
+
 def predict_fresh(cache: ModelCache, X):
     """PREDICT for every node over a test matrix X (m, d) -> (N, m) signs."""
     w, _ = freshest(cache)

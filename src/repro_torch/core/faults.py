@@ -1,0 +1,241 @@
+"""Adversarial-node fault injection and robust merge defenses.
+
+Counterpart of ``repro/core/faults.py``:
+
+* ``FAULT_MODELS``: a seed-chosen Byzantine subset of nodes corrupts every
+  model it sends. The model-kind faults (``sign_flip``, ``amplify``,
+  ``zero``, ``random_payload``, ``stale_replay``) rewrite the transmitted
+  model before the wire encode; the wire-kind ``bitflip`` flips one bit of
+  the encoded payload after it.
+* ``DEFENSES``: receive-side screens applied per merge round against the
+  receiver's current lastModel. ``norm_clip`` rescales an oversized
+  payload's L2 norm to a multiple of the receiver's own, ``cosine_gate``
+  rejects payloads anti-aligned with it, and both reject non-finite
+  payloads.
+* Fault draws use ``fault_key`` = ``fold_in(cycle_key, FAULT_FOLD)``, which
+  derives a key without consuming from the cycle's ``split(key, 4)``, so a
+  fault-free run draws exactly what it drew before faults existed.
+
+Every function takes and returns tensors on one device and gives the
+reference's values bit for bit (``apply_defense``'s rescale within the
+rounding of its sums); ``byzantine_mask`` is host numpy, as in the
+reference.
+
+The reference's arithmetic flushes subnormal floats to zero (XLA on the
+CPU and the TPU both do; PyTorch and CUDA keep them), and the screen's
+verdicts are discrete: a ``bitflip`` on a float wire turns a zero
+coefficient into a subnormal one, whose product with lastModel decides a
+``cosine_gate`` verdict on sign alone. So ``apply_defense`` flushes, as the
+reference's arithmetic does, its inputs and every product, ratio and
+square root it compares (``_ftz``), and the receive kernel's screen does
+the same. Only the sums are not flushed; their terms are never subnormal,
+so only a cancellation below 2^-126 in ``dot`` could tell them apart.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import random
+
+# the reference's pinned constants (repro/core/faults.py)
+FAULT_FOLD = 0x0FA17
+BYZANTINE_STREAM_TAG = 0xB12A
+SIGN_FLIP_GAMMA = 4.0
+AMPLIFY_GAMMA = 8.0
+NORM_CLIP_MULT = 2.0
+NORM_CLIP_FLOOR = 1.0
+COSINE_GATE_THRESHOLD = -0.2
+COSINE_GATE_MIN_NORM = 1e-3
+
+DEFENSES = ("none", "norm_clip", "cosine_gate")
+
+# The screen's constants as JAX evaluates them: a Python double (the square
+# taken in double), rounded to float32 once where it meets a float32 array.
+_F32 = lambda v: float(np.float32(v))
+NORM_CLIP_MULT_SQ = _F32(NORM_CLIP_MULT ** 2)
+NORM_CLIP_FLOOR_SQ = _F32(NORM_CLIP_FLOOR ** 2)
+COSINE_GATE_MIN_NORM_SQ = _F32(COSINE_GATE_MIN_NORM ** 2)
+COSINE_GATE_THRESHOLD_F32 = _F32(COSINE_GATE_THRESHOLD)
+CLIP_SQ_GUARD = _F32(1e-30)
+_FLT_MIN = float(np.finfo(np.float32).tiny)     # smallest normal float32
+
+
+@dataclass(frozen=True)
+class FaultModel:
+    """One registered adversarial behavior: ``kind`` "model" rewrites
+    ``(send_w, send_t)`` before the encode, "wire" the payload after it."""
+    name: str
+    kind: str
+    description: str
+
+
+FAULT_MODELS: Dict[str, FaultModel] = {}
+
+
+def _register(fault: FaultModel) -> FaultModel:
+    assert fault.name not in FAULT_MODELS, fault.name
+    assert fault.kind in ("model", "wire"), fault.kind
+    FAULT_MODELS[fault.name] = fault
+    return fault
+
+
+_register(FaultModel("sign_flip", "model",
+                     f"transmit -{SIGN_FLIP_GAMMA:g}*w (scaled sign "
+                     "reversal / gradient-reversal attack)"))
+_register(FaultModel("amplify", "model",
+                     f"transmit {AMPLIFY_GAMMA:g}*w (model amplification)"))
+_register(FaultModel("zero", "model",
+                     "transmit the zero model (knowledge erasure)"))
+_register(FaultModel("random_payload", "model",
+                     "transmit uniform noise at the sender's own "
+                     "coefficient scale"))
+_register(FaultModel("stale_replay", "model",
+                     "retransmit the node's oldest cached model "
+                     "(tau ~ cache_size receives ago)"))
+_register(FaultModel("bitflip", "wire",
+                     "flip one uniform random bit of the encoded wire "
+                     "payload (honest fault, post-encode)"))
+
+
+def get_fault(name: Optional[str]) -> Optional[FaultModel]:
+    """Resolve a fault-model name; ``None``/"" = no fault injection."""
+    if name is None or name == "":
+        return None
+    try:
+        return FAULT_MODELS[name]
+    except KeyError:
+        raise ValueError(f"unknown fault model {name!r} "
+                         f"(expected one of {sorted(FAULT_MODELS)})"
+                         ) from None
+
+
+def check_defense(name: str) -> str:
+    if name not in DEFENSES:
+        raise ValueError(f"unknown defense {name!r} "
+                         f"(expected one of {list(DEFENSES)})")
+    return name
+
+
+def byzantine_mask(seed: int, n: int, frac: float) -> np.ndarray:
+    """The static per-run Byzantine subset: ``round(frac * n)`` nodes drawn
+    without replacement from ``default_rng(SeedSequence([seed,
+    BYZANTINE_STREAM_TAG]))``, a stream of its own so that enabling faults
+    shifts no churn or eval draw. Shared by both engines."""
+    if not 0.0 <= frac <= 1.0:
+        raise ValueError(f"byzantine_frac must be in [0, 1], got {frac}")
+    mask = np.zeros(n, bool)
+    k = int(round(frac * n))
+    if k:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([seed, BYZANTINE_STREAM_TAG]))
+        mask[rng.choice(n, size=k, replace=False)] = True
+    return mask
+
+
+def fault_key(key) -> torch.Tensor:
+    """The per-cycle fault key ``fold_in(key, FAULT_FOLD)``; a (T, 2) stack
+    of cycle keys gives the (T, 2) fault keys in one call."""
+    return random.fold_in(key, FAULT_FOLD)
+
+
+def _uniform_rows(key, m: int, d: int, rows, n_total: Optional[int]):
+    """``uniform(key, (m, d))``, or its rows ``rows`` of the full
+    ``(n_total, d)`` draw."""
+    if rows is None:
+        return random.uniform(key, (m, d))
+    return random.sr_noise_for_rows(key, rows, d, n_total)
+
+
+def corrupt_model(fault: FaultModel, byz, key, w, t, old_w=None, old_t=None,
+                  rows=None, n_total: Optional[int] = None):
+    """A model-kind fault on the Byzantine rows of a send batch.
+
+    ``w`` (m, d) f32 models about to be sent, ``t`` (m,) int32, ``byz``
+    (m,) bool; ``old_w``/``old_t`` (``cache.cache_oldest``) for
+    ``stale_replay``. ``random_payload`` draws ``uniform(key, (m, d))``;
+    with ``rows`` (global row ids of a subset, ``n_total`` the population)
+    it draws the same values at those rows of the full draw."""
+    name = fault.name
+    if name == "sign_flip":
+        cw, ct = -SIGN_FLIP_GAMMA * w, t
+    elif name == "amplify":
+        cw, ct = AMPLIFY_GAMMA * w, t
+    elif name == "zero":
+        cw, ct = torch.zeros_like(w), t
+    elif name == "random_payload":
+        scale = torch.amax(torch.abs(w), dim=-1, keepdim=True)
+        u = _uniform_rows(key, w.shape[0], w.shape[-1], rows, n_total)
+        cw, ct = (2.0 * u - 1.0) * scale, t
+    elif name == "stale_replay":
+        cw, ct = old_w, old_t
+    else:
+        raise ValueError(f"{name!r} is not a model-kind fault")
+    return (torch.where(byz[:, None], cw, w), torch.where(byz, ct, t))
+
+
+def bitflip_payload(byz, key, payload, rows=None,
+                    n_total: Optional[int] = None):
+    """Flip one uniformly drawn bit in each Byzantine row of an encoded
+    (m, P) payload of any codec's dtype.
+
+    The reference draws ``u = uniform(key, (m, 1))`` (or the rows ``rows``
+    of the ``(n_total, 1)`` draw), takes bit ``min(trunc(u * nbits), nbits
+    - 1)`` of the row's ``nbits = P * itemsize * 8`` (``u * nbits`` rounded
+    in float32) and XORs it into the row's lanes viewed as unsigned
+    integers. Lane ``b // (8 itemsize)``, bit ``b % (8 itemsize)`` of a
+    little-endian lane is bit ``b % 8`` of the row's byte ``b // 8``, so the
+    flip is made on the row's bytes (``Tensor.view(torch.uint8)``, where
+    XOR exists for every codec's dtype)."""
+    m = payload.shape[0]
+    raw = payload.contiguous().view(torch.uint8)          # (m, P * itemsize)
+    nbits = raw.shape[1] * 8
+    u = _uniform_rows(key, m, 1, rows, n_total)[:, 0]
+    bit = torch.clamp_max((u * nbits).to(torch.int64), nbits - 1)
+    lane = torch.arange(raw.shape[1], device=raw.device)[None, :]
+    mask = torch.bitwise_left_shift(torch.ones_like(bit), bit % 8)
+    flip = torch.where(lane == (bit // 8)[:, None], mask[:, None],
+                       0).to(torch.uint8)
+    flipped = torch.bitwise_xor(raw, flip).view(payload.dtype)
+    return torch.where(byz[:, None], flipped, payload)
+
+
+def _ftz(x):
+    """``x`` with its subnormal values flushed to a zero of their sign."""
+    return torch.where(torch.abs(x) < _FLT_MIN, x * 0.0, x)
+
+
+def apply_defense(defense: str, msg_w, valid, recv_w):
+    """Screen one receive round's payloads against the receiver's state.
+
+    ``msg_w`` (m, d) decoded f32 payloads, ``valid`` (m,) bool, ``recv_w``
+    (m, d) the receiver's current lastModel. Returns ``(msg_w, valid,
+    gated, clipped)``: the payloads (rescaled where clipped), the surviving
+    valid mask, and per-node bools of a rejected and of a rescaled message.
+    The port pads no lanes, so the reference's ``real=`` mask has no
+    counterpart here. Subnormals are flushed as the module note says."""
+    if defense == "none":
+        zeros = torch.zeros_like(valid)
+        return msg_w, valid, zeros, zeros
+    m, r = _ftz(msg_w), _ftz(recv_w)
+    sq = torch.sum(_ftz(m * m), dim=-1)
+    rn = torch.sum(_ftz(r * r), dim=-1)
+    finite = torch.isfinite(sq)            # NaN/inf anywhere poisons the sum
+    if defense == "norm_clip":
+        thr = torch.clamp_min(NORM_CLIP_MULT_SQ * rn, NORM_CLIP_FLOOR_SQ)
+        clip = finite & (sq > thr)
+        scale = torch.sqrt(_ftz(thr / torch.clamp_min(sq, CLIP_SQ_GUARD)))
+        msg_w = torch.where(clip[:, None], _ftz(m * scale[:, None]), msg_w)
+        return msg_w, valid & finite, valid & ~finite, valid & clip
+    if defense == "cosine_gate":
+        dot = torch.sum(_ftz(m * r), dim=-1)
+        anti = (rn > COSINE_GATE_MIN_NORM_SQ) & (
+            dot < COSINE_GATE_THRESHOLD_F32 * torch.sqrt(_ftz(sq * rn)))
+        reject = ~finite | anti
+        return (msg_w, valid & ~reject, valid & reject,
+                torch.zeros_like(valid))
+    raise ValueError(f"unknown defense {defense!r} "
+                     f"(expected one of {list(DEFENSES)})")

@@ -1,7 +1,9 @@
 """Mega-population gossip engine (``run_simulation(engine="sharded")``).
 
 Counterpart of ``repro/core/sharded_engine.py`` with the dense packing on
-one device. The protocol is split the way a router splits a network:
+one device, on every wire codec and fault model, with the defense screens
+in the receive kernel and a ``serve_hook`` at every eval point. The
+protocol is split the way a router splits a network:
 
 * **control plane on the host** — which message reaches which node in which
   round depends only on the threefry draws, the churn matrix and the
@@ -19,9 +21,13 @@ one device. The protocol is split the way a router splits a network:
   plain version on CPU tensors), and refreshes the in-flight buffer row
   with each node's freshest model, encoded by the send kernel
   (``quantize_send``) for the quantized codecs. The carry is updated in
-  place, as the JAX chunk function donates it. Launches are asynchronous,
-  so routing chunk i+1 on the host overlaps the device's work on chunk i;
-  the eval results are read once, after the last chunk.
+  place, as the JAX chunk function donates it. A Byzantine sender's model
+  is corrupted before the encode (or its payload after it) with the
+  cycle's ``fault_key``, made on the device for the whole chunk. Launches
+  are asynchronous, so routing chunk i+1 on the host overlaps the device's
+  work on chunk i; the eval results and the screen's counts are read once,
+  after the last chunk. Byzantine sends are counted on the host from the
+  arrival table, as the reference's host loop counts them.
 
 Determinism: the same seed gives the same host stream, the same per-cycle
 draws and the same winner semantics as both reference engines, so the
@@ -38,10 +44,12 @@ import torch
 from repro_torch import random
 from repro_torch.configs.gossip_linear import GossipLinearConfig
 from repro_torch.core import cache as cache_mod
+from repro_torch.core import faults, serving
 from repro_torch.core.cache import ModelCache
-from repro_torch.core.simulation import (SimResult, _eval, check_slice,
-                                         draw_sends, ef_residual_norm,
-                                         eval_points, message_wire_bytes,
+from repro_torch.core.simulation import (SimResult, _eval, byzantine_tensor,
+                                         check_slice, draw_sends,
+                                         ef_residual_norm, eval_points,
+                                         message_wire_bytes,
                                          payload_buffer_bytes, sim_setup)
 from repro_torch.core.wire_codec import WireCodec, get_codec
 from repro_torch.kernels import gossip_cycle
@@ -204,7 +212,8 @@ def init_carry(n: int, d: int, cache_size: int, delay_max: int, device,
 
 
 def run_dense_chunk(carry: Carry, table, X, y, *, variant: str, lam: float,
-                    wire=None, keys=None, send_mask=None) -> Carry:
+                    wire=None, keys=None, send_mask=None, fault_model=None,
+                    byz=None, defense: str = "none"):
     """Run the chunk's cycles over the dense (T, K, N) routing table, in
     place — the reference's ``dense_body`` under ``lax.scan`` with the fused
     receive kernel and, for the quantized codecs, the send kernel.
@@ -213,8 +222,16 @@ def run_dense_chunk(carry: Carry, table, X, y, *, variant: str, lam: float,
     ``int8_sr`` needs ``keys``, the chunk's (T, 2) cycle keys (its noise
     key is ``split(key, 4)[0]``), and the ``_ef`` codecs ``send_mask``, the
     (T, N) ``arrival >= 0`` table: the EF residual refreshes only where a
-    node sends. Both stay on the device."""
+    node sends. Both stay on the device.
+
+    ``fault_model`` with ``byz`` (the (N,) bool Byzantine mask) corrupts
+    the Byzantine rows' transmitted model before the encode (model-kind)
+    or their payload after it (``bitflip``), with the fault keys
+    ``fold_in(keys, FAULT_FOLD)`` made on the device; ``defense`` is the
+    receive kernel's screen. Returns ``(carry, screen)``: ``screen`` is the
+    (2,) int64 device tensor of the chunk's gated and clipped totals."""
     codec = get_codec(wire)
+    fault = faults.get_fault(fault_model)
     D, n, P = carry.buf_w.shape
     C = carry.cache.w.shape[1]
     rows = torch.arange(n, device=carry.buf_w.device)
@@ -223,6 +240,8 @@ def run_dense_chunk(carry: Carry, table, X, y, *, variant: str, lam: float,
     flat_sc = carry.buf_scale.view(-1)
     flat_zp = carry.buf_zp.view(-1)
     kr = recv_keys(keys) if codec.stochastic else None
+    fk = faults.fault_key(keys) if fault is not None else None
+    screen = torch.zeros(2, dtype=torch.int64, device=carry.buf_w.device)
     c = carry.cache
     for t in range(table.shape[0]):
         src = table[t]                                  # (K, n) int32
@@ -233,22 +252,30 @@ def run_dense_chunk(carry: Carry, table, X, y, *, variant: str, lam: float,
             Xc, yc = X[:, rec, :].contiguous(), y[:, rec].contiguous()
         else:
             Xc, yc = X, y
-        gossip_cycle.fused_receive_apply(
+        out = gossip_cycle.fused_receive_apply(
             carry.last_w, carry.last_t, c.w, c.t, c.ptr, c.count,
             flat_w[idx], flat_t[idx], valid, Xc, yc,
             msg_scale=flat_sc[idx] if codec.has_scale else None,
             msg_zp=flat_zp[idx] if codec.has_zp else None,
-            wire=codec.name, variant=variant, lam=lam)
+            wire=codec.name, variant=variant, lam=lam, defense=defense)
+        if defense != "none":
+            screen += torch.stack([out[6].sum(), out[7].sum()])
         slot = ((c.ptr - 1) % C).long()                 # freshest slot
         carry.fresh_w = c.w[rows, slot]
         carry.fresh_t = c.t[rows, slot]
+        send_w, send_t = carry.fresh_w, carry.fresh_t
+        if fault is not None and fault.kind == "model":
+            old_w, old_t = (cache_mod.cache_oldest(c)
+                            if fault.name == "stale_replay" else (None, None))
+            send_w, send_t = faults.corrupt_model(fault, byz, fk[t], send_w,
+                                                  send_t, old_w, old_t)
         row = carry.clock % D
         if codec.quantized:
             out = gossip_cycle.quantize_send(
-                carry.fresh_w, codec.name,
+                send_w, codec.name,
                 key=kr[t] if codec.stochastic else None,
                 ef=carry.ef if codec.ef else None)
-            carry.buf_w[row] = out[0]
+            payload = out[0]
             carry.buf_scale[row] = out[1]
             if codec.has_zp:
                 carry.buf_zp[row] = out[2]
@@ -256,10 +283,14 @@ def run_dense_chunk(carry: Carry, table, X, y, *, variant: str, lam: float,
                 carry.ef = torch.where(send_mask[t][:, None], out[2],
                                        carry.ef)
         else:
-            carry.buf_w[row] = carry.fresh_w            # the codec's cast
-        carry.buf_t[row] = carry.fresh_t
+            payload = send_w               # cast by the buffer-row copy
+        if fault is not None and fault.kind == "wire":
+            payload = faults.bitflip_payload(
+                byz, fk[t], payload.to(codec.payload_dtype))
+        carry.buf_w[row] = payload
+        carry.buf_t[row] = send_t
         carry.clock += 1
-    return carry
+    return carry, screen
 
 
 # ---------------------------------------------------------------------------
@@ -273,8 +304,8 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
                            sampler: str = "uniform", k_rounds: int = 4,
                            device=None, use_kernel: Optional[bool] = None,
                            compact_mode: Optional[str] = None, mesh=None,
-                           use_send_kernel: Optional[bool] = None
-                           ) -> SimResult:
+                           use_send_kernel: Optional[bool] = None,
+                           serve_hook=None) -> SimResult:
     """Run the protocol with the mega-population engine on one device.
 
     The receive step is the fused kernel on CUDA and its plain version on
@@ -285,7 +316,11 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     for the float codecs, which send a plain cast. The reference's other
     options are not ported yet and raise: ``compact_mode`` other than
     "dense" (ROADMAP.md queue 1 item 5), ``mesh`` (queue 1 item 11), and a
-    learner other than Pegasos (the vector apply, queue 1 item 5)."""
+    learner other than Pegasos (the vector apply, queue 1 item 5).
+
+    ``serve_hook(cycle, snapshot)`` is called at every eval point with
+    ``serving.snapshot_from_carry(carry)``, a copy of the live cache, before
+    the next chunk updates the carry in place."""
     dev = resolve_device(device)
     codec = get_codec(cfg.wire_dtype)
     if use_send_kernel and not codec.quantized:
@@ -317,6 +352,8 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
         cfg, X, y, X_test, y_test, cycles=cycles, seed=seed,
         eval_nodes=eval_nodes, device=dev)
     carry = init_carry(n, d, cfg.cache_size, D, dev, codec)
+    byz = byzantine_tensor(cfg, seed, n, dev)
+    byz_np = None if byz is None else byz.cpu().numpy()
 
     res = SimResult([], [], [], [], 0, cfg)
     res.buf_payload_bytes = payload_buffer_bytes(D, n, d, cfg.wire_dtype)
@@ -344,6 +381,9 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
         dsts, arrivals, mask = drawn
         win, stats = router.route_chunk(dsts, arrivals, online_mat[lo:hi],
                                         lo, k_rounds)
+        # Byzantine senders with send_ok (arrival >= 0), off the host table
+        stats["corrupted"] = (int(byz_np[np.nonzero(arrivals >= 0)[1]].sum())
+                              if byz_np is not None else 0)
         table = torch.from_numpy(dense_table(win, hi - lo, k_rounds, n))
         if dev.type == "cuda":
             # pinned + non_blocking: the upload queues behind the device's
@@ -355,21 +395,27 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     # chunk i is enqueued, so the read waits only for chunk i-1, which ran
     # while the host routed chunk i; routing chunk i+1 then overlaps the
     # device's chunk i. The host holds one chunk of draws at a time.
-    evals = []
+    evals, screens = [], []
     pending = route(0, draw(0))
     for i, p in enumerate(pts):
         table, stats, mask = pending
         drawn = draw(i + 1) if i + 1 < len(pts) else None
         lo, hi = bounds[i]
-        run_dense_chunk(carry, table, X, y, variant=cfg.variant, lam=cfg.lam,
-                        wire=codec.name, keys=keys[lo:hi], send_mask=mask)
+        _, screen = run_dense_chunk(
+            carry, table, X, y, variant=cfg.variant, lam=cfg.lam,
+            wire=codec.name, keys=keys[lo:hi], send_mask=mask,
+            fault_model=cfg.fault_model, byz=byz, defense=cfg.defense)
+        screens.append(screen)
         evals.append(_eval(carry.cache, eval_idx, X_test, y_test))
+        if serve_hook is not None:
+            serve_hook(p, serving.snapshot_from_carry(carry))
         if drawn is not None:
             pending = route(i + 1, drawn)   # overlaps the device's chunk i
         res.sent_total += stats["sent"]
         res.delivered_total += stats["delivered"]
         res.lost_total += stats["lost"]
         res.overflow_total += stats["overflow"]
+        res.fault_stats["corrupted"] += stats["corrupted"]
         res.delivered_per_cycle.extend(
             int(x) for x in stats["delivered_cycles"])
         res.cycles.append(p)
@@ -377,6 +423,10 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
         res.err_fresh.append(float(err_f))
         res.err_voted.append(float(err_v))
         res.similarity.append(float(sim))
+    for screen in screens:
+        gated, clipped = screen.tolist()
+        res.fault_stats["gated"] += gated
+        res.fault_stats["clipped"] += clipped
     res.in_flight_total = router.in_flight
     res.compaction = dict(chunk_modes={"dense": len(pts)})
     res.wire_bytes_total = res.sent_total * message_wire_bytes(

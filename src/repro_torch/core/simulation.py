@@ -2,15 +2,19 @@
 engine.
 
 Counterpart of ``repro/core/simulation.py`` on every registered wire codec
-(``repro_torch.core.wire_codec``), without faults: one Python-driven cycle
-at a time over the whole population, with message drop, delay quantized to
-whole cycles, lognormal churn and a per-node model cache. Simultaneous
-arrivals at one node are applied in K winner-per-destination rounds.
+(``repro_torch.core.wire_codec``) and fault model (``repro_torch.core.
+faults``): one Python-driven cycle at a time over the whole population,
+with message drop, delay quantized to whole cycles, lognormal churn and a
+per-node model cache. Simultaneous arrivals at one node are applied in K
+winner-per-destination rounds, each screened by the configured defense.
 Messages are encoded at send time (``fresh + ef`` for the error-feedback
 codecs, the cycle's ``k_recv`` key for ``int8_sr``) and decoded before the
-f32 merge. For a given seed it draws the same threefry
-values as the JAX package (``repro_torch.random``), so the message economy
-is exactly the reference's and the error curves agree.
+f32 merge; a Byzantine sender corrupts its model before the encode or its
+payload after it. For a given seed it draws the same threefry values as
+the JAX package (``repro_torch.random``), so the message economy and the
+fault counters are exactly the reference's and the error curves agree.
+At every eval point a ``serve_hook`` receives a ``QuerySnapshot`` of the
+live state (``repro_torch.core.serving``).
 
 On the card this engine is the oracle that ``chip_smoke.py`` holds the
 kernel path of ``repro_torch.core.sharded_engine`` against.
@@ -27,7 +31,8 @@ import torch
 from repro_torch import random
 from repro_torch.configs.gossip_linear import GossipLinearConfig
 from repro_torch.core import cache as cache_mod
-from repro_torch.core import peer_sampling
+from repro_torch.core import faults as faults_mod
+from repro_torch.core import peer_sampling, serving
 from repro_torch.core.cache import ModelCache
 from repro_torch.core.learners import LinearModel, make_update
 from repro_torch.core.merge import create_model
@@ -77,17 +82,14 @@ def init_state(n: int, d: int, cache_size: int, delay_max: int, device,
     )
 
 
-def check_slice(cfg: GossipLinearConfig, *, serve_hook=None,
-                telemetry=None) -> None:
-    """Raise for the reference options this slice of the port does not run
-    yet, naming the ROADMAP.md item that ports each."""
+def check_slice(cfg: GossipLinearConfig, *, telemetry=None) -> None:
+    """Raise for unknown codec, fault and defense names with the
+    reference's messages (``byzantine_frac`` is checked where the mask is
+    drawn, as there), and for the reference options this slice of the port
+    does not run yet, naming the ROADMAP.md item that ports each."""
     get_codec(cfg.wire_dtype)          # unknown codec names raise ValueError
-    if cfg.fault_model is not None or cfg.defense != "none":
-        raise NotImplementedError(
-            "fault models and defenses are ROADMAP.md queue 1 item 6")
-    if serve_hook is not None:
-        raise NotImplementedError("serve_hook: serving is ROADMAP.md queue 1 "
-                                  "item 8")
+    faults_mod.check_defense(cfg.defense)
+    faults_mod.get_fault(cfg.fault_model)
     if telemetry is not None:
         raise NotImplementedError("telemetry is ROADMAP.md queue 1 item 7")
 
@@ -127,19 +129,30 @@ def select_receivers(buf_dst, buf_arrival, online, clock: int,
 
 
 def apply_receives(last_w, last_t, cache: ModelCache, msg_w, msg_t, valid,
-                   X, y, *, variant: str, update):
+                   X, y, *, variant: str, update, defense: str = "none"):
     """Up to K sequential receives per node (Algorithm 1 ON RECEIVE): for
     each valid (node, round) ``modelCache.add(createModel(m, lastModel));
-    lastModel <- m``. msg_w: (K, N, d); msg_t, valid: (K, N)."""
+    lastModel <- m``. msg_w: (K, N, d); msg_t, valid: (K, N).
+
+    ``defense`` screens each round's payload against the receiver's current
+    lastModel (``faults.apply_defense``) before the merge: a rejected
+    message is not received (no cache add, no lastModel change), a clipped
+    one is merged and kept rescaled. Returns ``(last_w, last_t, cache,
+    gated, clipped)``, the last two per-node int32 counts."""
+    gated = torch.zeros(last_t.shape, dtype=torch.int32, device=last_t.device)
+    clipped = torch.zeros_like(gated)
     for k in range(msg_w.shape[0]):
-        has = valid[k]
-        m1 = LinearModel(msg_w[k], msg_t[k])
+        mw, has, g, c = faults_mod.apply_defense(defense, msg_w[k], valid[k],
+                                                 last_w)
+        gated += g.to(torch.int32)
+        clipped += c.to(torch.int32)
+        m1 = LinearModel(mw, msg_t[k])
         m2 = LinearModel(last_w, last_t)
         new = create_model(variant, update, m1, m2, X, y)
         cache = cache_mod.cache_add(cache, has, new.w, new.t)
         last_w = torch.where(has[:, None], m1.w, last_w)
         last_t = torch.where(has, m1.t, last_t)
-    return last_w, last_t, cache
+    return last_w, last_t, cache, gated, clipped
 
 
 def draw_sends(key, n: int, clock: int, online, *, drop: float,
@@ -167,20 +180,29 @@ def draw_sends(key, n: int, clock: int, online, *, drop: float,
     return dst.to(torch.int32), arrival
 
 
-def simulate_cycle(state: SimState, X, y, online, key, *, variant: str,
-                   learner: str, lam: float, eta: float, drop: float,
-                   delay_max: int, k_rounds: int, sampler: str,
-                   wire_dtype=None):
+def simulate_cycle(state: SimState, X, y, online, key, byz=None, *,
+                   variant: str, learner: str, lam: float, eta: float,
+                   drop: float, delay_max: int, k_rounds: int, sampler: str,
+                   wire_dtype=None, fault_model=None, defense: str = "none"):
     """One gossip cycle for the whole population. Returns (state, stats):
     over a run ``sum(sent) == sum(delivered + lost + overflow) +
     in-flight``. ``wire_dtype`` names the codec the buffer holds: winners
     are decoded before the merge, and the fresh models (plus the EF
     residual) are encoded on the way out, ``int8_sr`` with ``k_recv`` =
     ``split(key, 4)[0]``; the residual refreshes only where the node
-    sends."""
+    sends.
+
+    ``fault_model`` with ``byz`` (the (N,) Byzantine mask): a model-kind
+    fault rewrites the Byzantine senders' model before the encode, the
+    wire-kind ``bitflip`` their payload after it (and after the EF
+    residual, which stays the honest encoder's). Fault draws use
+    ``fault_key(key)``. A gated message still counts as delivered; the
+    stats add ``corrupted`` (Byzantine senders that sent), ``gated`` and
+    ``clipped``."""
     n, d = state.last_w.shape
     D = delay_max
     codec = get_codec(wire_dtype)
+    fault = faults_mod.get_fault(fault_model)
     update = make_update(learner, lam=lam, eta=eta)
     if X.ndim == 3:                   # multi-record nodes: clock-th record
         rec = state.clock % X.shape[1]
@@ -194,35 +216,46 @@ def simulate_cycle(state: SimState, X, y, online, key, *, variant: str,
     mzp = state.buf_zp.reshape(-1)[src_slot] if codec.has_zp else None
     msg_w = codec.decode(payload, msc, mzp, d)           # (K, N, d) winners
     msg_t = state.buf_t.reshape(-1)[src_slot]
-    last_w, last_t, cache = apply_receives(
+    last_w, last_t, cache, gated, clipped = apply_receives(
         state.last_w, state.last_t, state.cache, msg_w, msg_t, valid, X, y,
-        variant=variant, update=update)
+        variant=variant, update=update, defense=defense)
 
-    fresh_w, fresh_t = cache_mod.freshest(cache)
+    send_w, send_t = cache_mod.freshest(cache)
+    if fault is not None and fault.kind == "model":
+        old_w, old_t = (cache_mod.cache_oldest(cache)
+                        if fault.name == "stale_replay" else (None, None))
+        send_w, send_t = faults_mod.corrupt_model(
+            fault, byz, faults_mod.fault_key(key), send_w, send_t, old_w,
+            old_t)
     dst, arrival = draw_sends(key, n, state.clock, online, drop=drop,
                               delay_max=D, sampler=sampler)
     send_ok = arrival >= 0
-    x_send = fresh_w + state.ef if codec.ef else fresh_w
+    x_send = send_w + state.ef if codec.ef else send_w
     k_recv = random.split(key, 4)[0] if codec.stochastic else None
     q, sc, zp = codec.encode(x_send, key=k_recv)
     ef = state.ef
     if codec.ef:
         ef = torch.where(send_ok[:, None], x_send - codec.decode(q, sc, zp, d),
                          ef)
+    if fault is not None and fault.kind == "wire":
+        q = faults_mod.bitflip_payload(byz, faults_mod.fault_key(key), q)
     slot = state.clock % D
     buf_w, buf_t = state.buf_w.clone(), state.buf_t.clone()
     buf_scale, buf_zp = state.buf_scale.clone(), state.buf_zp.clone()
     buf_dst, buf_arrival = state.buf_dst.clone(), state.buf_arrival.clone()
     buf_w[slot] = q
-    buf_t[slot] = fresh_t
+    buf_t[slot] = send_t
     if codec.has_scale:
         buf_scale[slot] = sc
     if codec.has_zp:
         buf_zp[slot] = zp
     buf_dst[slot] = dst
     buf_arrival[slot] = arrival
+    corrupted = ((byz & send_ok).sum() if fault is not None
+                 else torch.zeros((), dtype=torch.int64))
     stats = {"delivered": delivered, "overflow": overflow,
-             "sent": send_ok.sum(), "lost": lost}
+             "sent": send_ok.sum(), "lost": lost, "corrupted": corrupted,
+             "gated": gated.sum(), "clipped": clipped.sum()}
     return SimState(last_w, last_t, cache, buf_w, buf_t, buf_scale, buf_zp,
                     buf_dst, buf_arrival, ef, state.clock + 1), stats
 
@@ -320,6 +353,9 @@ class SimResult:
     # root-mean L2 norm of the per-node EF residual at the end of the run
     # (0.0 for codecs without EF state)
     ef_residual_norm: float = 0.0
+    # Byzantine sends, and messages the defense rejected and rescaled
+    fault_stats: Dict[str, int] = field(default_factory=lambda: {
+        "corrupted": 0, "gated": 0, "clipped": 0})
 
 
 def ef_residual_norm(ef) -> float:
@@ -371,6 +407,15 @@ def sim_setup(cfg: GossipLinearConfig, X, y, X_test, y_test, *, cycles: int,
             f32(X), f32(y), f32(X_test), f32(y_test))
 
 
+def byzantine_tensor(cfg: GossipLinearConfig, seed: int, n: int, device):
+    """The run's (N,) bool Byzantine mask on ``device``, or None without a
+    fault model (``faults.byzantine_mask``, shared by both engines)."""
+    if cfg.fault_model is None:
+        return None
+    return torch.as_tensor(
+        faults_mod.byzantine_mask(seed, n, cfg.byzantine_frac), device=device)
+
+
 def eval_points(cycles: int, eval_every: int) -> List[int]:
     """The cycle counts after which both engines evaluate the population."""
     return [c + 1 for c in range(cycles)
@@ -406,15 +451,21 @@ def run_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     ``engine="reference"`` runs this module's Python-driven cycle loop;
     ``engine="sharded"`` runs ``repro_torch.core.sharded_engine`` (host
     router + the fused receive kernel on CUDA), forwarding its extra
-    keyword arguments. Returns a :class:`SimResult`."""
+    keyword arguments. Returns a :class:`SimResult`.
+
+    ``serve_hook``: optional ``hook(cycle, snapshot)``, called at every
+    eval point after the eval with a :class:`repro_torch.core.serving.
+    QuerySnapshot` of the live state. The snapshot is a copy, so a hooked
+    run equals an unhooked one bit for bit."""
     dev = resolve_device(device)
-    check_slice(cfg, serve_hook=serve_hook, telemetry=telemetry)
+    check_slice(cfg, telemetry=telemetry)
     if engine == "sharded":
         from repro_torch.core.sharded_engine import run_sharded_simulation
         return run_sharded_simulation(
             cfg, X, y, X_test, y_test, cycles=cycles, eval_every=eval_every,
             seed=seed, eval_nodes=eval_nodes, sampler=sampler,
-            k_rounds=k_rounds, device=dev, **engine_kwargs)
+            k_rounds=k_rounds, device=dev, serve_hook=serve_hook,
+            **engine_kwargs)
     if engine != "reference":
         raise ValueError(f"unknown engine {engine!r} "
                          "(expected 'reference' or 'sharded')")
@@ -430,6 +481,7 @@ def run_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     state = init_state(n, d, cfg.cache_size, D, dev,
                        wire_dtype=cfg.wire_dtype)
     key = random.key(seed, device=dev)
+    byz = byzantine_tensor(cfg, seed, n, dev)
 
     res = SimResult([], [], [], [], 0, cfg)
     res.buf_payload_bytes = payload_buffer_bytes(D, n, d, cfg.wire_dtype)
@@ -437,22 +489,27 @@ def run_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
         key, sub = random.split(key)
         online = torch.as_tensor(online_mat[c], device=dev)
         state, stats = simulate_cycle(
-            state, X, y, online, sub, variant=cfg.variant,
+            state, X, y, online, sub, byz, variant=cfg.variant,
             learner=cfg.learner, lam=cfg.lam, eta=cfg.eta,
             drop=cfg.drop_prob, delay_max=D, k_rounds=k_rounds,
-            sampler=sampler, wire_dtype=cfg.wire_dtype)
+            sampler=sampler, wire_dtype=cfg.wire_dtype,
+            fault_model=cfg.fault_model, defense=cfg.defense)
         delivered = int(stats["delivered"])
         res.sent_total += int(stats["sent"])
         res.delivered_total += delivered
         res.delivered_per_cycle.append(delivered)
         res.lost_total += int(stats["lost"])
         res.overflow_total += int(stats["overflow"])
+        for k in res.fault_stats:
+            res.fault_stats[k] += int(stats[k])
         if (c + 1) % eval_every == 0 or c == cycles - 1:
             err_f, err_v, sim = _eval(state.cache, eval_idx, X_test, y_test)
             res.cycles.append(c + 1)
             res.err_fresh.append(float(err_f))
             res.err_voted.append(float(err_v))
             res.similarity.append(float(sim))
+            if serve_hook is not None:
+                serve_hook(c + 1, serving.take_snapshot(state))
     res.in_flight_total = int((state.buf_arrival >= state.clock).sum())
     res.wire_bytes_total = res.sent_total * message_wire_bytes(
         d, cfg.wire_dtype)

@@ -2,9 +2,12 @@
 // receive rounds per node, in place.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/gossip_cycle.py
-// fused_receive_apply (body _cycle_kernel, decode _decode_msg) with no
-// defense screen. For every node i and every round k with valid[k, i]:
+// fused_receive_apply (body _cycle_kernel, decode _decode_msg, and the
+// inlined screen faults.apply_defense). For every node i and every round k
+// with valid[k, i]:
 //
+//   m_k   = SCREEN(m_k, lastModel)            (template argument F; a
+//                                              rejected m_k skips the round)
 //   new   = CREATEMODEL(m_k, lastModel)       rw: update(m_k)
 //                                              mu: update(merge(m_k, last))
 //                                              um: merge(update(m_k),
@@ -31,6 +34,24 @@
 // Rows are read element by element, with no vector load: a packed row of
 // ceil(d/2) or ceil(d/5) bytes starts at any byte.
 //
+// Screen (template argument F), between the decode and the merge of every
+// valid round, against the current lastModel lw, with sq = sum m^2 and
+// rn = sum lw^2 (warp sums; nothing is padded, so nothing is masked):
+//   none         nothing; the gated/clipped counts stay 0;
+//   norm_clip    thr = max(4 rn, 1); a non-finite sq rejects the message,
+//                sq > thr rescales it by sqrt(thr / max(sq, 1e-30));
+//   cosine_gate  with dot = sum m lw: a non-finite sq, or rn > 1e-6 and
+//                dot < -0.2 sqrt(sq rn), rejects the message.
+// A rejected message is not received (no cache write, lastModel kept); it
+// adds 1 to the node's gated count, a rescaled one 1 to its clipped count.
+// The constants are the reference's float32 values, and IEEE sqrtf and
+// division keep the scale's rounding (no --use_fast_math). The reference's
+// arithmetic flushes subnormals to zero, and a verdict can turn on one (a
+// bitflip makes a zero coefficient subnormal), so the screen flushes what
+// faults.apply_defense flushes: its inputs, every product, the clip ratio
+// and sq rn, and a rescaled coefficient (ftz below; the sums' terms are
+// never subnormal).
+//
 // Layout: one warp per node, kNodesPerBlock nodes per block. Lanes stride
 // over d (no padding of d or C: the loop bound masks the ragged edge) and
 // the margin is a warp-shuffle sum, so one layout serves d = 10, 57 and
@@ -45,6 +66,9 @@
 // running lastModel is not written between rounds: it is always either the
 // node's last_w row or the message of its latest valid round, so the kernel
 // keeps a pointer to that message's payload row and decodes it again.
+// Under norm_clip the running lastModel is the rescaled message, so the
+// kernel keeps the message's clip factor (kNoClip, or the rescale) beside
+// the pointer and rescales after the decode, in the plain version's order.
 //
 // Bound: the kernel moves bytes and does ~6 flops a byte-pair, so device
 // memory bounds it (3.35 TB/s on an H100 SXM). Per launch it must read the
@@ -75,6 +99,16 @@ constexpr int kMinBlocksPerSM = 5;
 enum Variant { kRw = 0, kMu = 1, kUm = 2 };
 enum Mode { kF32 = 0, kBF16 = 1, kF16 = 2, kAffine8 = 3, kInt4 = 4,
             kTernary = 5 };
+enum Defense { kNone = 0, kNormClip = 1, kCosineGate = 2 };
+
+// the screen's constants: the reference's Python doubles rounded to float32
+constexpr float kClipMultSq = 4.0f;        // NORM_CLIP_MULT ** 2
+constexpr float kClipFloorSq = 1.0f;       // NORM_CLIP_FLOOR ** 2
+constexpr float kClipSqGuard = 1e-30f;
+constexpr float kGateMinNormSq = 1e-6f;    // COSINE_GATE_MIN_NORM ** 2
+constexpr float kGateThreshold = -0.2f;    // COSINE_GATE_THRESHOLD
+constexpr float kFltMin = 1.17549435e-38f;  // smallest normal float
+constexpr float kNoClip = -1.0f;  // clip factor of a message not rescaled
 
 // bytes per payload element
 template <int M>
@@ -127,6 +161,17 @@ __device__ __forceinline__ Msg message(const unsigned char* msg,
   return m;
 }
 
+// v with a subnormal value flushed to a zero of its sign
+__device__ __forceinline__ float ftz(float v) {
+  return fabsf(v) < kFltMin ? copysignf(0.0f, v) : v;
+}
+
+// a decoded coefficient as the norm_clip screen left it: unchanged, or
+// flushed and rescaled by clip (>= 0)
+__device__ __forceinline__ float rescaled(float v, float clip) {
+  return clip == kNoClip ? v : ftz(ftz(v) * clip);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = kWarp / 2; o > 0; o >>= 1) {
@@ -157,7 +202,7 @@ __device__ __forceinline__ float apply_step(const Step& s, float w, float x) {
   return s.decay * w + (s.hinge ? s.coef * x : 0.0f);
 }
 
-template <int V, int M>
+template <int V, int M, int F>
 __global__ void __launch_bounds__(kWarp * kNodesPerBlock, kMinBlocksPerSM)
 fused_receive_kernel(float* __restrict__ last_w, int* __restrict__ last_t,
                      float* __restrict__ cache_w, int* __restrict__ cache_t,
@@ -168,7 +213,8 @@ fused_receive_kernel(float* __restrict__ last_w, int* __restrict__ last_t,
                      const int* __restrict__ msg_t,
                      const int* __restrict__ valid,
                      const float* __restrict__ x,
-                     const float* __restrict__ y, int n, int d, int c, int k,
+                     const float* __restrict__ y,
+                     int* __restrict__ counts, int n, int d, int c, int k,
                      int pw, float lam) {
   const int lane = threadIdx.x % kWarp;
   const int64_t i =
@@ -183,16 +229,54 @@ fused_receive_kernel(float* __restrict__ last_w, int* __restrict__ last_t,
   const float* lw = last_w + i * d;
   bool from_msg = false;  // false: lastModel is the last_w row
   Msg prev{nullptr, 0.0f, 0.0f};  // else: the latest valid round's message
+  float prev_f = kNoClip;         // and its norm_clip factor
+  int gated = 0, clipped = 0;
 
   for (int r = 0; r < k; ++r) {
     const int64_t ri = static_cast<int64_t>(r) * n + i;
     if (valid[ri] <= 0) continue;
     const Msg cur = message<M>(msg, msc, mzp, ri, pw);
-    const int mt = msg_t[ri];
-    auto m = [&](int j) { return decode<M>(cur.row, j, cur.scale, cur.zp); };
+    auto raw = [&](int j) { return decode<M>(cur.row, j, cur.scale, cur.zp); };
     auto l = [&](int j) {
-      return from_msg ? decode<M>(prev.row, j, prev.scale, prev.zp) : lw[j];
+      if (!from_msg) return lw[j];
+      const float v = decode<M>(prev.row, j, prev.scale, prev.zp);
+      return F == kNormClip ? rescaled(v, prev_f) : v;
     };
+
+    // the screen against the current lastModel
+    float f = kNoClip;
+    if constexpr (F != kNone) {
+      float sq = 0.0f, rn = 0.0f, dot = 0.0f;
+      for (int j = lane; j < d; j += kWarp) {
+        const float mj = ftz(raw(j));
+        const float lj = ftz(l(j));
+        sq += ftz(mj * mj);
+        rn += ftz(lj * lj);
+        if (F == kCosineGate) dot += ftz(mj * lj);
+      }
+      sq = warp_sum(sq);
+      rn = warp_sum(rn);
+      bool reject = !isfinite(sq);
+      if constexpr (F == kNormClip) {
+        const float thr = fmaxf(kClipMultSq * rn, kClipFloorSq);
+        if (!reject && sq > thr) {
+          f = sqrtf(ftz(thr / fmaxf(sq, kClipSqGuard)));
+          clipped += 1;
+        }
+      } else {
+        dot = warp_sum(dot);
+        reject = reject || (rn > kGateMinNormSq &&
+                            dot < kGateThreshold * sqrtf(ftz(sq * rn)));
+      }
+      if (reject) {
+        gated += 1;
+        continue;
+      }
+    }
+    auto m = [&](int j) {
+      return F == kNormClip ? rescaled(raw(j), f) : raw(j);
+    };
+    const int mt = msg_t[ri];
 
     // pass 1: the margin(s) of the model(s) the Pegasos step updates
     float a1 = 0.0f, a2 = 0.0f;
@@ -234,14 +318,20 @@ fused_receive_kernel(float* __restrict__ last_w, int* __restrict__ last_t,
     if (lane == 0) cache_t[i * c + p % c] = nt;
     p += 1;
     cnt = min(cnt + 1, c);
-    from_msg = true;  // lastModel <- the received message
+    from_msg = true;  // lastModel <- the received (screened) message
     prev = cur;
+    prev_f = f;
     lt = mt;
   }
 
-  if (!from_msg) return;  // no valid round: the node is untouched
+  if (F != kNone && lane == 0) {  // counts are 0 unless written
+    if (gated) counts[i] = gated;
+    if (clipped) counts[n + i] = clipped;
+  }
+  if (!from_msg) return;  // nothing received: the node is untouched
   for (int j = lane; j < d; j += kWarp) {
-    last_w[i * d + j] = decode<M>(prev.row, j, prev.scale, prev.zp);
+    const float v = decode<M>(prev.row, j, prev.scale, prev.zp);
+    last_w[i * d + j] = F == kNormClip ? rescaled(v, prev_f) : v;
   }
   if (lane == 0) {
     last_t[i] = lt;
@@ -264,28 +354,42 @@ struct Args {
   const int* valid;
   const float* x;
   const float* y;
+  int* counts;  // (2, N): gated, then clipped; zero on entry; null (and
+                // never read) under kNone
   int n, d, c, k, pw;  // pw: payload elements per message row
   float lam;
 };
 
-template <int V, int M>
+template <int V, int M, int F>
 void launch(const Args& a, cudaStream_t stream) {
   const unsigned blocks = (static_cast<unsigned>(a.n) + kNodesPerBlock - 1) /
                           kNodesPerBlock;
-  fused_receive_kernel<V, M><<<blocks, kWarp * kNodesPerBlock, 0, stream>>>(
-      a.last_w, a.last_t, a.cache_w, a.cache_t, a.ptr, a.count, a.msg, a.msc,
-      a.mzp, a.msg_t, a.valid, a.x, a.y, a.n, a.d, a.c, a.k, a.pw, a.lam);
+  fused_receive_kernel<V, M, F>
+      <<<blocks, kWarp * kNodesPerBlock, 0, stream>>>(
+          a.last_w, a.last_t, a.cache_w, a.cache_t, a.ptr, a.count, a.msg,
+          a.msc, a.mzp, a.msg_t, a.valid, a.x, a.y, a.counts, a.n, a.d, a.c,
+          a.k, a.pw, a.lam);
 }
 
-template <int V>
+template <int V, int F>
 bool launch_mode(const Args& a, int mode, cudaStream_t s) {
   switch (mode) {
-    case kF32: launch<V, kF32>(a, s); return true;
-    case kBF16: launch<V, kBF16>(a, s); return true;
-    case kF16: launch<V, kF16>(a, s); return true;
-    case kAffine8: launch<V, kAffine8>(a, s); return true;
-    case kInt4: launch<V, kInt4>(a, s); return true;
-    case kTernary: launch<V, kTernary>(a, s); return true;
+    case kF32: launch<V, kF32, F>(a, s); return true;
+    case kBF16: launch<V, kBF16, F>(a, s); return true;
+    case kF16: launch<V, kF16, F>(a, s); return true;
+    case kAffine8: launch<V, kAffine8, F>(a, s); return true;
+    case kInt4: launch<V, kInt4, F>(a, s); return true;
+    case kTernary: launch<V, kTernary, F>(a, s); return true;
+    default: return false;
+  }
+}
+
+template <int F>
+bool launch_variant(const Args& a, int variant, int mode, cudaStream_t s) {
+  switch (variant) {
+    case kRw: return launch_mode<kRw, F>(a, mode, s);
+    case kMu: return launch_mode<kMu, F>(a, mode, s);
+    case kUm: return launch_mode<kUm, F>(a, mode, s);
     default: return false;
   }
 }
@@ -294,26 +398,30 @@ bool launch_mode(const Args& a, int mode, cudaStream_t s) {
 
 // variant: 0 = rw, 1 = mu, 2 = um. mode: 0 = f32, 1 = bf16, 2 = f16,
 // 3 = affine int8 (msc and mzp (K, N) f16), 4 = int4 and 5 = ternary (msc
-// only). msg is the (K, N, P) payload. Returns cudaGetLastError() after the
-// launch (0 on success); the launch is asynchronous on `stream`.
+// only). defense: 0 = none, 1 = norm_clip, 2 = cosine_gate. msg is the
+// (K, N, P) payload; counts the (2, N) gated and clipped counts, zeroed by
+// the caller, or null under defense 0, which writes none. Returns cudaGetLastError() after the launch (0 on success);
+// the launch is asynchronous on `stream`.
 extern "C" int gossip_cycle_fused_receive_apply(
     float* last_w, int* last_t, float* cache_w, int* cache_t, int* ptr,
     int* count, const void* msg, const void* msc, const void* mzp,
     const int* msg_t, const int* valid, const float* x, const float* y,
-    int n, int d, int c, int k, int p, float lam, int variant, int mode,
-    void* stream) {
+    int* counts, int n, int d, int c, int k, int p, float lam, int variant,
+    int mode, int defense, void* stream) {
   if (n <= 0 || k <= 0) return static_cast<int>(cudaGetLastError());
   const Args a{last_w, last_t, cache_w, cache_t, ptr, count,
                static_cast<const unsigned char*>(msg),
                static_cast<const __half*>(msc),
-               static_cast<const __half*>(mzp), msg_t, valid, x, y, n, d, c,
-               k, p, lam};
+               static_cast<const __half*>(mzp), msg_t, valid, x, y, counts,
+               n, d, c, k, p, lam};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
-  switch (variant) {
-    case kRw: ok = launch_mode<kRw>(a, mode, s); break;
-    case kMu: ok = launch_mode<kMu>(a, mode, s); break;
-    case kUm: ok = launch_mode<kUm>(a, mode, s); break;
+  switch (defense) {
+    case kNone: ok = launch_variant<kNone>(a, variant, mode, s); break;
+    case kNormClip: ok = launch_variant<kNormClip>(a, variant, mode, s); break;
+    case kCosineGate:
+      ok = launch_variant<kCosineGate>(a, variant, mode, s);
+      break;
     default: break;
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);

@@ -1,7 +1,6 @@
 """Fused gossip-cycle kernels: the K-receive step and the send-side encode.
 
-Counterpart of ``repro/kernels/gossip_cycle.py`` (the Pallas TPU kernels)
-without the defense screens.
+Counterpart of ``repro/kernels/gossip_cycle.py`` (the Pallas TPU kernels).
 
 * ``fused_receive_apply``: for every node and every valid round k,
   ``modelCache.add(createModel(m_k, lastModel)); lastModel <- m_k``
@@ -9,7 +8,11 @@ without the defense screens.
   variants rw / mu / um. Messages arrive in any wire codec's payload
   (``wire=``): f32/bf16/f16 are upcast, affine int8 is dequantized from its
   f16 scale and zero-point, packed int4 and ternary are unpacked and
-  scaled, so message traffic is paid at wire width.
+  scaled, so message traffic is paid at wire width. A ``defense`` screens
+  each decoded message against the current lastModel before the merge
+  (``faults.apply_defense``: ``norm_clip`` rescales, ``cosine_gate``
+  rejects, both reject non-finite messages) and counts, per node, the
+  messages it rejected and rescaled.
 * ``quantize_send``: the encode of a quantized wire codec for a population
   of fresh models — affine int8 (``int8``; ``int8_sr`` with the cycle's
   threefry noise made in the kernel), or the packed symmetric codecs with
@@ -31,6 +34,7 @@ import functools
 
 import torch
 
+from repro_torch.core import faults
 from repro_torch.core.wire_codec import (get_codec, quantize_wire,
                                          unpack_int4, unpack_ternary)
 
@@ -40,6 +44,8 @@ DECODE_MODES = {"f32": 0, "bf16": 1, "f16": 2, "affine8": 3, "int4": 4,
                 "ternary": 5}
 _FLOAT_MODES = {torch.float32: "f32", torch.bfloat16: "bf16",
                 torch.float16: "f16"}
+# the receive kernel's screens (template argument of the CUDA kernel)
+DEFENSE_CODES = {name: i for i, name in enumerate(faults.DEFENSES)}
 
 
 def _pegasos(w, t, x, y, lam: float):
@@ -88,16 +94,23 @@ def _decode_msg(raw, msc, mzp, d: int, mode: str):
 def fused_receive_apply_plain(last_w, last_t, cache_w, cache_t, ptr, count,
                               msg_w, msg_t, valid, x, y, *, msg_scale=None,
                               msg_zp=None, wire=None, variant: str,
-                              lam: float):
-    """The receive step in plain PyTorch, in place; see the module note."""
+                              lam: float, defense: str = "none"):
+    """The receive step in plain PyTorch, in place; see the module note.
+    Returns the six state tensors and the (N,) int32 ``gated`` and
+    ``clipped`` counts."""
     n, c, d = cache_w.shape
     msg_w = _decode_msg(msg_w, msg_scale, msg_zp, d,
                         _wire_mode(wire, msg_scale, msg_zp))
     rows = torch.arange(n, device=last_w.device)
     lw, lt = last_w.clone(), last_t.clone()
+    gated = torch.zeros(n, dtype=torch.int32, device=last_w.device)
+    clipped = torch.zeros_like(gated)
     for k in range(msg_w.shape[0]):
-        vm = valid[k] > 0
-        mw, mt = msg_w[k], msg_t[k]
+        mw, vm, g, cl = faults.apply_defense(defense, msg_w[k], valid[k] > 0,
+                                             lw)
+        gated += g.to(torch.int32)
+        clipped += cl.to(torch.int32)
+        mt = msg_t[k]
         if variant == "mu":                        # update(merge(m, last))
             nw, nt = _pegasos((mw + lw) / 2.0, torch.maximum(mt, lt), x, y,
                               lam)
@@ -118,7 +131,7 @@ def fused_receive_apply_plain(last_w, last_t, cache_w, cache_t, ptr, count,
         lt = torch.where(vm, mt, lt)
     last_w.copy_(lw)
     last_t.copy_(lt)
-    return last_w, last_t, cache_w, cache_t, ptr, count
+    return last_w, last_t, cache_w, cache_t, ptr, count, gated, clipped
 
 
 def _check_tensors(ref, spec):
@@ -138,11 +151,13 @@ def _check_tensors(ref, spec):
 
 
 def _check_receive(last_w, last_t, cache_w, cache_t, ptr, count, msg_w,
-                   msg_t, valid, x, y, msg_scale, msg_zp, wire, variant):
+                   msg_t, valid, x, y, msg_scale, msg_zp, wire, variant,
+                   defense):
     """Validate the receive step's operands; returns its decode mode (a
     key of ``DECODE_MODES``)."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown CREATEMODEL variant {variant!r}")
+    faults.check_defense(defense)
     if last_w.ndim != 2 or cache_w.ndim != 3 or msg_w.ndim != 3:
         raise ValueError("expected last_w (N, d), cache_w (N, C, d) and "
                          "msg_w (K, N, P)")
@@ -235,25 +250,44 @@ _VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 def _launch_receive(last_w, last_t, cache_w, cache_t, ptr, count, msg_w,
                     msg_t, valid, x, y, msg_scale, msg_zp, mode: str,
-                    variant: str, lam: float):
+                    variant: str, lam: float, defense: str):
     fn, err = _entry("gossip_cycle", "gossip_cycle_fused_receive_apply",
-                     (_VP,) * 13 + (_INT,) * 5 + (_FLOAT, _INT, _INT, _VP))
+                     (_VP,) * 14 + (_INT,) * 5 + (_FLOAT,) + (_INT,) * 3
+                     + (_VP,))
     n, d = last_w.shape
+    # (2, N) gated/clipped counts: zero, and written by the kernel only
+    # where a screen rejected or rescaled; none under "none", which screens
+    # nothing and answers with a shared zero
+    counts = (None if defense == "none" else
+              torch.zeros((2, n), dtype=torch.int32, device=last_w.device))
     with torch.cuda.device(last_w.device):
         code = fn(last_w.data_ptr(), last_t.data_ptr(), cache_w.data_ptr(),
                   cache_t.data_ptr(), ptr.data_ptr(), count.data_ptr(),
                   msg_w.data_ptr(), _ptr(msg_scale), _ptr(msg_zp),
                   msg_t.data_ptr(), valid.data_ptr(), x.data_ptr(),
-                  y.data_ptr(), n, d, cache_w.shape[1], msg_w.shape[0],
-                  msg_w.shape[2], lam, VARIANTS[variant], DECODE_MODES[mode],
+                  y.data_ptr(), _ptr(counts), n, d, cache_w.shape[1],
+                  msg_w.shape[0], msg_w.shape[2], lam, VARIANTS[variant],
+                  DECODE_MODES[mode], DEFENSE_CODES[defense],
                   _stream(last_w))
     _raise_on(code, err, "gossip_cycle")
     _RECEIVE.launches += 1
+    if counts is None:
+        zero = _zero_counts(last_w.device).expand(n)
+        return zero, zero
+    return counts[0], counts[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _zero_counts(device):
+    """One int32 zero per device, seen as the (N,) gated and clipped counts
+    of an unscreened launch (a stride-0 view: in-place writes raise)."""
+    return torch.zeros((), dtype=torch.int32, device=device)
 
 
 def fused_receive_apply(last_w, last_t, cache_w, cache_t, ptr, count,
                         msg_w, msg_t, valid, x, y, *, msg_scale=None,
-                        msg_zp=None, wire=None, variant: str, lam: float):
+                        msg_zp=None, wire=None, variant: str, lam: float,
+                        defense: str = "none"):
     """Fused K-receive apply for one cycle, in place.
 
     last_w, x: (N, d) f32; last_t, ptr, count: (N,) i32; cache_w: (N, C, d)
@@ -262,25 +296,27 @@ def fused_receive_apply(last_w, last_t, cache_w, cache_t, ptr, count,
     bf16 or f16 (P = d) for the float codecs, int8 (P = d) with f16
     ``msg_scale``/``msg_zp`` (K, N) for int8/int8_sr, uint8 (P = ceil(d/2)
     or ceil(d/5)) with ``msg_scale`` for int4/ternary and their ``_ef``
-    variants. Returns ``(last_w, last_t, cache_w, cache_t, ptr, count)``,
-    the same tensors, updated. Every tensor must be contiguous and on one
-    device. The reference kernel's defense screens are not ported yet
-    (ROADMAP.md queue 2 item 1); the engines refuse such configurations
-    before they reach this step."""
+    variants. ``defense`` is one of ``faults.DEFENSES``. Returns
+    ``(last_w, last_t, cache_w, cache_t, ptr, count, gated, clipped)``: the
+    same six tensors, updated, and the (N,) int32 counts of messages the
+    screen rejected and rescaled (zeros under "none"). Every tensor must be
+    contiguous and on one device."""
     mode = _check_receive(last_w, last_t, cache_w, cache_t, ptr, count,
                           msg_w, msg_t, valid, x, y, msg_scale, msg_zp, wire,
-                          variant)
+                          variant, defense)
     args = (last_w, last_t, cache_w, cache_t, ptr, count, msg_w, msg_t,
             valid, x, y)
     if last_w.device.type == "cpu":
         return fused_receive_apply_plain(*args, msg_scale=msg_scale,
                                          msg_zp=msg_zp, wire=wire,
-                                         variant=variant, lam=lam)
+                                         variant=variant, lam=lam,
+                                         defense=defense)
     if last_w.device.type != "cuda":
         raise NotImplementedError(
             f"no receive kernel for device {last_w.device}")
-    _launch_receive(*args, msg_scale, msg_zp, mode, variant, float(lam))
-    return last_w, last_t, cache_w, cache_t, ptr, count
+    gated, clipped = _launch_receive(*args, msg_scale, msg_zp, mode, variant,
+                                     float(lam), defense)
+    return last_w, last_t, cache_w, cache_t, ptr, count, gated, clipped
 
 
 # ---------------------------------------------------------------------------

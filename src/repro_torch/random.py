@@ -78,6 +78,17 @@ def split(k, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
+def fold_in(k, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for a key ``(2,)`` or a stack of
+    keys ``(..., 2)``, on the keys' device: threefry of the counter
+    ``(0, uint32(data))`` (jax's ``threefry_seed`` of a 32-bit value),
+    returned as the new key words."""
+    zero = torch.zeros_like(k[..., 0])
+    b1, b2 = threefry2x32(k[..., 0], k[..., 1], zero,
+                          zero + (int(data) & MASK32))
+    return torch.stack([b1, b2], dim=-1)
+
+
 def random_bits(k, shape) -> torch.Tensor:
     """32-bit ``jax.random.bits(key, shape)`` as int64 values."""
     shape = tuple(shape)

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions: the
-receive kernel on the f32 wire and in every decode mode, the send kernels
-of the quantized codecs (bitwise), and the sharded engine against the
-reference engine on the f32 and the quantized wires.
+receive kernel on the f32 wire, in every decode mode and with each defense
+screen, the send kernels of the quantized codecs (bitwise), the
+voted-predict kernel (bitwise), and the sharded engine against the
+reference engine on the f32 and the quantized wires and under Byzantine
+faults, with and without a serving hook.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one. They import neither JAX nor the JAX package, so they run on a
@@ -85,3 +87,53 @@ def test_sharded_engine_with_kernel_matches_reference_engine(cuda, wire):
         lam=1e-3, variant="mu"), "extreme")
     smoke.compare_engines(dataclasses.replace(cfg, wire_dtype=wire), X, y,
                           n, cuda, cycles=12, eval_every=6, seed=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", *smoke.SCREEN_WIRES])
+@pytest.mark.parametrize("defense", smoke.DEFENSE_MODES)
+def test_receive_kernel_screens_like_plain_version(cuda, defense, mode):
+    """Each defense screen after each decode family at d = 57 with K > C,
+    on rows crafted for every verdict: integer state and the gated and
+    clipped counts equal, float state within rtol 1e-5 and atol 1e-5."""
+    wire = smoke.SCREEN_WIRES.get(mode)
+    base = smoke.receive_inputs(13, 2003, 57, 3, 5, cuda, wire=wire,
+                                crafted=True)
+    for variant in ("rw", "mu", "um"):
+        before = gc.fused_receive_apply.launches
+        _, (gated, clipped) = smoke.compare_kernel(
+            base, variant, 1e-3, 1e-5, wire=wire, defense=defense)
+        assert gc.fused_receive_apply.launches == before + 1
+        assert gated > 0 and (clipped > 0) == (defense == "norm_clip")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,d", smoke.VOTED_SHAPES)
+def test_voted_predict_kernel_matches_plain_version_bitwise(cuda, m, c, d):
+    from repro_torch.kernels import voted_predict as vp
+    before = vp.voted_predict_batched.launches
+    ans = smoke.compare_voted(*smoke.voted_inputs(m + 1, m, c, d, cuda))
+    assert vp.voted_predict_batched.launches == before + 2
+    assert ans[:4].tolist() == [1.0, 1.0, 1.0, -1.0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault,wire,defense", smoke.FAULT_RUNS)
+def test_sharded_engine_under_faults_matches_reference_engine(
+        cuda, fault, wire, defense):
+    """Economy and fault counters exact, curves within 0.02; a serving
+    hook on the first configuration changes nothing, bit for bit."""
+    n = 2000
+    X, y = make_linear_dataset(np.random.default_rng(0), n + 500, 10,
+                               noise=0.07, separation=2.5)
+    cfg = with_failure_scenario(GossipLinearConfig(
+        name="cuda-test", dim=10, n_nodes=n, n_test=500, class_ratio=(1, 1),
+        lam=1e-3, variant="mu", wire_dtype=wire, fault_model=fault,
+        byzantine_frac=0.1, defense=defense), "extreme")
+    kw = dict(cycles=12, eval_every=6, seed=1)
+    sh, _, ref = smoke.compare_engines(cfg, X, y, n, cuda, **kw)
+    assert sh.fault_stats["corrupted"] > 0
+    if (fault, wire, defense) == smoke.FAULT_RUNS[0]:
+        for engine, unhooked in (("sharded", sh), ("reference", ref)):
+            assert smoke.hooked_equals_unhooked(cfg, X, y, n, cuda, engine,
+                                                unhooked, **kw) > 0

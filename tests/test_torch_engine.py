@@ -241,9 +241,6 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("opt", [
-    dict(cfg=dict(wire_dtype="int8", fault_model="bitflip")),
-    dict(cfg=dict(fault_model="zero")),
-    dict(cfg=dict(defense="norm_clip")), dict(run=dict(serve_hook=print)),
     dict(run=dict(telemetry=object())),
     dict(run=dict(engine="sharded", mesh=object())),
     dict(run=dict(engine="sharded", compact_mode="compact_all")),

@@ -128,9 +128,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         kw["variant"] = "avg"
     elif bad == "wire":            # a scale alone names no decode mode
         kw["msg_scale"] = torch.ones((2, 8), dtype=torch.float16)
-    else:                          # the defense screens are not ported
-        kw["defense"] = "norm_clip"
-        err = TypeError
+    else:                          # a screen the reference does not have
+        kw["defense"] = "median"
     with pytest.raises(err):
         pt.fused_receive_apply(*(args[k] for k in ORDER), **kw)
 
