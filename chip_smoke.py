@@ -18,7 +18,13 @@ and ``nvcc``. The phases, each of which raises on failure:
    bf16/f16 decodes timed at N = 10^6; the voted-predict kernel at the
    serving shapes (bitwise, with zero scores and exact-half ties); the send
    kernels for int8, int8_sr, int4, int4_ef, ternary and ternary_ef
-   (bitwise);
+   (bitwise); the cosine_gate screen timed at N = 10^6; kernels #6 and #7
+   (``pegasos_update``, ``merge_update``) at N = 10^6, d = 10 and 57, and
+   N = 4096, d = 9947, driven ten steps each through ``kernels/ops.py``
+   and timed at N = 10^6, d = 10; kernel #8 (``flash_attention``) over
+   head_dim 64, 128 and 48, H/KV 1, 2 and 8, causal or not, window None
+   or 64, S = 1, 37, 128 and 2048, in float32 and bfloat16, and on
+   strided inputs;
 2. the sharded engine with the kernels against the port's reference engine
    on the card (N = 20 000, the paper's extreme scenario) on the f32 wire
    and on int8_sr, int4_ef and ternary, and the first chunk's threefry draw
@@ -45,7 +51,17 @@ and ``nvcc``. The phases, each of which raises on failure:
    and the voted-predict kernel's (M = 256 and 65 536) time per launch
    beside their bounds (the voted-predict kernel's replayed from a CUDA
    graph, so that the host's cost of a call is left out, and also per
-   call as the server makes it), and a profiled rerun.
+   call as the server makes it), and a profiled rerun;
+6. LM serving at full width: the reduced qwen3-1.7b served on the card
+   (kernel #8) against the same weights served on the CPU (its plain
+   version), then qwen3-1.7b in bf16 with random weights from a seeded
+   generator, ``DecodeServer(batch=4, max_len=4096)``, a fused prefill of
+   a 2048-token prompt (28 launches of kernel #8) and 64 greedy decode
+   steps: prefill and decode times and tokens/s, peak memory, a profiled
+   rerun; kernel #8 on the path's own last-layer q, k, v beside its bound,
+   its plain version and ``scaled_dot_product_attention``; and the same
+   server on the plain attention path (``attn_impl="xla"``): prefill
+   logits within a stated tolerance, the share of equal greedy tokens.
 
 Prints one JSON line of per-kernel results, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -93,6 +109,28 @@ SEND_ROWS = {
     "packed_ef": "src/repro/kernels/gossip_cycle.py:446",
     "packed": "src/repro/kernels/gossip_cycle.py:457",
 }
+# rows #6 and #7: the population kernels through kernels/ops.py, and the
+# Pallas calls they replace
+ROW_KERNELS = {"pegasos_update": "src/repro/kernels/pegasos_update.py:63",
+               "merge_update": "src/repro/kernels/gossip_merge.py:48"}
+ROW_STEPS = 10          # steps a phase-1 run of each takes through ops.py
+ROW_SHAPES = ((1_000_000, 10), (1_000_000, 57), (4096, 9947))
+# row #8, and the shapes of phase 1's sweep of it
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:121"
+FLASH_HEAD_DIMS = (64, 128, 48)
+FLASH_GROUPS = (1, 2, 8)                 # H / KV
+FLASH_SEQS = (1, 37, 128, 2048)
+# H100 SXM dense bf16 on the tensor cores: the least time of attention's
+# products in bf16, whatever units a kernel runs them on
+BF16_FLOPS_PER_S = 989e12
+# phase 6: the serving configuration
+LM_ARCH, LM_BATCH, LM_MAX_LEN, LM_PROMPT, LM_STEPS = (
+    "qwen3-1.7b", 4, 4096, 2048, 64)
+# the kernel path's prefill logits against the plain attention path's: bf16
+# activations, and the two paths round P V differently (the kernel keeps
+# p in float32, the plain path casts it to bf16), which 28 layers amplify.
+# Measured 0.033 at a largest |logit| of 4.5 on an H100; the bound is 3x.
+LM_PATH_LOGIT_TOL = 0.1
 
 
 def smi() -> str:
@@ -673,6 +711,427 @@ def time_send(captured):
     return ms, plain_ms, bound_ms, bound_by, nbytes
 
 
+def row_inputs(seed, n, d, device, merge=False):
+    """(N, d) models with counters in [0, 100), examples and ±1 labels,
+    made with numpy: (w, t, x, y), or (w1, t1, w2, t2, x, y) for the
+    merge."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2 if merge else 1):
+        out += [rng.standard_normal((n, d), dtype=np.float32),
+                rng.integers(0, 100, n, dtype=np.int32)]
+    out += [rng.standard_normal((n, d), dtype=np.float32),
+            np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32)]
+    return tuple(torch.from_numpy(a).to(device) for a in out)
+
+
+def row_plain(name):
+    from repro_torch.kernels import ref
+    return {"pegasos_update": ref.pegasos_update_ref,
+            "merge_update": ref.merge_update_ref}[name]
+
+
+def compare_rows(name, inputs, lam):
+    """Kernel #6 (``name`` "pegasos_update") or #7 ("merge_update")
+    through ``kernels/ops.py`` against its plain version on the card: t
+    equal; w within rtol 2e-5, atol 1e-5 (only the margin is summed in
+    another order, so w is bitwise equal but in a row whose margin lies
+    within that sum's rounding of 1). Returns (max abs err, rows not
+    bitwise equal)."""
+    import torch
+    from repro_torch.kernels import ops
+    w, t = getattr(ops, name)(*inputs, lam=lam)
+    pw, pt = row_plain(name)(*inputs, lam)
+    torch.cuda.synchronize()
+    if not torch.equal(t, pt):
+        raise AssertionError(f"{name}: t differs in {int((t != pt).sum())} "
+                             "rows")
+    if not torch.isfinite(w).all():
+        raise AssertionError(f"{name}: w not finite")
+    err = float((w - pw).abs().max())
+    if not torch.allclose(w, pw, rtol=2e-5, atol=1e-5):
+        raise AssertionError(f"{name}: w off by {err}")
+    return err, int((w != pw).any(dim=1).sum())
+
+
+def rows_bound(name, n: int, d: int):
+    """Least bytes and operations of one launch of kernel #6 or #7: the
+    model(s), x, t and y read once, w' and t' written once; about 5
+    operations an element (margin product and sum, decay, hinge product,
+    add), 7 with the merge's add and halving."""
+    merge = name == "merge_update"
+    nbytes = n * ((16 if merge else 12) * d + (16 if merge else 12))
+    ms, by = bound(nbytes, n * d * (7 if merge else 5))
+    return ms, by, nbytes
+
+
+def time_rows(name, inputs, lam):
+    """ms per launch of kernel #6 or #7 through ``kernels/ops.py``, its
+    plain version's ms, and the bound."""
+    from repro_torch.kernels import ops
+    fn = getattr(ops, name)
+    ms = cuda_time_ms(lambda: fn(*inputs, lam=lam), reps=20)
+    plain = row_plain(name)
+    plain_ms = cuda_time_ms(lambda: plain(*inputs, lam), reps=10)
+    return (ms, plain_ms) + rows_bound(name, *inputs[0].shape)
+
+
+def flash_inputs(seed, b, s, h, kv, hd, dtype, device, strided=False):
+    """q (B, S, H, hd), k and v (B, S, KV, hd) of ``dtype``, normal draws
+    from a seeded generator on ``device``; ``strided``: views of
+    (B, heads, S, hd) tensors, so only hd is contiguous."""
+    import torch
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+
+    def make(heads):
+        shape = (b, heads, s, hd) if strided else (b, s, heads, hd)
+        x = torch.randn(shape, generator=g, device=device).to(dtype)
+        return x.transpose(1, 2) if strided else x
+    return make(h), make(kv), make(kv)
+
+
+def compare_flash(q, k, v, causal, window):
+    """Kernel #8 against its plain version on the card: float32 within
+    rtol = atol = 2e-4, bfloat16 within atol 3e-2 (tests/test_kernels.py's
+    tolerances) and rtol 2^-7: both sides compute in float32, in another
+    order, and round once to q's type, so a bf16 output may differ by one
+    rounding step, 2^-7 of it, which passes 3e-2 above |o| = 4 (the serving
+    path's values reach that). Returns the max abs error."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if got.dtype != q.dtype or got.shape != q.shape:
+        raise AssertionError(f"flash_attention gave {got.dtype} "
+                             f"{tuple(got.shape)} for q {q.dtype} "
+                             f"{tuple(q.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError("flash_attention: output not finite")
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    tol = (dict(rtol=2e-4, atol=2e-4) if q.dtype == torch.float32
+           else dict(rtol=2.0 ** -7, atol=3e-2))
+    if not torch.allclose(g, w, **tol):
+        raise AssertionError(f"flash_attention {q.dtype} {tuple(q.shape)} "
+                             f"kv {k.shape[2]} causal={causal} "
+                             f"window={window}: off by {err}")
+    return err
+
+
+def visible_pairs(s: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask lets through at Sq = Sk = s."""
+    import numpy as np
+    i = np.arange(s, dtype=np.int64)
+    lo = np.zeros(s, np.int64) if window is None else np.maximum(
+        0, i - window + 1)
+    hi = i + 1 if causal else np.full(s, s, np.int64)
+    return int((hi - lo).sum())
+
+
+def flash_bound(q, kv_heads: int, causal: bool, window):
+    """Least bytes and operations of one launch of kernel #8: q, k, v read
+    once and the output written once; 4 hd operations (the two products)
+    a visible (query, key) pair of each head, at the dense tensor-core rate
+    for bf16 and the float32 rate otherwise. Returns (ms, bound_by, bytes,
+    operations)."""
+    import torch
+    b, s, h, hd = q.shape
+    nbytes = q.element_size() * b * s * hd * (2 * h + 2 * kv_heads)
+    flops = 4 * b * h * hd * visible_pairs(s, causal, window)
+    rate = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    ms_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    ms_ops = flops / rate * 1e3
+    return (max(ms_bytes, ms_ops),
+            "bytes" if ms_bytes >= ms_ops else "operations", nbytes, flops)
+
+
+def serve_once(cfg, params, prompts, steps: int):
+    """A ``DecodeServer(batch=len(prompts), max_len=LM_MAX_LEN)``: fused
+    prefill of ``prompts``, then ``steps`` greedy decode steps. Returns
+    (prefill logits, tokens, prefill s, decode s)."""
+    import torch
+    from repro_torch.launch.serve import DecodeServer
+    srv = DecodeServer(cfg, params, batch=prompts.shape[0],
+                       max_len=LM_MAX_LEN)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, start = srv.prefill(prompts)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    toks = srv.decode(logits, start, steps)      # ends in a read-back
+    t2 = time.perf_counter()
+    return logits, toks, t1 - t0, t2 - t1
+
+
+def small_server_check(device, seed: int = 1):
+    """The reduced config (f32) served on ``device`` (kernel #8) and on
+    the CPU (its plain version) with the same weights: prefill logits
+    within rtol 1e-4 and an atol of 1e-5 times their largest magnitude,
+    and equal greedy tokens over 16 steps. Returns (max logit diff,
+    tokens)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config, reduced_config
+    from repro_torch.launch.serve import DecodeServer
+    from repro_torch.models import transformer as T
+    cfg = reduced_config(get_config(LM_ARCH), vocab=2048)
+    on_cpu = T.init_params(cfg, device="cpu", seed=seed)
+    on_dev = copy.deepcopy(on_cpu).to(device)
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                   (2, 100))
+    out = []
+    for params in (on_dev, on_cpu):
+        srv = DecodeServer(cfg, params, batch=2, max_len=128)
+        logits, start = srv.prefill(prompts)
+        out.append((logits.cpu(), srv.decode(logits, start, 16)))
+    (gl, gt), (cl, ct) = out
+    diff = float((gl - cl).abs().max())
+    if not torch.allclose(gl, cl, rtol=1e-4,
+                          atol=1e-5 * max(1.0, float(cl.abs().max()))):
+        raise AssertionError(f"reduced server: card and CPU logits differ "
+                             f"by {diff}")
+    if not np.array_equal(gt, ct):
+        raise AssertionError("reduced server: card and CPU greedy tokens "
+                             "differ")
+    return diff, gt
+
+
+def phase1_rows(card: str, results: dict):
+    """Kernels #6 and #7 against their plain versions at ``ROW_SHAPES``;
+    their path through ``kernels/ops.py`` (``ROW_STEPS`` steps of each at
+    N = 10^6, d = 10, counts set to 0 before and read after); their times
+    there. Returns each kernel's row of the ``kernels`` line."""
+    import torch
+    from repro_torch.kernels import gossip_merge as gm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pegasos_update as pu
+    dev = torch.device("cuda")
+    errs = dict.fromkeys(ROW_KERNELS, 0.0)
+    for n, d in ROW_SHAPES:
+        for name in ROW_KERNELS:
+            inputs = row_inputs(n + d, n, d, dev,
+                                merge=name == "merge_update")
+            err, off = compare_rows(name, inputs, 1e-3)
+            errs[name] = max(errs[name], err)
+            print(f"[1] {name} N={n} d={d}: t equal, w max abs err "
+                  f"{err:.3e} (rtol 2e-5, atol 1e-5), {off} rows not "
+                  "bitwise equal")
+            del inputs
+    torch.cuda.empty_cache()
+
+    n, d = ROW_SHAPES[0]
+    w, t, x, y = inputs6 = row_inputs(1, n, d, dev)
+    w1, t1, w2, t2, x2, y2 = inputs7 = row_inputs(2, n, d, dev, merge=True)
+    t6_end = t + ROW_STEPS
+    t7_end = torch.maximum(t1, t2) + ROW_STEPS
+    counters = {"pegasos_update": pu.pegasos_update,
+                "merge_update": gm.merge_update}
+    for fn in counters.values():
+        fn.launches = 0
+    for _ in range(ROW_STEPS):
+        w, t = ops.pegasos_update(w, t, x, y, lam=1e-3)
+        w1, t1 = ops.merge_update(w1, t1, w2, t2, x2, y2, lam=1e-3)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if launches != dict.fromkeys(counters, ROW_STEPS):
+        raise AssertionError(f"{ROW_STEPS} steps through ops.py launched "
+                             f"{launches}")
+    if not (torch.equal(t, t6_end) and torch.equal(t1, t7_end)
+            and torch.isfinite(w).all() and torch.isfinite(w1).all()):
+        raise AssertionError("the steps through ops.py gave wrong counters "
+                             "or non-finite models")
+    print(f"[1] {ROW_STEPS} steps of pegasos_update and of merge_update "
+          f"through kernels/ops.py at N={n} d={d}: launches {launches}, "
+          "counters as expected, models finite")
+    out = {}
+    for name, inputs in (("pegasos_update", inputs6),
+                         ("merge_update", inputs7)):
+        ms, plain_ms, b_ms, by, nbytes = time_rows(name, inputs, 1e-3)
+        print(f"[1] {card}: {name} at N={n} d={d}: {ms:.4f} ms/launch vs "
+              f"bound {b_ms:.4f} ms ({by}, {nbytes} B); plain version "
+              f"{plain_ms:.4f} ms")
+        out[name] = dict(launches=launches[name], max_abs_err=errs[name],
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=by)
+    results["rows"] = out
+    return out
+
+
+def phase1_flash(dev) -> float:
+    """Kernel #8 against its plain version over the sweep of
+    ``FLASH_HEAD_DIMS`` x ``FLASH_GROUPS`` x ``FLASH_SEQS`` x float32 and
+    bfloat16 x causal or not x window None or 64 (KV = 2, H = KV x group;
+    B = 2 below S = 2048), and on strided inputs. Returns the max abs
+    error."""
+    import torch
+    worst, cases = 0.0, 0
+    for hd in FLASH_HEAD_DIMS:
+        for group in FLASH_GROUPS:
+            kv, h = 2, 2 * group
+            for s in FLASH_SEQS:
+                b = 2 if s < 2048 else 1
+                errs = {}
+                for dtype in (torch.float32, torch.bfloat16):
+                    q, k, v = flash_inputs(cases, b, s, h, kv, hd, dtype,
+                                           dev)
+                    errs[dtype] = max(
+                        compare_flash(q, k, v, causal, window)
+                        for causal in (True, False) for window in (None, 64))
+                    cases += 4
+                worst = max(worst, *errs.values())
+                print(f"[1] flash_attention hd={hd} H={h} KV={kv} S={s} "
+                      f"B={b}, causal and not, window None and 64: max abs "
+                      f"err f32 {errs[torch.float32]:.3e}, bf16 "
+                      f"{errs[torch.bfloat16]:.3e}")
+            torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = flash_inputs(7, 2, 300, 16, 8, 128, dtype, dev,
+                               strided=True)
+        err = compare_flash(q, k, v, True, None)
+        worst = max(worst, err)
+        cases += 1
+        print(f"[1] flash_attention on strided q, k, v (only hd contiguous) "
+              f"{dtype} B=2 S=300 H=16 KV=8 hd=128: max abs err {err:.3e}")
+    print(f"[1] flash_attention: {cases} cases within tolerance (f32 rtol = "
+          "atol = 2e-4, bf16 atol 3e-2 and rtol 2^-7)")
+    return worst
+
+
+def phase6(card: str, results: dict, flash_err: float) -> dict:
+    """LM serving at full width (see the module note). Returns kernel
+    #8's row of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gossip_cycle as gc
+    from repro_torch.kernels import gossip_merge as gm
+    from repro_torch.kernels import pegasos_update as pu
+    from repro_torch.kernels import voted_predict as vp
+    from repro_torch.models import transformer as T
+    dev = torch.device("cuda")
+
+    diff, _ = small_server_check(dev)
+    print(f"[6] reduced {LM_ARCH} (f32) served on the card (kernel #8) and "
+          f"on the CPU (plain version): prefill logits within {diff:.3e}, "
+          "16 greedy tokens a prompt equal")
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    print(f"[6] {LM_ARCH}: {cfg.param_count()} parameters in "
+          f"{str(cfg.param_dtype)[6:]}, random from a seeded generator on "
+          f"the card in {init_s:.2f} s; attn_impl={cfg.attn_impl}")
+    serve_once(cfg, params, prompts[:, :64], 2)     # warm up
+    flash = fa.flash_attention
+    captured = {}
+
+    def capture(q, k, v, **kw):
+        if flash.launches == cfg.num_layers - 1:        # the last layer's
+            captured.update(q=q.clone(), k=k.clone(), v=v.clone(), kw=kw)
+        return flash(q, k, v, **kw)
+
+    others = (gc.fused_receive_apply, vp.voted_predict_batched,
+              pu.pegasos_update, gm.merge_update)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention = capture
+    try:
+        for fn in (flash,) + others:
+            fn.launches = 0
+        logits, toks, pre_s, dec_s = serve_once(cfg, params, prompts,
+                                                LM_STEPS)
+        launches = flash.launches
+        stray = [fn.launches for fn in others]
+    finally:
+        fa.flash_attention = flash
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.num_layers or any(stray):
+        raise AssertionError(f"phase 6: kernel #8 launched {launches} times "
+                             f"in a prefill of {cfg.num_layers} layers; "
+                             f"others {stray}")
+    if (tuple(logits.shape) != (LM_BATCH, cfg.vocab_size)
+            or not torch.isfinite(logits).all()
+            or toks.shape != (LM_BATCH, LM_STEPS)
+            or not ((0 <= toks) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"phase 6: logits {tuple(logits.shape)}, "
+                             f"tokens {toks.shape}")
+    pre_tps = LM_BATCH * LM_PROMPT / pre_s
+    dec_tps = LM_BATCH * LM_STEPS / dec_s
+    print(f"[6] {card}: {LM_ARCH} DecodeServer(batch={LM_BATCH}, "
+          f"max_len={LM_MAX_LEN}): kernel #8 launches {launches} in the "
+          f"prefill; prefill of {LM_PROMPT} tokens {pre_s * 1e3:.1f} ms "
+          f"({pre_tps:.0f} tokens/s); {LM_STEPS} decode steps "
+          f"{dec_s * 1e3 / LM_STEPS:.2f} ms/step ({dec_tps:.1f} tokens/s); "
+          f"peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
+    print(f"[6] sample continuation: {toks[0][:16].tolist()}")
+    prof = profile_run(lambda: serve_once(cfg, params, prompts, LM_STEPS),
+                       "6", card)
+
+    q, k, v = (captured[n] for n in ("q", "k", "v"))
+    causal, window = captured["kw"]["causal"], captured["kw"]["window"]
+    err = compare_flash(q, k, v, causal, window)
+    ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                                 window=window), reps=20)
+    plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
+        q, k, v, causal=causal, window=window), reps=5)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
+    b_ms, by, nbytes, flops = flash_bound(q, k.shape[2], causal, window)
+    print(f"[6] {card}: flash_attention on the last layer's q, k, v "
+          f"{tuple(q.shape)} kv {k.shape[2]} {str(q.dtype)[6:]} "
+          f"causal={causal}: {ms:.4f} ms/launch vs bound {b_ms:.4f} ms "
+          f"({by}, {flops} operations, {nbytes} B); plain version "
+          f"{plain_ms:.4f} ms; scaled_dot_product_attention {lib_ms:.4f} ms; "
+          f"max abs err vs plain {err:.3e}")
+    del q, k, v, qt, kt, vt, captured
+    torch.cuda.empty_cache()
+
+    # the same server on the plain attention path
+    p_logits, p_toks, p_pre, p_dec = serve_once(
+        cfg.replace(attn_impl="xla"), params, prompts, LM_STEPS)
+    ldiff = float((logits - p_logits).abs().max())
+    scale = float(p_logits.abs().max())
+    same = float(np.mean(toks == p_toks))
+    first = float(np.mean(toks[:, 0] == p_toks[:, 0]))
+    print(f"[6] {card}: plain attention path (attn_impl=xla): prefill "
+          f"{p_pre * 1e3:.1f} ms, decode {p_dec * 1e3 / LM_STEPS:.2f} "
+          f"ms/step; prefill logits max abs diff {ldiff:.4f} (largest "
+          f"|logit| {scale:.3f}, tolerance {LM_PATH_LOGIT_TOL}); first "
+          f"tokens equal {first:.2f}, all {LM_STEPS} greedy tokens equal "
+          f"{same:.4f}")
+    if not ldiff <= LM_PATH_LOGIT_TOL:
+        raise AssertionError(f"phase 6: kernel and plain attention paths' "
+                             f"prefill logits differ by {ldiff}")
+    results["phase6"] = dict(
+        arch=LM_ARCH, batch=LM_BATCH, max_len=LM_MAX_LEN, prompt=LM_PROMPT,
+        steps=LM_STEPS, params=cfg.param_count(), init_s=init_s,
+        small_check_diff=diff, prefill_s=pre_s, prefill_tokens_per_s=pre_tps,
+        decode_ms_per_step=dec_s * 1e3 / LM_STEPS,
+        decode_tokens_per_s=dec_tps, peak_bytes=peak, launches=launches,
+        profile=prof, flash=dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 bound_ms=b_ms, bound_by=by, bound_bytes=nbytes,
+                                 bound_operations=flops, max_abs_err=err),
+        plain_path=dict(prefill_s=p_pre, decode_s=p_dec, logit_diff=ldiff,
+                        largest_logit=scale, first_token_share=first,
+                        token_share=same))
+    return dict(launches=launches, max_abs_err=max(flash_err, err), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=lib_ms)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -703,7 +1162,13 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = smi()
-    results = {"card": card}
+    results = {"card": card, "phase_start_s": {}}
+    start = time.perf_counter()
+
+    def phase(n: int):
+        results["phase_start_s"][n] = time.perf_counter() - start
+        print(f"[{n}] starts {results['phase_start_s'][n]:.1f} s into the "
+              "run")
 
     # ---- 0. setup ------------------------------------------------------
     nvcc_ver = subprocess.run([_build.nvcc(), "--version"],
@@ -726,6 +1191,7 @@ def main() -> int:
     results["build_s"] = build_s
 
     # ---- 1. kernel vs plain ------------------------------------------------
+    phase(1)
     max_err = 0.0
     shapes = [(4099, 10, 10, 4, 1e-5), (4099, 57, 10, 4, 1e-5),
               (2000, 9947, 10, 4, 1e-4), (257, 16, 3, 5, 1e-5)]
@@ -777,6 +1243,18 @@ def main() -> int:
         results["decode_modes"][mode] = dict(ms=ms_, plain_ms=plain_,
                                              bound_ms=bound_, bound_by=by_)
         del inputs
+    # the cosine_gate screen (f32), which no main-path phase runs, on the
+    # same inputs
+    inputs = receive_inputs(0, 1_000_000, 10, 10, 4, dev)
+    inputs["defense"] = "cosine_gate"
+    cg = time_receive(inputs, "mu", 1e-3, 10)
+    print(f"[1] {card}: fused_receive_apply cosine_gate (f32) at N=10^6 "
+          f"d=10 C=10 K=4 mu: {cg[1]:.4f} ms/launch vs bound {cg[3]:.4f} ms "
+          f"({cg[4]}, {cg[5]} B); plain version {cg[2]:.4f} ms; max abs err "
+          f"{cg[0]:.3e}")
+    results["decode_modes"]["cosine_gate"] = dict(
+        ms=cg[1], plain_ms=cg[2], bound_ms=cg[3], bound_by=cg[4])
+    del inputs
     torch.cuda.empty_cache()
     # the voted-predict kernel: bitwise, at the serving shapes
     for m, c, d in VOTED_SHAPES:
@@ -818,8 +1296,11 @@ def main() -> int:
           "to the plain codec with sr_noise_for_rows")
     del w, q, sc, zp
     torch.cuda.empty_cache()
+    row_kernels = phase1_rows(card, results)
+    flash_err = phase1_flash(dev)
 
     # ---- 2. path vs oracle -------------------------------------------------
+    phase(2)
     n2 = 20_000
     rng = np.random.default_rng(0)
     X, y = make_linear_dataset(rng, n2 + 1000, 10, noise=0.07,
@@ -867,12 +1348,16 @@ def main() -> int:
           "permutation) bitwise equal on CUDA and CPU")
     # Byzantine faults and the defense screens, then serving hooks
     results["phase2"]["faults"] = {}
+    cosine_launches = 0     # the sharded engine's, under cosine_gate
     for fault, wire, defense in FAULT_RUNS:
         cfgf = dataclasses.replace(cfg2, wire_dtype=wire, fault_model=fault,
                                    byzantine_frac=0.1, defense=defense)
         tag = f"{fault}/{wire or 'f32'}/{defense}"
+        before = gc.fused_receive_apply.launches
         shf, df, reff = compare_engines(cfgf, X, y, n2, dev, cycles=20,
                                         eval_every=10, seed=0, k_rounds=4)
+        if defense == "cosine_gate":
+            cosine_launches += gc.fused_receive_apply.launches - before
         fs = shf.fault_stats
         if fs["corrupted"] == 0 or fs["gated"] + fs["clipped"] == 0:
             raise AssertionError(f"{tag}: no fault reached the screen {fs}")
@@ -894,6 +1379,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 3. full size ------------------------------------------------------
+    phase(3)
     n3, cycles = 1_000_000, 20
     rng = np.random.default_rng(0)
     X, y = make_linear_dataset(rng, n3 + 1000, 10, noise=0.07,
@@ -952,6 +1438,7 @@ def main() -> int:
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)]
 
     # ---- 4. the quantized wire at full size --------------------------------
+    phase(4)
     results["phase4"] = {}
     send_rows = {}
     for wire in MAIN_WIRES:
@@ -1020,6 +1507,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---- 5. faults, a defense and live serving at full size -------------
+    phase(5)
     from repro_torch.core import serving
     from repro_torch.launch.gossip_serve import GossipServer
     cfg5 = dataclasses.replace(cfg3, fault_model="sign_flip",
@@ -1124,6 +1612,12 @@ def main() -> int:
             source="src/repro_torch/kernels/csrc/quantize_send.cu",
             replaces=replaces, max_abs_err=0.0, library_ms=None,
             **send_rows[kernel]))
+    kernels.append(dict(
+        name="fused_receive_apply[cosine_gate]", route="cuda",
+        source="src/repro_torch/kernels/csrc/gossip_cycle.cu",
+        replaces="src/repro/kernels/gossip_cycle.py:272",
+        launches=cosine_launches, max_abs_err=cg[0], ms=cg[1],
+        plain_ms=cg[2], bound_ms=cg[3], bound_by=cg[4], library_ms=None))
     v256 = voted_rows[256]
     kernels.append(dict(
         name="voted_predict_batched", route="cuda",
@@ -1132,7 +1626,22 @@ def main() -> int:
         max_abs_err=0.0, ms=v256["ms"], plain_ms=v256["plain_ms"],
         bound_ms=v256["bound_ms"], bound_by=v256["bound_by"],
         library_ms=None))
+    for name, replaces in ROW_KERNELS.items():
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/pegasos_merge.cu",
+            replaces=replaces, library_ms=None, **row_kernels[name]))
+
+    # ---- 6. LM serving at full width ---------------------------------------
+    phase(6)
+    flash_row = phase6(card, results, flash_err)
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces=FLASH_REPLACES, **flash_row))
     results["kernels"] = kernels
+    results["total_s"] = time.perf_counter() - start
+    print(f"[6] {card}: the whole run took {results['total_s']:.1f} s")
     if opts.out:
         out = Path(opts.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -1,0 +1,17 @@
+from repro_torch.config.base import (
+    AttentionConfig,
+    CrossAttnConfig,
+    EncoderConfig,
+    MoEConfig,
+    ModelConfig,
+    RGLRUConfig,
+    SSMConfig,
+)
+from repro_torch.config.registry import (get_config, list_configs,
+                                         reduced_config, register_config)
+
+__all__ = [
+    "AttentionConfig", "CrossAttnConfig", "EncoderConfig", "MoEConfig",
+    "ModelConfig", "RGLRUConfig", "SSMConfig", "get_config", "list_configs",
+    "reduced_config", "register_config",
+]

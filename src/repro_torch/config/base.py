@@ -1,0 +1,136 @@
+"""The LM stack's configuration dataclasses.
+
+A copy of ``repro/config/base.py``'s model configs (that module cannot be
+imported here: its package loads JAX), with ``torch`` dtypes in place of
+``jnp`` ones. ``AttentionConfig`` and ``ModelConfig`` drive the port's
+models; the MoE, SSM, RG-LRU, encoder and cross-attention configs are
+plain data, kept so that every registered config converts field by field
+(``convert.model_config_from_dict``) though the port does not run those
+families yet (ROADMAP queue 1 item 12).
+
+One meaning differs: ``attn_impl``'s default is ``"flash"``, the flash
+kernel (#8, ``kernels/flash_attention.py``): on CUDA tensors it runs the
+hand-written kernel, on CPU tensors its plain version. ``"xla"`` is the
+plain grouped attention of ``models/attention.py``; the reference's
+default ``"chunked"`` and its ``"banded"`` are not ported yet, and the
+reference's ``"pallas"`` converts to ``"flash"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
+
+import torch
+
+
+@dataclass(frozen=True)
+class AttentionConfig:
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    use_rope: bool = True
+    sliding_window: Optional[int] = None   # None = full attention
+    causal: bool = True
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // self.num_kv_heads
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    sharding: str = "expert"
+    dispatch_groups: int = 1
+    combine: str = "gather"
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk_size: int = 256
+    d_conv: int = 4
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    lru_width: int = 0
+    d_conv: int = 4
+    num_heads: int = 0
+    c: float = 8.0
+    local_window: int = 2048
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    num_layers: int
+    source_len: int
+    d_model: int = 0
+    causal: bool = False
+
+
+@dataclass(frozen=True)
+class CrossAttnConfig:
+    every_n_layers: int
+    source_len: int
+    gated: bool = True
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                       # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+    attention: Optional[AttentionConfig] = None
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+    encoder: Optional[EncoderConfig] = None
+    cross_attn: Optional[CrossAttnConfig] = None
+    # repeating layer pattern, tiled to num_layers (remainder layers take
+    # the pattern prefix): 'attn', 'local', 'rglru', 'ssm', 'cross'
+    layer_pattern: Tuple[str, ...] = ("attn",)
+    norm_eps: float = 1e-6
+    norm: str = "rmsnorm"             # rmsnorm | layernorm
+    tie_embeddings: bool = False
+    act: str = "swiglu"               # swiglu | gelu
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.bfloat16
+    max_target_positions: int = 0     # 0 = unbounded (rope)
+    # the reference's training switches; serving has no use for them
+    remat: bool = True
+    scan_layers: bool = True
+    citation: str = ""
+    # 'flash' (kernel #8) or 'xla' (plain grouped attention)
+    attn_impl: str = "flash"
+    attn_chunk: int = 512
+    xent_chunk: int = 512
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        p = self.layer_pattern
+        reps, rem = divmod(self.num_layers, len(p))
+        return p * reps + p[:rem]
+
+    def param_count(self) -> int:
+        """Total parameter count (embedding, layers and head)."""
+        from repro_torch.models.layers import spec_param_count
+        from repro_torch.models.transformer import model_spec
+        return spec_param_count(model_spec(self))

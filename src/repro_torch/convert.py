@@ -13,6 +13,13 @@ own dtype, and rebuild a config from ``dataclasses.asdict`` of the
 reference's. ``snapshot_from_arrays`` does the same for the reference's
 serving ``QuerySnapshot``. numpy has no bfloat16 of its own: a bf16 ``buf_w`` comes in
 as the reference's array and goes back out as its raw bits (uint16).
+
+For the LM stack, ``model_config_from_dict`` rebuilds a ``ModelConfig`` from
+``dataclasses.asdict`` of the reference's, and ``lm_params_from_arrays``
+moves the reference's parameter pytree (as numpy arrays) into the port's
+``Params``: the reference stacks the layers of each pattern position
+(``blocks/l{j}`` with a leading layer axis, remainder layers under
+``tail/t{j}``), the port keeps one entry per layer in order.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch.config import base as cfg_base
 from repro_torch.configs.gossip_linear import GossipLinearConfig
 from repro_torch.core.cache import ModelCache
 from repro_torch.core.serving import QuerySnapshot
@@ -38,12 +46,18 @@ _PAYLOAD = {np.dtype(np.float32): torch.float32,
             np.dtype(np.int8): torch.int8, np.dtype(np.uint8): torch.uint8}
 
 
+def _bf16_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A bfloat16 array (the reference's ``ml_dtypes`` type), moved by its
+    bits."""
+    bits = np.ascontiguousarray(a).view(np.int16)
+    return torch.tensor(bits, device=device).view(torch.bfloat16)
+
+
 def _payload_tensor(a: np.ndarray, device) -> torch.Tensor:
     """``buf_w`` in its own dtype; a bfloat16 array (the reference's
     ``ml_dtypes`` type) is moved by its bits."""
     if a.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(a).view(np.int16)
-        return torch.tensor(bits, device=device).view(torch.bfloat16)
+        return _bf16_tensor(a, device)
     try:
         dtype = _PAYLOAD[a.dtype]
     except KeyError:
@@ -108,3 +122,83 @@ def config_from_dict(d: Mapping) -> GossipLinearConfig:
     if "class_ratio" in kw:
         kw["class_ratio"] = tuple(kw["class_ratio"])
     return GossipLinearConfig(**kw)
+
+
+# ---------------------------------------------------------------------------
+# the LM stack
+# ---------------------------------------------------------------------------
+
+_SUB_CONFIGS = {"attention": cfg_base.AttentionConfig,
+                "moe": cfg_base.MoEConfig, "ssm": cfg_base.SSMConfig,
+                "rglru": cfg_base.RGLRUConfig,
+                "encoder": cfg_base.EncoderConfig,
+                "cross_attn": cfg_base.CrossAttnConfig}
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+
+
+def _torch_dtype(dt) -> torch.dtype:
+    """A reference dtype (``jnp.float32``, ``jnp.bfloat16``, ...) by name."""
+    name = np.dtype(dt).name
+    try:
+        return _TORCH_DTYPES[name]
+    except KeyError:
+        raise ValueError(f"no torch dtype for {name}") from None
+
+
+def model_config_from_dict(d: Mapping) -> cfg_base.ModelConfig:
+    """The port's ``ModelConfig`` from ``dataclasses.asdict`` of the
+    reference's: sub-configs rebuilt, dtypes mapped by name, and the
+    reference's ``attn_impl="pallas"`` (its flash kernel) as ``"flash"``."""
+    known = {f.name for f in dataclasses.fields(cfg_base.ModelConfig)}
+    bad = sorted(set(d) - known)
+    if bad:
+        raise ValueError(f"unknown ModelConfig field(s) {bad}")
+    kw = dict(d)
+    for name, cls in _SUB_CONFIGS.items():
+        if kw.get(name) is not None:
+            kw[name] = cls(**kw[name])
+    kw["layer_pattern"] = tuple(kw["layer_pattern"])
+    for name in ("param_dtype", "compute_dtype"):
+        if name in kw:
+            kw[name] = _torch_dtype(kw[name])
+    if kw.get("attn_impl") == "pallas":
+        kw["attn_impl"] = "flash"
+    return cfg_base.ModelConfig(**kw)
+
+
+def _reference_leaf(tree: Mapping, cfg: cfg_base.ModelConfig, path):
+    """The reference's array for the port's parameter ``path``; layer i is
+    entry i // period of ``blocks/l{i % period}``, or a ``tail`` layer."""
+    if path[0] != "blocks":
+        node = tree
+        for name in path:
+            node = node[name]
+        return np.asarray(node)
+    i, rest = path[1], path[2:]
+    period = len(cfg.layer_pattern)
+    nb = cfg.num_layers // period
+    if i < nb * period:
+        node = tree["blocks"][f"l{i % period}"]
+    else:
+        node = tree["tail"][f"t{i - nb * period}"]
+    for name in rest:
+        node = node[name]
+    node = np.asarray(node)
+    return node[i // period] if i < nb * period else node
+
+
+def lm_params_from_arrays(cfg: cfg_base.ModelConfig, tree: Mapping, device):
+    """The reference's parameter pytree (nested dicts of arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) as the port's ``Params`` on
+    ``device``; a bf16 leaf is moved by its bits. Every leaf must have the
+    port spec's shape and dtype."""
+    from repro_torch.models.layers import build_params
+    from repro_torch.models.transformer import model_spec
+
+    def leaf(path, p):
+        a = _reference_leaf(tree, cfg, path)
+        if a.dtype.name == "bfloat16":
+            return _bf16_tensor(a, device)
+        return torch.tensor(a, device=device)
+    return build_params(model_spec(cfg), leaf)

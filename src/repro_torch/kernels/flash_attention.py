@@ -1,0 +1,128 @@
+"""Blocked causal / sliding-window / grouped-query flash attention forward.
+
+Counterpart of ``repro/kernels/flash_attention.py`` (the Pallas TPU kernel
+``flash_attention``, the ``attn_impl="pallas"`` path of the LM stack's
+full-sequence attention, forward only). For q (B, S, H, hd) and k, v (B, S,
+KV, hd), query head h attending over kv head ``h // (H // KV)``: logits
+scaled by ``1/sqrt(hd)``, masked (-1e30) outside the causal band and the
+window (``qpos - kpos``, no offset: Sq = Sk), an online softmax with its
+running max, sum and accumulator in f32 over inputs upcast to f32, masked
+probabilities 0, and the sum clamped at 1e-30, so a fully masked row gives
+0; the output in q's dtype.
+
+``flash_attention`` dispatches on the tensors' device: CUDA tensors go to
+the hand-written kernel in ``csrc/flash_attention.cu`` (built by ``nvcc``
+for sm_90a at first use; float32 or bfloat16, any hd up to 256), which
+reads q, k and v where they lie, through their strides; CPU tensors go to
+``flash_attention_plain`` beside it. There is no fallback: a CUDA tensor
+reaches the kernel or an exception. The kernel's tiles are its own (64
+queries by 32 keys); the TPU kernel's ``blk_q``/``blk_k`` and its padding
+of S and hd are TPU tiling rules and have no counterpart.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels.gossip_cycle import (_FLOAT, _INT, _VP, _entry,
+                                              _raise_on, _stream)
+
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window=None):
+    """What the kernel computes, in plain PyTorch: the whole softmax at
+    once (the kernel's tile-by-tile rescaling is the same function up to
+    rounding)."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.float().reshape(b, s, kv, h // kv, hd)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * (
+        1.0 / math.sqrt(hd))
+    pos = torch.arange(s, device=q.device)
+    diff = pos[:, None] - pos[None, :]
+    mask = torch.ones_like(diff, dtype=torch.bool)
+    if causal:
+        mask &= diff >= 0
+    if window is not None:
+        mask &= diff < window
+    logits = torch.where(mask, logits, NEG_INF)
+    p = torch.where(mask, torch.exp(logits - logits.amax(-1, keepdim=True)),
+                    0.0)
+    l = p.sum(-1).clamp_min(1e-30)                        # (b, g, r, q)
+    acc = torch.einsum("bgrqk,bkgd->bgrqd", p, v.float())
+    out = (acc / l[..., None]).permute(0, 3, 1, 2, 4)     # (b, q, g, r, d)
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def _check(q, k, v, window):
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("expected q (B, S, H, hd), k and v (B, S, KV, hd)")
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    if tuple(k.shape) != (b, s, kv, hd) or v.shape != k.shape:
+        raise ValueError(f"k and v must be (B, S, KV, hd) = "
+                         f"{(b, s, kv, hd)}, got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    if kv == 0 or h % kv:
+        raise ValueError(f"{h} query heads do not group over {kv} kv heads")
+    for name, a in (("k", k), ("v", v)):
+        if a.device != q.device:
+            raise ValueError(f"{name} is on {a.device}, q on {q.device}")
+        if a.dtype != q.dtype:
+            raise TypeError(f"{name} is {a.dtype}, q {q.dtype}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+
+
+def _launch(q, k, v, causal: bool, window):
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"the flash kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    b, s, h, hd = q.shape
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} exceeds the kernel's "
+                         f"{MAX_HEAD_DIM}")
+    if b * h > 65535:
+        raise ValueError(f"B * H = {b * h} exceeds the kernel's grid")
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        if a.stride(3) != 1:
+            raise ValueError(f"{name}'s head_dim must be contiguous")
+    fn, err = _entry("flash_attention", "flash_attention_forward",
+                     (_VP,) * 4 + (_INT,) * 6 + (_VP, _INT, _INT, _FLOAT,
+                                                 _VP))
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    strides = (ctypes.c_int64 * 12)(*(st for a in (q, k, v, out)
+                                      for st in a.stride()[:3]))
+    with torch.cuda.device(q.device):
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  _DTYPES[q.dtype], b, s, h, k.shape[2], hd,
+                  ctypes.cast(strides, ctypes.c_void_p), int(causal),
+                  0 if window is None else int(window),
+                  1.0 / float(hd) ** 0.5, _stream(q))
+    _raise_on(code, err, "flash_attention")
+    _FLASH.launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """q (B, S, H, hd), k and v (B, S, KV, hd) with H % KV == 0, on one
+    device and of one dtype -> (B, S, H, hd) in q's dtype."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise NotImplementedError(f"no flash-attention kernel for device "
+                                  f"{q.device}")
+    return _launch(q, k, v, causal, window)
+
+
+# Kernel launches so far; only the CUDA path counts. Bound to the wrapper
+# object itself, so the count survives a caller wrapping the module
+# attribute.
+flash_attention.launches = 0
+_FLASH = flash_attention

@@ -37,6 +37,8 @@ import torch
 from repro_torch.core import faults
 from repro_torch.core.wire_codec import (get_codec, quantize_wire,
                                          unpack_int4, unpack_ternary)
+# the (N, d) Pegasos step in f32, in ``_cycle_kernel._pegasos``'s order
+from repro_torch.kernels.ref import pegasos_update_ref as _pegasos
 
 VARIANTS = {"rw": 0, "mu": 1, "um": 2}
 # the receive kernel's decode modes (template argument of the CUDA kernel)
@@ -46,16 +48,6 @@ _FLOAT_MODES = {torch.float32: "f32", torch.bfloat16: "bf16",
                 torch.float16: "f16"}
 # the receive kernel's screens (template argument of the CUDA kernel)
 DEFENSE_CODES = {name: i for i, name in enumerate(faults.DEFENSES)}
-
-
-def _pegasos(w, t, x, y, lam: float):
-    """(N, d) Pegasos step in f32, in ``_cycle_kernel._pegasos``'s order."""
-    t = t + 1
-    eta = 1.0 / (lam * t.to(torch.float32))
-    margin = y * torch.sum(w * x, dim=-1)
-    decay = (1.0 - eta * lam)[:, None]
-    upd = torch.where((margin < 1.0)[:, None], (eta * y)[:, None] * x, 0.0)
-    return decay * w + upd, t
 
 
 def _wire_mode(wire, msg_scale, msg_zp) -> str:

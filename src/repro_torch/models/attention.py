@@ -1,0 +1,187 @@
+"""Grouped-query attention with RoPE, qk-norm, sliding windows and a KV cache.
+
+Counterpart of ``repro/models/attention.py`` for self-attention. The
+full-sequence path (prefill) runs the flash kernel (``impl="flash"``,
+kernel #8 through ``kernels/ops.py``) or the plain grouped attention
+(``impl="xla"``); the decode path attends one new token over a
+(possibly ring-buffered) KV cache, which it updates in place (the
+reference returns a new cache; the port's cache is the serve loop's own,
+so nothing is lost). Cross-attention and the reference's ``"chunked"`` and
+``"banded"`` impls are not ported yet (ROADMAP queue 1 item 12).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.config.base import AttentionConfig
+from repro_torch.models.layers import P, rmsnorm, rmsnorm_spec, wcast
+
+NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                   device=device) / head_dim)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: (..., S) integer. Half-split
+    convention, angles in f32."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    ang = positions[..., :, None].float() * freqs            # (..., S, hd/2)
+    cos = torch.cos(ang)[..., :, None, :]                    # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., :, None, :]
+    xf1, xf2 = x[..., : hd // 2].float(), x[..., hd // 2:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# spec
+# ---------------------------------------------------------------------------
+
+
+def attention_spec(d_model: int, a: AttentionConfig,
+                   dtype=torch.float32) -> Dict:
+    s = {
+        "wq": P((d_model, a.num_heads, a.head_dim), init="fan_in", dtype=dtype),
+        "wk": P((d_model, a.num_kv_heads, a.head_dim), init="fan_in",
+                dtype=dtype),
+        "wv": P((d_model, a.num_kv_heads, a.head_dim), init="fan_in",
+                dtype=dtype),
+        "wo": P((a.num_heads, a.head_dim, d_model), init="fan_in", dtype=dtype),
+    }
+    if a.qk_norm:
+        s["q_norm"] = rmsnorm_spec(a.head_dim, dtype)
+        s["k_norm"] = rmsnorm_spec(a.head_dim, dtype)
+    return s
+
+
+def _project_qkv(params, a: AttentionConfig, x):
+    q = torch.einsum("bsd,dhk->bshk", x, wcast(params["wq"], x))
+    k = torch.einsum("bsd,dhk->bshk", x, wcast(params["wk"], x))
+    v = torch.einsum("bsd,dhk->bshk", x, wcast(params["wv"], x))
+    if a.qk_norm:
+        q = rmsnorm(params["q_norm"], q)
+        k = rmsnorm(params["k_norm"], k)
+    return q, k, v
+
+
+def _inv_sqrt(hd: int) -> float:
+    """1/sqrt(hd) as the reference computes it, in f32."""
+    return float(1.0 / torch.sqrt(torch.tensor(float(hd))))
+
+
+def _grouped_sdpa(q, k, v, a: AttentionConfig, q_pos, k_pos, compute_dtype):
+    """Grouped-query attention without repeating K/V: q (B, Sq, H, hd),
+    k/v (B, Sk, KV, hd), q_pos (Sq,), k_pos (Sk,). Logits and softmax in
+    f32; the probabilities are cast to the compute dtype before P V."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, hd)
+    logits = torch.einsum("bqgrk,bsgk->bgrqs", qg.float(),
+                          k.float()) * _inv_sqrt(hd)
+    diff = q_pos[:, None] - k_pos[None, :]
+    mask = torch.ones_like(diff, dtype=torch.bool)
+    if a.causal:
+        mask &= diff >= 0
+    if a.sliding_window is not None:
+        mask &= diff < a.sliding_window
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgrqs,bsgk->bqgrk", probs.to(compute_dtype),
+                       v.to(compute_dtype))
+    return out.reshape(b, sq, h, hd)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence attention (prefill)
+# ---------------------------------------------------------------------------
+
+
+def attention(params, a: AttentionConfig, x, *, positions=None,
+              compute_dtype=torch.bfloat16, impl: str = "flash",
+              return_kv: bool = False):
+    """Full-sequence self-attention: x (B, S, d_model) -> (B, S, d_model),
+    or ``(out, (k, v))`` with the rope'd keys and values when
+    ``return_kv`` (the fused prefill's decode cache)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, a, x)
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+    if a.use_rope:
+        q = apply_rope(q, positions, a.rope_theta)
+        k = apply_rope(k, positions, a.rope_theta)
+    if impl == "flash":
+        from repro_torch.kernels import ops as kops
+        out = kops.flash_attention(q, k, v, causal=a.causal,
+                                   window=a.sliding_window)
+    elif impl == "xla":
+        out = _grouped_sdpa(q, k, v, a, positions[0], positions[0],
+                            compute_dtype)
+    elif impl in ("chunked", "banded"):
+        raise NotImplementedError(
+            f"attn_impl={impl!r} is not ported yet (ROADMAP.md, queue 1 item "
+            "12); use 'flash' or 'xla'")
+    else:
+        raise ValueError(f"unknown attn_impl {impl!r}")
+    out = torch.einsum("bshk,hkd->bsd", out, wcast(params["wo"], out))
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# KV cache + decode step
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(batch: int, length: int, a: AttentionConfig, dtype,
+                  device=None):
+    """One layer's KV cache: {"k", "v"} of (B, L, KV, hd) zeros."""
+    shape = (batch, length, a.num_kv_heads, a.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(params, a: AttentionConfig, x, cache, index: int, *,
+                     compute_dtype=torch.bfloat16,
+                     window: Optional[int] = None):
+    """One-token decode: x (B, 1, D); ``cache`` holds L past positions and
+    is updated in place; ``index`` is the new token's absolute position.
+    With ``window`` the cache is a ring buffer of L slots and writes wrap.
+    Returns (out, cache)."""
+    b = x.shape[0]
+    n_slots = cache["k"].shape[1]
+    q, k_new, v_new = _project_qkv(params, a, x)
+    if a.use_rope:
+        pos = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, pos, a.rope_theta)
+        k_new = apply_rope(k_new, pos, a.rope_theta)
+
+    # the reference's dynamic_update_slice clamps a start past the end
+    slot = index % n_slots if window is not None else min(index, n_slots - 1)
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+
+    # absolute key position of each slot (ring-buffer aware)
+    slots = torch.arange(n_slots, dtype=torch.int64, device=x.device)
+    k_pos = index - ((slot - slots) % n_slots) if window is not None else slots
+    valid = (k_pos >= 0) & (k_pos <= index)
+    # an invalid slot gets a future position: the causal mask drops it
+    k_pos = torch.where(valid, k_pos, index + 1)
+    a_d = a if a.sliding_window is None else dataclasses.replace(
+        a, sliding_window=min(a.sliding_window, n_slots))
+    q_pos = torch.full((1,), index, dtype=torch.int64, device=x.device)
+    out = _grouped_sdpa(q, cache["k"], cache["v"], a_d, q_pos, k_pos,
+                        compute_dtype)
+    return torch.einsum("bshk,hkd->bsd", out, wcast(params["wo"], out)), cache

@@ -1,0 +1,177 @@
+"""Parameter specs, the parameter container, and the primitive layers.
+
+Counterpart of ``repro/models/layers.py``. A module's ``*_spec`` gives its
+parameters as a tree of ``P`` (shape, initializer, dtype) under the
+reference's names; ``init_params`` makes a ``Params`` tree of them (an
+``nn.Module`` per subtree, an ``nn.Parameter`` per leaf, no gradients) and
+fills it from a ``torch.Generator``. A ``Params`` reads like the
+reference's dict (``params["attn"]["wq"]``), so the apply functions keep
+the reference's form ``apply(params, ..., x)``.
+
+The reference seeds each leaf with ``fold_in(key, hash(name))``, which
+depends on Python's per-process string hash, so its weights cannot be
+reproduced across processes; the port draws its leaves in spec order from
+one generator instead, and the tests carry the reference's weights across
+(``convert.lm_params_from_arrays``).
+
+The logical sharding axes of the reference's specs are left out: the port
+has no mesh yet (ROADMAP queue 1 item 11).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclass(frozen=True)
+class P:
+    """Parameter spec: shape, initializer and dtype."""
+
+    shape: Tuple[int, ...]
+    init: str = "normal"        # normal | zeros | ones | fan_in
+    scale: float = 0.02
+    dtype: Any = torch.float32
+
+
+def _flatten_spec(spec, prefix=()):
+    items = spec.items() if isinstance(spec, dict) else enumerate(spec)
+    out = []
+    for k, v in items:
+        path = prefix + (k,)
+        out.extend([(path, v)] if isinstance(v, P) else _flatten_spec(v, path))
+    return out
+
+
+def spec_param_count(spec) -> int:
+    return sum(math.prod(p.shape) for _, p in _flatten_spec(spec))
+
+
+class Params(nn.Module):
+    """A subtree of parameters: children by the spec's names, read as
+    ``params[name]``. A list in the spec becomes an ``nn.ModuleList``."""
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+def build_params(spec, leaf: Callable[[Tuple, P], torch.Tensor], prefix=()):
+    """The ``Params`` tree of ``spec``, each leaf the tensor ``leaf(path,
+    p)`` gives (path: the names and list indices from the root)."""
+    if isinstance(spec, list):
+        return nn.ModuleList(build_params(s, leaf, prefix + (i,))
+                             for i, s in enumerate(spec))
+    node = Params()
+    for name, s in spec.items():
+        path = prefix + (name,)
+        if isinstance(s, P):
+            t = leaf(path, s)
+            if tuple(t.shape) != s.shape or t.dtype != s.dtype:
+                raise ValueError(f"{'/'.join(map(str, path))}: expected "
+                                 f"{s.dtype} {s.shape}, got {t.dtype} "
+                                 f"{tuple(t.shape)}")
+            node.register_parameter(name, nn.Parameter(t, requires_grad=False))
+        else:
+            node.add_module(name, build_params(s, leaf, path))
+    return node
+
+
+def init_leaf(p: P, generator: torch.Generator, device) -> torch.Tensor:
+    """One leaf drawn from ``generator`` (in float32, then cast)."""
+    if p.init == "zeros":
+        return torch.zeros(p.shape, dtype=p.dtype, device=device)
+    if p.init == "ones":
+        return torch.ones(p.shape, dtype=p.dtype, device=device)
+    if p.init == "fan_in":
+        scale = 1.0 / math.sqrt(max(p.shape[0] if p.shape else 1, 1))
+    elif p.init == "normal":
+        scale = p.scale
+    else:
+        raise ValueError(f"unknown initializer {p.init!r}")
+    x = torch.randn(p.shape, generator=generator, device=device)
+    return (x * scale).to(p.dtype)
+
+
+def init_params(spec, generator: torch.Generator, device) -> Params:
+    """Materialize ``spec`` on ``device``, leaves drawn in spec order from
+    ``generator`` (which must live on ``device``)."""
+    return build_params(spec, lambda _, p: init_leaf(p, generator, device))
+
+
+# ---------------------------------------------------------------------------
+# primitive layers
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_spec(d: int, dtype=torch.float32):
+    return {"scale": P((d,), init="ones", dtype=dtype)}
+
+
+def rmsnorm(params, x, eps: float = 1e-6):
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(dt)
+
+
+def layernorm_spec(d: int, dtype=torch.float32):
+    return {"scale": P((d,), init="ones", dtype=dtype),
+            "bias": P((d,), init="zeros", dtype=dtype)}
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float() + params["bias"].float()).to(dt)
+
+
+def mlp_spec(d_model: int, d_ff: int, act: str, dtype=torch.float32):
+    if act == "swiglu":
+        return {"w_gate": P((d_model, d_ff), init="fan_in", dtype=dtype),
+                "w_up": P((d_model, d_ff), init="fan_in", dtype=dtype),
+                "w_down": P((d_ff, d_model), init="fan_in", dtype=dtype)}
+    return {"w_up": P((d_model, d_ff), init="fan_in", dtype=dtype),
+            "b_up": P((d_ff,), init="zeros", dtype=dtype),
+            "w_down": P((d_ff, d_model), init="fan_in", dtype=dtype),
+            "b_down": P((d_model,), init="zeros", dtype=dtype)}
+
+
+def wcast(w, x):
+    """Apply-time weight cast: matmuls run in the activation dtype."""
+    return w.to(x.dtype)
+
+
+def mlp(params, x, act: str):
+    if act == "swiglu":
+        g = x @ wcast(params["w_gate"], x)
+        u = x @ wcast(params["w_up"], x)
+        h = F.silu(g.float()).to(x.dtype) * u
+        return h @ wcast(params["w_down"], x)
+    h = x @ wcast(params["w_up"], x) + params["b_up"].to(x.dtype)
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ wcast(params["w_down"], x) + params["b_down"].to(x.dtype)
+
+
+def embedding_spec(vocab: int, d_model: int, dtype=torch.float32):
+    return {"table": P((vocab, d_model), init="normal", scale=0.02,
+                       dtype=dtype)}
+
+
+def embed(params, tokens, compute_dtype):
+    return params["table"].to(compute_dtype)[tokens.long()]
+
+
+def unembed(params, x):
+    # logits in f32
+    return x.float() @ params["table"].float().T

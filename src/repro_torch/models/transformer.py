@@ -1,0 +1,272 @@
+"""Model assembler for the dense family: spec, forward, fused prefill, decode.
+
+Counterpart of ``repro/models/transformer.py`` for the layer kinds
+``"attn"`` (global, or config-windowed, self-attention + FFN) and
+``"local"`` (sliding-window self-attention + FFN). The reference stacks
+each pattern position's layers and scans over them; here ``params
+["blocks"]`` is an ``nn.ModuleList`` of the ``num_layers`` layers in order
+(kinds from ``cfg.layer_kinds()``), walked in a Python loop, and a decode
+cache is a list of per-layer ``{"k", "v"}`` dicts in the same order.
+``remat`` and ``scan_layers`` mean nothing at serve time, and the
+reference's ``shard_activations`` is the identity outside a mesh.
+
+The moe, ssm, rglru, cross and selfcross kinds, the encoder and the
+learned positions of the vlm and audio families are not ported yet
+(ROADMAP queue 1 item 12): building a spec for them raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.config.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import layers as L
+from repro_torch.models.layers import P
+from repro_torch.utils.device import resolve_device
+
+KINDS = ("attn", "local")
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported to repro_torch yet "
+                               "(ROADMAP.md, queue 1 item 12)")
+
+
+def _check_supported(cfg: ModelConfig):
+    for kind in cfg.layer_kinds():
+        if kind not in KINDS:
+            raise _not_ported(f"layer kind {kind!r}")
+    for field in ("moe", "encoder", "cross_attn", "ssm"):
+        if getattr(cfg, field) is not None:
+            raise _not_ported(f"{field} ({cfg.name})")
+    if cfg.max_target_positions:
+        raise _not_ported(f"learned positions ({cfg.name})")
+
+
+# ---------------------------------------------------------------------------
+# spec construction
+# ---------------------------------------------------------------------------
+
+
+def _norm_spec(cfg: ModelConfig):
+    return (L.layernorm_spec if cfg.norm == "layernorm" else L.rmsnorm_spec)(
+        cfg.d_model, cfg.param_dtype)
+
+
+def _apply_norm(cfg: ModelConfig, params, x):
+    if cfg.norm == "layernorm":
+        return L.layernorm(params, x, cfg.norm_eps)
+    return L.rmsnorm(params, x, cfg.norm_eps)
+
+
+def _attn_cfg(cfg: ModelConfig, kind: str):
+    a = cfg.attention
+    if kind == "local":
+        a = dataclasses.replace(a, sliding_window=cfg.rglru.local_window
+                                if cfg.rglru else a.sliding_window)
+    return a
+
+
+def layer_spec(cfg: ModelConfig, kind: str) -> Dict:
+    if kind not in KINDS:
+        raise _not_ported(f"layer kind {kind!r}")
+    s: Dict[str, Any] = {
+        "ln1": _norm_spec(cfg),
+        "attn": attn_mod.attention_spec(cfg.d_model, _attn_cfg(cfg, kind),
+                                        cfg.param_dtype)}
+    if cfg.d_ff:
+        s["ln2"] = _norm_spec(cfg)
+        s["ffn"] = L.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, cfg.param_dtype)
+    return s
+
+
+def model_spec(cfg: ModelConfig) -> Dict:
+    """The parameter spec: embedding, the layers in order, final norm and
+    (untied) head."""
+    _check_supported(cfg)
+    spec: Dict[str, Any] = {
+        "embed": L.embedding_spec(cfg.vocab_size, cfg.d_model,
+                                  cfg.param_dtype),
+        "final_norm": _norm_spec(cfg),
+        "blocks": [layer_spec(cfg, kind) for kind in cfg.layer_kinds()],
+    }
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = {"w": P((cfg.d_model, cfg.vocab_size),
+                                  init="fan_in", dtype=cfg.param_dtype)}
+    return spec
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device=None, seed: int = 0) -> L.Params:
+    """Random parameters on ``device`` (the CUDA card unless told
+    otherwise), drawn from ``generator``, or from a new one seeded with
+    ``seed``, on that device."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(seed)
+    return L.init_params(model_spec(cfg), generator, device)
+
+
+# ---------------------------------------------------------------------------
+# forward and fused prefill
+# ---------------------------------------------------------------------------
+
+
+def _kv_to_cache(k, v, length: int, dtype):
+    """Place prompt K/V rows into a (B, L, KV, hd) decode cache at the
+    ring slots ``pos % L`` (the identity when the prompt fits)."""
+    p = k.shape[1]
+    lo = max(0, p - length)
+    slots = torch.arange(lo, p, device=k.device) % length
+    ck = torch.zeros((k.shape[0], length) + k.shape[2:], dtype=dtype,
+                     device=k.device)
+    cv = torch.zeros_like(ck)
+    ck[:, slots] = k[:, lo:].to(dtype)
+    cv[:, slots] = v[:, lo:].to(dtype)
+    return ck, cv
+
+
+def _cache_len(cfg: ModelConfig, kind: str, length: int,
+               window: Optional[int]) -> int:
+    """A layer's decode-cache slots: ``length``, cut to the serve
+    ``window`` and to the layer's sliding window."""
+    eff = min(length, window) if window else length
+    sw = _attn_cfg(cfg, kind).sliding_window
+    return min(eff, sw) if sw else eff
+
+
+def _apply_layer(lp, kind: str, cfg: ModelConfig, x, *, positions,
+                 cache_len: Optional[int] = None,
+                 window: Optional[int] = None):
+    """One layer. With ``cache_len`` (fused prefill) also returns the
+    layer's decode-cache entry."""
+    cd = cfg.compute_dtype
+    h = _apply_norm(cfg, lp["ln1"], x)
+    a = _attn_cfg(cfg, kind)
+    mix = attn_mod.attention(lp["attn"], a, h, positions=positions,
+                             compute_dtype=cd, impl=cfg.attn_impl,
+                             return_kv=cache_len is not None)
+    entry = None
+    if cache_len is not None:
+        mix, (k, v) = mix
+        ck, cv = _kv_to_cache(k, v, _cache_len(cfg, kind, cache_len, window),
+                              cd)
+        entry = {"k": ck, "v": cv}
+    x = x + mix.to(x.dtype)
+    if "ffn" in lp:
+        h2 = _apply_norm(cfg, lp["ln2"], x)
+        x = x + L.mlp(lp["ffn"], h2, cfg.act).to(x.dtype)
+    if cache_len is not None:
+        return x, entry
+    return x
+
+
+def forward_hidden(params, cfg: ModelConfig, tokens, *, positions=None):
+    """tokens (B, S) -> final hidden states (B, S, d_model) and the aux
+    loss (zero for the dense family)."""
+    b, s = tokens.shape
+    x = L.embed(params["embed"], tokens, cfg.compute_dtype)
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+    for lp, kind in zip(params["blocks"], cfg.layer_kinds()):
+        x = _apply_layer(lp, kind, cfg, x, positions=positions)
+    x = _apply_norm(cfg, params["final_norm"], x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _head_matrix(params, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].T
+    return params["lm_head"]["w"]
+
+
+def forward(params, cfg: ModelConfig, tokens, *, positions=None,
+            last_only: bool = False):
+    """tokens (B, S) -> f32 logits (B, S, vocab), or (B, vocab) at the
+    last position with ``last_only``, and the aux loss."""
+    x, aux = forward_hidden(params, cfg, tokens, positions=positions)
+    if last_only:
+        x = x[:, -1:]
+    logits = x.float() @ _head_matrix(params, cfg).float()
+    return (logits[:, 0] if last_only else logits), aux
+
+
+def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
+            window: Optional[int] = None):
+    """Fused prefill: one full-sequence pass that also emits the decode
+    cache (KV rows at their ring slots), the same as feeding the prompt
+    token by token through ``decode_step``. tokens: (B, P). Returns the
+    last position's f32 logits (B, vocab) and the cache (as
+    ``init_cache`` makes it)."""
+    if window is not None and cfg.attention is not None:
+        # a ring cache of `window` slots is windowed attention: the fused
+        # pass must not see keys the sequential path has evicted
+        sw = cfg.attention.sliding_window
+        cfg = cfg.replace(attention=dataclasses.replace(
+            cfg.attention, sliding_window=min(sw, window) if sw else window))
+    b, p = tokens.shape
+    x = L.embed(params["embed"], tokens, cfg.compute_dtype)
+    positions = torch.arange(p, dtype=torch.int32,
+                             device=x.device)[None].expand(b, p)
+    cache: List[Dict[str, torch.Tensor]] = []
+    for lp, kind in zip(params["blocks"], cfg.layer_kinds()):
+        x, entry = _apply_layer(lp, kind, cfg, x, positions=positions,
+                                cache_len=cache_len, window=window)
+        cache.append(entry)
+    x = _apply_norm(cfg, params["final_norm"], x[:, -1:])
+    logits = x.float() @ _head_matrix(params, cfg).float()
+    return logits[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# decode (serve_step)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, length: int,
+               window: Optional[int] = None, device=None):
+    """The zero decode cache, a ``{"k", "v"}`` of (B, slots, KV, hd) a
+    layer in the compute dtype, on ``device`` (the CUDA card unless told
+    otherwise)."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    return [attn_mod.init_kv_cache(batch,
+                                   _cache_len(cfg, kind, length, window),
+                                   _attn_cfg(cfg, kind), cfg.compute_dtype,
+                                   device)
+            for kind in cfg.layer_kinds()]
+
+
+def _apply_layer_decode(lp, lc, kind: str, cfg: ModelConfig, x, index: int):
+    cd = cfg.compute_dtype
+    h = _apply_norm(cfg, lp["ln1"], x)
+    # the cache is addressed as a ring: when its length covers the whole
+    # sequence this is linear addressing
+    mix, lc = attn_mod.decode_attention(lp["attn"], _attn_cfg(cfg, kind), h,
+                                        lc, index, compute_dtype=cd,
+                                        window=lc["k"].shape[1])
+    x = x + mix.to(x.dtype)
+    if "ffn" in lp:
+        h2 = _apply_norm(cfg, lp["ln2"], x)
+        x = x + L.mlp(lp["ffn"], h2, cfg.act).to(x.dtype)
+    return x, lc
+
+
+def decode_step(params, cfg: ModelConfig, token, cache, index: int):
+    """One decode step: token (B,), ``cache`` from ``init_cache`` or
+    ``prefill`` (updated in place), ``index`` the token's absolute
+    position. Returns (f32 logits (B, vocab), cache)."""
+    x = L.embed(params["embed"], token[:, None], cfg.compute_dtype)
+    for i, (lp, kind) in enumerate(zip(params["blocks"], cfg.layer_kinds())):
+        x, cache[i] = _apply_layer_decode(lp, cache[i], kind, cfg, x, index)
+    x = _apply_norm(cfg, params["final_norm"], x)
+    if cfg.tie_embeddings:
+        logits = L.unembed(params["embed"], x)
+    else:
+        logits = x.float() @ params["lm_head"]["w"].float()
+    return logits[:, 0], cache

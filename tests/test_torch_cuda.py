@@ -1,9 +1,11 @@
 """The port's CUDA kernels on the card, against their plain versions: the
 receive kernel on the f32 wire, in every decode mode and with each defense
 screen, the send kernels of the quantized codecs (bitwise), the
-voted-predict kernel (bitwise), and the sharded engine against the
+voted-predict kernel (bitwise), the population Pegasos and merge kernels,
+the flash-attention kernel, and the sharded engine against the
 reference engine on the f32 and the quantized wires and under Byzantine
-faults, with and without a serving hook.
+faults, with and without a serving hook; and the reduced LM served on the
+card against the same weights served on the CPU.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one. They import neither JAX nor the JAX package, so they run on a
@@ -137,3 +139,45 @@ def test_sharded_engine_under_faults_matches_reference_engine(
         for engine, unhooked in (("sharded", sh), ("reference", ref)):
             assert smoke.hooked_equals_unhooked(cfg, X, y, n, cuda, engine,
                                                 unhooked, **kw) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(4099, 10), (1031, 57), (33, 9947)])
+@pytest.mark.parametrize("name", sorted(smoke.ROW_KERNELS))
+def test_row_kernels_match_plain_versions(cuda, name, n, d):
+    """Kernels #6 and #7 through ``kernels/ops.py``: t equal, w within rtol
+    2e-5 and atol 1e-5."""
+    from repro_torch.kernels import gossip_merge as gm
+    from repro_torch.kernels import pegasos_update as pu
+    fn = {"pegasos_update": pu.pegasos_update,
+          "merge_update": gm.merge_update}[name]
+    inputs = smoke.row_inputs(n + d, n, d, cuda, merge=name == "merge_update")
+    before = fn.launches
+    smoke.compare_rows(name, inputs, 1e-3)
+    assert fn.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,kv,causal,window", [
+    (1, 16, 8, True, None), (37, 4, 2, True, None), (130, 8, 1, False, 64),
+    (200, 2, 2, True, 16), (257, 16, 8, False, None)])
+@pytest.mark.parametrize("hd", smoke.FLASH_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain_version(cuda, dtype, hd, s, h, kv, causal,
+                                            window):
+    """Kernel #8: float32 within 2e-4, bfloat16 within atol 3e-2; one case
+    of each on strided inputs."""
+    from repro_torch.kernels import flash_attention as fa
+    dt = getattr(torch, dtype)
+    for strided in (False, True):
+        q, k, v = smoke.flash_inputs(s + hd, 2, s, h, kv, hd, dt, cuda,
+                                     strided=strided)
+        before = fa.flash_attention.launches
+        smoke.compare_flash(q, k, v, causal, window)
+        assert fa.flash_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_reduced_lm_served_on_card_matches_cpu(cuda):
+    diff, toks = smoke.small_server_check(cuda, seed=3)
+    assert toks.shape == (2, 16)
