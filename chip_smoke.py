@@ -23,8 +23,10 @@ and ``nvcc``. The phases, each of which raises on failure:
    N = 4096, d = 9947, driven ten steps each through ``kernels/ops.py``
    and timed at N = 10^6, d = 10; kernel #8 (``flash_attention``) over
    head_dim 64, 128 and 48, H/KV 1, 2 and 8, causal or not, window None
-   or 64, S = 1, 37, 128 and 2048, in float32 and bfloat16, and on
-   strided inputs;
+   or 64, S = 1, 37, 128, 300 and 2048, in float32 and bfloat16, and on
+   strided and unaligned inputs, each case on the route it must take
+   (bf16 at head_dim 64/128 on the tensor-core kernel, the rest on the
+   CUDA-core kernel);
 2. the sharded engine with the kernels against the port's reference engine
    on the card (N = 20 000, the paper's extreme scenario) on the f32 wire
    and on int8_sr, int4_ef and ternary, and the first chunk's threefry draw
@@ -52,15 +54,17 @@ and ``nvcc``. The phases, each of which raises on failure:
    beside their bounds (the voted-predict kernel's replayed from a CUDA
    graph, so that the host's cost of a call is left out, and also per
    call as the server makes it), and a profiled rerun;
-6. LM serving at full width: the reduced qwen3-1.7b served on the card
-   (kernel #8) against the same weights served on the CPU (its plain
-   version), then qwen3-1.7b in bf16 with random weights from a seeded
-   generator, ``DecodeServer(batch=4, max_len=4096)``, a fused prefill of
-   a 2048-token prompt (28 launches of kernel #8) and 64 greedy decode
-   steps: prefill and decode times and tokens/s, peak memory, a profiled
-   rerun; kernel #8 on the path's own last-layer q, k, v beside its bound,
-   its plain version and ``scaled_dot_product_attention``; and the same
-   server on the plain attention path (``attn_impl="xla"``): prefill
+6. LM serving at full width: the reduced qwen3-1.7b (f32) served on the
+   card (kernel #8's CUDA-core route) against the same weights served on
+   the CPU (its plain version), then qwen3-1.7b in bf16 with random
+   weights from a seeded generator, ``DecodeServer(batch=4,
+   max_len=4096)``, a fused prefill of a 2048-token prompt (28 launches of
+   kernel #8, all on its tensor-core route) and 64 greedy decode steps:
+   prefill and decode times and tokens/s, peak memory, a profiled rerun;
+   kernel #8 on the path's own last-layer q, k, v beside its bound, its
+   plain version and ``scaled_dot_product_attention``, and its CUDA-core
+   route on the same q, k, v in float32 beside the float32 bound; and the
+   same server on the plain attention path (``attn_impl="xla"``): prefill
    logits within a stated tolerance, the share of equal greedy tokens.
 
 Prints one JSON line of per-kernel results, the ``nvidia-smi`` name and
@@ -115,11 +119,14 @@ ROW_KERNELS = {"pegasos_update": "src/repro/kernels/pegasos_update.py:63",
                "merge_update": "src/repro/kernels/gossip_merge.py:48"}
 ROW_STEPS = 10          # steps a phase-1 run of each takes through ops.py
 ROW_SHAPES = ((1_000_000, 10), (1_000_000, 57), (4096, 9947))
-# row #8, and the shapes of phase 1's sweep of it
+# row #8, its two routes' sources, and the shapes of phase 1's sweep of it
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:121"
+FLASH_SOURCES = {
+    "tensor_core": "src/repro_torch/kernels/csrc/flash_attention_hopper.cu",
+    "cuda_core": "src/repro_torch/kernels/csrc/flash_attention.cu"}
 FLASH_HEAD_DIMS = (64, 128, 48)
 FLASH_GROUPS = (1, 2, 8)                 # H / KV
-FLASH_SEQS = (1, 37, 128, 2048)
+FLASH_SEQS = (1, 37, 128, 300, 2048)
 # H100 SXM dense bf16 on the tensor cores: the least time of attention's
 # products in bf16, whatever units a kernel runs them on
 BF16_FLOPS_PER_S = 989e12
@@ -127,9 +134,9 @@ BF16_FLOPS_PER_S = 989e12
 LM_ARCH, LM_BATCH, LM_MAX_LEN, LM_PROMPT, LM_STEPS = (
     "qwen3-1.7b", 4, 4096, 2048, 64)
 # the kernel path's prefill logits against the plain attention path's: bf16
-# activations, and the two paths round P V differently (the kernel keeps
-# p in float32, the plain path casts it to bf16), which 28 layers amplify.
-# Measured 0.033 at a largest |logit| of 4.5 on an H100; the bound is 3x.
+# activations, and the two paths order and round P V differently, which
+# 28 layers amplify. Measured 0.033 at a largest |logit| of 4.5 on an H100
+# with the CUDA-core kernel (p in float32); the bound is 3x.
 LM_PATH_LOGIT_TOL = 0.1
 
 
@@ -778,10 +785,12 @@ def time_rows(name, inputs, lam):
     return (ms, plain_ms) + rows_bound(name, *inputs[0].shape)
 
 
-def flash_inputs(seed, b, s, h, kv, hd, dtype, device, strided=False):
+def flash_inputs(seed, b, s, h, kv, hd, dtype, device, strided=False,
+                 unaligned=False):
     """q (B, S, H, hd), k and v (B, S, KV, hd) of ``dtype``, normal draws
     from a seeded generator on ``device``; ``strided``: views of
-    (B, heads, S, hd) tensors, so only hd is contiguous."""
+    (B, heads, S, hd) tensors, so only hd is contiguous; ``unaligned``:
+    contiguous views that start one element past a 16-byte boundary."""
     import torch
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -789,20 +798,32 @@ def flash_inputs(seed, b, s, h, kv, hd, dtype, device, strided=False):
     def make(heads):
         shape = (b, heads, s, hd) if strided else (b, s, heads, hd)
         x = torch.randn(shape, generator=g, device=device).to(dtype)
-        return x.transpose(1, 2) if strided else x
+        x = x.transpose(1, 2) if strided else x
+        if unaligned:
+            buf = torch.empty(x.numel() + 1, dtype=dtype, device=device)
+            x = buf[1:].view(x.shape).copy_(x)
+        return x
     return make(h), make(kv), make(kv)
 
 
-def compare_flash(q, k, v, causal, window):
+def compare_flash(q, k, v, causal, window, route=None):
     """Kernel #8 against its plain version on the card: float32 within
     rtol = atol = 2e-4, bfloat16 within atol 3e-2 (tests/test_kernels.py's
-    tolerances) and rtol 2^-7: both sides compute in float32, in another
-    order, and round once to q's type, so a bf16 output may differ by one
-    rounding step, 2^-7 of it, which passes 3e-2 above |o| = 4 (the serving
-    path's values reach that). Returns the max abs error."""
+    tolerances) and rtol 2^-7: both sides round once to q's type, so a
+    bf16 output may differ by one rounding step, 2^-7 of it, which passes
+    3e-2 above |o| = 4 (the serving path's values reach that); the
+    tensor-core route also rounds P to bf16 (about 2^-9 max|v| more).
+    ``route``: the route the call must take. Returns the max abs error."""
     import torch
     from repro_torch.kernels import flash_attention as fa
+    before = dict(fa.flash_attention.route_launches)
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    took = [r for r, n in fa.flash_attention.route_launches.items()
+            if n != before[r]]
+    if route is not None and took != [route]:
+        raise AssertionError(f"flash_attention {q.dtype} {tuple(q.shape)} "
+                             f"strides {q.stride()}: took {took}, not "
+                             f"{route}")
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     if got.dtype != q.dtype or got.shape != q.shape:
@@ -963,14 +984,22 @@ def phase1_rows(card: str, results: dict):
     return out
 
 
-def phase1_flash(dev) -> float:
+def phase1_flash(dev) -> dict:
     """Kernel #8 against its plain version over the sweep of
     ``FLASH_HEAD_DIMS`` x ``FLASH_GROUPS`` x ``FLASH_SEQS`` x float32 and
     bfloat16 x causal or not x window None or 64 (KV = 2, H = KV x group;
-    B = 2 below S = 2048), and on strided inputs. Returns the max abs
-    error."""
+    B = 2 below S = 2048), and on strided and unaligned inputs, each case
+    held to the route it must take: bf16 at head_dim 64 or 128 on TMA-
+    readable tensors to the tensor-core kernel, everything else to the
+    CUDA-core kernel. Returns each route's max abs error."""
     import torch
-    worst, cases = 0.0, 0
+    from repro_torch.kernels import flash_attention as fa
+    worst = dict.fromkeys(fa.ROUTES, 0.0)
+    cases = 0
+
+    def want(dtype, hd):
+        return ("tensor_core" if dtype == torch.bfloat16
+                and hd in fa.TENSOR_CORE_HEAD_DIMS else "cuda_core")
     for hd in FLASH_HEAD_DIMS:
         for group in FLASH_GROUPS:
             kv, h = 2, 2 * group
@@ -980,32 +1009,44 @@ def phase1_flash(dev) -> float:
                 for dtype in (torch.float32, torch.bfloat16):
                     q, k, v = flash_inputs(cases, b, s, h, kv, hd, dtype,
                                            dev)
+                    route = want(dtype, hd)
                     errs[dtype] = max(
-                        compare_flash(q, k, v, causal, window)
+                        compare_flash(q, k, v, causal, window, route)
                         for causal in (True, False) for window in (None, 64))
+                    worst[route] = max(worst[route], errs[dtype])
                     cases += 4
-                worst = max(worst, *errs.values())
                 print(f"[1] flash_attention hd={hd} H={h} KV={kv} S={s} "
                       f"B={b}, causal and not, window None and 64: max abs "
-                      f"err f32 {errs[torch.float32]:.3e}, bf16 "
-                      f"{errs[torch.bfloat16]:.3e}")
+                      f"err f32 {errs[torch.float32]:.3e} "
+                      f"({want(torch.float32, hd)}), bf16 "
+                      f"{errs[torch.bfloat16]:.3e} "
+                      f"({want(torch.bfloat16, hd)})")
             torch.cuda.empty_cache()
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, layout, route in (
+            (torch.float32, "strided", "cuda_core"),
+            (torch.bfloat16, "strided", "tensor_core"),
+            (torch.bfloat16, "unaligned", "cuda_core")):
         q, k, v = flash_inputs(7, 2, 300, 16, 8, 128, dtype, dev,
-                               strided=True)
-        err = compare_flash(q, k, v, True, None)
-        worst = max(worst, err)
+                               strided=layout == "strided",
+                               unaligned=layout == "unaligned")
+        err = compare_flash(q, k, v, True, None, route)
+        worst[route] = max(worst[route], err)
         cases += 1
-        print(f"[1] flash_attention on strided q, k, v (only hd contiguous) "
-              f"{dtype} B=2 S=300 H=16 KV=8 hd=128: max abs err {err:.3e}")
+        print(f"[1] flash_attention on {layout} q, k, v (strides "
+              f"{q.stride()}, base % 16 = {q.data_ptr() % 16}) {dtype} B=2 "
+              f"S=300 H=16 KV=8 hd=128: max abs err {err:.3e} ({route})")
     print(f"[1] flash_attention: {cases} cases within tolerance (f32 rtol = "
-          "atol = 2e-4, bf16 atol 3e-2 and rtol 2^-7)")
+          "atol = 2e-4, bf16 atol 3e-2 and rtol 2^-7), each on its route; "
+          f"max abs err tensor_core {worst['tensor_core']:.3e}, cuda_core "
+          f"{worst['cuda_core']:.3e}")
     return worst
 
 
-def phase6(card: str, results: dict, flash_err: float) -> dict:
+def phase6(card: str, results: dict, flash_err: dict) -> dict:
     """LM serving at full width (see the module note). Returns kernel
-    #8's row of the ``kernels`` line."""
+    #8's rows of the ``kernels`` line, one a route: the tensor-core
+    route's launches are the bf16 prefill's, the CUDA-core route's the
+    reduced f32 server's."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1018,10 +1059,18 @@ def phase6(card: str, results: dict, flash_err: float) -> dict:
     from repro_torch.models import transformer as T
     dev = torch.device("cuda")
 
+    flash = fa.flash_attention
+    flash.launches = 0
+    flash.route_launches = dict.fromkeys(fa.ROUTES, 0)
     diff, _ = small_server_check(dev)
-    print(f"[6] reduced {LM_ARCH} (f32) served on the card (kernel #8) and "
-          f"on the CPU (plain version): prefill logits within {diff:.3e}, "
-          "16 greedy tokens a prompt equal")
+    small_routes = dict(flash.route_launches)
+    if small_routes["cuda_core"] == 0 or small_routes["tensor_core"]:
+        raise AssertionError(f"phase 6: the reduced f32 server launched "
+                             f"kernel #8's routes {small_routes}")
+    print(f"[6] reduced {LM_ARCH} (f32) served on the card (kernel #8, "
+          f"launches by route {small_routes}) and on the CPU (plain "
+          f"version): prefill logits within {diff:.3e}, 16 greedy tokens a "
+          "prompt equal")
 
     cfg = get_config(LM_ARCH)
     t0 = time.perf_counter()
@@ -1034,7 +1083,6 @@ def phase6(card: str, results: dict, flash_err: float) -> dict:
           f"{str(cfg.param_dtype)[6:]}, random from a seeded generator on "
           f"the card in {init_s:.2f} s; attn_impl={cfg.attn_impl}")
     serve_once(cfg, params, prompts[:, :64], 2)     # warm up
-    flash = fa.flash_attention
     captured = {}
 
     def capture(q, k, v, **kw):
@@ -1050,17 +1098,20 @@ def phase6(card: str, results: dict, flash_err: float) -> dict:
     try:
         for fn in (flash,) + others:
             fn.launches = 0
+        flash.route_launches = dict.fromkeys(fa.ROUTES, 0)
         logits, toks, pre_s, dec_s = serve_once(cfg, params, prompts,
                                                 LM_STEPS)
         launches = flash.launches
+        routes = dict(flash.route_launches)
         stray = [fn.launches for fn in others]
     finally:
         fa.flash_attention = flash
     peak = torch.cuda.max_memory_allocated()
-    if launches != cfg.num_layers or any(stray):
+    if (launches != cfg.num_layers or any(stray)
+            or routes != dict(tensor_core=cfg.num_layers, cuda_core=0)):
         raise AssertionError(f"phase 6: kernel #8 launched {launches} times "
-                             f"in a prefill of {cfg.num_layers} layers; "
-                             f"others {stray}")
+                             f"(by route {routes}) in a prefill of "
+                             f"{cfg.num_layers} layers; others {stray}")
     if (tuple(logits.shape) != (LM_BATCH, cfg.vocab_size)
             or not torch.isfinite(logits).all()
             or toks.shape != (LM_BATCH, LM_STEPS)
@@ -1071,33 +1122,47 @@ def phase6(card: str, results: dict, flash_err: float) -> dict:
     dec_tps = LM_BATCH * LM_STEPS / dec_s
     print(f"[6] {card}: {LM_ARCH} DecodeServer(batch={LM_BATCH}, "
           f"max_len={LM_MAX_LEN}): kernel #8 launches {launches} in the "
-          f"prefill; prefill of {LM_PROMPT} tokens {pre_s * 1e3:.1f} ms "
-          f"({pre_tps:.0f} tokens/s); {LM_STEPS} decode steps "
+          f"prefill (by route {routes}); prefill of {LM_PROMPT} tokens "
+          f"{pre_s * 1e3:.1f} ms ({pre_tps:.0f} tokens/s); {LM_STEPS} decode "
+          "steps "
           f"{dec_s * 1e3 / LM_STEPS:.2f} ms/step ({dec_tps:.1f} tokens/s); "
           f"peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
     print(f"[6] sample continuation: {toks[0][:16].tolist()}")
     prof = profile_run(lambda: serve_once(cfg, params, prompts, LM_STEPS),
                        "6", card)
 
-    q, k, v = (captured[n] for n in ("q", "k", "v"))
     causal, window = captured["kw"]["causal"], captured["kw"]["window"]
-    err = compare_flash(q, k, v, causal, window)
-    ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
-                                                 window=window), reps=20)
-    plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
-        q, k, v, causal=causal, window=window), reps=5)
-    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
-    b_ms, by, nbytes, flops = flash_bound(q, k.shape[2], causal, window)
-    print(f"[6] {card}: flash_attention on the last layer's q, k, v "
-          f"{tuple(q.shape)} kv {k.shape[2]} {str(q.dtype)[6:]} "
-          f"causal={causal}: {ms:.4f} ms/launch vs bound {b_ms:.4f} ms "
-          f"({by}, {flops} operations, {nbytes} B); plain version "
-          f"{plain_ms:.4f} ms; scaled_dot_product_attention {lib_ms:.4f} ms; "
-          f"max abs err vs plain {err:.3e}")
-    del q, k, v, qt, kt, vt, captured
-    torch.cuda.empty_cache()
+    rows, measured = {}, {}
+    # the tensor-core route on the path's own q, k, v; the CUDA-core route
+    # on the same values in float32
+    for route, dtype in (("tensor_core", torch.bfloat16),
+                         ("cuda_core", torch.float32)):
+        q, k, v = (captured[n].to(dtype) for n in ("q", "k", "v"))
+        err = compare_flash(q, k, v, causal, window, route)
+        ms = cuda_time_ms(lambda: fa.flash_attention(
+            q, k, v, causal=causal, window=window), reps=20)
+        plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=causal, window=window), reps=5)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), reps=20)
+        b_ms, by, nbytes, flops = flash_bound(q, k.shape[2], causal, window)
+        print(f"[6] {card}: flash_attention ({route}) on the last layer's "
+              f"q, k, v {tuple(q.shape)} kv {k.shape[2]} {str(dtype)[6:]} "
+              f"causal={causal}: {ms:.4f} ms/launch vs bound {b_ms:.4f} ms "
+              f"({by}, {flops} operations, {nbytes} B); plain version "
+              f"{plain_ms:.4f} ms; scaled_dot_product_attention "
+              f"{lib_ms:.4f} ms; max abs err vs plain {err:.3e}")
+        rows[route] = dict(
+            launches=(routes if route == "tensor_core"
+                      else small_routes)[route],
+            max_abs_err=max(flash_err[route], err), ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=by, library_ms=lib_ms)
+        measured[route] = dict(rows[route], bound_bytes=nbytes,
+                               bound_operations=flops, serving_err=err)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    del captured
 
     # the same server on the plain attention path
     p_logits, p_toks, p_pre, p_dec = serve_once(
@@ -1121,15 +1186,12 @@ def phase6(card: str, results: dict, flash_err: float) -> dict:
         small_check_diff=diff, prefill_s=pre_s, prefill_tokens_per_s=pre_tps,
         decode_ms_per_step=dec_s * 1e3 / LM_STEPS,
         decode_tokens_per_s=dec_tps, peak_bytes=peak, launches=launches,
-        profile=prof, flash=dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                 bound_ms=b_ms, bound_by=by, bound_bytes=nbytes,
-                                 bound_operations=flops, max_abs_err=err),
+        route_launches=routes, small_route_launches=small_routes,
+        profile=prof, flash=measured,
         plain_path=dict(prefill_s=p_pre, decode_s=p_dec, logit_diff=ldiff,
                         largest_logit=scale, first_token_share=first,
                         token_share=same))
-    return dict(launches=launches, max_abs_err=max(flash_err, err), ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                library_ms=lib_ms)
+    return rows
 
 
 def main() -> int:
@@ -1186,9 +1248,21 @@ def main() -> int:
         for line in log.splitlines():
             if "Compiling entry" in line:     # which kernel the next lines are
                 print(f"[0]   {name}: {line.split(chr(39))[1][:100]}")
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line or "wgmma" in line
+                    or "warn" in line.lower()):
                 print(f"[0]   {name}: {line.strip()}")
+    from repro_torch.kernels import flash_attention as fa
+    smem = {hd: fa.tensor_core_smem_bytes(hd)
+            for hd in fa.TENSOR_CORE_HEAD_DIMS}
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    if max(smem.values()) > optin:
+        raise AssertionError(f"the tensor-core flash kernel asks for {smem} "
+                             f"B of shared memory, over the card's {optin}")
+    print(f"[0]   flash_attention_hopper: dynamic shared memory a block "
+          f"{', '.join(f'hd {hd}: {b} B' for hd, b in smem.items())} of the "
+          f"card's {optin} B (registers and spills above)")
     results["build_s"] = build_s
+    results["flash_hopper_smem"] = smem
 
     # ---- 1. kernel vs plain ------------------------------------------------
     phase(1)
@@ -1634,11 +1708,10 @@ def main() -> int:
 
     # ---- 6. LM serving at full width ---------------------------------------
     phase(6)
-    flash_row = phase6(card, results, flash_err)
-    kernels.append(dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces=FLASH_REPLACES, **flash_row))
+    for route, row in phase6(card, results, flash_err).items():
+        kernels.append(dict(
+            name=f"flash_attention[{route}]", route="cuda",
+            source=FLASH_SOURCES[route], replaces=FLASH_REPLACES, **row))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - start
     print(f"[6] {card}: the whole run took {results['total_s']:.1f} s")

@@ -21,7 +21,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 LIB_DIR = Path(__file__).resolve().parent / "_lib"
 SOURCES = ("gossip_cycle", "quantize_send", "voted_predict", "pegasos_merge",
-           "flash_attention")
+           "flash_attention", "flash_attention_hopper")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

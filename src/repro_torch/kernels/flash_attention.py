@@ -10,14 +10,25 @@ running max, sum and accumulator in f32 over inputs upcast to f32, masked
 probabilities 0, and the sum clamped at 1e-30, so a fully masked row gives
 0; the output in q's dtype.
 
-``flash_attention`` dispatches on the tensors' device: CUDA tensors go to
-the hand-written kernel in ``csrc/flash_attention.cu`` (built by ``nvcc``
-for sm_90a at first use; float32 or bfloat16, any hd up to 256), which
-reads q, k and v where they lie, through their strides; CPU tensors go to
-``flash_attention_plain`` beside it. There is no fallback: a CUDA tensor
-reaches the kernel or an exception. The kernel's tiles are its own (64
-queries by 32 keys); the TPU kernel's ``blk_q``/``blk_k`` and its padding
-of S and hd are TPU tiling rules and have no counterpart.
+``flash_attention`` dispatches on the tensors' device. CPU tensors go to
+``flash_attention_plain`` beside it. CUDA tensors go to one of two
+hand-written kernels (built by ``nvcc`` for sm_90a at first use), chosen
+by ``route`` before the launch, from dtype, head_dim, strides and
+alignment alone:
+
+- ``"tensor_core"``: ``csrc/flash_attention_hopper.cu``, wgmma products
+  fed by TMA, for bfloat16 at head_dim 64 or 128 whose q, k and v TMA can
+  read (every stride but head_dim's a positive multiple of 8 elements,
+  each base 16-byte aligned). It rounds P to bf16 before P V, as
+  FlashAttention-2/3 and the port's plain attention path do;
+- ``"cuda_core"``: ``csrc/flash_attention.cu``, float32 products on the
+  CUDA cores, for everything else (float32, other head_dims up to 256,
+  views TMA cannot read), with P in float32.
+
+Both read q, k and v where they lie, through their strides. There is no
+fallback: a CUDA tensor reaches its route's kernel or an exception. The
+kernels' tiles are their own; the TPU kernel's ``blk_q``/``blk_k`` and its
+padding of S and hd are TPU tiling rules and have no counterpart.
 """
 from __future__ import annotations
 
@@ -32,6 +43,8 @@ from repro_torch.kernels.gossip_cycle import (_FLOAT, _INT, _VP, _entry,
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+ROUTES = ("tensor_core", "cuda_core")
+TENSOR_CORE_HEAD_DIMS = (64, 128)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None):
@@ -79,33 +92,55 @@ def _check(q, k, v, window):
         raise ValueError(f"window must be None or >= 1, got {window}")
 
 
-def _launch(q, k, v, causal: bool, window):
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"the flash kernel takes float32 or bfloat16, got "
-                        f"{q.dtype}")
+def route(q, k, v) -> str:
+    """Which kernel serves these tensors on CUDA: ``"tensor_core"`` for
+    bfloat16 at head_dim 64 or 128 with head_dim contiguous, every other
+    stride of q, k and v a positive multiple of 8 elements and each
+    ``data_ptr`` a multiple of 16 (what TMA reads), else ``"cuda_core"``."""
+    if q.dtype != torch.bfloat16 or q.shape[3] not in TENSOR_CORE_HEAD_DIMS:
+        return "cuda_core"
+    for a in (q, k, v):
+        if (a.stride(3) != 1 or a.data_ptr() % 16
+                or any(st <= 0 or st % 8 for st in a.stride()[:3])):
+            return "cuda_core"
+    return "tensor_core"
+
+
+def _launch(q, k, v, causal: bool, window, kernel: str):
     b, s, h, hd = q.shape
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {hd} exceeds the kernel's "
-                         f"{MAX_HEAD_DIM}")
-    if b * h > 65535:
-        raise ValueError(f"B * H = {b * h} exceeds the kernel's grid")
-    for name, a in (("q", q), ("k", k), ("v", v)):
-        if a.stride(3) != 1:
-            raise ValueError(f"{name}'s head_dim must be contiguous")
-    fn, err = _entry("flash_attention", "flash_attention_forward",
-                     (_VP,) * 4 + (_INT,) * 6 + (_VP, _INT, _INT, _FLOAT,
-                                                 _VP))
+    if kernel == "tensor_core":
+        fn, err = _entry("flash_attention_hopper",
+                         "flash_attention_hopper_forward",
+                         (_VP,) * 4 + (_INT,) * 5 + (_VP, _INT, _INT, _FLOAT,
+                                                     _VP))
+        dims = (b, s, h, k.shape[2], hd)
+    else:
+        if q.dtype not in _DTYPES:
+            raise TypeError(f"the flash kernel takes float32 or bfloat16, "
+                            f"got {q.dtype}")
+        if hd > MAX_HEAD_DIM:
+            raise ValueError(f"head_dim {hd} exceeds the kernel's "
+                             f"{MAX_HEAD_DIM}")
+        if b * h > 65535:
+            raise ValueError(f"B * H = {b * h} exceeds the kernel's grid")
+        for name, a in (("q", q), ("k", k), ("v", v)):
+            if a.stride(3) != 1:
+                raise ValueError(f"{name}'s head_dim must be contiguous")
+        fn, err = _entry("flash_attention", "flash_attention_forward",
+                         (_VP,) * 4 + (_INT,) * 6 + (_VP, _INT, _INT, _FLOAT,
+                                                     _VP))
+        dims = (_DTYPES[q.dtype], b, s, h, k.shape[2], hd)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     strides = (ctypes.c_int64 * 12)(*(st for a in (q, k, v, out)
                                       for st in a.stride()[:3]))
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  _DTYPES[q.dtype], b, s, h, k.shape[2], hd,
-                  ctypes.cast(strides, ctypes.c_void_p), int(causal),
+                  *dims, ctypes.cast(strides, ctypes.c_void_p), int(causal),
                   0 if window is None else int(window),
                   1.0 / float(hd) ** 0.5, _stream(q))
-    _raise_on(code, err, "flash_attention")
+    _raise_on(code, err, f"flash_attention ({kernel})")
     _FLASH.launches += 1
+    _FLASH.route_launches[kernel] += 1
     return out
 
 
@@ -118,11 +153,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     if q.device.type != "cuda":
         raise NotImplementedError(f"no flash-attention kernel for device "
                                   f"{q.device}")
-    return _launch(q, k, v, causal, window)
+    return _launch(q, k, v, causal, window, route(q, k, v))
 
 
-# Kernel launches so far; only the CUDA path counts. Bound to the wrapper
-# object itself, so the count survives a caller wrapping the module
-# attribute.
+def tensor_core_smem_bytes(hd: int) -> int:
+    """The dynamic shared memory a block of the tensor-core kernel asks
+    for at head_dim ``hd`` (64 or 128); builds the kernel if needed."""
+    fn, _ = _entry("flash_attention_hopper",
+                   "flash_attention_hopper_smem_bytes", (_INT,))
+    return fn(hd)
+
+
+# Kernel launches so far, in all and by route; only the CUDA path counts.
+# Bound to the wrapper object itself, so the counts survive a caller
+# wrapping the module attribute.
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
 _FLASH = flash_attention

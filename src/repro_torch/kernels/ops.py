@@ -2,8 +2,10 @@
 
 Counterpart of ``repro/kernels/ops.py``. Each call dispatches on the
 tensors' device, as ``kernels/gossip_cycle.py`` does: CUDA tensors go to
-the hand-written kernel (``csrc/pegasos_merge.cu``,
-``csrc/flash_attention.cu``), CPU tensors to its plain PyTorch version.
+the hand-written kernel (``csrc/pegasos_merge.cu``; for attention
+``csrc/flash_attention_hopper.cu`` or ``csrc/flash_attention.cu``, as
+``flash_attention.route`` decides), CPU tensors to its plain PyTorch
+version.
 There is no ``interpret`` argument and no fallback on CUDA; the launch
 counts are on the wrappers in ``pegasos_update``, ``gossip_merge`` and
 ``flash_attention``.

@@ -2,10 +2,11 @@
 receive kernel on the f32 wire, in every decode mode and with each defense
 screen, the send kernels of the quantized codecs (bitwise), the
 voted-predict kernel (bitwise), the population Pegasos and merge kernels,
-the flash-attention kernel, and the sharded engine against the
-reference engine on the f32 and the quantized wires and under Byzantine
-faults, with and without a serving hook; and the reduced LM served on the
-card against the same weights served on the CPU.
+the flash-attention kernel on both its routes (tensor cores for
+TMA-readable bf16 at head_dim 64/128, CUDA cores for the rest), and the
+sharded engine against the reference engine on the f32 and the quantized
+wires and under Byzantine faults, with and without a serving hook; and the
+reduced LM served on the card against the same weights served on the CPU.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one. They import neither JAX nor the JAX package, so they run on a
@@ -175,6 +176,58 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, hd, s, h, kv, causal,
         before = fa.flash_attention.launches
         smoke.compare_flash(q, k, v, causal, window)
         assert fa.flash_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 37, 300, 2048])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_tensor_core_route_matches_plain_version(cuda, hd, group, s):
+    """bf16 at head_dim 64/128, H/KV 1, 2, 8, causal or not, window None
+    or 64, contiguous and as (B, heads, S, hd) views: each call on the
+    tensor-core route (its count and the total up by one, the CUDA-core
+    count unchanged), within ``compare_flash``'s bf16 tolerance."""
+    from repro_torch.kernels import flash_attention as fa
+    kv = 2
+    b = 2 if s < 2048 else 1
+    for strided in (False, True):
+        q, k, v = smoke.flash_inputs(s + hd + group, b, s, kv * group, kv,
+                                     hd, torch.bfloat16, cuda,
+                                     strided=strided)
+        for causal in (True, False):
+            for window in (None, 64):
+                total = fa.flash_attention.launches
+                routes = dict(fa.flash_attention.route_launches)
+                smoke.compare_flash(q, k, v, causal, window, "tensor_core")
+                assert fa.flash_attention.launches == total + 1
+                assert fa.flash_attention.route_launches == dict(
+                    routes, tensor_core=routes["tensor_core"] + 1)
+
+
+def odd_row_stride(a):
+    """The same values with rows of heads * hd + 4 elements."""
+    b, s, h, hd = a.shape
+    buf = torch.zeros(b, s, h * hd + 4, dtype=a.dtype, device=a.device)
+    buf[..., :h * hd] = a.flatten(2)
+    return buf[..., :h * hd].unflatten(2, (h, hd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["unaligned", "odd_row_stride"])
+def test_flash_views_tma_cannot_read_take_cuda_core_route(cuda, layout):
+    """bf16 at head_dim 128, but a base one element past a 16-byte
+    boundary or an S stride no multiple of 8: the CUDA-core kernel, within
+    the same tolerance."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = smoke.flash_inputs(3, 2, 300, 16, 8, 128, torch.bfloat16,
+                                 cuda, unaligned=layout == "unaligned")
+    if layout == "odd_row_stride":
+        q, k, v = map(odd_row_stride, (q, k, v))
+        assert q.stride(1) % 8 and q.data_ptr() % 16 == 0
+    routes = dict(fa.flash_attention.route_launches)
+    smoke.compare_flash(q, k, v, True, None, "cuda_core")
+    assert fa.flash_attention.route_launches == dict(
+        routes, cuda_core=routes["cuda_core"] + 1)
 
 
 @pytest.mark.cuda
