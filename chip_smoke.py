@@ -8,18 +8,25 @@ Run from the root of a checkout on a machine with an NVIDIA H100 (sm_90a)
 and ``nvcc``. The phases, each of which raises on failure:
 
 0. setup: the card's name and power limit, torch/CUDA/nvcc versions, and
-   the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``;
+   the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``,
+   with each kernel's registers and spills (none allowed in the receive
+   kernel's grouped route);
 1. each kernel against its plain PyTorch version on the card, at the
-   shapes of the paper's datasets (d = 10, 57, 9947) and a K > C case: the
-   receive kernel on the f32 wire and in every decode mode (bf16, f16,
-   affine int8, int4, ternary), and with each defense screen (norm_clip,
+   shapes of the paper's datasets (d = 10, 57, 9947), the receive kernel's
+   lane groups (d = 1, 7, 16, 32), a K > C case and K = 9: the receive
+   kernel on the f32 wire and in every decode mode (bf16, f16, affine
+   int8, int4, ternary), and with each defense screen (norm_clip,
    cosine_gate) after the f32, affine int8, int4 and ternary decodes on
-   rows crafted for every verdict (gated and clipped counts equal); the
-   bf16/f16 decodes timed at N = 10^6; the voted-predict kernel at the
-   serving shapes (bitwise, with zero scores and exact-half ties); the send
-   kernels for int8, int8_sr, int4, int4_ef, ternary and ternary_ef
-   (bitwise); the cosine_gate screen timed at N = 10^6; kernels #6 and #7
-   (``pegasos_update``, ``merge_update``) at N = 10^6, d = 10 and 57, and
+   rows crafted for every verdict (gated and clipped counts equal), and at
+   every d <= 32 its grouped route against its strided route forced on the
+   same inputs (bit for bit; K = 9 on the strided route); the bf16/f16
+   decodes timed at N = 10^6, and the f32 decode at spambase's and
+   reuters' shapes (d = 57, N = 4140; d = 9947, N = 2000); the
+   voted-predict kernel at the serving shapes (bitwise, with zero scores
+   and exact-half ties); the send kernels for int8, int8_sr, int4,
+   int4_ef, ternary and ternary_ef (bitwise); the cosine_gate screen
+   timed at N = 10^6; kernels #6 and #7 (``pegasos_update``,
+   ``merge_update``) at N = 10^6, d = 10 and 57, and
    N = 4096, d = 9947, driven ten steps each through ``kernels/ops.py``
    and timed at N = 10^6, d = 10; kernel #8 (``flash_attention``) over
    head_dim 64, 128 and 48, H/KV 1, 2 and 8, causal or not, window None
@@ -35,10 +42,11 @@ and ``nvcc``. The phases, each of which raises on failure:
    against one without (bit for bit) on both engines;
 3. the main path at full width: ``run_simulation(engine="sharded")`` at
    N = 10^6 nodes, d = 10, extreme scenario, MU, K = 4, cache 10, 20
-   cycles; launches, curves, the message economy, wall time, node-cycles/s
-   and peak memory, then the receive kernel's time per launch on the main
-   path's own inputs beside its bound, its plain version's time and its
-   agreement with the plain version there, and a profiled rerun;
+   cycles; launches (all 20 on the receive kernel's grouped route), curves,
+   the message economy, wall time, node-cycles/s and peak memory, then the
+   receive kernel's time per launch on the main path's own inputs beside
+   its bound, the strided route's and its plain version's time and its
+   agreement with both there, and a profiled rerun;
 4. the same path on the quantized wire (int8_sr, int4_ef, ternary): for
    each, 20 receive and 20 send launches, the economy, the wire and buffer
    bytes against f32's, wall time, peak memory, and each kernel's time per
@@ -75,6 +83,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -89,6 +98,17 @@ INT_FIELDS = ("last_t", "cache_t", "ptr", "count")
 STATE = ("last_w", "last_t", "cache_w", "cache_t", "ptr", "count")
 ORDER = STATE + ("msg_w", "msg_t", "valid", "x", "y")
 META = ("msg_scale", "msg_zp")
+# phase 1's receive shapes (N, d, C, K, atol): the paper's d = 10, 57 and
+# 9947 (atol 1e-4 there: the margin is summed in another order), the
+# grouped route's lane groups at d = 1, 7, 16 (K > C) and 32, and K = 9,
+# past the grouped route's rounds
+RECEIVE_SHAPES = ((4099, 10, 10, 4, 1e-5), (4099, 57, 10, 4, 1e-5),
+                  (2000, 9947, 10, 4, 1e-4), (257, 16, 3, 5, 1e-5),
+                  (4099, 1, 10, 4, 1e-5), (4099, 7, 10, 4, 1e-5),
+                  (4099, 32, 10, 4, 1e-5), (1031, 10, 3, 9, 1e-5))
+# the paper's other datasets (configs/gossip_linear.py), timed at their
+# own N: (name, N, d, atol)
+PAPER_SHAPES = (("spambase", 4140, 57, 1e-5), ("reuters", 2000, 9947, 1e-4))
 # the receive kernel's decode modes, each with a codec that selects it
 DECODE_WIRES = {"bf16": "bf16", "f16": "f16", "affine8": "int8",
                 "int4": "int4", "ternary": "ternary"}
@@ -290,6 +310,59 @@ def compare_kernel(inputs, variant, lam, atol, rtol=1e-5, wire=None,
             if not torch.allclose(a[k], b[k], rtol=rtol, atol=atol):
                 raise AssertionError(f"{variant}: {k} off by {err}")
     return err, counts
+
+
+def run_route(inputs, variant, lam, wire=None, defense="none", route=None):
+    """The receive kernel on copies of ``inputs``, on ``route`` (None: the
+    route ``receive_route`` picks, through the public wrapper; else forced
+    through the private launch). Returns the state and counts, and the
+    route each launch took."""
+    from repro_torch.kernels import gossip_cycle as gc
+    a = {k: v.clone() for k, v in inputs.items()}
+    kw = dict(variant=variant, lam=lam, wire=wire, defense=defense)
+    before = dict(gc.fused_receive_apply.route_launches)
+    if route is None:
+        out = gc.fused_receive_apply(*(a[k] for k in ORDER),
+                                     **{k: a[k] for k in META if k in a},
+                                     **kw)
+        counts = out[6:]
+    else:
+        mode = gc._check_receive(*(a[k] for k in ORDER), a.get("msg_scale"),
+                                 a.get("msg_zp"), wire, variant, defense)
+        counts = gc._launch_receive(*(a[k] for k in ORDER),
+                                    a.get("msg_scale"), a.get("msg_zp"),
+                                    mode, variant, float(lam), defense,
+                                    route=route)
+    took = [r for r, n in gc.fused_receive_apply.route_launches.items()
+            if n != before[r]]
+    return a, counts, took
+
+
+def compare_routes(inputs, variant, lam, wire=None, defense="none"):
+    """The route ``receive_route`` picks for these shapes against the
+    strided route forced on the same inputs: every state tensor (floats
+    by their bits), cache_t and the gated and clipped counts equal.
+    Returns the route taken."""
+    import torch
+    from repro_torch.kernels import gossip_cycle as gc
+    k, _, _ = inputs["msg_w"].shape
+    d = inputs["x"].shape[1]
+    want = gc.receive_route(d, k)
+    a, ca, took = run_route(inputs, variant, lam, wire, defense)
+    if took != [want]:
+        raise AssertionError(f"receive d={d} K={k}: took {took}, not "
+                             f"{want}")
+    b, cb, _ = run_route(inputs, variant, lam, wire, defense, "strided")
+    torch.cuda.synchronize()
+    bits = lambda t: t.view(torch.int32) if t.is_floating_point() else t
+    for label, x, y in [(key, a[key], b[key]) for key in STATE] + list(
+            zip(("gated", "clipped"), ca, cb)):
+        if not torch.equal(bits(x), bits(y)):
+            bad = int((bits(x) != bits(y)).sum())
+            raise AssertionError(f"receive {want} vs strided, {variant} "
+                                 f"{defense} d={d} K={k}: {label} differs "
+                                 f"in {bad} entries")
+    return want
 
 
 def voted_inputs(seed, m, c, d, device):
@@ -612,9 +685,10 @@ def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None):
     """One main-path run (``run_simulation(engine="sharded")`` on the card,
     with ``serve_hook`` if given) with every launch count set to 0 just
     before it and read just after, keeping a copy of the last receive and
-    send launches' inputs. Returns (result, wall s, peak bytes, receive
+    send launches' inputs; every receive launch must take the grouped
+    route (d = 10, K = 4). Returns (result, wall s, peak bytes, receive
     launches, send launches by kernel, captured receive inputs, captured
-    send inputs, voted-predict launches)."""
+    send inputs, voted-predict launches, receive launches by route)."""
     import numpy as np
     import torch
     from repro_torch.core.simulation import run_simulation
@@ -647,6 +721,8 @@ def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None):
         recv.launches = vp.voted_predict_batched.launches = 0
         for k in send.launches:
             send.launches[k] = 0
+        for k in recv.route_launches:
+            recv.route_launches[k] = 0
         t0 = time.perf_counter()
         res = run_simulation(cfg, X[:n], y[:n], X[n:], y[n:],
                              engine="sharded", cycles=cycles, eval_every=10,
@@ -655,6 +731,7 @@ def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, sends = recv.launches, dict(send.launches)
+        routes = dict(recv.route_launches)
         voted = vp.voted_predict_batched.launches
     finally:
         gc.fused_receive_apply, gc.quantize_send = recv, send
@@ -662,6 +739,9 @@ def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None):
     if launches != cycles:
         raise AssertionError(f"main path launched the receive kernel "
                              f"{launches} times, expected {cycles}")
+    if routes != dict(grouped=cycles, strided=0):
+        raise AssertionError(f"main path's receive launches by route "
+                             f"{routes}, expected all {cycles} grouped")
     if res.sent_total != (res.delivered_total + res.lost_total
                           + res.overflow_total + res.in_flight_total):
         raise AssertionError("message economy does not add up")
@@ -669,22 +749,30 @@ def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None):
     if not (len(res.cycles) == 2 and all(np.isfinite(curves))
             and all(0.0 <= e <= 0.5 for e in res.err_fresh + res.err_voted)):
         raise AssertionError(f"bad curves {curves}")
-    return res, wall, peak, launches, sends, got_recv, got_send, voted
+    return (res, wall, peak, launches, sends, got_recv, got_send, voted,
+            routes)
 
 
-def time_receive(captured, variant: str, lam: float, d: int):
+def time_receive(captured, variant: str, lam: float, d: int,
+                 atol: float = 1e-5):
     """The receive kernel on captured main-path inputs (with their
-    ``wire`` and ``defense``): agreement with the plain version there, ms
-    per launch, the plain version's ms, and the bound. Returns (max abs
-    err, ms, plain ms, bound ms, bound_by, bytes)."""
+    ``wire`` and ``defense``): agreement with the plain version there
+    (integers equal, floats within ``atol`` and rtol 1e-5), and bitwise
+    with the strided route where the grouped one serves them; ms per
+    launch, the strided route's ms on the same inputs when it is not the
+    route taken, the plain version's ms, and the bound. Returns a dict:
+    err, ms, route, strided_ms, plain_ms, bound_ms, bound_by, bytes."""
     from repro_torch.core.wire_codec import get_codec
     from repro_torch.kernels import gossip_cycle as gc
     wire = captured.get("wire")
     defense = captured.get("defense", "none")
     inputs = {k: v for k, v in captured.items()
               if k not in ("wire", "defense")}
-    err, (gated, _) = compare_kernel(inputs, variant, lam, 1e-5, wire=wire,
+    err, (gated, _) = compare_kernel(inputs, variant, lam, atol, wire=wire,
                                      defense=defense)
+    route = gc.receive_route(d, inputs["msg_w"].shape[0])
+    if route == "grouped":
+        compare_routes(inputs, variant, lam, wire, defense)
     kw = dict(variant=variant, lam=lam, wire=wire, defense=defense)
 
     def runner(fn):
@@ -692,14 +780,35 @@ def time_receive(captured, variant: str, lam: float, d: int):
         args = [st[k] for k in ORDER]
         meta = {k: st[k] for k in META if k in st}
         return lambda: fn(*args, **meta, **kw)
+
+    def strided(*args, msg_scale=None, msg_zp=None, wire=None, variant,
+                lam, defense):
+        mode = gc._check_receive(*args, msg_scale, msg_zp, wire, variant,
+                                 defense)
+        return gc._launch_receive(*args, msg_scale, msg_zp, mode, variant,
+                                  float(lam), defense, route="strided")
     ms = cuda_time_ms(runner(gc.fused_receive_apply), reps=20)
+    strided_ms = (cuda_time_ms(runner(strided), reps=20)
+                  if route != "strided" else ms)
     plain_ms = cuda_time_ms(runner(gc.fused_receive_apply_plain), reps=5,
                             warmup=1)
     codec = get_codec(wire)
     bound_ms, bound_by, nbytes = receive_bound(
         inputs["valid"], variant, d,
         codec.payload_bytes(d) + codec.overhead_bytes, defense, gated)
-    return err, ms, plain_ms, bound_ms, bound_by, nbytes
+    return dict(err=err, ms=ms, route=route, strided_ms=strided_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes)
+
+
+def receive_line(t: dict) -> str:
+    """A ``time_receive`` result as printed."""
+    strided = (f"; the strided route {t['strided_ms']:.4f} ms on the same "
+               "inputs, bitwise equal" if t["route"] != "strided" else "")
+    return (f"{t['ms']:.4f} ms/launch ({t['route']}) vs bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bytes']} B)"
+            f"{strided}; plain version {t['plain_ms']:.4f} ms; max abs err "
+            f"vs plain {t['err']:.3e}")
 
 
 def time_send(captured):
@@ -1244,13 +1353,35 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"[0] kernel build: {build_s:.2f} s "
           f"({', '.join(_build.SOURCES)})")
+    grouped = []     # (registers, spill bytes) of each grouped receive
     for name, log in logs.items():
+        entry = ""
         for line in log.splitlines():
             if "Compiling entry" in line:     # which kernel the next lines are
-                print(f"[0]   {name}: {line.split(chr(39))[1][:100]}")
+                entry = line.split(chr(39))[1]
+                print(f"[0]   {name}: {entry[:100]}")
+                if "fused_receive_grouped" in entry:
+                    grouped.append([0, 0])
             if ("registers" in line or "spill" in line or "wgmma" in line
                     or "warn" in line.lower()):
                 print(f"[0]   {name}: {line.strip()}")
+            if "fused_receive_grouped" not in entry:
+                continue
+            if "spill" in line:
+                grouped[-1][1] += sum(int(w) for w in re.findall(
+                    r"(\d+) bytes spill", line))
+            used = re.search(r"Used (\d+) registers", line)
+            if used:
+                grouped[-1][0] = int(used.group(1))
+    if "gossip_cycle" in logs:
+        if not grouped or any(sp for _, sp in grouped):
+            raise AssertionError(f"the grouped receive kernel spills (or "
+                                 f"was not compiled): {grouped}")
+        regs = [r for r, _ in grouped]
+        print(f"[0]   gossip_cycle: {len(grouped)} grouped receive "
+              f"instantiations, {min(regs)}-{max(regs)} registers, no "
+              "spills")
+        results["grouped_registers"] = [min(regs), max(regs)]
     from repro_torch.kernels import flash_attention as fa
     smem = {hd: fa.tensor_core_smem_bytes(hd)
             for hd in fa.TENSOR_CORE_HEAD_DIMS}
@@ -1267,22 +1398,33 @@ def main() -> int:
     # ---- 1. kernel vs plain ------------------------------------------------
     phase(1)
     max_err = 0.0
-    shapes = [(4099, 10, 10, 4, 1e-5), (4099, 57, 10, 4, 1e-5),
-              (2000, 9947, 10, 4, 1e-4), (257, 16, 3, 5, 1e-5)]
-    for si, (n, d, c, k, atol) in enumerate(shapes):
+    route_cases = dict.fromkeys(gc.RECEIVE_ROUTES, 0)
+
+    def routes_agree(inputs, variant, wire=None, defense="none"):
+        """At d <= 32, the route taken bitwise equal to the strided one."""
+        d_, k_ = inputs["x"].shape[1], inputs["msg_w"].shape[0]
+        if d_ > gc.GROUPED_MAX_WIDTH:
+            return gc.receive_route(d_, k_)
+        route = compare_routes(inputs, variant, 1e-3, wire, defense)
+        route_cases[route] += 1
+        return (f"{route}, bitwise equal to strided" if route == "grouped"
+                else route)
+
+    for si, (n, d, c, k, atol) in enumerate(RECEIVE_SHAPES):
         for mode, wire in (("f32", None), *DECODE_WIRES.items()):
             inputs = receive_inputs(si, n, d, c, k, dev, wire=wire)
             for variant in ("rw", "mu", "um"):
                 err, _ = compare_kernel(inputs, variant, 1e-3, atol,
                                         wire=wire)
                 max_err = max(max_err, err)
+                took = routes_agree(inputs, variant, wire)
                 print(f"[1] fused_receive_apply {mode} N={n} d={d} C={c} "
                       f"K={k} {variant}: ints equal, max abs err {err:.3e} "
-                      f"(atol {atol:g}, rtol 1e-5)")
+                      f"(atol {atol:g}, rtol 1e-5); route {took}")
             del inputs
         torch.cuda.empty_cache()
     # the defense screens, on inputs with crafted rows for every verdict
-    for si, (n, d, c, k, atol) in enumerate(shapes):
+    for si, (n, d, c, k, atol) in enumerate(RECEIVE_SHAPES):
         for defense in DEFENSE_MODES:
             for mode, wire in (("f32", None), *SCREEN_WIRES.items()):
                 inputs = receive_inputs(si, n, d, c, k, dev, wire=wire,
@@ -1296,26 +1438,28 @@ def main() -> int:
                             f"{defense} {mode}: crafted rows gave gated {g} "
                             f"clipped {cl}")
                     max_err = max(max_err, err)
+                    took = routes_agree(inputs, variant, wire, defense)
                     print(f"[1] fused_receive_apply {defense} {mode} N={n} "
                           f"d={d} C={c} K={k} {variant}: ints and counts "
                           f"equal (gated {g}, clipped {cl}), max abs err "
-                          f"{err:.3e}")
+                          f"{err:.3e}; route {took}")
                 del inputs
         torch.cuda.empty_cache()
+    print(f"[1] fused_receive_apply: {route_cases['grouped']} cases at "
+          "d <= 32 on the grouped route, each bitwise equal to the strided "
+          f"route on the same inputs; {route_cases['strided']} at K > "
+          f"{gc.GROUPED_MAX_ROUNDS} on the strided route")
+    results["receive_route_cases"] = route_cases
     # the bf16/f16 decode modes, which no main-path phase runs: time and
     # bound at the main path's size
     results["decode_modes"] = {}
     for mode in ("bf16", "f16"):
         inputs = receive_inputs(0, 1_000_000, 10, 10, 4, dev, wire=mode)
         inputs["wire"] = mode
-        e_, ms_, plain_, bound_, by_, bytes_ = time_receive(inputs, "mu",
-                                                            1e-3, 10)
+        t_ = time_receive(inputs, "mu", 1e-3, 10)
         print(f"[1] {card}: fused_receive_apply {mode} decode at N=10^6 "
-              f"d=10 C=10 K=4 mu: {ms_:.4f} ms/launch vs bound "
-              f"{bound_:.4f} ms ({by_}, {bytes_} B); plain version "
-              f"{plain_:.4f} ms; max abs err {e_:.3e}")
-        results["decode_modes"][mode] = dict(ms=ms_, plain_ms=plain_,
-                                             bound_ms=bound_, bound_by=by_)
+              f"d=10 C=10 K=4 mu: {receive_line(t_)}")
+        results["decode_modes"][mode] = t_
         del inputs
     # the cosine_gate screen (f32), which no main-path phase runs, on the
     # same inputs
@@ -1323,12 +1467,18 @@ def main() -> int:
     inputs["defense"] = "cosine_gate"
     cg = time_receive(inputs, "mu", 1e-3, 10)
     print(f"[1] {card}: fused_receive_apply cosine_gate (f32) at N=10^6 "
-          f"d=10 C=10 K=4 mu: {cg[1]:.4f} ms/launch vs bound {cg[3]:.4f} ms "
-          f"({cg[4]}, {cg[5]} B); plain version {cg[2]:.4f} ms; max abs err "
-          f"{cg[0]:.3e}")
-    results["decode_modes"]["cosine_gate"] = dict(
-        ms=cg[1], plain_ms=cg[2], bound_ms=cg[3], bound_by=cg[4])
+          f"d=10 C=10 K=4 mu: {receive_line(cg)}")
+    results["decode_modes"]["cosine_gate"] = cg
     del inputs
+    # the paper's other datasets' shapes (f32, mu), on the strided route
+    results["paper_shapes"] = {}
+    for name, n, d, atol in PAPER_SHAPES:
+        inputs = receive_inputs(1, n, d, 10, 4, dev)
+        t_ = time_receive(inputs, "mu", 1e-3, d, atol)
+        print(f"[1] {card}: fused_receive_apply f32 at {name}'s N={n} d={d} "
+              f"C=10 K=4 mu: {receive_line(t_)}")
+        results["paper_shapes"][name] = t_
+        del inputs
     torch.cuda.empty_cache()
     # the voted-predict kernel: bitwise, at the serving shapes
     for m, c, d in VOTED_SHAPES:
@@ -1423,15 +1573,19 @@ def main() -> int:
     # Byzantine faults and the defense screens, then serving hooks
     results["phase2"]["faults"] = {}
     cosine_launches = 0     # the sharded engine's, under cosine_gate
+    cosine_routes = dict.fromkeys(gc.RECEIVE_ROUTES, 0)
     for fault, wire, defense in FAULT_RUNS:
         cfgf = dataclasses.replace(cfg2, wire_dtype=wire, fault_model=fault,
                                    byzantine_frac=0.1, defense=defense)
         tag = f"{fault}/{wire or 'f32'}/{defense}"
         before = gc.fused_receive_apply.launches
+        routes = dict(gc.fused_receive_apply.route_launches)
         shf, df, reff = compare_engines(cfgf, X, y, n2, dev, cycles=20,
                                         eval_every=10, seed=0, k_rounds=4)
         if defense == "cosine_gate":
             cosine_launches += gc.fused_receive_apply.launches - before
+            for r, n_ in gc.fused_receive_apply.route_launches.items():
+                cosine_routes[r] += n_ - routes[r]
         fs = shf.fault_stats
         if fs["corrupted"] == 0 or fs["gated"] + fs["clipped"] == 0:
             raise AssertionError(f"{tag}: no fault reached the screen {fs}")
@@ -1450,6 +1604,11 @@ def main() -> int:
                 print(f"[2] {tag} {engine} engine with a serving hook "
                       f"({q} queries): curves, economy and fault counters "
                       "bit for bit those of the run without it")
+    if cosine_routes != dict(grouped=cosine_launches, strided=0):
+        raise AssertionError(f"phase 2's cosine_gate receive launches by "
+                             f"route {cosine_routes}, expected all grouped")
+    print(f"[2] cosine_gate runs: {cosine_launches} receive launches, by "
+          f"route {cosine_routes}")
     torch.cuda.empty_cache()
 
     # ---- 3. full size ------------------------------------------------------
@@ -1463,12 +1622,12 @@ def main() -> int:
         class_ratio=(1, 1), lam=1e-3, variant="mu", cache_size=10),
         "extreme")
 
-    res, wall, peak, launches, _, captured, _, _ = main_path(
+    res, wall, peak, launches, _, captured, _, _, routes = main_path(
         cfg3, X, y, n3, cycles, dev)
     rate = n3 * cycles / wall
     print(f"[3] {card}: N={n3} d=10 extreme MU K=4 C=10 {cycles} cycles: "
-          f"launches {launches}; cycles {res.cycles} err_fresh "
-          f"{res.err_fresh} err_voted {res.err_voted} similarity "
+          f"launches {launches} (by route {routes}); cycles {res.cycles} "
+          f"err_fresh {res.err_fresh} err_voted {res.err_voted} similarity "
           f"{res.similarity}")
     print(f"[3] {card}: economy sent {res.sent_total} = delivered "
           f"{res.delivered_total} + lost {res.lost_total} + overflow "
@@ -1477,13 +1636,10 @@ def main() -> int:
           f"peak device memory {peak / 2**30:.2f} GiB")
 
     # the kernel on the main path's own last-launch inputs
-    err3, ms, plain_ms, bound_ms, bound_by, nbytes = time_receive(
-        captured, cfg3.variant, cfg3.lam, 10)
-    max_err = max(max_err, err3)
+    t3 = time_receive(captured, cfg3.variant, cfg3.lam, 10)
+    max_err = max(max_err, t3["err"])
     print(f"[3] {card}: fused_receive_apply at N={n3} d=10 C=10 K=4 mu: "
-          f"{ms:.4f} ms/launch vs bound {bound_ms:.4f} ms ({bound_by}, "
-          f"{nbytes} B); plain version {plain_ms:.4f} ms; max abs err vs "
-          f"plain {err3:.3e}")
+          f"{receive_line(t3)}")
     results["phase3"] = dict(
         n=n3, cycles=cycles, wall_s=wall, node_cycles_per_s=rate,
         peak_bytes=peak, launches=launches, err_fresh=res.err_fresh,
@@ -1492,8 +1648,9 @@ def main() -> int:
         overflow=res.overflow_total, in_flight=res.in_flight_total,
         wire_bytes_total=res.wire_bytes_total,
         buf_payload_bytes=res.buf_payload_bytes,
-        kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_bytes=nbytes)
+        kernel_ms=t3["ms"], plain_ms=t3["plain_ms"], bound_ms=t3["bound_ms"],
+        bound_bytes=t3["bytes"], route_launches=routes,
+        strided_ms=t3["strided_ms"])
     f32_res = res
     del captured
 
@@ -1508,8 +1665,10 @@ def main() -> int:
         name="fused_receive_apply", route="cuda",
         source="src/repro_torch/kernels/csrc/gossip_cycle.cu",
         replaces="src/repro/kernels/gossip_cycle.py:272",
-        launches=launches, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)]
+        launches=launches, max_abs_err=max_err, ms=t3["ms"],
+        plain_ms=t3["plain_ms"], bound_ms=t3["bound_ms"],
+        bound_by=t3["bound_by"], library_ms=None,
+        receive_route=t3["route"])]
 
     # ---- 4. the quantized wire at full size --------------------------------
     phase(4)
@@ -1518,15 +1677,16 @@ def main() -> int:
     for wire in MAIN_WIRES:
         cfg4 = dataclasses.replace(cfg3, wire_dtype=wire)
         kernel = gc.send_kernel_name(wire)
-        res, wall, peak, launches, sends, cap_r, cap_s, _ = main_path(
-            cfg4, X, y, n3, cycles, dev)
+        res, wall, peak, launches, sends, cap_r, cap_s, _, routes = (
+            main_path(cfg4, X, y, n3, cycles, dev))
         if sends[kernel] != cycles or sum(sends.values()) != cycles:
             raise AssertionError(f"{wire}: main path launched the send "
                                  f"kernels {sends}, expected {cycles} "
                                  f"{kernel}")
         rate = n3 * cycles / wall
         print(f"[4] {card}: {wire} N={n3} d=10 extreme MU K=4 C=10 "
-              f"{cycles} cycles: launches receive {launches}, send "
+              f"{cycles} cycles: launches receive {launches} (by route "
+              f"{routes}), send "
               f"{kernel} {sends[kernel]}; err_fresh {res.err_fresh} "
               f"err_voted {res.err_voted}; ef_residual_norm "
               f"{res.ef_residual_norm:.6g}")
@@ -1542,15 +1702,12 @@ def main() -> int:
               f"f32's {f32_res.buf_payload_bytes})")
         print(f"[4] {card}: {wire} wall {wall:.3f} s, {rate:.0f} "
               f"node-cycles/s, peak device memory {peak / 2**30:.2f} GiB")
-        r_err, r_ms, r_plain, r_bound, r_by, r_bytes = time_receive(
-            cap_r, cfg4.variant, cfg4.lam, 10)
-        max_err = max(max_err, r_err)
+        t4 = time_receive(cap_r, cfg4.variant, cfg4.lam, 10)
+        max_err = max(max_err, t4["err"])
         kernels[0]["launches"] += launches
         kernels[0]["max_abs_err"] = max_err
-        print(f"[4] {card}: fused_receive_apply {wire} decode: {r_ms:.4f} "
-              f"ms/launch vs bound {r_bound:.4f} ms ({r_by}, {r_bytes} B); "
-              f"plain version {r_plain:.4f} ms; max abs err vs plain "
-              f"{r_err:.3e}")
+        print(f"[4] {card}: fused_receive_apply {wire} decode: "
+              f"{receive_line(t4)}")
         s_ms, s_plain, s_bound, s_by, s_bytes = time_send(cap_s)
         print(f"[4] {card}: quantize_send {wire} ({kernel}): {s_ms:.4f} "
               f"ms/launch vs bound {s_bound:.4f} ms ({s_by}, {s_bytes} B); "
@@ -1573,8 +1730,11 @@ def main() -> int:
             wire_bytes_total=res.wire_bytes_total,
             buf_payload_bytes=res.buf_payload_bytes,
             ef_residual_norm=res.ef_residual_norm,
-            receive=dict(ms=r_ms, plain_ms=r_plain, bound_ms=r_bound,
-                         bound_bytes=r_bytes, max_abs_err=r_err),
+            receive=dict(ms=t4["ms"], plain_ms=t4["plain_ms"],
+                         bound_ms=t4["bound_ms"], bound_bytes=t4["bytes"],
+                         max_abs_err=t4["err"], route=t4["route"],
+                         strided_ms=t4["strided_ms"]),
+            route_launches=routes,
             send=dict(ms=s_ms, plain_ms=s_plain, bound_ms=s_bound,
                       bound_bytes=s_bytes),
             profile=prof)
@@ -1601,7 +1761,7 @@ def main() -> int:
 
     serving.snapshot_from_carry = timed_snapshot
     try:
-        res, wall, peak, launches, _, cap_r, _, voted = main_path(
+        res, wall, peak, launches, _, cap_r, _, voted, routes = main_path(
             cfg5, X, y, n3, cycles, dev, serve_hook=hook)
     finally:
         serving.snapshot_from_carry = take
@@ -1618,7 +1778,8 @@ def main() -> int:
         raise AssertionError(f"phase 5: served accuracy {acc}")
     rate = n3 * cycles / wall
     print(f"[5] {card}: N={n3} d=10 extreme MU K=4 C=10 {cycles} cycles, "
-          f"sign_flip 10% + norm_clip, served: launches receive {launches}, "
+          f"sign_flip 10% + norm_clip, served: launches receive {launches} "
+          f"(by route {routes}), "
           f"voted_predict {voted}; err_fresh {res.err_fresh} err_voted "
           f"{res.err_voted}; fault counters {fs}")
     print(f"[5] {card}: economy sent {res.sent_total} = delivered "
@@ -1631,13 +1792,10 @@ def main() -> int:
           f"of 256: {st.queries_per_sec:.0f} queries/s over the batch "
           f"latencies, p50 {st.p50_latency_s * 1e3:.4f} ms, p99 "
           f"{st.p99_latency_s * 1e3:.4f} ms; voted accuracy {acc:.4f}")
-    c_err, c_ms, c_plain, c_bound, c_by, c_bytes = time_receive(
-        cap_r, cfg5.variant, cfg5.lam, 10)
-    max_err = max(max_err, c_err)
+    t5 = time_receive(cap_r, cfg5.variant, cfg5.lam, 10)
+    max_err = max(max_err, t5["err"])
     print(f"[5] {card}: fused_receive_apply norm_clip at N={n3}: "
-          f"{c_ms:.4f} ms/launch vs bound {c_bound:.4f} ms ({c_by}, "
-          f"{c_bytes} B); plain version {c_plain:.4f} ms; max abs err vs "
-          f"plain {c_err:.3e}")
+          f"{receive_line(t5)}")
     del cap_r
     voted_rows = {}
     for m in (256, 65_536):
@@ -1667,8 +1825,11 @@ def main() -> int:
         queries=st.queries, batches=st.batches,
         queries_per_s=st.queries_per_sec, p50_s=st.p50_latency_s,
         p99_s=st.p99_latency_s, voted_accuracy=acc,
-        receive=dict(ms=c_ms, plain_ms=c_plain, bound_ms=c_bound,
-                     bound_bytes=c_bytes, max_abs_err=c_err),
+        receive=dict(ms=t5["ms"], plain_ms=t5["plain_ms"],
+                     bound_ms=t5["bound_ms"], bound_bytes=t5["bytes"],
+                     max_abs_err=t5["err"], route=t5["route"],
+                     strided_ms=t5["strided_ms"]),
+        route_launches=routes,
         voted=voted_rows, profile=prof5)
     del server
     torch.cuda.empty_cache()
@@ -1677,8 +1838,10 @@ def main() -> int:
         name="fused_receive_apply[norm_clip]", route="cuda",
         source="src/repro_torch/kernels/csrc/gossip_cycle.cu",
         replaces="src/repro/kernels/gossip_cycle.py:272",
-        launches=launches, max_abs_err=c_err, ms=c_ms, plain_ms=c_plain,
-        bound_ms=c_bound, bound_by=c_by, library_ms=None))
+        launches=launches, max_abs_err=t5["err"], ms=t5["ms"],
+        plain_ms=t5["plain_ms"], bound_ms=t5["bound_ms"],
+        bound_by=t5["bound_by"], library_ms=None,
+        receive_route=t5["route"]))
 
     for kernel, replaces in SEND_ROWS.items():
         kernels.append(dict(
@@ -1690,8 +1853,10 @@ def main() -> int:
         name="fused_receive_apply[cosine_gate]", route="cuda",
         source="src/repro_torch/kernels/csrc/gossip_cycle.cu",
         replaces="src/repro/kernels/gossip_cycle.py:272",
-        launches=cosine_launches, max_abs_err=cg[0], ms=cg[1],
-        plain_ms=cg[2], bound_ms=cg[3], bound_by=cg[4], library_ms=None))
+        launches=cosine_launches, max_abs_err=cg["err"], ms=cg["ms"],
+        plain_ms=cg["plain_ms"], bound_ms=cg["bound_ms"],
+        bound_by=cg["bound_by"], library_ms=None,
+        receive_route=cg["route"]))
     v256 = voted_rows[256]
     kernels.append(dict(
         name="voted_predict_batched", route="cuda",

@@ -36,7 +36,7 @@
 //
 // Screen (template argument F), between the decode and the merge of every
 // valid round, against the current lastModel lw, with sq = sum m^2 and
-// rn = sum lw^2 (warp sums; nothing is padded, so nothing is masked):
+// rn = sum lw^2 (shuffle sums; nothing is padded, so nothing is masked):
 //   none         nothing; the gated/clipped counts stay 0;
 //   norm_clip    thr = max(4 rn, 1); a non-finite sq rejects the message,
 //                sq > thr rescales it by sqrt(thr / max(sq, 1e-30));
@@ -52,34 +52,90 @@
 // and sq rn, and a rescaled coefficient (ftz below; the sums' terms are
 // never subnormal).
 //
-// Layout: one warp per node, kNodesPerBlock nodes per block. Lanes stride
-// over d (no padding of d or C: the loop bound masks the ragged edge) and
-// the margin is a warp-shuffle sum, so one layout serves d = 10, 57 and
-// 9947. Rounds run in order inside the warp; a round that is not valid is
-// skipped without touching memory.
-//
 // In place: last_w, last_t, cache_w, cache_t, ptr and count are updated
 // where they lie (the JAX chunk function donates its carry, so nothing is
 // lost). A node reads its valid rounds' messages, its example and its
 // lastModel, writes one cache row per valid round and its lastModel once:
-// about (K + 3) d floats instead of rewriting its whole C d cache. The
-// running lastModel is not written between rounds: it is always either the
-// node's last_w row or the message of its latest valid round, so the kernel
-// keeps a pointer to that message's payload row and decodes it again.
-// Under norm_clip the running lastModel is the rescaled message, so the
-// kernel keeps the message's clip factor (kNoClip, or the rescale) beside
-// the pointer and rescales after the decode, in the plain version's order.
+// about (K + 3) d floats instead of rewriting its whole C d cache. A node
+// with no valid round is not written at all.
 //
 // Bound: the kernel moves bytes and does ~6 flops a byte-pair, so device
 // memory bounds it (3.35 TB/s on an H100 SXM). Per launch it must read the
 // (K, N) valid lanes and, for each valid (node, round), the message row and
 // counter (plus its scale and zero-point) and write one cache row and
 // counter; for each node with a valid round it reads x, y, ptr, count,
-// last_t (and last_w for mu/um) and writes last_w, last_t, ptr, count.
-// chip_smoke.py computes that byte count from the run's own valid mask and
-// the codec's payload width. Compile with --fmad=false so products and sums
-// round like the plain PyTorch version; only the order of the margin's sum
-// differs.
+// last_t (and last_w for mu/um and under a screen) and writes last_w,
+// last_t, ptr, count. chip_smoke.py::receive_bound computes that byte
+// count from the run's own valid mask and the codec's payload width: at
+// the main path's N = 10^6, d = 10, K = 4, with about 9 % of the
+// (node, round) lanes valid, 80-100 MB, 0.024-0.030 ms. Those bytes are
+// scattered: a 40-byte row at any offset costs two or three 32-byte
+// sectors, and each valid round and each receiving node touch rows of
+// their own, so the sectors the card must move are ~2x the bound's bytes.
+// Compile with --fmad=false so products and sums round like the plain
+// PyTorch version; only the order of the sums differs.
+//
+// Two layouts, chosen before the launch by gossip_cycle.py::receive_route
+// (the C entry takes the choice as an argument and refuses a grouped
+// launch outside its range):
+//
+// strided (the first layout; every d and K): one warp a node, lanes striding
+// over d, sums as 32-lane xor butterflies (warp_sum), the rounds in order
+// with each round's loads issued when the round starts. It is
+// latency-bound at small d, for three reasons:
+//   1. at d = 10, 22 of 32 lanes idle, and a load instruction moves 40 B;
+//   2. a node is a chain of ~1 + 2K dependent trips to device memory: the
+//      valid flag of round r is read inside the round loop and branched
+//      on, so round r + 1's loads wait for round r's flag, message, margin
+//      and cache store;
+//   3. five blocks of eight warps an SM keep 40 nodes in flight an SM,
+//      ~0.2-0.7 MB across the card, where Little's law at 3.35 TB/s and
+//      ~0.6 us asks for ~2 MB. It also decodes a message row from device
+//      memory up to three times (screen, margin, update) and the running
+//      lastModel again from the previous message's row on every use.
+// It keeps a pointer to the latest valid round's payload row (and its
+// norm_clip factor) as the running lastModel and decodes it again.
+//
+// grouped (d <= 32 and K <= 8, the main path's widths): each node takes a
+// group of G lanes, G the smallest power of two >= d (d = 10: G = 16, two
+// nodes a warp; d = 1: G = 1, 32 a warp), coefficient j on lane j of its
+// group. What it does about each cause:
+//   1. Lanes: G - d of G idle instead of 32 - d of 32.
+//   2. Trips: a node costs two dependent trips, not ~1 + 2K. Trip 1: a
+//      block stages 256 nodes' valid flags and msg_t for every round, ptr,
+//      count, last_t and y into shared memory with cp.async, one thread a
+//      node, every copy coalesced and issued before any is used. Trip 2:
+//      each group issues, for every valid round at once, the payload row
+//      (element j on lane j) with its f16 scale and zero-point, and x[i]
+//      and last_w[i] when the node has a valid round. The K rounds then
+//      run in order from registers: each row is read once, x once, and
+//      the running lastModel is a register (the screened message of the
+//      latest accepted round), never decoded again.
+//   3. Bytes in flight: blocks are persistent (as many as fit, each
+//      walking stages blockIdx.x, + gridDim.x, ...), and a block's next
+//      stage of flags is copied while it runs the current one, so trip 1
+//      is off the critical path: 256 nodes x (2K + 4) ints, 12 KB a block
+//      at K = 4, ~8 MB across the card. Within a stage the block runs 256
+//      / G nodes at a time (G tiles); a warp moves from tile to tile with
+//      no barrier, skips a tile none of its nodes receives in (most of
+//      them on the main path) without a load, and keeps its groups' trip 2
+//      loads in flight together.
+// The round loop is uniform across the warp (a round no group of the warp
+// receives is skipped by __any_sync), so every shuffle runs with all 32
+// lanes; a group whose round is not valid, or whose message was rejected,
+// predicates its work off. Sums are xor butterflies over the group's G
+// lanes (group_sum): for d <= G the 32-lane tree's other levels add only
+// +0.0 to each lane's one term, and no partial sum is -0.0 (each starts at
+// +0.0), so the two trees give the same bits, and the grouped route gives
+// the strided route's state, cache_t and counts bit for bit. Staging
+// msg_t, ptr, count, last_t and y for every node costs little beyond the
+// bound's bytes: with ~9 % of (node, round) lanes valid, most 32-byte
+// sectors of those arrays hold a node that needs them anyway.
+//
+// On an H100 SXM at 700 W the grouped kernel's time per launch at the main
+// path's inputs does not move with the blocks an SM (4, 5 or 6), so the
+// warps in flight no longer bound it; the scattered sectors above and the
+// instructions a node costs (two nodes a warp at d = 10) are what is left.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -96,10 +152,23 @@ constexpr int kNodesPerBlock = 8;
 // instantiations up to 64 and fewer warps fit.
 constexpr int kMinBlocksPerSM = 5;
 
+// the grouped route
+constexpr int kLog2GroupedThreads = 8;
+constexpr int kGroupedThreads = 1 << kLog2GroupedThreads;  // 256 / G nodes
+constexpr int kGroupedMaxWidth = 32;   // d it takes at most
+constexpr int kGroupedMaxRounds = 8;   // K it takes at most
+// Blocks an SM: each thread holds KMAX rounds of prefetched payload bits,
+// scale and zero-point; four blocks (32 warps) leave ptxas up to 64
+// registers a thread, which no instantiation spills, where five (48) spill
+// um under a screen. The warps in flight do not bound the kernel (the
+// note above), so the fewer warps cost nothing.
+constexpr int kGroupedMinBlocks = 4;
+
 enum Variant { kRw = 0, kMu = 1, kUm = 2 };
 enum Mode { kF32 = 0, kBF16 = 1, kF16 = 2, kAffine8 = 3, kInt4 = 4,
             kTernary = 5 };
 enum Defense { kNone = 0, kNormClip = 1, kCosineGate = 2 };
+enum Route { kGrouped = 0, kStrided = 1 };
 
 // the screen's constants: the reference's Python doubles rounded to float32
 constexpr float kClipMultSq = 4.0f;        // NORM_CLIP_MULT ** 2
@@ -116,30 +185,56 @@ __host__ __device__ constexpr int elem_bytes() {
   return M == kF32 ? 4 : (M == kBF16 || M == kF16) ? 2 : 1;
 }
 
-// coefficient j of one message row, in _decode_msg's op order
+// the payload bits that hold coefficient j of one message row, loaded and
+// not yet decoded
 template <int M>
-__device__ __forceinline__ float decode(const unsigned char* row, int j,
-                                        float scale, float zp) {
+__device__ __forceinline__ uint32_t fetch(const unsigned char* row, int j) {
   if constexpr (M == kF32) {
-    return reinterpret_cast<const float*>(row)[j];
-  } else if constexpr (M == kBF16) {
-    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(row)[j]);
-  } else if constexpr (M == kF16) {
-    return __half2float(reinterpret_cast<const __half*>(row)[j]);
+    return __float_as_uint(reinterpret_cast<const float*>(row)[j]);
+  } else if constexpr (M == kBF16 || M == kF16) {
+    return reinterpret_cast<const unsigned short*>(row)[j];
   } else if constexpr (M == kAffine8) {
-    const float q = static_cast<float>(reinterpret_cast<const int8_t*>(row)[j]);
+    return static_cast<uint32_t>(
+        static_cast<int>(reinterpret_cast<const int8_t*>(row)[j]));
+  } else if constexpr (M == kInt4) {
+    return row[j >> 1];
+  } else {
+    return row[j / 5];
+  }
+}
+
+// coefficient j from its fetched bits, in _decode_msg's op order
+template <int M>
+__device__ __forceinline__ float unpack(uint32_t bits, int j, float scale,
+                                        float zp) {
+  if constexpr (M == kF32) {
+    return __uint_as_float(bits);
+  } else if constexpr (M == kBF16) {
+    return __bfloat162float(
+        __ushort_as_bfloat16(static_cast<unsigned short>(bits)));
+  } else if constexpr (M == kF16) {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(bits)));
+  } else if constexpr (M == kAffine8) {
+    const float q = static_cast<float>(static_cast<int>(bits));
     const float v = q * scale;
     return v + zp;
   } else if constexpr (M == kInt4) {
-    const int b = row[j >> 1];
+    const int b = static_cast<int>(bits);
     const int nib = (j & 1) ? (b >> 4) : (b & 0xF);
     return static_cast<float>(((nib + 8) & 0xF) - 8) * scale;
   } else {
-    const int b = row[j / 5];
+    const int b = static_cast<int>(bits);
     const int r = j % 5;
     const int p3 = r == 0 ? 1 : r == 1 ? 3 : r == 2 ? 9 : r == 3 ? 27 : 81;
     return static_cast<float>((b / p3) % 3 - 1) * scale;
   }
+}
+
+// coefficient j of one message row
+template <int M>
+__device__ __forceinline__ float decode(const unsigned char* row, int j,
+                                        float scale, float zp) {
+  return unpack<M>(fetch<M>(row, j), j, scale, zp);
 }
 
 // one received message: its payload row and its decode metadata
@@ -178,6 +273,34 @@ __device__ __forceinline__ float warp_sum(float v) {
     v += __shfl_xor_sync(0xffffffffu, v, o);
   }
   return v;
+}
+
+// the sum of v over an aligned group of g lanes (g a power of two <= 32),
+// levels g/2 ... 1 as in warp_sum; every lane of the warp must call it
+__device__ __forceinline__ float group_sum(float v, int g) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) {
+    if (o < g) v += __shfl_xor_sync(0xffffffffu, v, o);
+  }
+  return v;
+}
+
+// the screen's verdict on the summed sq, rn and dot (dot is read only by
+// cosine_gate): whether it rejects the message; f is set to the norm_clip
+// rescale of a clipped message, else kNoClip
+template <int F>
+__device__ __forceinline__ bool screen_rejects(float sq, float rn, float dot,
+                                               float& f) {
+  f = kNoClip;
+  const bool bad = !isfinite(sq);
+  if constexpr (F == kNormClip) {
+    const float thr = fmaxf(kClipMultSq * rn, kClipFloorSq);
+    if (!bad && sq > thr) f = sqrtf(ftz(thr / fmaxf(sq, kClipSqGuard)));
+    return bad;
+  } else {
+    return bad || (rn > kGateMinNormSq &&
+                   dot < kGateThreshold * sqrtf(ftz(sq * rn)));
+  }
 }
 
 struct Step {
@@ -256,18 +379,9 @@ fused_receive_kernel(float* __restrict__ last_w, int* __restrict__ last_t,
       }
       sq = warp_sum(sq);
       rn = warp_sum(rn);
-      bool reject = !isfinite(sq);
-      if constexpr (F == kNormClip) {
-        const float thr = fmaxf(kClipMultSq * rn, kClipFloorSq);
-        if (!reject && sq > thr) {
-          f = sqrtf(ftz(thr / fmaxf(sq, kClipSqGuard)));
-          clipped += 1;
-        }
-      } else {
-        dot = warp_sum(dot);
-        reject = reject || (rn > kGateMinNormSq &&
-                            dot < kGateThreshold * sqrtf(ftz(sq * rn)));
-      }
+      if (F == kCosineGate) dot = warp_sum(dot);
+      const bool reject = screen_rejects<F>(sq, rn, dot, f);
+      if (f != kNoClip) clipped += 1;
       if (reject) {
         gated += 1;
         continue;
@@ -340,6 +454,243 @@ fused_receive_kernel(float* __restrict__ last_w, int* __restrict__ last_t,
   }
 }
 
+// 4 bytes from global to shared memory, asynchronously (cp.async)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most one group of this thread's copies is in flight
+__device__ __forceinline__ void cp_async_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Trip 1 of one stage of kGroupedThreads nodes, thread t's node base + t:
+// its valid flags and msg_t for every round, then ptr, count, last_t and y
+// (2K + 4 rows of kGroupedThreads ints), copied asynchronously, 4 bytes a
+// copy, each row's copies coalesced across the block. Nodes past n get
+// zero valid flags.
+__device__ __forceinline__ void stage_nodes(
+    int* stage, int64_t base, int n, int k, const int* __restrict__ valid,
+    const int* __restrict__ msg_t, const int* __restrict__ ptr,
+    const int* __restrict__ count, const int* __restrict__ last_t,
+    const float* __restrict__ y) {
+  const int t = threadIdx.x;
+  const int64_t i = base + t;
+  if (i >= n) {
+    for (int r = 0; r < k; ++r) stage[r * kGroupedThreads + t] = 0;
+    return;
+  }
+  for (int r = 0; r < k; ++r) {
+    const int64_t ri = static_cast<int64_t>(r) * n + i;
+    cp_async4(stage + r * kGroupedThreads + t, valid + ri);
+    cp_async4(stage + (k + r) * kGroupedThreads + t, msg_t + ri);
+  }
+  int* rest = stage + 2 * k * kGroupedThreads + t;
+  cp_async4(rest, ptr + i);
+  cp_async4(rest + kGroupedThreads, count + i);
+  cp_async4(rest + 2 * kGroupedThreads, last_t + i);
+  cp_async4(rest + 3 * kGroupedThreads, y + i);
+}
+
+// The grouped route: a group of g = 2^log2g lanes a node, every operand of
+// every valid round issued before the rounds run (the note above). Blocks
+// are persistent: each walks stages of kGroupedThreads nodes, blockIdx.x,
+// + gridDim.x, ..., staging the next stage's flags (trip 1) while it runs
+// the current one, a tile of kGroupedThreads / g nodes at a time; a warp
+// runs its groups' nodes of each tile in turn with no barrier between
+// tiles. KMAX bounds k; the arithmetic is fused_receive_kernel's, op for op.
+template <int V, int M, int F, int KMAX>
+__global__ void __launch_bounds__(kGroupedThreads, kGroupedMinBlocks)
+fused_receive_grouped_kernel(
+    float* __restrict__ last_w, int* __restrict__ last_t,
+    float* __restrict__ cache_w, int* __restrict__ cache_t,
+    int* __restrict__ ptr, int* __restrict__ count,
+    const unsigned char* __restrict__ msg, const __half* __restrict__ msc,
+    const __half* __restrict__ mzp, const int* __restrict__ msg_t,
+    const int* __restrict__ valid, const float* __restrict__ x,
+    const float* __restrict__ y, int* __restrict__ counts, int n, int d,
+    int c, int k, int pw, float lam, int log2g, int stages) {
+  constexpr bool kReadsLast = V != kRw || F != kNone;
+  constexpr int kFields = 2 * KMAX + 4;
+  // two stages' fields: valid (k rows), msg_t (k rows), ptr, count,
+  // last_t, y, each row kGroupedThreads ints
+  __shared__ int s_stage[2][kFields * kGroupedThreads];
+
+  const int g = 1 << log2g;
+  const int log2tile = kLog2GroupedThreads - log2g;
+  const int j = threadIdx.x & (g - 1);  // this lane's coefficient
+  const bool lane_on = j < d;
+  // a round's payload rows, scales and flags lie n rows apart
+  const int64_t row_step = static_cast<int64_t>(n) * pw * elem_bytes<M>();
+
+  if (static_cast<int>(blockIdx.x) < stages) {
+    stage_nodes(s_stage[0],
+                static_cast<int64_t>(blockIdx.x) << kLog2GroupedThreads, n, k,
+                valid, msg_t, ptr, count, last_t, y);
+  }
+  cp_async_commit();
+
+  int buf = 0;
+  for (int sg = blockIdx.x; sg < stages; sg += gridDim.x, buf ^= 1) {
+    // every thread is done with the other buffer (the previous stage), so
+    // the next stage's flags may land there while this one runs
+    __syncthreads();
+    const int next = sg + gridDim.x;
+    if (next < stages) {
+      stage_nodes(s_stage[buf ^ 1],
+                  static_cast<int64_t>(next) << kLog2GroupedThreads, n, k,
+                  valid, msg_t, ptr, count, last_t, y);
+    }
+    cp_async_commit();
+    cp_async_wait_all_but_one();  // this stage's copies have landed
+    __syncthreads();
+
+    const int* st = s_stage[buf];
+    for (int tl = 0; tl < g; ++tl) {
+      // this group's node, within the stage and in all
+      const int node = (tl << log2tile) + (threadIdx.x >> log2g);
+      const int64_t i =
+          (static_cast<int64_t>(sg) << kLog2GroupedThreads) + node;
+      int mask = 0;  // bit r: round r is valid (0 past n)
+#pragma unroll
+      for (int r = 0; r < KMAX; ++r) {
+        if (r < k && st[r * kGroupedThreads + node] > 0) mask |= 1 << r;
+      }
+      // a warp none of whose nodes receives has nothing to load or write
+      if (!__any_sync(0xffffffffu, mask != 0)) continue;
+
+      // trip 2: every valid round's payload bits, scale and zero-point, and
+      // x and last_w, all issued before the rounds run
+      uint32_t bits[KMAX];
+      float scale[KMAX], zp[KMAX];
+      const unsigned char* row0 = msg + i * pw * elem_bytes<M>();  // round 0
+#pragma unroll
+      for (int r = 0; r < KMAX; ++r) {
+        bits[r] = 0;
+        scale[r] = 0.0f;
+        zp[r] = 0.0f;
+        if ((mask >> r) & 1) {
+          const int64_t ri = static_cast<int64_t>(r) * n + i;
+          if (M == kAffine8 || M == kInt4 || M == kTernary) {
+            scale[r] = __half2float(msc[ri]);
+          }
+          if (M == kAffine8) zp[r] = __half2float(mzp[ri]);
+          if (lane_on) bits[r] = fetch<M>(row0 + r * row_step, j);
+        }
+      }
+      float xj = 0.0f, lcur = 0.0f;  // lcur: the running lastModel
+      if (mask != 0 && lane_on) {
+        xj = x[i * d + j];
+        if (kReadsLast) lcur = last_w[i * d + j];
+      }
+      const int* counters = st + 2 * k * kGroupedThreads + node;
+      int p = counters[0];
+      int ring = p % c;  // ring slot ptr % C, advanced with p below
+      int cnt = counters[kGroupedThreads];
+      int lt = counters[2 * kGroupedThreads];
+      const float yi = __int_as_float(counters[3 * kGroupedThreads]);
+      bool got = false;  // a message was received
+      int gated = 0, clipped = 0;
+
+#pragma unroll
+      for (int r = 0; r < KMAX; ++r) {
+        bool act = (mask >> r) & 1;
+        if (!__any_sync(0xffffffffu, act)) continue;  // uniform in the warp
+        const bool on = act && lane_on;
+        const float raw = on ? unpack<M>(bits[r], j, scale[r], zp[r]) : 0.0f;
+
+        // the screen against the current lastModel
+        float f = kNoClip;
+        if constexpr (F != kNone) {
+          float sq = 0.0f, rn = 0.0f, dot = 0.0f;
+          if (on) {
+            const float mj = ftz(raw);
+            const float lj = ftz(lcur);
+            sq += ftz(mj * mj);
+            rn += ftz(lj * lj);
+            if (F == kCosineGate) dot += ftz(mj * lj);
+          }
+          sq = group_sum(sq, g);
+          rn = group_sum(rn, g);
+          if (F == kCosineGate) dot = group_sum(dot, g);
+          const bool reject = screen_rejects<F>(sq, rn, dot, f);
+          if (f != kNoClip) clipped += act;
+          if (reject) {
+            gated += act;
+            act = false;
+          }
+        }
+        const bool use = act && lane_on;
+        const float mj = F == kNormClip ? rescaled(raw, f) : raw;
+        const int mt = st[(k + r) * kGroupedThreads + node];
+
+        // the margin(s) of the model(s) the Pegasos step updates, then the
+        // new model for ring slot ptr % C
+        float a1 = 0.0f, a2 = 0.0f, out;
+        int nt;
+        if (V == kMu) {
+          const float w = (mj + lcur) / 2.0f;
+          if (use) a1 += w * xj;
+          a1 = group_sum(a1, g);
+          const Step s = pegasos_step(max(mt, lt), yi * a1, yi, lam);
+          out = apply_step(s, w, xj);
+          nt = s.t;
+        } else if (V == kUm) {
+          if (use) {
+            a1 += mj * xj;
+            a2 += lcur * xj;
+          }
+          a1 = group_sum(a1, g);
+          a2 = group_sum(a2, g);
+          const Step s1 = pegasos_step(mt, yi * a1, yi, lam);
+          const Step s2 = pegasos_step(lt, yi * a2, yi, lam);
+          out = (apply_step(s1, mj, xj) + apply_step(s2, lcur, xj)) / 2.0f;
+          nt = max(s1.t, s2.t);
+        } else {
+          if (use) a1 += mj * xj;
+          a1 = group_sum(a1, g);
+          const Step s = pegasos_step(mt, yi * a1, yi, lam);
+          out = apply_step(s, mj, xj);
+          nt = s.t;
+        }
+        if (act) {
+          const int64_t slot = i * c + ring;
+          if (lane_on) cache_w[slot * d + j] = out;
+          if (j == 0) cache_t[slot] = nt;
+          p += 1;
+          ring = ring + 1 == c ? 0 : ring + 1;  // p % C: p counts up from 0
+          cnt = min(cnt + 1, c);
+          lcur = mj;  // lastModel <- the received (screened) message
+          lt = mt;
+          got = true;
+        }
+      }
+
+      if (F != kNone && j == 0) {  // counts are 0 unless written
+        if (gated) counts[i] = gated;
+        if (clipped) counts[n + i] = clipped;
+      }
+      if (got) {  // nothing received: the node is untouched
+        if (lane_on) last_w[i * d + j] = lcur;
+        if (j == 0) {
+          last_t[i] = lt;
+          ptr[i] = p;
+          count[i] = cnt;
+        }
+      }
+    }
+  }
+  // the last (empty) group of copies: nothing is left in flight
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 struct Args {
   float* last_w;
   int* last_t;
@@ -360,36 +711,64 @@ struct Args {
   float lam;
 };
 
+// the smallest log2 g with 2^g >= d
+int group_log2(int d) {
+  int l = 0;
+  while ((1 << l) < d) ++l;
+  return l;
+}
+
 template <int V, int M, int F>
-void launch(const Args& a, cudaStream_t stream) {
-  const unsigned blocks = (static_cast<unsigned>(a.n) + kNodesPerBlock - 1) /
-                          kNodesPerBlock;
-  fused_receive_kernel<V, M, F>
-      <<<blocks, kWarp * kNodesPerBlock, 0, stream>>>(
-          a.last_w, a.last_t, a.cache_w, a.cache_t, a.ptr, a.count, a.msg,
-          a.msc, a.mzp, a.msg_t, a.valid, a.x, a.y, a.counts, a.n, a.d, a.c,
-          a.k, a.pw, a.lam);
+void launch(const Args& a, int route, cudaStream_t stream) {
+  if (route == kStrided) {
+    const unsigned blocks =
+        (static_cast<unsigned>(a.n) + kNodesPerBlock - 1) / kNodesPerBlock;
+    fused_receive_kernel<V, M, F>
+        <<<blocks, kWarp * kNodesPerBlock, 0, stream>>>(
+            a.last_w, a.last_t, a.cache_w, a.cache_t, a.ptr, a.count, a.msg,
+            a.msc, a.mzp, a.msg_t, a.valid, a.x, a.y, a.counts, a.n, a.d,
+            a.c, a.k, a.pw, a.lam);
+    return;
+  }
+  const int log2g = group_log2(a.d);
+  const int stages = static_cast<int>(
+      (static_cast<int64_t>(a.n) + kGroupedThreads - 1) / kGroupedThreads);
+  auto kernel = a.k <= 4 ? fused_receive_grouped_kernel<V, M, F, 4>
+                         : fused_receive_grouped_kernel<V, M, F,
+                                                        kGroupedMaxRounds>;
+  // persistent blocks: as many as fit on the card at once
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                kGroupedThreads, 0);
+  const int blocks = max(1, min(stages, sms * per_sm));
+  kernel<<<blocks, kGroupedThreads, 0, stream>>>(
+      a.last_w, a.last_t, a.cache_w, a.cache_t, a.ptr, a.count, a.msg, a.msc,
+      a.mzp, a.msg_t, a.valid, a.x, a.y, a.counts, a.n, a.d, a.c, a.k, a.pw,
+      a.lam, log2g, stages);
 }
 
 template <int V, int F>
-bool launch_mode(const Args& a, int mode, cudaStream_t s) {
+bool launch_mode(const Args& a, int mode, int route, cudaStream_t s) {
   switch (mode) {
-    case kF32: launch<V, kF32, F>(a, s); return true;
-    case kBF16: launch<V, kBF16, F>(a, s); return true;
-    case kF16: launch<V, kF16, F>(a, s); return true;
-    case kAffine8: launch<V, kAffine8, F>(a, s); return true;
-    case kInt4: launch<V, kInt4, F>(a, s); return true;
-    case kTernary: launch<V, kTernary, F>(a, s); return true;
+    case kF32: launch<V, kF32, F>(a, route, s); return true;
+    case kBF16: launch<V, kBF16, F>(a, route, s); return true;
+    case kF16: launch<V, kF16, F>(a, route, s); return true;
+    case kAffine8: launch<V, kAffine8, F>(a, route, s); return true;
+    case kInt4: launch<V, kInt4, F>(a, route, s); return true;
+    case kTernary: launch<V, kTernary, F>(a, route, s); return true;
     default: return false;
   }
 }
 
 template <int F>
-bool launch_variant(const Args& a, int variant, int mode, cudaStream_t s) {
+bool launch_variant(const Args& a, int variant, int mode, int route,
+                    cudaStream_t s) {
   switch (variant) {
-    case kRw: return launch_mode<kRw, F>(a, mode, s);
-    case kMu: return launch_mode<kMu, F>(a, mode, s);
-    case kUm: return launch_mode<kUm, F>(a, mode, s);
+    case kRw: return launch_mode<kRw, F>(a, mode, route, s);
+    case kMu: return launch_mode<kMu, F>(a, mode, route, s);
+    case kUm: return launch_mode<kUm, F>(a, mode, route, s);
     default: return false;
   }
 }
@@ -398,16 +777,24 @@ bool launch_variant(const Args& a, int variant, int mode, cudaStream_t s) {
 
 // variant: 0 = rw, 1 = mu, 2 = um. mode: 0 = f32, 1 = bf16, 2 = f16,
 // 3 = affine int8 (msc and mzp (K, N) f16), 4 = int4 and 5 = ternary (msc
-// only). defense: 0 = none, 1 = norm_clip, 2 = cosine_gate. msg is the
-// (K, N, P) payload; counts the (2, N) gated and clipped counts, zeroed by
-// the caller, or null under defense 0, which writes none. Returns cudaGetLastError() after the launch (0 on success);
-// the launch is asynchronous on `stream`.
+// only). defense: 0 = none, 1 = norm_clip, 2 = cosine_gate. route: 0 =
+// grouped (d <= 32 and K <= 8 only), 1 = strided. msg is the (K, N, P)
+// payload; counts the (2, N) gated and clipped counts, zeroed by the
+// caller, or null under defense 0, which writes none. Returns
+// cudaGetLastError() after the launch (0 on success); the launch is
+// asynchronous on `stream`.
 extern "C" int gossip_cycle_fused_receive_apply(
     float* last_w, int* last_t, float* cache_w, int* cache_t, int* ptr,
     int* count, const void* msg, const void* msc, const void* mzp,
     const int* msg_t, const int* valid, const float* x, const float* y,
     int* counts, int n, int d, int c, int k, int p, float lam, int variant,
-    int mode, int defense, void* stream) {
+    int mode, int defense, int route, void* stream) {
+  if (route != kGrouped && route != kStrided) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (route == kGrouped && (d > kGroupedMaxWidth || k > kGroupedMaxRounds)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n <= 0 || k <= 0) return static_cast<int>(cudaGetLastError());
   const Args a{last_w, last_t, cache_w, cache_t, ptr, count,
                static_cast<const unsigned char*>(msg),
@@ -417,10 +804,12 @@ extern "C" int gossip_cycle_fused_receive_apply(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
   switch (defense) {
-    case kNone: ok = launch_variant<kNone>(a, variant, mode, s); break;
-    case kNormClip: ok = launch_variant<kNormClip>(a, variant, mode, s); break;
+    case kNone: ok = launch_variant<kNone>(a, variant, mode, route, s); break;
+    case kNormClip:
+      ok = launch_variant<kNormClip>(a, variant, mode, route, s);
+      break;
     case kCosineGate:
-      ok = launch_variant<kCosineGate>(a, variant, mode, s);
+      ok = launch_variant<kCosineGate>(a, variant, mode, route, s);
       break;
     default: break;
   }

@@ -21,11 +21,15 @@ Counterpart of ``repro/kernels/gossip_cycle.py`` (the Pallas TPU kernels).
 Each wrapper dispatches on the tensors' device: CUDA tensors go to the
 hand-written kernels in ``csrc/gossip_cycle.cu`` and ``csrc/quantize_send.cu``
 (built by ``nvcc`` for sm_90a at first use), CPU tensors to the plain
-version beside it. There is no fallback: a CUDA tensor reaches a kernel or
-an exception. The plain versions follow the Pallas kernels' op order; the
-CPU tests hold them to the JAX kernels, and ``chip_smoke.py`` holds the
-CUDA kernels to them on the card. The kernels' designs and bounds are
-described in their sources.
+version beside it. The receive step has two kernels, chosen by
+``receive_route`` from d and K before the launch: ``"grouped"`` (a group of
+lanes sized to d a node, every valid round's operands loaded before the
+rounds run) for d <= 32 and K <= 8, ``"strided"`` (a warp a node) for the
+rest; they give the same bits where both apply. There is no fallback: a
+CUDA tensor reaches a kernel or an exception. The plain versions follow
+the Pallas kernels' op order; the CPU tests hold them to the JAX kernels,
+and ``chip_smoke.py`` holds the CUDA kernels to them on the card. The
+kernels' designs and bounds are described in their sources.
 """
 from __future__ import annotations
 
@@ -48,6 +52,20 @@ _FLOAT_MODES = {torch.float32: "f32", torch.bfloat16: "bf16",
                 torch.float16: "f16"}
 # the receive kernel's screens (template argument of the CUDA kernel)
 DEFENSE_CODES = {name: i for i, name in enumerate(faults.DEFENSES)}
+# the receive kernel's routes (their codes in the C entry) and the widest d
+# and largest K the grouped route takes
+RECEIVE_ROUTES = ("grouped", "strided")
+GROUPED_MAX_WIDTH = 32
+GROUPED_MAX_ROUNDS = 8
+
+
+def receive_route(d: int, k: int) -> str:
+    """Which receive kernel serves d coefficients and K rounds on CUDA:
+    ``"grouped"`` for d <= 32 and K <= 8 (a group of the smallest power of
+    two >= d lanes a node), else ``"strided"`` (a warp a node)."""
+    if d <= GROUPED_MAX_WIDTH and k <= GROUPED_MAX_ROUNDS:
+        return "grouped"
+    return "strided"
 
 
 def _wire_mode(wire, msg_scale, msg_zp) -> str:
@@ -242,11 +260,21 @@ _VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 def _launch_receive(last_w, last_t, cache_w, cache_t, ptr, count, msg_w,
                     msg_t, valid, x, y, msg_scale, msg_zp, mode: str,
-                    variant: str, lam: float, defense: str):
-    fn, err = _entry("gossip_cycle", "gossip_cycle_fused_receive_apply",
-                     (_VP,) * 14 + (_INT,) * 5 + (_FLOAT,) + (_INT,) * 3
-                     + (_VP,))
+                    variant: str, lam: float, defense: str, route=None):
+    """Launch the receive kernel on checked operands. ``route`` overrides
+    ``receive_route`` (for holding the two kernels to each other on the
+    card); the public wrapper never passes it."""
     n, d = last_w.shape
+    k = msg_w.shape[0]
+    if route is None:
+        route = receive_route(d, k)
+    elif route not in RECEIVE_ROUTES or (route == "grouped" and
+                                         receive_route(d, k) != route):
+        raise ValueError(f"the {route!r} receive route does not take d={d}, "
+                         f"K={k}")
+    fn, err = _entry("gossip_cycle", "gossip_cycle_fused_receive_apply",
+                     (_VP,) * 14 + (_INT,) * 5 + (_FLOAT,) + (_INT,) * 4
+                     + (_VP,))
     # (2, N) gated/clipped counts: zero, and written by the kernel only
     # where a screen rejected or rescaled; none under "none", which screens
     # nothing and answers with a shared zero
@@ -257,12 +285,13 @@ def _launch_receive(last_w, last_t, cache_w, cache_t, ptr, count, msg_w,
                   cache_t.data_ptr(), ptr.data_ptr(), count.data_ptr(),
                   msg_w.data_ptr(), _ptr(msg_scale), _ptr(msg_zp),
                   msg_t.data_ptr(), valid.data_ptr(), x.data_ptr(),
-                  y.data_ptr(), _ptr(counts), n, d, cache_w.shape[1],
-                  msg_w.shape[0], msg_w.shape[2], lam, VARIANTS[variant],
-                  DECODE_MODES[mode], DEFENSE_CODES[defense],
+                  y.data_ptr(), _ptr(counts), n, d, cache_w.shape[1], k,
+                  msg_w.shape[2], lam, VARIANTS[variant], DECODE_MODES[mode],
+                  DEFENSE_CODES[defense], RECEIVE_ROUTES.index(route),
                   _stream(last_w))
-    _raise_on(code, err, "gossip_cycle")
+    _raise_on(code, err, f"gossip_cycle ({route})")
     _RECEIVE.launches += 1
+    _RECEIVE.route_launches[route] += 1
     if counts is None:
         zero = _zero_counts(last_w.device).expand(n)
         return zero, zero
@@ -292,7 +321,8 @@ def fused_receive_apply(last_w, last_t, cache_w, cache_t, ptr, count,
     ``(last_w, last_t, cache_w, cache_t, ptr, count, gated, clipped)``: the
     same six tensors, updated, and the (N,) int32 counts of messages the
     screen rejected and rescaled (zeros under "none"). Every tensor must be
-    contiguous and on one device."""
+    contiguous and on one device. On CUDA, ``receive_route(d, K)`` picks
+    the kernel."""
     mode = _check_receive(last_w, last_t, cache_w, cache_t, ptr, count,
                           msg_w, msg_t, valid, x, y, msg_scale, msg_zp, wire,
                           variant, defense)
@@ -413,10 +443,12 @@ def quantize_send(w, name: str, key=None, ef=None):
     return _launch_send(w, codec, key, ef)
 
 
-# Kernel launches so far; only the CUDA path counts. Bound to the wrapper
-# objects themselves, so the counts survive a caller wrapping the module
-# attributes (chip_smoke.py does, to keep a copy of one launch's inputs).
+# Kernel launches so far (the receive kernel's in all and by route); only
+# the CUDA path counts. Bound to the wrapper objects themselves, so the
+# counts survive a caller wrapping the module attributes (chip_smoke.py
+# does, to keep a copy of one launch's inputs).
 fused_receive_apply.launches = 0
+fused_receive_apply.route_launches = dict.fromkeys(RECEIVE_ROUTES, 0)
 quantize_send.launches = {"affine8": 0, "packed_ef": 0, "packed": 0}
 _RECEIVE = fused_receive_apply
 _SEND = quantize_send

@@ -1,12 +1,14 @@
 """The port's CUDA kernels on the card, against their plain versions: the
 receive kernel on the f32 wire, in every decode mode and with each defense
-screen, the send kernels of the quantized codecs (bitwise), the
-voted-predict kernel (bitwise), the population Pegasos and merge kernels,
-the flash-attention kernel on both its routes (tensor cores for
-TMA-readable bf16 at head_dim 64/128, CUDA cores for the rest), and the
-sharded engine against the reference engine on the f32 and the quantized
-wires and under Byzantine faults, with and without a serving hook; and the
-reduced LM served on the card against the same weights served on the CPU.
+screen, its two routes (the launch counts by route, and the grouped kernel
+bitwise equal to the strided one at d <= 32), the send kernels of the
+quantized codecs (bitwise), the voted-predict kernel (bitwise), the
+population Pegasos and merge kernels, the flash-attention kernel on both
+its routes (tensor cores for TMA-readable bf16 at head_dim 64/128, CUDA
+cores for the rest), and the sharded engine against the reference engine
+on the f32 and the quantized wires and under Byzantine faults, with and
+without a serving hook; and the reduced LM served on the card against the
+same weights served on the CPU.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one. They import neither JAX nor the JAX package, so they run on a
@@ -51,6 +53,52 @@ def test_receive_kernel_matches_plain_version(cuda, variant, n, d, c, k):
     before = gc.fused_receive_apply.launches
     smoke.compare_kernel(base, variant, 1e-3, 1e-4 if d > 1000 else 1e-5)
     assert gc.fused_receive_apply.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k", [(1, 4), (7, 5), (10, 4), (16, 8), (32, 1),
+                                 (33, 4), (10, 9), (57, 4)])
+def test_receive_route_launch_counts_follow_the_rule(cuda, d, k):
+    """``receive_route(d, K)``'s kernel takes the launch: its count and the
+    total up by one, the other route's unchanged."""
+    base = smoke.receive_inputs(d + k, 515, d, 3, k, cuda)
+    want = gc.receive_route(d, k)
+    assert want == ("grouped" if d <= 32 and k <= 8 else "strided")
+    total = gc.fused_receive_apply.launches
+    routes = dict(gc.fused_receive_apply.route_launches)
+    _, _, took = smoke.run_route(base, "mu", 1e-3)
+    assert took == [want]
+    assert gc.fused_receive_apply.launches == total + 1
+    assert gc.fused_receive_apply.route_launches == dict(
+        routes, **{want: routes[want] + 1})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "affine8", "int4", "ternary"])
+@pytest.mark.parametrize("defense", ["none", *smoke.DEFENSE_MODES])
+@pytest.mark.parametrize("d", [1, 7, 10, 16, 32])
+def test_grouped_route_equals_strided_route_bitwise(cuda, d, defense, mode):
+    """The grouped kernel against the strided one forced on the same
+    inputs (ragged N, K > C, rows crafted for every verdict under a
+    screen), rw/mu/um: state, cache_t and the counts equal bit for bit."""
+    wire = None if mode == "f32" else smoke.DECODE_WIRES[mode]
+    base = smoke.receive_inputs(3 * d + len(defense), 2003, d, 3, 5, cuda,
+                                wire=wire, crafted=defense != "none")
+    for variant in ("rw", "mu", "um"):
+        assert smoke.compare_routes(base, variant, 1e-3, wire,
+                                    defense) == "grouped"
+
+
+@pytest.mark.cuda
+def test_nine_rounds_take_the_strided_route(cuda):
+    """K = 9 is past the grouped kernel's rounds: the strided kernel takes
+    it, and a forced grouped launch is refused before it starts."""
+    base = smoke.receive_inputs(9, 1031, 10, 3, 9, cuda)
+    strided = gc.fused_receive_apply.route_launches["strided"]
+    smoke.compare_kernel(base, "um", 1e-3, 1e-5)
+    assert gc.fused_receive_apply.route_launches["strided"] == strided + 1
+    with pytest.raises(ValueError):
+        smoke.run_route(base, "um", 1e-3, route="grouped")
 
 
 @pytest.mark.cuda
