@@ -10,7 +10,8 @@ and ``nvcc``. The phases, each of which raises on failure:
 0. setup: the card's name and power limit, torch/CUDA/nvcc versions, and
    the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``,
    with each kernel's registers and spills (none allowed in the receive
-   kernel's grouped route);
+   kernel's grouped route), and int8_sr's threefry instructions an element
+   read off the tiled send kernel's SASS (``cuobjdump``) for its bound;
 1. each kernel against its plain PyTorch version on the card, at the
    shapes of the paper's datasets (d = 10, 57, 9947), the receive kernel's
    lane groups (d = 1, 7, 16, 32), a K > C case and K = 9: the receive
@@ -24,7 +25,11 @@ and ``nvcc``. The phases, each of which raises on failure:
    reuters' shapes (d = 57, N = 4140; d = 9947, N = 2000); the
    voted-predict kernel at the serving shapes (bitwise, with zero scores
    and exact-half ties); the send kernels for int8, int8_sr, int4,
-   int4_ef, ternary and ternary_ef (bitwise); the cosine_gate screen
+   int4_ef, ternary and ternary_ef (bitwise, on rows of mixed-sign zeros
+   and NaN too), each shape on the route ``send_route`` picks and, where
+   that is the tiled one, against the strided route forced on the same
+   models (bitwise); both send routes timed on the same models at
+   N = 10^6 and d = 10, 32, 57 and 128; the cosine_gate screen
    timed at N = 10^6; kernels #6 and #7 (``pegasos_update``,
    ``merge_update``) at N = 10^6, d = 10 and 57, and
    N = 4096, d = 9947, driven ten steps each through ``kernels/ops.py``
@@ -48,10 +53,12 @@ and ``nvcc``. The phases, each of which raises on failure:
    its bound, the strided route's and its plain version's time and its
    agreement with both there, and a profiled rerun;
 4. the same path on the quantized wire (int8_sr, int4_ef, ternary): for
-   each, 20 receive and 20 send launches, the economy, the wire and buffer
-   bytes against f32's, wall time, peak memory, and each kernel's time per
-   launch on the path's own last-launch inputs beside its bound and its
-   plain version's time, and a profiled rerun;
+   each, 20 receive and 20 send launches (the send launches all on
+   ``send_route``'s route: tiled for int8_sr and ternary, strided for
+   int4_ef), the economy, the wire and buffer bytes against f32's, wall
+   time, peak memory, and each kernel's time per launch on the path's own
+   last-launch inputs beside its bound, the other route's time there (the
+   strided one), and its plain version's time, and a profiled rerun;
 5. the protocol under attack, served live: the phase-3 path with 10 %
    sign_flip Byzantine nodes and the norm_clip screen, and a
    ``GossipServer`` (batches of 256 on the voted-predict kernel) fed 2048
@@ -91,9 +98,16 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-# H100 SXM float32 outside the tensor cores; the integer work of the
-# threefry noise is counted at this rate too (the least time it could take)
+# H100 SXM float32 outside the tensor cores (an FMA counted as two
+# operations): 132 SMs x 128 FP32 lanes x 2 x 1.98 GHz
 F32_FLOPS_PER_S = 67e12
+# H100 SXM integer instructions: Hopper has 64 INT32 lanes an SM against
+# 128 FP32 lanes (NVIDIA's Hopper architecture white paper), so half the
+# FP32 lanes' rate at the clock the data sheet's 67 TFLOP/s implies; an
+# integer multiply-add (IMAD, which the compiler also uses for adds and
+# moves) issues on the FMA pipe at F32_FLOPS_PER_S / 2 instructions a second
+INT32_OPS_PER_S = F32_FLOPS_PER_S / 4
+FMA_PIPE_OPS_PER_S = F32_FLOPS_PER_S / 2
 INT_FIELDS = ("last_t", "cache_t", "ptr", "count")
 STATE = ("last_w", "last_t", "cache_w", "cache_t", "ptr", "count")
 ORDER = STATE + ("msg_w", "msg_t", "valid", "x", "y")
@@ -113,6 +127,15 @@ PAPER_SHAPES = (("spambase", 4140, 57, 1e-5), ("reuters", 2000, 9947, 1e-4))
 DECODE_WIRES = {"bf16": "bf16", "f16": "f16", "affine8": "int8",
                 "int4": "int4", "ternary": "ternary"}
 SEND_CODECS = ("int8", "int8_sr", "int4", "int4_ef", "ternary", "ternary_ef")
+# the codecs the tiled send route serves (no error feedback), and the widths
+# at which phase 1 times it against the strided route
+TILED_CODECS = ("int8", "int8_sr", "int4", "ternary")
+SEND_SWEEP_WIDTHS = (10, 32, 57, 128)
+# phase 1's send shapes (N, d): the paper's d = 10, 57 and 9947, the tiled
+# route's ragged tiles (N not a multiple of its rows) at d = 1, 7, 16, 32
+# and 57, and N below one tile
+SEND_SHAPES = ((4099, 10), (4099, 57), (2000, 9947), (257, 1), (257, 7),
+               (1031, 16), (4099, 32), (255, 10), (4097, 57))
 DEFENSE_MODES = ("norm_clip", "cosine_gate")
 # the screens are checked after each decode family: f32, affine int8,
 # int4 and ternary
@@ -416,7 +439,8 @@ def compare_voted(w, count, X, assign):
 def send_inputs(seed, n, d, device):
     """(N, d) fresh models and an EF residual, made with numpy, with rows
     that reach the codecs' edge cases: all zero (scale 0), constant, codes
-    on .5 ties, a saturating f16 scale and f16-subnormal scales."""
+    on .5 ties, a saturating f16 scale, f16-subnormal scales, zeros of both
+    signs (the affine range orders -0.0 below +0.0), all -0.0, and a NaN."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -426,36 +450,64 @@ def send_inputs(seed, n, d, device):
     w[2] = np.round(w[2] * 2) / 2
     w[3] *= 1e5
     w[4] *= 1e-6
+    w[5] = np.where(np.arange(d) % 2 == 0, -0.0, 0.0)
+    w[6] = -0.0
+    w[7, d // 2] = np.nan
     ef = rng.standard_normal((n, d), dtype=np.float32) * 0.2
     return torch.from_numpy(w).to(device), torch.from_numpy(ef).to(device)
 
 
+def run_send(w, name, key=None, ef=None, route=None):
+    """``quantize_send`` on the card with ``route`` forced (``send_route``'s
+    choice when None), through the wrapper's own checks."""
+    from repro_torch.kernels import gossip_cycle as gc
+    codec = gc._check_send(w, name, key, ef)
+    return gc._launch_send(w, codec, key, ef, route=route)
+
+
+def same_outputs(name, label, got, want, what):
+    """Each output of ``got`` equal to ``want``'s bit for bit."""
+    import torch
+    for lab, g, p in zip(label, got, want):
+        if g.dtype != p.dtype or g.shape != p.shape:
+            raise AssertionError(f"{name}: {lab} is {g.dtype} "
+                                 f"{tuple(g.shape)}, {what} {p.dtype} "
+                                 f"{tuple(p.shape)}")
+        if not torch.equal(g.contiguous().view(torch.uint8),
+                           p.contiguous().view(torch.uint8)):
+            bad = int((g.view(torch.uint8) != p.view(torch.uint8)).sum())
+            raise AssertionError(f"{name}: {lab} differs from the {what} in "
+                                 f"{bad} bytes")
+
+
 def compare_send(name, w, ef, key):
-    """Run the send kernel and its plain version on the card on the same
-    inputs; every output (codes or packed bytes, scale, zero-point,
-    residual) must be equal bit for bit. Returns the outputs' names."""
+    """Run the send kernel on the route ``send_route`` picks and its plain
+    version on the card on the same inputs, and, where that route is
+    ``tiled``, the strided route forced on them too; every output (codes or
+    packed bytes, scale, zero-point, residual) must be equal bit for bit.
+    Returns the outputs' names and the route taken."""
     import torch
     from repro_torch.core.wire_codec import get_codec
     from repro_torch.kernels import gossip_cycle as gc
     codec = get_codec(name)
     kw = dict(key=key if codec.stochastic else None,
               ef=ef if codec.ef else None)
+    route = gc.send_route(w.shape[1], name, w.data_ptr() % 16 == 0)
+    before = dict(gc.quantize_send.route_launches)
     got = gc.quantize_send(w, name, **kw)
+    if gc.quantize_send.route_launches != dict(
+            before, **{route: before[route] + 1}):
+        raise AssertionError(f"{name}: quantize_send did not launch the "
+                             f"{route} route")
     want = gc.quantize_send_plain(w, name, **kw)
     torch.cuda.synchronize()
     names = (("q", "scale", "zp") if codec.has_zp
              else ("payload", "scale", "resid")[:len(want)])
-    for label, g, p in zip(names, got, want):
-        if g.dtype != p.dtype or g.shape != p.shape:
-            raise AssertionError(f"{name}: {label} is {g.dtype} "
-                                 f"{tuple(g.shape)}, plain {p.dtype} "
-                                 f"{tuple(p.shape)}")
-        if not torch.equal(g.contiguous().view(torch.uint8),
-                           p.contiguous().view(torch.uint8)):
-            bad = int((g != p).sum())
-            raise AssertionError(f"{name}: {label} differs from the plain "
-                                 f"version in {bad} entries")
-    return names
+    same_outputs(name, names, got, want, "plain version")
+    if route == "tiled":
+        same_outputs(name, names, got, run_send(w, name, route="strided",
+                                                **kw), "strided route")
+    return names, route
 
 
 def compare_engines(cfg, X, y, n: int, device, **kw):
@@ -635,20 +687,76 @@ def receive_bound(valid, variant: str, d: int, msg_bytes: int = None,
     return ms, by, nbytes
 
 
-def send_bound(name: str, n: int, d: int):
+def send_bound(name: str, n: int, d: int, threefry: dict):
     """Least bytes and operations of one send launch: w (and ef) read once;
     codes or packed bytes, the f16 scale (and zero-point) and the EF
-    residual written once. About 6 float operations an element, plus ~120
-    integer operations of threefry for int8_sr's noise."""
+    residual written once. About 6 float operations an element; for
+    int8_sr also threefry's integer instructions an element
+    (``threefry``: {"int32": n, "imad": n}, counted in the built kernel's
+    SASS by ``threefry_sass``), the INT32 ones at ``INT32_OPS_PER_S`` and
+    the IMADs on the FMA pipe beside the float work, the larger of the two
+    pipes' times."""
     from repro_torch.core.wire_codec import get_codec
     codec = get_codec(name)
     nbytes = (4 * n * d * (2 if codec.ef else 1)
               + n * codec.payload_bytes(d) + n * codec.overhead_bytes
               + (4 * n * d if codec.ef else 0) + (8 if codec.stochastic
                                                   else 0))
-    ops = n * d * (6 + (120 if codec.stochastic else 0))
-    ms, by = bound(nbytes, ops)
-    return ms, by, nbytes
+    if not codec.stochastic:
+        ms, by = bound(nbytes, n * d * 6)
+        return ms, by, nbytes
+    ms_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    ms_ops = max(n * d * threefry["int32"] / INT32_OPS_PER_S,
+                 n * d * (6 / F32_FLOPS_PER_S
+                          + threefry["imad"] / FMA_PIPE_OPS_PER_S)) * 1e3
+    return (max(ms_bytes, ms_ops),
+            "bytes" if ms_bytes >= ms_ops else "operations", nbytes)
+
+
+# the SASS opcodes that issue on the INT32 pipe, by their stem
+_INT32_OPCODES = ("IADD3", "IADD", "VIADD", "LOP3", "LOP", "SHF", "SHL",
+                  "SHR", "LEA", "IABS", "IMNMX", "ISETP", "SEL", "PRMT",
+                  "BMSK", "SGXT", "FLO", "POPC", "BREV")
+
+
+def threefry_sass(lib) -> dict:
+    """Integer instructions an element of int8_sr's threefry noise, from
+    the built ``quantize_send`` library's SASS (``cuobjdump -sass``): the
+    tiled affine8 kernel with the noise minus the one without, over the
+    four elements one pass of its code loop encodes. Returns {"int32",
+    "imad", "other": instructions an element, "by_opcode": the difference
+    by opcode}."""
+    import collections
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            counts[fn] = collections.Counter()
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                       r"([A-Z][A-Z0-9_]*)", line)
+        if fn and ins:
+            counts[fn][ins.group(1)] += 1
+    pick = {sr: [c for f, c in counts.items()
+                 if f"affine8_tiled_kernelILb{sr}E" in f]
+            for sr in (0, 1)}
+    if any(len(v) != 1 for v in pick.values()):
+        raise AssertionError(f"threefry_sass: affine8 tiled kernels not found "
+                             f"in {lib} ({sorted(counts)[:8]} ...)")
+    diff = pick[1][0].copy()
+    diff.subtract(pick[0][0])
+    per = {"int32": 0.0, "imad": 0.0, "other": 0.0}
+    for op, c in diff.items():
+        kind = ("imad" if op.startswith("IMAD") else
+                "int32" if op in _INT32_OPCODES else "other")
+        per[kind] += c / 4
+    per["by_opcode"] = {op: c for op, c in sorted(diff.items()) if c}
+    return per
 
 
 def profile_run(run, tag: str, card: str):
@@ -686,9 +794,11 @@ def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None):
     with ``serve_hook`` if given) with every launch count set to 0 just
     before it and read just after, keeping a copy of the last receive and
     send launches' inputs; every receive launch must take the grouped
-    route (d = 10, K = 4). Returns (result, wall s, peak bytes, receive
+    route (d = 10, K = 4), and every send launch ``send_route``'s route for
+    the codec at d = 10. Returns (result, wall s, peak bytes, receive
     launches, send launches by kernel, captured receive inputs, captured
-    send inputs, voted-predict launches, receive launches by route)."""
+    send inputs, voted-predict launches, receive launches by route, send
+    launches by route)."""
     import numpy as np
     import torch
     from repro_torch.core.simulation import run_simulation
@@ -723,6 +833,8 @@ def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None):
             send.launches[k] = 0
         for k in recv.route_launches:
             recv.route_launches[k] = 0
+        for k in send.route_launches:
+            send.route_launches[k] = 0
         t0 = time.perf_counter()
         res = run_simulation(cfg, X[:n], y[:n], X[n:], y[n:],
                              engine="sharded", cycles=cycles, eval_every=10,
@@ -732,6 +844,7 @@ def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None):
         wall = time.perf_counter() - t0
         launches, sends = recv.launches, dict(send.launches)
         routes = dict(recv.route_launches)
+        send_routes = dict(send.route_launches)
         voted = vp.voted_predict_batched.launches
     finally:
         gc.fused_receive_apply, gc.quantize_send = recv, send
@@ -742,6 +855,12 @@ def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None):
     if routes != dict(grouped=cycles, strided=0):
         raise AssertionError(f"main path's receive launches by route "
                              f"{routes}, expected all {cycles} grouped")
+    if cfg.wire_dtype in SEND_CODECS:
+        want = dict.fromkeys(gc.SEND_ROUTES, 0)
+        want[gc.send_route(X.shape[1], cfg.wire_dtype)] = cycles
+        if send_routes != want:
+            raise AssertionError(f"main path's send launches by route "
+                                 f"{send_routes}, expected {want}")
     if res.sent_total != (res.delivered_total + res.lost_total
                           + res.overflow_total + res.in_flight_total):
         raise AssertionError("message economy does not add up")
@@ -750,7 +869,7 @@ def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None):
             and all(0.0 <= e <= 0.5 for e in res.err_fresh + res.err_voted)):
         raise AssertionError(f"bad curves {curves}")
     return (res, wall, peak, launches, sends, got_recv, got_send, voted,
-            routes)
+            routes, send_routes)
 
 
 def time_receive(captured, variant: str, lam: float, d: int,
@@ -811,20 +930,65 @@ def receive_line(t: dict) -> str:
             f"vs plain {t['err']:.3e}")
 
 
-def time_send(captured):
+def time_send(captured, threefry: dict):
     """The send kernel on captured main-path inputs: bitwise agreement with
-    the plain version there, ms per launch, the plain version's ms and the
-    bound."""
+    the plain version there (and with the strided route where the tiled one
+    serves them); ms per launch, the strided route's ms on the same inputs
+    when it is not the route taken, the plain version's ms, and the bound.
+    Returns a dict: ms, route, strided_ms, plain_ms, bound_ms, bound_by,
+    bytes."""
     from repro_torch.kernels import gossip_cycle as gc
     w, name, key, ef = (captured[k] for k in ("w", "name", "key", "ef"))
-    compare_send(name, w, ef, key)
+    _, route = compare_send(name, w, ef, key)
     ms = cuda_time_ms(lambda: gc.quantize_send(w, name, key=key, ef=ef),
                       reps=20)
+    strided_ms = (cuda_time_ms(lambda: run_send(w, name, key, ef,
+                                                route="strided"), reps=20)
+                  if route != "strided" else ms)
     plain_ms = cuda_time_ms(
         lambda: gc.quantize_send_plain(w, name, key=key, ef=ef), reps=5,
         warmup=1)
-    bound_ms, bound_by, nbytes = send_bound(name, *w.shape)
-    return ms, plain_ms, bound_ms, bound_by, nbytes
+    bound_ms, bound_by, nbytes = send_bound(name, *w.shape, threefry)
+    return dict(ms=ms, route=route, strided_ms=strided_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+
+
+def send_width_sweep(card: str, threefry: dict, dev) -> dict:
+    """The two send routes forced on the same models at N = 10^6 and d =
+    10, 32, 57 and 128 for each codec the tiled route serves: bitwise
+    equal, and each route's ms per launch (where the tiled route is no
+    slower, ``send_route``'s limit may reach). Returns {d: {codec: {...}}}.
+    """
+    import torch
+    from repro_torch import random
+    from repro_torch.core.wire_codec import get_codec
+    from repro_torch.kernels import gossip_cycle as gc
+    key = random.key(99, device=dev)
+    out = {}
+    for d in SEND_SWEEP_WIDTHS:
+        w, _ = send_inputs(d, 1_000_000, d, dev)
+        out[d] = {}
+        for name in TILED_CODECS:
+            k = key if get_codec(name).stochastic else None
+            tiled = run_send(w, name, k, route="tiled")
+            strided = run_send(w, name, k, route="strided")
+            torch.cuda.synchronize()
+            same_outputs(name, ("codes", "scale", "zp"), tiled, strided,
+                         "strided route")
+            row = dict(
+                tiled_ms=cuda_time_ms(lambda: run_send(w, name, k,
+                                                       route="tiled"), 20),
+                strided_ms=cuda_time_ms(lambda: run_send(
+                    w, name, k, route="strided"), 20),
+                bound_ms=send_bound(name, *w.shape, threefry)[0])
+            out[d][name] = row
+            print(f"[1] {card}: quantize_send {name} N=10^6 d={d}: tiled "
+                  f"{row['tiled_ms']:.4f} ms, strided {row['strided_ms']:.4f}"
+                  f" ms (bitwise equal), bound {row['bound_ms']:.4f} ms; "
+                  f"send_route takes {gc.send_route(d, name)}")
+        del w
+        torch.cuda.empty_cache()
+    return out
 
 
 def row_inputs(seed, n, d, device, merge=False):
@@ -1394,6 +1558,16 @@ def main() -> int:
           f"card's {optin} B (registers and spills above)")
     results["build_s"] = build_s
     results["flash_hopper_smem"] = smem
+    threefry = threefry_sass(_build.library_path("quantize_send"))
+    print(f"[0]   quantize_send: int8_sr's threefry noise costs "
+          f"{threefry['int32']:g} INT32-pipe and {threefry['imad']:g} IMAD "
+          f"instructions an element ({threefry['other']:g} others) in the "
+          f"tiled kernel's SASS; difference by opcode over four elements "
+          f"{threefry['by_opcode']}")
+    if not 40 <= threefry["int32"] + threefry["imad"] <= 400:
+        raise AssertionError(f"threefry's SASS count {threefry} is not that "
+                             "of one pass of the code loop")
+    results["threefry_sass"] = threefry
 
     # ---- 1. kernel vs plain ------------------------------------------------
     phase(1)
@@ -1492,13 +1666,17 @@ def main() -> int:
               "forms; zero scores and exact-half ties answer +1)")
     del w, count, Xq, aq
     key = random.key(12345, device=dev)
-    for n, d in ((4099, 10), (4099, 57), (2000, 9947), (257, 1), (257, 7)):
+    for n, d in SEND_SHAPES:
         w, ef = send_inputs(n + d, n, d, dev)
         for name in SEND_CODECS:
-            outs = compare_send(name, w, ef, key)
+            outs, route = compare_send(name, w, ef, key)
             print(f"[1] quantize_send {name} ({gc.send_kernel_name(name)}) "
-                  f"N={n} d={d}: {', '.join(outs)} bitwise equal")
+                  f"N={n} d={d}: {', '.join(outs)} bitwise equal to the "
+                  f"plain version; route {route}"
+                  + (", bitwise equal to strided" if route == "tiled"
+                     else ""))
     del w, ef
+    results["send_width_sweep"] = send_width_sweep(card, threefry, dev)
     # int8_sr past 2^32 flat positions (the counter's high word): the
     # kernel over all rows, the plain codec on the first and last rows with
     # their positional noise
@@ -1622,7 +1800,7 @@ def main() -> int:
         class_ratio=(1, 1), lam=1e-3, variant="mu", cache_size=10),
         "extreme")
 
-    res, wall, peak, launches, _, captured, _, _, routes = main_path(
+    res, wall, peak, launches, _, captured, _, _, routes, _ = main_path(
         cfg3, X, y, n3, cycles, dev)
     rate = n3 * cycles / wall
     print(f"[3] {card}: N={n3} d=10 extreme MU K=4 C=10 {cycles} cycles: "
@@ -1677,8 +1855,8 @@ def main() -> int:
     for wire in MAIN_WIRES:
         cfg4 = dataclasses.replace(cfg3, wire_dtype=wire)
         kernel = gc.send_kernel_name(wire)
-        res, wall, peak, launches, sends, cap_r, cap_s, _, routes = (
-            main_path(cfg4, X, y, n3, cycles, dev))
+        (res, wall, peak, launches, sends, cap_r, cap_s, _, routes,
+         send_routes) = main_path(cfg4, X, y, n3, cycles, dev)
         if sends[kernel] != cycles or sum(sends.values()) != cycles:
             raise AssertionError(f"{wire}: main path launched the send "
                                  f"kernels {sends}, expected {cycles} "
@@ -1687,7 +1865,8 @@ def main() -> int:
         print(f"[4] {card}: {wire} N={n3} d=10 extreme MU K=4 C=10 "
               f"{cycles} cycles: launches receive {launches} (by route "
               f"{routes}), send "
-              f"{kernel} {sends[kernel]}; err_fresh {res.err_fresh} "
+              f"{kernel} {sends[kernel]} (by route {send_routes}); "
+              f"err_fresh {res.err_fresh} "
               f"err_voted {res.err_voted}; ef_residual_norm "
               f"{res.ef_residual_norm:.6g}")
         print(f"[4] {card}: {wire} economy sent {res.sent_total} = "
@@ -1708,13 +1887,20 @@ def main() -> int:
         kernels[0]["max_abs_err"] = max_err
         print(f"[4] {card}: fused_receive_apply {wire} decode: "
               f"{receive_line(t4)}")
-        s_ms, s_plain, s_bound, s_by, s_bytes = time_send(cap_s)
-        print(f"[4] {card}: quantize_send {wire} ({kernel}): {s_ms:.4f} "
-              f"ms/launch vs bound {s_bound:.4f} ms ({s_by}, {s_bytes} B); "
-              f"plain version {s_plain:.4f} ms; bitwise equal to plain")
-        send_rows[kernel] = dict(launches=sends[kernel], ms=s_ms,
-                                 plain_ms=s_plain, bound_ms=s_bound,
-                                 bound_by=s_by)
+        ts = time_send(cap_s, threefry)
+        strided = (f"; the strided route {ts['strided_ms']:.4f} ms on the "
+                   "same inputs, bitwise equal" if ts["route"] != "strided"
+                   else "")
+        print(f"[4] {card}: quantize_send {wire} ({kernel}): "
+              f"{ts['ms']:.4f} ms/launch ({ts['route']}) vs bound "
+              f"{ts['bound_ms']:.4f} ms ({ts['bound_by']}, {ts['bytes']} B)"
+              f"{strided}; plain version {ts['plain_ms']:.4f} ms; bitwise "
+              "equal to plain")
+        send_rows[kernel] = dict(launches=sends[kernel], ms=ts["ms"],
+                                 plain_ms=ts["plain_ms"],
+                                 bound_ms=ts["bound_ms"],
+                                 bound_by=ts["bound_by"],
+                                 send_route=ts["route"])
         del cap_r, cap_s
         prof = profile_run(
             lambda: run_simulation(cfg4, X[:n3], y[:n3], X[n3:], y[n3:],
@@ -1734,9 +1920,10 @@ def main() -> int:
                          bound_ms=t4["bound_ms"], bound_bytes=t4["bytes"],
                          max_abs_err=t4["err"], route=t4["route"],
                          strided_ms=t4["strided_ms"]),
-            route_launches=routes,
-            send=dict(ms=s_ms, plain_ms=s_plain, bound_ms=s_bound,
-                      bound_bytes=s_bytes),
+            route_launches=routes, send_route_launches=send_routes,
+            send=dict(ms=ts["ms"], plain_ms=ts["plain_ms"],
+                      bound_ms=ts["bound_ms"], bound_bytes=ts["bytes"],
+                      route=ts["route"], strided_ms=ts["strided_ms"]),
             profile=prof)
         torch.cuda.empty_cache()
 
@@ -1761,8 +1948,8 @@ def main() -> int:
 
     serving.snapshot_from_carry = timed_snapshot
     try:
-        res, wall, peak, launches, _, cap_r, _, voted, routes = main_path(
-            cfg5, X, y, n3, cycles, dev, serve_hook=hook)
+        res, wall, peak, launches, _, cap_r, _, voted, routes, _ = (
+            main_path(cfg5, X, y, n3, cycles, dev, serve_hook=hook))
     finally:
         serving.snapshot_from_carry = take
     server.flush()

@@ -18,8 +18,19 @@ Counterpart of ``repro/core/faults.py``:
 
 Every function takes and returns tensors on one device and gives the
 reference's values bit for bit (``apply_defense``'s rescale within the
-rounding of its sums); ``byzantine_mask`` is host numpy, as in the
-reference.
+rounding of its sums at d > 32); ``byzantine_mask`` is host numpy, as in
+the reference.
+
+The screen's three sums (``sq``, ``rn``, ``dot``) take XLA's order where it
+is known: at d <= 32 XLA on the CPU adds a row in sequence from +0.0, j =
+0 ... d - 1 (on every one of 20,000 random rows at d = 10 and 32, unpadded
+and zero-padded to 128 lanes; at d = 1 it returns the one term), and
+``_screen_sum`` does the same, as the receive kernel's screen does on the
+card (which at d = 1 may turn a lone -0.0 into +0.0, a sign no comparison
+reads). With the square roots correctly rounded (``_sqrt``) every verdict
+and rescale then equals the reference's bit for bit, exact ties included.
+At d > 32 XLA's order is not sequential and not known here; the sums
+there are ``torch.sum``'s.
 
 The reference's arithmetic flushes subnormal floats to zero (XLA on the
 CPU and the TPU both do; PyTorch and CUDA keep them), and the screen's
@@ -208,6 +219,34 @@ def _ftz(x):
     return torch.where(torch.abs(x) < _FLT_MIN, x * 0.0, x)
 
 
+# the widest row whose screen sums are taken in sequence
+SEQUENTIAL_SUM_MAX_WIDTH = 32
+
+
+def _screen_sum(terms):
+    """The (m, d) terms' row sums in XLA's order at d <= 32: in sequence
+    from +0.0 over j = 0 ... d - 1 (at d = 1 XLA returns the one term as it
+    is, so a -0.0 stays -0.0); ``torch.sum`` at d > 32."""
+    d = terms.shape[-1]
+    if d > SEQUENTIAL_SUM_MAX_WIDTH:
+        return torch.sum(terms, dim=-1)
+    if d == 1:
+        return terms[..., 0].clone()
+    total = torch.zeros(terms.shape[:-1], dtype=terms.dtype,
+                        device=terms.device)
+    for j in range(d):
+        total = total + terms[..., j]
+    return total
+
+
+def _sqrt(x):
+    """The correctly rounded float32 square root, as XLA and CUDA's sqrtf
+    give it: ``torch.sqrt`` on the CPU is off by one ulp on some inputs
+    (29 of 4000 random quotients), while the float64 root rounded once to
+    float32 is exact on every device."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
 def apply_defense(defense: str, msg_w, valid, recv_w):
     """Screen one receive round's payloads against the receiver's state.
 
@@ -221,19 +260,19 @@ def apply_defense(defense: str, msg_w, valid, recv_w):
         zeros = torch.zeros_like(valid)
         return msg_w, valid, zeros, zeros
     m, r = _ftz(msg_w), _ftz(recv_w)
-    sq = torch.sum(_ftz(m * m), dim=-1)
-    rn = torch.sum(_ftz(r * r), dim=-1)
+    sq = _screen_sum(_ftz(m * m))
+    rn = _screen_sum(_ftz(r * r))
     finite = torch.isfinite(sq)            # NaN/inf anywhere poisons the sum
     if defense == "norm_clip":
         thr = torch.clamp_min(NORM_CLIP_MULT_SQ * rn, NORM_CLIP_FLOOR_SQ)
         clip = finite & (sq > thr)
-        scale = torch.sqrt(_ftz(thr / torch.clamp_min(sq, CLIP_SQ_GUARD)))
+        scale = _sqrt(_ftz(thr / torch.clamp_min(sq, CLIP_SQ_GUARD)))
         msg_w = torch.where(clip[:, None], _ftz(m * scale[:, None]), msg_w)
         return msg_w, valid & finite, valid & ~finite, valid & clip
     if defense == "cosine_gate":
-        dot = torch.sum(_ftz(m * r), dim=-1)
+        dot = _screen_sum(_ftz(m * r))
         anti = (rn > COSINE_GATE_MIN_NORM_SQ) & (
-            dot < COSINE_GATE_THRESHOLD_F32 * torch.sqrt(_ftz(sq * rn)))
+            dot < COSINE_GATE_THRESHOLD_F32 * _sqrt(_ftz(sq * rn)))
         reject = ~finite | anti
         return (msg_w, valid & ~reject, valid & reject,
                 torch.zeros_like(valid))

@@ -70,6 +70,23 @@ def _guarded_divisor(scale):
 # ---------------------------------------------------------------------------
 
 
+def _signed_range(w):
+    """Per-row ``(min, max)`` over the last axis as ``jnp.min``/``jnp.max``
+    take them: NaN propagates, and -0.0 orders below +0.0 wherever the
+    zeros lie (``torch.amin``/``amax`` return whichever zero comes first).
+    A zero minimum is -0.0 when the row holds a -0.0, a zero maximum +0.0
+    when it holds a +0.0."""
+    lo = torch.amin(w, dim=-1)
+    hi = torch.amax(w, dim=-1)
+    zero = w == 0
+    neg = torch.signbit(w)
+    lo = torch.where(lo == 0, torch.where((zero & neg).any(-1), -0.0, 0.0),
+                     lo)
+    hi = torch.where(hi == 0, torch.where((zero & ~neg).any(-1), 0.0, -0.0),
+                     hi)
+    return lo, hi
+
+
 def quantize_wire(w, name, key=None, noise=None):
     """Per-message affine int8 quantization of a batch of models.
 
@@ -80,8 +97,7 @@ def quantize_wire(w, name, key=None, noise=None):
     rounds half to even; "int8_sr" adds ``uniform(key, w.shape)`` noise
     before the floor (``noise`` may supply that draw instead of ``key``)."""
     w = w.to(torch.float32)
-    lo = torch.amin(w, dim=-1)
-    hi = torch.amax(w, dim=-1)
+    lo, hi = _signed_range(w)
     zp = _sat_f16((hi + lo) * 0.5)
     zpf = zp.to(torch.float32)
     scale = _sat_f16(_div(torch.maximum(hi - zpf, zpf - lo), INT8_QMAX))

@@ -36,7 +36,12 @@
 //
 // Screen (template argument F), between the decode and the merge of every
 // valid round, against the current lastModel lw, with sq = sum m^2 and
-// rn = sum lw^2 (shuffle sums; nothing is padded, so nothing is masked):
+// rn = sum lw^2 (shuffle sums; nothing is padded, so nothing is masked). At
+// d <= 32 the screen's sums (sq, rn, dot) are XLA's: the d terms read in
+// lane order by __shfl_sync and added in sequence from +0.0 (screen_sums),
+// as faults._screen_sum adds them, so verdicts on exact ties are the
+// reference's; at d > 32 they are 32-lane butterflies (warp_sum). The
+// screens:
 //   none         nothing; the gated/clipped counts stay 0;
 //   norm_clip    thr = max(4 rn, 1); a non-finite sq rejects the message,
 //                sq > thr rescales it by sqrt(thr / max(sq, 1e-30));
@@ -123,11 +128,12 @@
 // The round loop is uniform across the warp (a round no group of the warp
 // receives is skipped by __any_sync), so every shuffle runs with all 32
 // lanes; a group whose round is not valid, or whose message was rejected,
-// predicates its work off. Sums are xor butterflies over the group's G
-// lanes (group_sum): for d <= G the 32-lane tree's other levels add only
-// +0.0 to each lane's one term, and no partial sum is -0.0 (each starts at
-// +0.0), so the two trees give the same bits, and the grouped route gives
-// the strided route's state, cache_t and counts bit for bit. Staging
+// predicates its work off. The screen's sums are sequential on both routes
+// (screen_sums); the margins are xor butterflies over the group's G lanes
+// (group_sum): for d <= G the 32-lane tree's other levels add only +0.0 to
+// each lane's one term, and no partial sum is -0.0 (each starts at +0.0),
+// so the two trees give the same bits, and the grouped route gives the
+// strided route's state, cache_t and counts bit for bit. Staging
 // msg_t, ptr, count, last_t and y for every node costs little beyond the
 // bound's bytes: with ~9 % of (node, round) lanes valid, most 32-byte
 // sectors of those arrays hold a node that needs them anyway.
@@ -285,6 +291,28 @@ __device__ __forceinline__ float group_sum(float v, int g) {
   return v;
 }
 
+// The screen's sums at d <= 32 in XLA's order: each of sq, rn and (with
+// DOT) dot holds one term a lane, coefficient j of the node on lane base +
+// j, and becomes the sum of the node's d terms added in sequence from +0.0,
+// j = 0 ... d - 1 (faults._screen_sum). A lane's term is 0.0f + its
+// product, never -0.0, which a sequential sum from +0.0 cannot tell from
+// the product itself (at d = 1, where XLA returns the one term, a lone
+// -0.0 dot becomes +0.0, a sign no comparison reads). Every lane of the
+// warp must call it.
+template <bool DOT>
+__device__ __forceinline__ void screen_sums(float& sq, float& rn, float& dot,
+                                            int base, int d) {
+  float s = 0.0f, r = 0.0f, t = 0.0f;
+  for (int j = 0; j < d; ++j) {
+    s += __shfl_sync(0xffffffffu, sq, base + j);
+    r += __shfl_sync(0xffffffffu, rn, base + j);
+    if (DOT) t += __shfl_sync(0xffffffffu, dot, base + j);
+  }
+  sq = s;
+  rn = r;
+  if (DOT) dot = t;
+}
+
 // the screen's verdict on the summed sq, rn and dot (dot is read only by
 // cosine_gate): whether it rejects the message; f is set to the norm_clip
 // rescale of a clipped message, else kNoClip
@@ -377,9 +405,13 @@ fused_receive_kernel(float* __restrict__ last_w, int* __restrict__ last_t,
         rn += ftz(lj * lj);
         if (F == kCosineGate) dot += ftz(mj * lj);
       }
-      sq = warp_sum(sq);
-      rn = warp_sum(rn);
-      if (F == kCosineGate) dot = warp_sum(dot);
+      if (d <= kWarp) {  // one term a lane
+        screen_sums<F == kCosineGate>(sq, rn, dot, 0, d);
+      } else {
+        sq = warp_sum(sq);
+        rn = warp_sum(rn);
+        if (F == kCosineGate) dot = warp_sum(dot);
+      }
       const bool reject = screen_rejects<F>(sq, rn, dot, f);
       if (f != kNoClip) clipped += 1;
       if (reject) {
@@ -617,9 +649,8 @@ fused_receive_grouped_kernel(
             rn += ftz(lj * lj);
             if (F == kCosineGate) dot += ftz(mj * lj);
           }
-          sq = group_sum(sq, g);
-          rn = group_sum(rn, g);
-          if (F == kCosineGate) dot = group_sum(dot, g);
+          screen_sums<F == kCosineGate>(sq, rn, dot,
+                                        (threadIdx.x % kWarp) & ~(g - 1), d);
           const bool reject = screen_rejects<F>(sq, rn, dot, f);
           if (f != kNoClip) clipped += act;
           if (reject) {

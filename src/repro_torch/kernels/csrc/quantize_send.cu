@@ -3,12 +3,12 @@
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/gossip_cycle.py
 // quantize_send:
-//   affine8_kernel   <- _send_kernel (the int8 and int8_sr codecs): per row
+//   affine8 kernels  <- _send_kernel (the int8 and int8_sr codecs): per row
 //                       min and max, zp = f16(sat((hi + lo) / 2)), scale =
 //                       f16(sat(max(hi - zp, zp - lo) / 126)), codes
 //                       round((w - zp) / scale) — or floor(u + noise) for
 //                       int8_sr — clipped to +-127;
-//   packed_kernel    <- _pack_send_kernel (int4, ternary and their _ef
+//   packed kernels   <- _pack_send_kernel (int4, ternary and their _ef
 //                       variants): x = w (+ ef), scale = f16(sat(max|x| /
 //                       qmax)), codes round(x / scale) clipped to +-qmax,
 //                       packed two nibbles (int4) or five base-3 trits
@@ -17,10 +17,14 @@
 // The op order is wire_codec.quantize_wire's and PackedSymmetricCodec's:
 // rintf rounds half to even like torch.round (roundf would not); the f16
 // saturation compares explicitly and keeps NaN, as torch.clamp does, before
-// __float2half_rn; min, max and max|x| propagate NaN like torch.amin/amax;
+// __float2half_rn; min, max and max|x| propagate NaN like torch.amin/amax,
+// and min and max order -0.0 below +0.0 as jnp.min/jnp.max do (a row of
+// mixed-sign zeros has min -0.0 and max +0.0; max|x| never meets -0.0, so
+// the packed codecs' reduction is unaffected);
 // the zero guard where(scale > 0, scale, 1) takes the guard for NaN. With
 // --fmad=false and IEEE division every code, byte, scale, zero-point and
-// residual equals the plain PyTorch version bit for bit.
+// residual equals the plain PyTorch version bit for bit. Both routes below
+// share these helpers, so they give the same bits.
 //
 // int8_sr noise is positional: element (r, j) takes jax.random.uniform
 // (partitionable threefry-2x32) at flat position p = r * d + j, i.e. the
@@ -29,23 +33,64 @@
 // for it, and the key (the cycle's k_recv, int64 words holding uint32
 // values) is read on the device, never by the host.
 //
-// Layout: one warp per message row, kRowsPerBlock rows per block. The row's
-// range is a warp-shuffle reduction over lanes striding over d; then lanes
-// stride over the output. For the packed codecs a lane owns whole output
-// bytes (its 2 or 5 codes), so no two lanes write one byte; the codes past
-// d in the last byte are code 0 (nibble 0, trit digit 1), as pack_int4 and
-// pack_ternary pad. Rows are read and written element by element: a packed
-// row of ceil(d/2) or ceil(d/5) bytes starts at any byte. The kernels write
-// new tensors that the wrapper allocates; the engine copies them into the
+// Two layouts, chosen before the launch by gossip_cycle.py::send_route (the
+// C entries take the choice as an argument and refuse a tiled launch
+// outside its range):
+//
+// strided (the first layout; every d, and the only one for the _ef codecs):
+// one warp per message row, kRowsPerBlock rows per block. The row's range
+// is a warp-shuffle reduction over lanes striding over d; then lanes stride
+// over the output. For the packed codecs a lane owns whole output bytes
+// (its 2 or 5 codes), so no two lanes write one byte. Rows are read and
+// written element by element: a packed row of ceil(d/2) or ceil(d/5) bytes
+// starts at any byte. At d = 10 it is latency-bound:
+//   1. lanes: 22 of 32 idle in the range pass; ternary's code loop has
+//      cols = 2, so 2 of 32 lanes run, each five IEEE divisions in a row,
+//      and int8_sr's threefry runs on 10 lanes;
+//   2. bytes in flight: a warp loads its 40-byte row, waits, reduces, and
+//      reads the row again; blocks of 8 rows keep ~2.5 KB an SM in flight
+//      where 3.35 TB/s over ~1 us of latency asks for ~25 KB;
+//   3. stores: 1- and 2-byte payload stores from a few lanes, and the f16
+//      scale from lane 0 of each warp.
+//
+// tiled (the codecs without error feedback, w on a 16-byte boundary, d up
+// to kTiledMaxWidth; send_route sends it d <= 57, the widest width of
+// chip_smoke.py's sweep (10, 32, 57, 128) at which it beats the strided
+// kernels on an H100): persistent blocks of kTiledThreads threads walk tiles
+// of R rows (tiled_rows(d): a multiple of 16, at most 256, a tile at most
+// kTiledSlotBytes), tile blockIdx.x, + gridDim.x, ... A tile of w is one
+// contiguous run of R d floats, and R a multiple of 16 puts every tile's
+// byte offsets (input, int8 codes, packed bytes) on 16-byte boundaries.
+// What it does about each cause:
+//   2. the tile is copied into shared memory with 16-byte cp.async (the
+//      ragged last tile element by element), into a ring of two slots: the
+//      next tile's copy is in flight while this one is encoded, and a
+//      block's whole tile (10 KB at d = 10) is in flight at once;
+//   1. the range pass is one thread a row, from shared memory (each thread
+//      starts at its own column so a warp's reads spread over the banks;
+//      with -0.0 ordered below +0.0 the reduction is order-free); the code
+//      pass is spread over the whole tile: for affine int8 one thread per
+//      four consecutive elements of the flat tile (element e of the tile is
+//      q[r0 d + e], its noise position r0 d + e as on the strided route), so
+//      all 32 lanes run threefry; for the packed codecs one thread per
+//      output byte of the tile's contiguous R ceil(d / G) bytes;
+//   3. the codes go out four bytes a thread, the packed bytes one a thread
+//      with neighbouring threads on neighbouring bytes, and the f16 scale
+//      (and zero-point) one a thread, R consecutive halves a tile.
+// The codes past d in the last byte are code 0 (nibble 0, trit digit 1), as
+// pack_int4 and pack_ternary pad, on both routes. The kernels write new
+// tensors that the wrapper allocates; the engine copies them into the
 // in-flight buffer row.
 //
 // Bound: device memory (3.35 TB/s on an H100 SXM), except where int8_sr's
-// threefry (about 120 integer operations an element) is the larger term.
-// Per launch the kernel must read w (and ef) once and write the codes, the
-// f16 scale (and zero-point), and the residual: at N = 10^6 and d = 10,
-// 40 MB read and 14 MB written for int8/int8_sr, 80 MB read and 47 MB
-// written for int4_ef, 40 MB read and 4 MB written for ternary, 0.013 to
-// 0.04 ms. chip_smoke.py computes the bound from each launch's shapes.
+// threefry is the larger term: its integer instructions an element, counted
+// in the built kernel's SASS by chip_smoke.py, over Hopper's 64 INT32 lanes
+// an SM (IMADs on the FMA pipe's 128). Per launch the kernel must read w
+// (and ef) once and write the codes, the f16 scale (and zero-point), and
+// the residual: at N = 10^6 and d = 10, 40 MB read and 14 MB written for
+// int8/int8_sr, 80 MB read and 47 MB written for int4_ef, 40 MB read and
+// 4 MB written for ternary. chip_smoke.py computes the bound from each
+// launch's shapes.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -59,25 +104,43 @@ constexpr int kRowsPerBlock = 8;
 constexpr float kF16Max = 65504.0f;
 constexpr float kInt8Qmax = 126.0f;
 
-// min / max that keep a NaN operand, as torch.amin / torch.amax do
+// the tiled route
+constexpr int kTiledThreads = 256;
+constexpr int kTiledMaxRows = 256;      // rows a tile at most
+constexpr int kTiledSlotBytes = 32768;  // a tile of w at most
+constexpr int kTiledMaxWidth = 128;     // d it takes at most (64 rows)
+
+enum Route { kTiled = 0, kStrided = 1 };
+
+// rows a tile at width d: as many as one slot holds, a multiple of 16, at
+// most kTiledMaxRows (gossip_cycle.py::send_tile_rows)
+int tiled_rows(int d) {
+  const int r = kTiledSlotBytes / (4 * d) / 16 * 16;
+  return r < kTiledMaxRows ? r : kTiledMaxRows;
+}
+
+// min / max that keep a NaN operand and order -0.0 below +0.0, as
+// jnp.min / jnp.max do (and wire_codec._signed_range): with the sign bit
+// breaking a == b, the reduction gives the same value in any order
 __device__ __forceinline__ float nan_min(float a, float b) {
-  return (a < b || a != a) ? a : b;
+  return (a < b || a != a || (a == b && signbit(a))) ? a : b;
 }
 __device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a || (a == b && !signbit(a))) ? a : b;
+}
+
+// the larger of two magnitudes |x| (never -0.0), keeping a NaN operand:
+// the packed codecs' max|x| needs no sign tie-break, and its shorter
+// compare keeps the strided kernels' shuffle chain as it was
+__device__ __forceinline__ float abs_max(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
-__device__ __forceinline__ float warp_min(float v) {
+template <float (*Op)(float, float)>
+__device__ __forceinline__ float warp_reduce(float v) {
 #pragma unroll
   for (int o = kWarp / 2; o > 0; o >>= 1) {
-    v = nan_min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  }
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) {
-    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
+    v = Op(v, __shfl_xor_sync(0xffffffffu, v, o));
   }
   return v;
 }
@@ -128,6 +191,49 @@ __device__ __forceinline__ float uniform_at(uint32_t k0, uint32_t k1,
   return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
 }
 
+// an affine int8 row's wire scalars from its min and max, and the f32
+// zero-point and guarded divisor its codes are made with
+struct Affine {
+  __half zp, sc;
+  float zpf, sf;
+};
+
+__device__ __forceinline__ Affine affine_params(float lo, float hi) {
+  Affine a;
+  a.zp = sat_f16((hi + lo) * 0.5f);
+  a.zpf = __half2float(a.zp);
+  a.sc = sat_f16(nan_max(hi - a.zpf, a.zpf - lo) / kInt8Qmax);
+  a.sf = guarded(__half2float(a.sc));
+  return a;
+}
+
+// the int8 code of v at flat position p
+template <bool SR>
+__device__ __forceinline__ int affine_code(float v, float zpf, float sf,
+                                           uint32_t k0, uint32_t k1,
+                                           int64_t p) {
+  float u = (v - zpf) / sf;
+  if (SR) {
+    u = floorf(u + uniform_at(k0, k1, p));
+  } else {
+    u = rintf(u);
+  }
+  return clip_code(u, 127.0f);
+}
+
+// code g of a packed byte added in: a two's-complement nibble (int4) or a
+// base-3 digit code + 1 (ternary)
+template <int G>
+__device__ __forceinline__ int pack_code(int byte, int code, int g) {
+  if (G == 2) return byte | ((code & 0xF) << (4 * g));
+  const int p3 = g == 0 ? 1 : g == 1 ? 3 : g == 2 ? 9 : g == 3 ? 27 : 81;
+  return byte + (code + 1) * p3;
+}
+
+// ---------------------------------------------------------------------------
+// the strided route: a warp a row
+// ---------------------------------------------------------------------------
+
 template <bool SR>
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
 affine8_kernel(const float* __restrict__ w, const int64_t* __restrict__ key,
@@ -145,12 +251,8 @@ affine8_kernel(const float* __restrict__ w, const int64_t* __restrict__ key,
     lo = nan_min(lo, v);
     hi = nan_max(hi, v);
   }
-  lo = warp_min(lo);
-  hi = warp_max(hi);
-  const __half zp = sat_f16((hi + lo) * 0.5f);
-  const float zpf = __half2float(zp);
-  const __half sc = sat_f16(nan_max(hi - zpf, zpf - lo) / kInt8Qmax);
-  const float sf = guarded(__half2float(sc));
+  const Affine a = affine_params(warp_reduce<nan_min>(lo),
+                                 warp_reduce<nan_max>(hi));
 
   uint32_t k0 = 0, k1 = 0;
   if (SR) {
@@ -159,17 +261,12 @@ affine8_kernel(const float* __restrict__ w, const int64_t* __restrict__ key,
   }
   int8_t* qr = q + r * d;
   for (int j = lane; j < d; j += kWarp) {
-    float u = (wr[j] - zpf) / sf;
-    if (SR) {
-      u = floorf(u + uniform_at(k0, k1, r * d + j));
-    } else {
-      u = rintf(u);
-    }
-    qr[j] = static_cast<int8_t>(clip_code(u, 127.0f));
+    qr[j] = static_cast<int8_t>(
+        affine_code<SR>(wr[j], a.zpf, a.sf, k0, k1, r * d + j));
   }
   if (lane == 0) {
-    scale_out[r] = sc;
-    zp_out[r] = zp;
+    scale_out[r] = a.sc;
+    zp_out[r] = a.zp;
   }
 }
 
@@ -188,8 +285,8 @@ packed_kernel(const float* __restrict__ w, const float* __restrict__ ef,
   auto xval = [&](int j) { return EF ? wr[j] + er[j] : wr[j]; };
 
   float amax = 0.0f;
-  for (int j = lane; j < d; j += kWarp) amax = nan_max(amax, fabsf(xval(j)));
-  amax = warp_max(amax);
+  for (int j = lane; j < d; j += kWarp) amax = abs_max(amax, fabsf(xval(j)));
+  amax = warp_reduce<abs_max>(amax);
   const __half sc = sat_f16(amax / kQmax);
   const float scf = __half2float(sc);
   const float sf = guarded(scf);
@@ -210,12 +307,7 @@ packed_kernel(const float* __restrict__ w, const float* __restrict__ ef,
           resid[r * d + j] = x - dec;
         }
       }
-      if (G == 2) {
-        byte |= (code & 0xF) << (4 * g);
-      } else {
-        const int p3 = g == 0 ? 1 : g == 1 ? 3 : g == 2 ? 9 : g == 3 ? 27 : 81;
-        byte += (code + 1) * p3;
-      }
+      byte = pack_code<G>(byte, code, g);
     }
     pr[b] = static_cast<uint8_t>(byte);
   }
@@ -226,55 +318,337 @@ unsigned blocks_for(int n) {
   return (static_cast<unsigned>(n) + kRowsPerBlock - 1) / kRowsPerBlock;
 }
 
+// ---------------------------------------------------------------------------
+// the tiled route: persistent blocks, tiles of R rows through shared memory
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most one group of this thread's copies is in flight
+__device__ __forceinline__ void cp_async_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// the rows of tile `tile`: R, or fewer in the ragged last tile
+__device__ __forceinline__ int tile_rows(int tile, int rows_per_tile, int n) {
+  const int64_t left = n - static_cast<int64_t>(tile) * rows_per_tile;
+  return left < rows_per_tile ? static_cast<int>(left) : rows_per_tile;
+}
+
+// Copy tile `tile` of w (one contiguous run of rows d floats) into `dst`,
+// asynchronously: a full tile in 16-byte copies (its start and length are
+// multiples of 16 bytes), the ragged last tile element by element.
+__device__ __forceinline__ void stage_tile(float* dst,
+                                           const float* __restrict__ w,
+                                           int tile, int rows_per_tile, int n,
+                                           int d) {
+  const int rows = tile_rows(tile, rows_per_tile, n);
+  const float* src = w + static_cast<int64_t>(tile) * rows_per_tile * d;
+  if (rows == rows_per_tile) {
+    const int chunks = rows * d / 4;
+    for (int c = threadIdx.x; c < chunks; c += kTiledThreads) {
+      cp_async16(dst + 4 * c, src + 4 * c);
+    }
+  } else {
+    const int elems = rows * d;
+    for (int e = threadIdx.x; e < elems; e += kTiledThreads) {
+      cp_async4(dst + e, src + e);
+    }
+  }
+}
+
+// Walk this block's tiles, blockIdx.x, + gridDim.x, ..., with the next
+// tile's copy in flight while encode(tile in shared memory, first row,
+// rows) runs on this one. smem holds the two slots of rows_per_tile d
+// floats each.
+template <typename Encode>
+__device__ __forceinline__ void walk_tiles(const float* __restrict__ w,
+                                           int n, int d, int rows_per_tile,
+                                           int tiles, float* smem,
+                                           Encode encode) {
+  const int slot = rows_per_tile * d;
+  if (static_cast<int>(blockIdx.x) < tiles) {
+    stage_tile(smem, w, blockIdx.x, rows_per_tile, n, d);
+  }
+  cp_async_commit();
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    // every thread is done with the other slot (the previous tile) and
+    // with the per-row scalars, so the next tile may land there
+    __syncthreads();
+    const int next = tile + gridDim.x;
+    if (next < tiles) {
+      stage_tile(smem + (buf ^ 1) * slot, w, next, rows_per_tile, n, d);
+    }
+    cp_async_commit();
+    cp_async_wait_all_but_one();  // this tile's copies have landed
+    __syncthreads();
+    encode(smem + buf * slot,
+           static_cast<int64_t>(tile) * rows_per_tile,
+           tile_rows(tile, rows_per_tile, n));
+  }
+  // the last (empty) group of copies: nothing is left in flight
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <bool SR>
+__global__ void __launch_bounds__(kTiledThreads)
+affine8_tiled_kernel(const float* __restrict__ w,
+                     const int64_t* __restrict__ key, int8_t* __restrict__ q,
+                     __half* __restrict__ scale_out,
+                     __half* __restrict__ zp_out, int n, int d,
+                     int rows_per_tile, int tiles) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_sf = smem + 2 * rows_per_tile * d;  // each row's divisor
+  float* s_zp = s_sf + rows_per_tile;          // and zero-point
+  uint32_t k0 = 0, k1 = 0;
+  if (SR) {
+    k0 = static_cast<uint32_t>(key[0]);
+    k1 = static_cast<uint32_t>(key[1]);
+  }
+  walk_tiles(w, n, d, rows_per_tile, tiles, smem,
+             [&](const float* s, int64_t r0, int rows) {
+    // the range pass: thread r owns row r
+    const int r = threadIdx.x;
+    if (r < rows) {
+      const float* sr = s + r * d;
+      float lo = CUDART_INF_F, hi = -CUDART_INF_F;
+      int j = r % d;
+      for (int t = 0; t < d; ++t) {
+        const float v = sr[j];
+        lo = nan_min(lo, v);
+        hi = nan_max(hi, v);
+        j = j + 1 == d ? 0 : j + 1;
+      }
+      const Affine a = affine_params(lo, hi);
+      s_sf[r] = a.sf;
+      s_zp[r] = a.zpf;
+      scale_out[r0 + r] = a.sc;
+      zp_out[r0 + r] = a.zp;
+    }
+    __syncthreads();
+    // the code pass: four consecutive elements of the flat tile a thread,
+    // element e at flat position r0 d + e; a float4 read (the slot's
+    // length is a multiple of four floats) and a 4-byte store; one copy of
+    // the loop body (chip_smoke.py reads threefry's instructions off it)
+    const int elems = rows * d;
+    const int64_t p0 = r0 * d;
+    int8_t* qt = q + p0;
+#pragma unroll 1
+    for (int e = 4 * threadIdx.x; e < elems; e += 4 * kTiledThreads) {
+      const float4 v4 = *reinterpret_cast<const float4*>(s + e);
+      const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+      int row = e / d;
+      int col = e - row * d;
+      uint32_t codes = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (e + i < elems) {
+          const int c = affine_code<SR>(v[i], s_zp[row], s_sf[row], k0, k1,
+                                        p0 + e + i);
+          codes |= static_cast<uint32_t>(static_cast<uint8_t>(c)) << (8 * i);
+        }
+        if (++col == d) {
+          col = 0;
+          ++row;
+        }
+      }
+      if (e + 4 <= elems) {
+        *reinterpret_cast<uint32_t*>(qt + e) = codes;
+      } else {
+        for (int i = 0; i < elems - e; ++i) {
+          qt[e + i] = static_cast<int8_t>(codes >> (8 * i));
+        }
+      }
+    }
+  });
+}
+
+template <int G>
+__global__ void __launch_bounds__(kTiledThreads)
+packed_tiled_kernel(const float* __restrict__ w,
+                    uint8_t* __restrict__ payload,
+                    __half* __restrict__ scale_out, int n, int d,
+                    int rows_per_tile, int tiles) {
+  constexpr float kQmax = G == 2 ? 7.0f : 1.0f;
+  extern __shared__ __align__(16) float smem[];
+  float* s_sf = smem + 2 * rows_per_tile * d;  // each row's divisor
+  const int cols = (d + G - 1) / G;
+  walk_tiles(w, n, d, rows_per_tile, tiles, smem,
+             [&](const float* s, int64_t r0, int rows) {
+    // the range pass: thread r owns row r
+    const int r = threadIdx.x;
+    if (r < rows) {
+      const float* sr = s + r * d;
+      float amax = 0.0f;
+      int j = r % d;
+      for (int t = 0; t < d; ++t) {
+        amax = abs_max(amax, fabsf(sr[j]));
+        j = j + 1 == d ? 0 : j + 1;
+      }
+      const __half sc = sat_f16(amax / kQmax);
+      s_sf[r] = guarded(__half2float(sc));
+      scale_out[r0 + r] = sc;
+    }
+    __syncthreads();
+    // the code pass: one thread per output byte of the tile's rows cols
+    // contiguous bytes, neighbouring threads on neighbouring bytes
+    const int nbytes = rows * cols;
+    uint8_t* pt = payload + r0 * cols;
+    for (int b = threadIdx.x; b < nbytes; b += kTiledThreads) {
+      const int row = b / cols;
+      const int c = b - row * cols;
+      const float* sr = s + row * d;
+      const float sf = s_sf[row];
+      int byte = 0;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int j = c * G + g;
+        const int code = j < d ? clip_code(rintf(sr[j] / sf), kQmax) : 0;
+        byte = pack_code<G>(byte, code, g);
+      }
+      pt[b] = static_cast<uint8_t>(byte);
+    }
+  });
+}
+
+// dynamic shared memory of a tiled launch: two slots of R d floats, then
+// R floats of per-row scalars for each of `scalars`
+size_t tiled_smem(int d, int scalars) {
+  const int rows = tiled_rows(d);
+  return sizeof(float) * (2 * static_cast<size_t>(rows) * d +
+                          static_cast<size_t>(scalars) * rows);
+}
+
+// persistent blocks: as many as fit on the card at once, at most one a tile
+template <typename Kernel>
+unsigned tiled_blocks(Kernel kernel, int tiles, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem));
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                kTiledThreads, smem);
+  const int blocks = sms * per_sm;
+  return static_cast<unsigned>(blocks < 1 ? 1 : (blocks < tiles ? blocks
+                                                                : tiles));
+}
+
+int tiles_for(int n, int d) {
+  const int rows = tiled_rows(d);
+  return static_cast<int>((static_cast<int64_t>(n) + rows - 1) / rows);
+}
+
+// whether the tiled route takes these operands: d in range, w on a 16-byte
+// boundary (its tiles are copied 16 bytes at a time)
+bool tiled_takes(const void* w, int d) {
+  return d <= kTiledMaxWidth && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+}
+
+template <bool SR>
+void launch_affine8(const float* w, const int64_t* key, int8_t* q,
+                    __half* sc, __half* zp, int n, int d, int route,
+                    cudaStream_t s) {
+  if (route == kStrided) {
+    affine8_kernel<SR><<<blocks_for(n), kWarp * kRowsPerBlock, 0, s>>>(
+        w, key, q, sc, zp, n, d);
+    return;
+  }
+  const int tiles = tiles_for(n, d);
+  const size_t smem = tiled_smem(d, 2);
+  const unsigned blocks = tiled_blocks(affine8_tiled_kernel<SR>, tiles, smem);
+  affine8_tiled_kernel<SR><<<blocks, kTiledThreads, smem, s>>>(
+      w, key, q, sc, zp, n, d, tiled_rows(d), tiles);
+}
+
+template <int G>
+void launch_packed(const float* w, const float* ef, uint8_t* payload,
+                   __half* sc, float* resid, int n, int d, int route,
+                   cudaStream_t s) {
+  if (route == kStrided) {
+    const dim3 grid(blocks_for(n)), block(kWarp * kRowsPerBlock);
+    if (ef) packed_kernel<G, true><<<grid, block, 0, s>>>(w, ef, payload, sc,
+                                                          resid, n, d);
+    else packed_kernel<G, false><<<grid, block, 0, s>>>(w, ef, payload, sc,
+                                                        resid, n, d);
+    return;
+  }
+  const int tiles = tiles_for(n, d);
+  const size_t smem = tiled_smem(d, 1);
+  const unsigned blocks = tiled_blocks(packed_tiled_kernel<G>, tiles, smem);
+  packed_tiled_kernel<G><<<blocks, kTiledThreads, smem, s>>>(
+      w, payload, sc, n, d, tiled_rows(d), tiles);
+}
+
 }  // namespace
 
 // int8 / int8_sr: w (n, d) f32 -> q (n, d) int8, scale and zp (n,) f16.
-// key: the (2,) int64 threefry key (read only when stochastic). Returns
+// key: the (2,) int64 threefry key (read only when stochastic). route: 0 =
+// tiled (d <= 128 and w on a 16-byte boundary only), 1 = strided. Returns
 // cudaGetLastError() after the launch (0 on success); asynchronous on
 // `stream`.
 extern "C" int quantize_send_affine8(const float* w, const int64_t* key,
                                      int8_t* q, void* scale, void* zp, int n,
-                                     int d, int stochastic, void* stream) {
+                                     int d, int stochastic, int route,
+                                     void* stream) {
+  if (route != kTiled && route != kStrided) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (route == kTiled &&
+      (!tiled_takes(w, d) || reinterpret_cast<uintptr_t>(q) % 4 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   __half* sc = static_cast<__half*>(scale);
   __half* z = static_cast<__half*>(zp);
   if (stochastic) {
-    affine8_kernel<true><<<blocks_for(n), kWarp * kRowsPerBlock, 0, s>>>(
-        w, key, q, sc, z, n, d);
+    launch_affine8<true>(w, key, q, sc, z, n, d, route, s);
   } else {
-    affine8_kernel<false><<<blocks_for(n), kWarp * kRowsPerBlock, 0, s>>>(
-        w, key, q, sc, z, n, d);
+    launch_affine8<false>(w, key, q, sc, z, n, d, route, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // int4 (group 2) / ternary (group 5), with error feedback when ef is not
 // null: w (and ef) (n, d) f32 -> payload (n, ceil(d / group)) uint8, scale
-// (n,) f16, resid (n, d) f32 (written only with ef).
+// (n,) f16, resid (n, d) f32 (written only with ef). route: 0 = tiled
+// (without ef, d <= 128 and w on a 16-byte boundary only), 1 = strided.
 extern "C" int quantize_send_packed(const float* w, const float* ef,
                                     uint8_t* payload, void* scale,
                                     float* resid, int n, int d, int group,
-                                    void* stream) {
+                                    int route, void* stream) {
+  if ((ef == nullptr) != (resid == nullptr) || (group != 2 && group != 5) ||
+      (route != kTiled && route != kStrided)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (route == kTiled && (ef != nullptr || !tiled_takes(w, d))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   __half* sc = static_cast<__half*>(scale);
-  const dim3 grid(blocks_for(n)), block(kWarp * kRowsPerBlock);
-  if ((ef == nullptr) != (resid == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   if (group == 2) {
-    if (ef) packed_kernel<2, true><<<grid, block, 0, s>>>(w, ef, payload, sc,
-                                                          resid, n, d);
-    else packed_kernel<2, false><<<grid, block, 0, s>>>(w, ef, payload, sc,
-                                                        resid, n, d);
-  } else if (group == 5) {
-    if (ef) packed_kernel<5, true><<<grid, block, 0, s>>>(w, ef, payload, sc,
-                                                          resid, n, d);
-    else packed_kernel<5, false><<<grid, block, 0, s>>>(w, ef, payload, sc,
-                                                        resid, n, d);
+    launch_packed<2>(w, ef, payload, sc, resid, n, d, route, s);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    launch_packed<5>(w, ef, payload, sc, resid, n, d, route, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,11 +25,15 @@ version beside it. The receive step has two kernels, chosen by
 ``receive_route`` from d and K before the launch: ``"grouped"`` (a group of
 lanes sized to d a node, every valid round's operands loaded before the
 rounds run) for d <= 32 and K <= 8, ``"strided"`` (a warp a node) for the
-rest; they give the same bits where both apply. There is no fallback: a
-CUDA tensor reaches a kernel or an exception. The plain versions follow
-the Pallas kernels' op order; the CPU tests hold them to the JAX kernels,
-and ``chip_smoke.py`` holds the CUDA kernels to them on the card. The
-kernels' designs and bounds are described in their sources.
+rest; they give the same bits where both apply. The send encode has two
+too, chosen by ``send_route``: ``"tiled"`` (persistent blocks walking tiles
+of rows through shared memory) for the codecs without error feedback at
+d <= 57 on 16-byte aligned models, ``"strided"`` (a warp a row) for the
+rest, bit for bit alike. There is no fallback: a CUDA tensor reaches a
+kernel or an exception. The plain versions follow the Pallas kernels' op
+order; the CPU tests hold them to the JAX kernels, and ``chip_smoke.py``
+holds the CUDA kernels to them on the card. The kernels' designs and
+bounds are described in their sources.
 """
 from __future__ import annotations
 
@@ -65,6 +69,37 @@ def receive_route(d: int, k: int) -> str:
     two >= d lanes a node), else ``"strided"`` (a warp a node)."""
     if d <= GROUPED_MAX_WIDTH and k <= GROUPED_MAX_ROUNDS:
         return "grouped"
+    return "strided"
+
+
+# the send kernel's routes (their codes in the C entries), the widest d the
+# rule sends to the tiled route (of the widths chip_smoke.py times both
+# routes at, 10, 32, 57 and 128, the widest where tiled is the faster on an
+# H100), and the widest d its kernels take
+SEND_ROUTES = ("tiled", "strided")
+TILED_MAX_WIDTH = 57
+TILED_KERNEL_MAX_WIDTH = 128
+# a tile of the tiled route: at most 256 rows and 32 KB of w, a multiple of
+# 16 rows (csrc/quantize_send.cu::tiled_rows)
+_TILED_MAX_ROWS = 256
+_TILED_SLOT_BYTES = 32768
+
+
+def send_tile_rows(d: int) -> int:
+    """Rows a tile of the tiled send route holds at width d: as many as 32
+    KB of float32 holds, rounded down to a multiple of 16, at most 256."""
+    return min(_TILED_MAX_ROWS, _TILED_SLOT_BYTES // (4 * d) // 16 * 16)
+
+
+def send_route(d: int, name: str, aligned: bool = True) -> str:
+    """Which send kernel encodes codec ``name`` at width d on CUDA:
+    ``"tiled"`` for the codecs without error feedback (int8, int8_sr, int4,
+    ternary) at d <= 57 when the models' data starts on a 16-byte boundary
+    (``aligned``; the tiles are copied 16 bytes at a time), else
+    ``"strided"`` (a warp a row): wider rows, the ``_ef`` codecs, and models
+    at an unaligned offset, such as a view that starts mid-row."""
+    if not get_codec(name).ef and d <= TILED_MAX_WIDTH and aligned:
+        return "tiled"
     return "strided"
 
 
@@ -393,33 +428,47 @@ def _check_send(w, name, key, ef):
     return codec
 
 
-def _launch_send(w, codec, key, ef):
+def _launch_send(w, codec, key, ef, route=None):
+    """Launch the send kernel on checked operands. ``route`` overrides
+    ``send_route`` (for holding the two routes to each other and timing
+    them on the card): ``"tiled"`` is refused for the ``_ef`` codecs, past
+    d = 128 and on unaligned models; the public wrapper never passes it."""
     n, d = w.shape
+    aligned = w.data_ptr() % 16 == 0
+    if route is None:
+        route = send_route(d, codec.name, aligned)
+    elif route not in SEND_ROUTES or (route == "tiled" and (
+            codec.ef or d > TILED_KERNEL_MAX_WIDTH or not aligned)):
+        raise ValueError(f"the {route!r} send route does not take "
+                         f"{codec.name!r} at d={d}"
+                         + ("" if aligned else " on unaligned models"))
     kernel = send_kernel_name(codec.name)
     dev = w.device
     scale = torch.empty(n, dtype=torch.float16, device=dev)
     with torch.cuda.device(dev):
         if kernel == "affine8":
             fn, err = _entry("quantize_send", "quantize_send_affine8",
-                             (_VP,) * 5 + (_INT,) * 3 + (_VP,))
+                             (_VP,) * 5 + (_INT,) * 4 + (_VP,))
             q = torch.empty((n, d), dtype=torch.int8, device=dev)
             zp = torch.empty(n, dtype=torch.float16, device=dev)
             code = fn(w.data_ptr(), _ptr(key if codec.stochastic else None),
                       q.data_ptr(), scale.data_ptr(), zp.data_ptr(), n, d,
-                      int(codec.stochastic), _stream(w))
+                      int(codec.stochastic), SEND_ROUTES.index(route),
+                      _stream(w))
             out = (q, scale, zp)
         else:
             fn, err = _entry("quantize_send", "quantize_send_packed",
-                             (_VP,) * 5 + (_INT,) * 3 + (_VP,))
+                             (_VP,) * 5 + (_INT,) * 4 + (_VP,))
             payload = torch.empty((n, codec.payload_cols(d)),
                                   dtype=torch.uint8, device=dev)
             resid = torch.empty_like(w) if ef is not None else None
             code = fn(w.data_ptr(), _ptr(ef), payload.data_ptr(),
                       scale.data_ptr(), _ptr(resid), n, d, codec.group,
-                      _stream(w))
+                      SEND_ROUTES.index(route), _stream(w))
             out = (payload, scale) if ef is None else (payload, scale, resid)
-    _raise_on(code, err, "quantize_send")
+    _raise_on(code, err, f"quantize_send ({route})")
     _SEND.launches[kernel] += 1
+    _SEND.route_launches[route] += 1
     return out
 
 
@@ -434,7 +483,8 @@ def quantize_send(w, name: str, key=None, ef=None):
     (N,)), or ``(payload, scale, resid)`` when ``ef`` (the (N, d) f32
     error-feedback residual) is given: ``w + ef`` is encoded and ``resid =
     (w + ef) - decode(...)``; the caller applies the send mask. The outputs
-    are new tensors (the caller copies them into its buffer row)."""
+    are new tensors (the caller copies them into its buffer row). On CUDA,
+    ``send_route(d, name, aligned)`` picks the kernel."""
     codec = _check_send(w, name, key, ef)
     if w.device.type == "cpu":
         return quantize_send_plain(w, name, key=key, ef=ef)
@@ -443,12 +493,14 @@ def quantize_send(w, name: str, key=None, ef=None):
     return _launch_send(w, codec, key, ef)
 
 
-# Kernel launches so far (the receive kernel's in all and by route); only
-# the CUDA path counts. Bound to the wrapper objects themselves, so the
-# counts survive a caller wrapping the module attributes (chip_smoke.py
-# does, to keep a copy of one launch's inputs).
+# Kernel launches so far (the receive kernel's in all and by route, the
+# send kernels' by kernel and by route); only the CUDA path counts. Bound
+# to the wrapper objects themselves, so the counts survive a caller
+# wrapping the module attributes (chip_smoke.py does, to keep a copy of one
+# launch's inputs).
 fused_receive_apply.launches = 0
 fused_receive_apply.route_launches = dict.fromkeys(RECEIVE_ROUTES, 0)
 quantize_send.launches = {"affine8": 0, "packed_ef": 0, "packed": 0}
+quantize_send.route_launches = dict.fromkeys(SEND_ROUTES, 0)
 _RECEIVE = fused_receive_apply
 _SEND = quantize_send

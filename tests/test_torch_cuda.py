@@ -2,13 +2,14 @@
 receive kernel on the f32 wire, in every decode mode and with each defense
 screen, its two routes (the launch counts by route, and the grouped kernel
 bitwise equal to the strided one at d <= 32), the send kernels of the
-quantized codecs (bitwise), the voted-predict kernel (bitwise), the
-population Pegasos and merge kernels, the flash-attention kernel on both
-its routes (tensor cores for TMA-readable bf16 at head_dim 64/128, CUDA
-cores for the rest), and the sharded engine against the reference engine
-on the f32 and the quantized wires and under Byzantine faults, with and
-without a serving hook; and the reduced LM served on the card against the
-same weights served on the CPU.
+quantized codecs (bitwise) and their two routes (the launch counts by
+route, and the tiled kernels bitwise equal to the strided ones at d <= 57),
+the voted-predict kernel (bitwise), the population Pegasos and merge
+kernels, the flash-attention kernel on both its routes (tensor cores for
+TMA-readable bf16 at head_dim 64/128, CUDA cores for the rest), and the
+sharded engine against the reference engine on the f32 and the quantized
+wires and under Byzantine faults, with and without a serving hook; and the
+reduced LM served on the card against the same weights served on the CPU.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one. They import neither JAX nor the JAX package, so they run on a
@@ -80,13 +81,17 @@ def test_receive_route_launch_counts_follow_the_rule(cuda, d, k):
 def test_grouped_route_equals_strided_route_bitwise(cuda, d, defense, mode):
     """The grouped kernel against the strided one forced on the same
     inputs (ragged N, K > C, rows crafted for every verdict under a
-    screen), rw/mu/um: state, cache_t and the counts equal bit for bit."""
+    screen), rw/mu/um: state, cache_t and the counts equal bit for bit;
+    and, both routes summing the screen in sequence as the plain version
+    does, the gated and clipped counts equal to the plain version's."""
     wire = None if mode == "f32" else smoke.DECODE_WIRES[mode]
     base = smoke.receive_inputs(3 * d + len(defense), 2003, d, 3, 5, cuda,
                                 wire=wire, crafted=defense != "none")
     for variant in ("rw", "mu", "um"):
         assert smoke.compare_routes(base, variant, 1e-3, wire,
                                     defense) == "grouped"
+        smoke.compare_kernel(base, variant, 1e-3, 1e-5, wire=wire,
+                             defense=defense)
 
 
 @pytest.mark.cuda
@@ -123,8 +128,57 @@ def test_send_kernel_matches_plain_version_bitwise(cuda, name, d):
     w, ef = smoke.send_inputs(d, n, d, cuda)
     kernel = gc.send_kernel_name(name)
     before = gc.quantize_send.launches[kernel]
-    smoke.compare_send(name, w, ef, random.key(d, device=cuda))
-    assert gc.quantize_send.launches[kernel] == before + 1
+    _, route = smoke.compare_send(name, w, ef, random.key(d, device=cuda))
+    # the tiled route is also held to the strided one forced on the inputs
+    assert gc.quantize_send.launches[kernel] == before + (
+        2 if route == "tiled" else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 7, 10, 16, 32, 57])
+@pytest.mark.parametrize("name", smoke.TILED_CODECS)
+def test_tiled_send_route_equals_strided_route_bitwise(cuda, name, d):
+    """The tiled send kernel against the strided one forced on the same
+    models (ragged last tile, mixed-sign zero, all -0.0 and NaN rows) and
+    against the plain version: every output equal bit for bit."""
+    w, ef = smoke.send_inputs(7 * d, 1031, d, cuda)
+    key = random.key(d, device=cuda)
+    _, route = smoke.compare_send(name, w, ef, key)
+    assert route == "tiled"
+    k = key if name == "int8_sr" else None
+    smoke.same_outputs(name, ("codes", "scale", "zp"),
+                       smoke.run_send(w, name, k, route="tiled"),
+                       smoke.run_send(w, name, k, route="strided"),
+                       "strided route")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [10, 32, 57, 58])
+@pytest.mark.parametrize("name", smoke.MAIN_WIRES)
+def test_send_route_launch_counts_follow_the_rule(cuda, name, d):
+    """``send_route(d, name)``'s kernel takes the launch: its count and the
+    kernel's up by one, the other route's unchanged; a model view at an
+    unaligned offset goes to the strided route."""
+    w, ef = smoke.send_inputs(d, 515, d, cuda)
+    key = random.key(d, device=cuda)
+    want = gc.send_route(d, name)
+    assert want == ("tiled" if d <= 57 and name != "int4_ef" else "strided")
+    kernel = gc.send_kernel_name(name)
+    launches = dict(gc.quantize_send.launches)
+    routes = dict(gc.quantize_send.route_launches)
+    gc.quantize_send(w, name, key=key if name == "int8_sr" else None,
+                     ef=ef if name == "int4_ef" else None)
+    assert gc.quantize_send.launches == dict(
+        launches, **{kernel: launches[kernel] + 1})
+    assert gc.quantize_send.route_launches == dict(
+        routes, **{want: routes[want] + 1})
+    assert smoke.compare_send(name, w, ef, key)[1] == want
+    odd = torch.empty(515 * d + 1, device=cuda)[1:].view(515, d)
+    odd.copy_(w)
+    assert gc.send_route(d, name, odd.data_ptr() % 16 == 0) == "strided"
+    before = gc.quantize_send.route_launches["strided"]
+    smoke.compare_send(name, odd, ef, key)
+    assert gc.quantize_send.route_launches["strided"] == before + 1
 
 
 @pytest.mark.cuda

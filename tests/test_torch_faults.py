@@ -5,10 +5,11 @@ package.
 ``bitflip_payload`` must equal the reference bit for bit (numpy inputs
 handed to both packages). ``apply_defense``'s verdicts (surviving mask,
 gated, clipped) must be equal and its rescaled messages within 1e-6
-relative (the sums run in another order). The receive step's plain version
-with each defense must match the Pallas kernel in interpret mode (integer
-state and counts equal, floats within ``rtol=1e-5, atol=1e-6`` as in
-``tests/test_torch_gossip_cycle.py``). Both port engines must match the
+relative; at d <= 32 its sums must equal ``jnp.sum`` bit for bit (XLA's
+order, in sequence), and with them norm_clip's rescaled messages. The
+receive step's plain version with each defense must match the Pallas
+kernel in interpret mode (integer state and counts equal, floats within
+``rtol=1e-5, atol=1e-6`` as in ``tests/test_torch_gossip_cycle.py``). Both port engines must match the
 JAX reference engine under every fault: economy and ``fault_stats`` exact,
 curves within 0.02. The JAX compact_all and Pallas engine legs are no
 oracle here (ROADMAP.md queue 3); the reference engine is."""
@@ -261,6 +262,42 @@ def test_apply_defense_matches_jax(defense):
         assert np.asarray(jc)[:4].all() and np.asarray(jg)[12:15].all()
     if defense == "cosine_gate":
         assert np.asarray(jg)[8:15].all() and not np.asarray(jg)[20:25].any()
+
+
+@pytest.mark.parametrize("d", [1, 7, 10, 32])
+def test_screen_sums_equal_jnp_sum_bitwise(d):
+    """At d <= 32 the screen sums in XLA's order, in sequence from +0.0:
+    equal to ``jnp.sum`` bit for bit on rows of squares and of products of
+    both signs, zeros of both signs among them."""
+    rng = np.random.default_rng(d)
+    m = (rng.normal(size=(4000, d)) * 3).astype(np.float32)
+    r = rng.normal(size=(4000, d)).astype(np.float32)
+    m[:8] = -0.0
+    r[8:16] = np.where(np.arange(d) % 2 == 0, -0.0, 0.0)
+    for terms in (m * m, r * r, m * r, -m * r):
+        want = jnp.sum(jnp.asarray(terms), axis=-1)
+        got = pf._screen_sum(torch.from_numpy(terms))
+        assert np.array_equal(as_bytes(got), as_bytes(want))
+
+
+@pytest.mark.parametrize("d", [1, 7, 10, 32])
+def test_norm_clip_rescale_equals_jax_bitwise(d):
+    """With ``sq`` and ``rn`` summed in the reference's order, norm_clip's
+    factor sqrt(thr / sq), and every rescaled coefficient, equal the
+    reference's bit for bit."""
+    rng = np.random.default_rng(50 + d)
+    recv = rng.normal(size=(4000, d)).astype(np.float32)
+    msg = (rng.normal(size=(4000, d)) * 20).astype(np.float32)
+    valid = np.ones(4000, bool)
+    jm, jv, jg, jc = jf.apply_defense("norm_clip", jnp.asarray(msg),
+                                      jnp.asarray(valid), jnp.asarray(recv))
+    pm, pv, pg, pc = pf.apply_defense("norm_clip", torch.from_numpy(msg),
+                                      torch.from_numpy(valid),
+                                      torch.from_numpy(recv))
+    for got, want in ((pv, jv), (pg, jg), (pc, jc)):
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    assert np.asarray(jc).mean() > 0.5
+    assert np.array_equal(as_bytes(pm), as_bytes(jm))
 
 
 def crafted_inputs(seed, n, d, c, k):

@@ -124,6 +124,46 @@ def test_quantize_wire_bitwise(name, d):
                    jwc.dequantize_wire(jq, js, jz), "dequantize")
 
 
+def signed_zero_rows(d: int) -> np.ndarray:
+    """Rows whose range is decided by the sign of a zero: -0.0 and +0.0 in
+    both orders, all -0.0, all +0.0, a zero beside positives (a zero
+    minimum) and beside negatives (a zero maximum), each with the -0.0
+    first and last, and a NaN among zeros of both signs."""
+    pos = np.arange(d)
+    rows = [np.where(pos < d // 2, -0.0, 0.0), np.where(pos < d // 2, 0.0,
+                                                       -0.0),
+            np.where(pos % 2 == 0, -0.0, 0.0), np.full(d, -0.0),
+            np.zeros(d)]
+    for sign in (1.0, -1.0):
+        for first in (-0.0, 0.0):
+            r = np.full(d, sign * 0.5)
+            r[0], r[-1] = first, -first
+            rows.append(r)
+    r = np.where(pos % 2 == 0, -0.0, 0.0)
+    r[d // 2] = np.nan
+    rows.append(r)
+    return np.stack(rows).astype(np.float32)
+
+
+@pytest.mark.parametrize("d", [2, 7, 10, 32])
+@pytest.mark.parametrize("name", ["int8", "int8_sr"])
+def test_quantize_wire_orders_signed_zeros_like_jax(name, d):
+    """``jnp.min``/``jnp.max`` order -0.0 below +0.0 wherever the zeros
+    lie; ``torch.amin``/``amax`` keep whichever comes first. A row of
+    mixed-sign zeros must give JAX's zero-point (+0.0, not -0.0), and a
+    row's range must not depend on where its zeros are."""
+    w = signed_zero_rows(d)
+    key = jax.random.key(d)
+    jq, js, jz = jwc.quantize_wire(jnp.asarray(w), name, key=key)
+    q, s, z = pwc.quantize_wire(torch.from_numpy(w), name,
+                                key=random.key(d, device="cpu"))
+    assert_bitwise(q, jq, "q")
+    assert_bitwise(s, js, "scale")
+    assert_bitwise(z, jz, "zp")
+    assert not np.signbit(z.numpy()[:3]).any()         # mixed: +0.0
+    assert np.signbit(z.numpy()[3])                     # all -0.0: -0.0
+
+
 def test_int8_sr_needs_a_key_and_takes_noise():
     w = torch.from_numpy(models(0, 4, 10))
     with pytest.raises(ValueError, match="key"):

@@ -9,12 +9,14 @@ Usage:
         change2.json parent2.json
 
 Prints, for each run, the per-launch times of every kernel row of the
-``kernels`` line and of the receive kernel in phases 3-5 and the bf16/f16
-and cosine_gate timings of phase 1; then checks that every non-timing value
-of phases 2-6 (economy, curves, wire and buffer bytes, EF residual, fault
-counters, launches, served queries and accuracy, the LM path's token and
-logit agreement) is equal across all runs, and exits 1 listing any that
-differ. Needs only the standard library: it runs anywhere."""
+``kernels`` line, of the receive kernel in phases 3-5 and the bf16/f16
+and cosine_gate timings of phase 1, and of the send kernels in phase 4
+(with the strided route's on the same inputs); then checks that every
+non-timing value of phases 2-6 (economy, curves, wire and buffer bytes, EF
+residual, fault counters, launches, served queries and accuracy, the LM
+path's token and logit agreement) is equal across all runs, and exits 1
+listing any that differ. Needs only the standard library: it runs
+anywhere."""
 from __future__ import annotations
 
 import argparse
@@ -54,6 +56,17 @@ def receive_times(res):
     return out
 
 
+def send_times(res):
+    """The send kernel's ms per launch in phase 4 on the route taken, and
+    the strided route's on the same inputs where the run timed it."""
+    out = {}
+    for wire, row in res.get("phase4", {}).items():
+        out[f"phase4 {wire}"] = row["send"]["ms"]
+        if "strided_ms" in row["send"]:
+            out[f"phase4 {wire} strided"] = row["send"]["strided_ms"]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("runs", nargs="+", type=Path,
@@ -68,6 +81,8 @@ def main(argv=None) -> int:
             rows.setdefault(f"kernels {k['name']}", {})[name] = k["ms"]
         for label, ms in receive_times(res).items():
             rows.setdefault(f"receive {label}", {})[name] = ms
+        for label, ms in send_times(res).items():
+            rows.setdefault(f"send {label}", {})[name] = ms
         rows.setdefault("total s", {})[name] = res.get("total_s")
     width = max(len(n) for n in names) + 2
     print(f"{'ms per launch':44s}" + "".join(f"{n:>{width}s}" for n in names))
