@@ -18,7 +18,9 @@ and ``nvcc``. The phases, each of which raises on failure:
    kernel on the f32 wire and in every decode mode (bf16, f16, affine
    int8, int4, ternary), and with each defense screen (norm_clip,
    cosine_gate) after the f32, affine int8, int4 and ternary decodes on
-   rows crafted for every verdict (gated and clipped counts equal), and at
+   rows crafted for every verdict (gated and clipped counts equal, and the
+   screened lastModel bit for bit where the screen's sum order is known;
+   also at d = 33, 64, 96, 100 and 128 on the strided route), and at
    every d <= 32 its grouped route against its strided route forced on the
    same inputs (bit for bit; K = 9 on the strided route); the bf16/f16
    decodes timed at N = 10^6, and the f32 decode at spambase's and
@@ -28,12 +30,14 @@ and ``nvcc``. The phases, each of which raises on failure:
    int4_ef, ternary and ternary_ef (bitwise, on rows of mixed-sign zeros
    and NaN too), each shape on the route ``send_route`` picks and, where
    that is the tiled one, against the strided route forced on the same
-   models (bitwise); both send routes timed on the same models at
-   N = 10^6 and d = 10, 32, 57 and 128; the cosine_gate screen
-   timed at N = 10^6; kernels #6 and #7 (``pegasos_update``,
-   ``merge_update``) at N = 10^6, d = 10 and 57, and
+   models (bitwise); both send routes timed on the same models (and EF
+   residuals) at N = 10^6 and d = 10, 32, 57 and 128 for every codec; the
+   cosine_gate screen timed at N = 10^6; kernels #6 and #7
+   (``pegasos_update``, ``merge_update``) at N = 10^6, d = 10 and 57, and
    N = 4096, d = 9947, driven ten steps each through ``kernels/ops.py``
-   and timed at N = 10^6, d = 10; kernel #8 (``flash_attention``) over
+   (the merge's launches on its tiled layout, the step's on the strided
+   one) and timed at N = 10^6, d = 10, and #7's two layouts against each
+   other and timed at N = 10^6, d = 10, 32, 57 and 128; kernel #8 (``flash_attention``) over
    head_dim 64, 128 and 48, H/KV 1, 2 and 8, causal or not, window None
    or 64, S = 1, 37, 128, 300 and 2048, in float32 and bfloat16, and on
    strided and unaligned inputs, each case on the route it must take
@@ -53,9 +57,8 @@ and ``nvcc``. The phases, each of which raises on failure:
    its bound, the strided route's and its plain version's time and its
    agreement with both there, and a profiled rerun;
 4. the same path on the quantized wire (int8_sr, int4_ef, ternary): for
-   each, 20 receive and 20 send launches (the send launches all on
-   ``send_route``'s route: tiled for int8_sr and ternary, strided for
-   int4_ef), the economy, the wire and buffer bytes against f32's, wall
+   each, 20 receive and 20 send launches (the send launches all on the
+   tiled route), the economy, the wire and buffer bytes against f32's, wall
    time, peak memory, and each kernel's time per launch on the path's own
    last-launch inputs beside its bound, the other route's time there (the
    strided one), and its plain version's time, and a profiled rerun;
@@ -127,9 +130,11 @@ PAPER_SHAPES = (("spambase", 4140, 57, 1e-5), ("reuters", 2000, 9947, 1e-4))
 DECODE_WIRES = {"bf16": "bf16", "f16": "f16", "affine8": "int8",
                 "int4": "int4", "ternary": "ternary"}
 SEND_CODECS = ("int8", "int8_sr", "int4", "int4_ef", "ternary", "ternary_ef")
-# the codecs the tiled send route serves (no error feedback), and the widths
-# at which phase 1 times it against the strided route
+# the codecs without and with error feedback (the tiled send route serves
+# both), and the widths at which phase 1 times the tiled route against the
+# strided one
 TILED_CODECS = ("int8", "int8_sr", "int4", "ternary")
+EF_CODECS = ("int4_ef", "ternary_ef")
 SEND_SWEEP_WIDTHS = (10, 32, 57, 128)
 # phase 1's send shapes (N, d): the paper's d = 10, 57 and 9947, the tiled
 # route's ragged tiles (N not a multiple of its rows) at d = 1, 7, 16, 32
@@ -137,6 +142,11 @@ SEND_SWEEP_WIDTHS = (10, 32, 57, 128)
 SEND_SHAPES = ((4099, 10), (4099, 57), (2000, 9947), (257, 1), (257, 7),
                (1031, 16), (4099, 32), (255, 10), (4097, 57))
 DEFENSE_MODES = ("norm_clip", "cosine_gate")
+# the screen's sum orders past d = 32, on the strided route (f32, mu): two
+# halves at 33-64, 32-wide chunks at multiples of 32, and a width whose
+# order is not known (butterflies); (N, d)
+SCREEN_ORDER_SHAPES = ((4099, 33), (4099, 64), (4099, 96), (2000, 100),
+                       (2000, 128))
 # the screens are checked after each decode family: f32, affine int8,
 # int4 and ternary
 SCREEN_WIRES = {"affine8": "int8", "int4": "int4", "ternary": "ternary"}
@@ -162,6 +172,9 @@ ROW_KERNELS = {"pegasos_update": "src/repro/kernels/pegasos_update.py:63",
                "merge_update": "src/repro/kernels/gossip_merge.py:48"}
 ROW_STEPS = 10          # steps a phase-1 run of each takes through ops.py
 ROW_SHAPES = ((1_000_000, 10), (1_000_000, 57), (4096, 9947))
+# the widths at which phase 1 times #7's tiled layout against its strided
+# one (N = 10^6)
+ROW_SWEEP_WIDTHS = (10, 32, 57, 128)
 # row #8, its two routes' sources, and the shapes of phase 1's sweep of it
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:121"
 FLASH_SOURCES = {
@@ -301,9 +314,13 @@ def compare_kernel(inputs, variant, lam, atol, rtol=1e-5, wire=None,
                    defense="none"):
     """Run the kernel and the plain version on copies of ``inputs`` on the
     card; integer state and the screen's gated/clipped counts must be
-    equal, float state within tolerance. Returns the max abs error over
-    the float state and the (gated, clipped) totals."""
+    equal, float state within tolerance, and under a screen lastModel (the
+    screened, possibly rescaled message) bit for bit where the screen's
+    sums take a known order (``faults.screen_order_known``), which both
+    take. Returns the max abs error over the float state and the (gated,
+    clipped) totals."""
     import torch
+    from repro_torch.core import faults
     from repro_torch.kernels import gossip_cycle as gc
     a = {k: v.clone() for k, v in inputs.items()}
     b = {k: v.clone() for k, v in inputs.items()}
@@ -319,6 +336,12 @@ def compare_kernel(inputs, variant, lam, atol, rtol=1e-5, wire=None,
             raise AssertionError(f"{variant} {defense}: {label} counts "
                                  f"differ in {bad} nodes")
     counts = (int(want[6].sum()), int(want[7].sum()))
+    if (defense != "none" and faults.screen_order_known(a["x"].shape[1])
+            and not torch.equal(a["last_w"].view(torch.int32),
+                                b["last_w"].view(torch.int32))):
+        bad = int((a["last_w"] != b["last_w"]).any(dim=1).sum())
+        raise AssertionError(f"{variant} {defense}: lastModel differs from "
+                             f"the plain version's in {bad} nodes")
     err = 0.0
     for k in STATE:
         if k in INT_FIELDS:
@@ -492,7 +515,7 @@ def compare_send(name, w, ef, key):
     codec = get_codec(name)
     kw = dict(key=key if codec.stochastic else None,
               ef=ef if codec.ef else None)
-    route = gc.send_route(w.shape[1], name, w.data_ptr() % 16 == 0)
+    route = gc.send_route(w.shape[1], name, gc.send_aligned(w, kw["ef"]))
     before = dict(gc.quantize_send.route_launches)
     got = gc.quantize_send(w, name, **kw)
     if gc.quantize_send.route_launches != dict(
@@ -954,11 +977,10 @@ def time_send(captured, threefry: dict):
 
 
 def send_width_sweep(card: str, threefry: dict, dev) -> dict:
-    """The two send routes forced on the same models at N = 10^6 and d =
-    10, 32, 57 and 128 for each codec the tiled route serves: bitwise
-    equal, and each route's ms per launch (where the tiled route is no
-    slower, ``send_route``'s limit may reach). Returns {d: {codec: {...}}}.
-    """
+    """The two send routes forced on the same models (and EF residuals) at
+    N = 10^6 and d = 10, 32, 57 and 128 for every codec: bitwise equal,
+    and each route's ms per launch (where the tiled route is no slower,
+    ``send_route``'s limit may reach). Returns {d: {codec: {...}}}."""
     import torch
     from repro_torch import random
     from repro_torch.core.wire_codec import get_codec
@@ -966,27 +988,28 @@ def send_width_sweep(card: str, threefry: dict, dev) -> dict:
     key = random.key(99, device=dev)
     out = {}
     for d in SEND_SWEEP_WIDTHS:
-        w, _ = send_inputs(d, 1_000_000, d, dev)
+        w, ef = send_inputs(d, 1_000_000, d, dev)
         out[d] = {}
-        for name in TILED_CODECS:
+        for name in TILED_CODECS + EF_CODECS:
             k = key if get_codec(name).stochastic else None
-            tiled = run_send(w, name, k, route="tiled")
-            strided = run_send(w, name, k, route="strided")
+            e = ef if get_codec(name).ef else None
+            tiled = run_send(w, name, k, e, route="tiled")
+            strided = run_send(w, name, k, e, route="strided")
             torch.cuda.synchronize()
-            same_outputs(name, ("codes", "scale", "zp"), tiled, strided,
-                         "strided route")
+            same_outputs(name, ("codes", "scale", "zp/resid"), tiled,
+                         strided, "strided route")
             row = dict(
-                tiled_ms=cuda_time_ms(lambda: run_send(w, name, k,
+                tiled_ms=cuda_time_ms(lambda: run_send(w, name, k, e,
                                                        route="tiled"), 20),
                 strided_ms=cuda_time_ms(lambda: run_send(
-                    w, name, k, route="strided"), 20),
+                    w, name, k, e, route="strided"), 20),
                 bound_ms=send_bound(name, *w.shape, threefry)[0])
             out[d][name] = row
             print(f"[1] {card}: quantize_send {name} N=10^6 d={d}: tiled "
                   f"{row['tiled_ms']:.4f} ms, strided {row['strided_ms']:.4f}"
                   f" ms (bitwise equal), bound {row['bound_ms']:.4f} ms; "
                   f"send_route takes {gc.send_route(d, name)}")
-        del w
+        del w, ef
         torch.cuda.empty_cache()
     return out
 
@@ -1048,14 +1071,85 @@ def rows_bound(name, n: int, d: int):
 
 
 def time_rows(name, inputs, lam):
-    """ms per launch of kernel #6 or #7 through ``kernels/ops.py``, its
-    plain version's ms, and the bound."""
+    """ms per launch of kernel #6 or #7 through ``kernels/ops.py``, the
+    strided layout's ms on the same inputs (the merge's other layout;
+    #6 has only that one), its plain version's ms, and the bound."""
+    from repro_torch.kernels import gossip_merge as gm
     from repro_torch.kernels import ops
     fn = getattr(ops, name)
     ms = cuda_time_ms(lambda: fn(*inputs, lam=lam), reps=20)
+    n, d = inputs[0].shape
+    strided_ms = (cuda_time_ms(lambda: gm._launch_merge(
+        inputs, n, d, lam, route="strided"), reps=20)
+                  if name == "merge_update" else ms)
     plain = row_plain(name)
     plain_ms = cuda_time_ms(lambda: plain(*inputs, lam), reps=10)
-    return (ms, plain_ms) + rows_bound(name, *inputs[0].shape)
+    return (ms, strided_ms, plain_ms) + rows_bound(name, n, d)
+
+
+def hinge_may_flip(inputs):
+    """The rows of a merge (w1, t1, w2, t2, x, y) whose hinge (margin < 1)
+    another order of the margin's sum may decide the other way: the plain
+    version's margin lies within 2 gamma_(d-1) sum_j |m_j x_j| of 1, twice
+    the bound on a float32 sum's rounding error in any order (Higham), the
+    products rounded as both round them. A flipped hinge moves w' by eta y
+    x, far past any float tolerance."""
+    import torch
+    w1, _, w2, _, x, y = inputs
+    terms = (w1 + w2) / 2.0 * x
+    d = x.shape[1]
+    u = 2.0 ** -24
+    gamma = (d - 1) * u / (1 - (d - 1) * u)
+    margin = (y * torch.sum(terms, dim=-1)).double()
+    return (margin - 1.0).abs() <= 2 * gamma * terms.double().abs().sum(-1)
+
+
+def merge_width_sweep(card: str, dev) -> dict:
+    """#7's two layouts forced on the same inputs at N = 10^6 and d = 10,
+    32, 57 and 128: t' equal, w' within ``compare_rows``' tolerance of
+    the plain version on every row whose hinge no sum order can flip
+    (``hinge_may_flip``; at these sizes a few rows lie that close to 1),
+    and each layout's ms per launch (where the tiled layout is no slower,
+    ``row_route``'s limit may reach). Returns {d: {...}}."""
+    import torch
+    from repro_torch.kernels import gossip_merge as gm
+    from repro_torch.kernels import pegasos_update as pu
+    out = {}
+    for d in ROW_SWEEP_WIDTHS:
+        n = 1_000_000
+        inputs = row_inputs(d, n, d, dev, merge=True)
+        got = {route: gm._launch_merge(inputs, n, d, 1e-3, route=route)
+               for route in pu.ROW_ROUTES}
+        pw, pt = row_plain("merge_update")(*inputs, 1e-3)
+        fixed = ~hinge_may_flip(inputs)
+        torch.cuda.synchronize()
+        off = {}
+        for route, (w, t) in got.items():
+            if not (torch.equal(t, pt) and torch.allclose(
+                    w[fixed], pw[fixed], rtol=2e-5, atol=1e-5)):
+                raise AssertionError(f"merge_update {route} d={d}: off the "
+                                     "plain version")
+            off[route] = int((w != pw).any(dim=1).sum())
+        apart = int((got["tiled"][0] != got["strided"][0]).any(dim=1).sum())
+        row = dict(
+            tiled_ms=cuda_time_ms(lambda: gm._launch_merge(
+                inputs, n, d, 1e-3, route="tiled"), 20),
+            strided_ms=cuda_time_ms(lambda: gm._launch_merge(
+                inputs, n, d, 1e-3, route="strided"), 20),
+            bound_ms=rows_bound("merge_update", n, d)[0],
+            rows_not_bitwise=off, rows_apart=apart,
+            hinge_may_flip=int((~fixed).sum()))
+        out[d] = row
+        print(f"[1] {card}: merge_update N=10^6 d={d}: tiled "
+              f"{row['tiled_ms']:.4f} ms, strided {row['strided_ms']:.4f} ms "
+              f"(t equal, w within rtol 2e-5 atol 1e-5 but on the "
+              f"{row['hinge_may_flip']} rows whose hinge an order may flip; "
+              f"rows not bitwise equal to plain {off}, to each other "
+              f"{apart}), bound {row['bound_ms']:.4f} ms; row_route takes "
+              f"{pu.row_route(d, True)}")
+        del inputs, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def flash_inputs(seed, b, s, h, kv, hd, dtype, device, strided=False,
@@ -1228,32 +1322,47 @@ def phase1_rows(card: str, results: dict):
                 "merge_update": gm.merge_update}
     for fn in counters.values():
         fn.launches = 0
+        for route in fn.route_launches:
+            fn.route_launches[route] = 0
     for _ in range(ROW_STEPS):
         w, t = ops.pegasos_update(w, t, x, y, lam=1e-3)
         w1, t1 = ops.merge_update(w1, t1, w2, t2, x2, y2, lam=1e-3)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
+    by_route = {name: dict(fn.route_launches)
+                for name, fn in counters.items()}
     if launches != dict.fromkeys(counters, ROW_STEPS):
         raise AssertionError(f"{ROW_STEPS} steps through ops.py launched "
                              f"{launches}")
+    want_routes = {"pegasos_update": dict(tiled=0, strided=ROW_STEPS),
+                   "merge_update": dict(tiled=ROW_STEPS, strided=0)}
+    if by_route != want_routes:
+        raise AssertionError(f"{ROW_STEPS} steps through ops.py at d={d} "
+                             f"launched by layout {by_route}, expected "
+                             f"{want_routes}")
     if not (torch.equal(t, t6_end) and torch.equal(t1, t7_end)
             and torch.isfinite(w).all() and torch.isfinite(w1).all()):
         raise AssertionError("the steps through ops.py gave wrong counters "
                              "or non-finite models")
     print(f"[1] {ROW_STEPS} steps of pegasos_update and of merge_update "
-          f"through kernels/ops.py at N={n} d={d}: launches {launches}, "
-          "counters as expected, models finite")
+          f"through kernels/ops.py at N={n} d={d}: launches {launches} (by "
+          f"layout {by_route}), counters as expected, models finite")
     out = {}
     for name, inputs in (("pegasos_update", inputs6),
                          ("merge_update", inputs7)):
-        ms, plain_ms, b_ms, by, nbytes = time_rows(name, inputs, 1e-3)
-        print(f"[1] {card}: {name} at N={n} d={d}: {ms:.4f} ms/launch vs "
-              f"bound {b_ms:.4f} ms ({by}, {nbytes} B); plain version "
-              f"{plain_ms:.4f} ms")
+        ms, strided_ms, plain_ms, b_ms, by, nbytes = time_rows(name, inputs,
+                                                               1e-3)
+        route = pu.row_route(d, name == "merge_update")
+        other = (f"; the strided layout {strided_ms:.4f} ms on the same "
+                 "inputs" if route != "strided" else "")
+        print(f"[1] {card}: {name} at N={n} d={d}: {ms:.4f} ms/launch "
+              f"({route}) vs bound {b_ms:.4f} ms ({by}, {nbytes} B)"
+              f"{other}; plain version {plain_ms:.4f} ms")
         out[name] = dict(launches=launches[name], max_abs_err=errs[name],
                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=by)
+                         bound_by=by, row_route=route, strided_ms=strided_ms)
     results["rows"] = out
+    results["merge_width_sweep"] = merge_width_sweep(card, dev)
     return out
 
 
@@ -1489,6 +1598,7 @@ def main() -> int:
     from repro_torch import random
     from repro_torch.configs.gossip_linear import (GossipLinearConfig,
                                                    with_failure_scenario)
+    from repro_torch.core import faults
     from repro_torch.core import sharded_engine as se
     from repro_torch.core.simulation import run_simulation
     from repro_torch.data.synthetic import make_linear_dataset
@@ -1619,6 +1729,22 @@ def main() -> int:
                           f"{err:.3e}; route {took}")
                 del inputs
         torch.cuda.empty_cache()
+    # the screen's sum orders past d = 32 (strided route), lastModel bit for
+    # bit in compare_kernel
+    for si, (n, d) in enumerate(SCREEN_ORDER_SHAPES):
+        inputs = receive_inputs(100 + si, n, d, 10, 4, dev, crafted=True)
+        for defense in DEFENSE_MODES:
+            err, (g, cl) = compare_kernel(inputs, "mu", 1e-3, 1e-5,
+                                          defense=defense)
+            max_err = max(max_err, err)
+            known = ("and lastModel bitwise equal"
+                     if faults.screen_order_known(d) else
+                     "equal (the sum order is not known at this d)")
+            print(f"[1] fused_receive_apply {defense} f32 N={n} d={d} C=10 "
+                  f"K=4 mu: ints and counts (gated {g}, clipped {cl}) "
+                  f"{known}, max abs err {err:.3e}; route "
+                  f"{gc.receive_route(d, 4)}")
+        del inputs
     print(f"[1] fused_receive_apply: {route_cases['grouped']} cases at "
           "d <= 32 on the grouped route, each bitwise equal to the strided "
           f"route on the same inputs; {route_cases['strided']} at K > "
@@ -1861,6 +1987,10 @@ def main() -> int:
             raise AssertionError(f"{wire}: main path launched the send "
                                  f"kernels {sends}, expected {cycles} "
                                  f"{kernel}")
+        if send_routes != dict(tiled=cycles, strided=0):
+            raise AssertionError(f"{wire}: main path's send launches by "
+                                 f"route {send_routes}, expected all "
+                                 f"{cycles} tiled")
         rate = n3 * cycles / wall
         print(f"[4] {card}: {wire} N={n3} d=10 extreme MU K=4 C=10 "
               f"{cycles} cycles: launches receive {launches} (by route "

@@ -18,19 +18,32 @@ Counterpart of ``repro/core/faults.py``:
 
 Every function takes and returns tensors on one device and gives the
 reference's values bit for bit (``apply_defense``'s rescale within the
-rounding of its sums at d > 32); ``byzantine_mask`` is host numpy, as in
-the reference.
+rounding of its sums where XLA's order is not known); ``byzantine_mask``
+is host numpy, as in the reference.
 
-The screen's three sums (``sq``, ``rn``, ``dot``) take XLA's order where it
-is known: at d <= 32 XLA on the CPU adds a row in sequence from +0.0, j =
-0 ... d - 1 (on every one of 20,000 random rows at d = 10 and 32, unpadded
-and zero-padded to 128 lanes; at d = 1 it returns the one term), and
-``_screen_sum`` does the same, as the receive kernel's screen does on the
-card (which at d = 1 may turn a lone -0.0 into +0.0, a sign no comparison
-reads). With the square roots correctly rounded (``_sqrt``) every verdict
-and rescale then equals the reference's bit for bit, exact ties included.
-At d > 32 XLA's order is not sequential and not known here; the sums
-there are ``torch.sum``'s.
+The reference's engines run ``apply_defense`` inside ``jax.jit``, and its
+three sums (``sq``, ``rn``, ``dot``) are the jitted order, which XLA on
+the CPU picks by the row's width d (measured on 3000-4000 random rows a
+width, squares and products, with jax 0.9.0):
+
+* d = 1: the one product;
+* 2 <= d <= 32: fused multiply-adds in sequence from +0.0, ``acc =
+  fma(a_j, b_j, acc)``, j = 0 ... d - 1, except at 5 <= d <= 8, where the
+  products round apart and add in sequence on the rows XLA vectorises in
+  fours, which at 4000 rows are all of them; it fuses the rest (rows past
+  the last full four, most arrays below 16 rows, the choice varying with
+  the fusion), and the port takes the unfused order for every row there
+  (ROADMAP queue 3);
+* 33 <= d <= 64: the rounded products in two halves, j < ceil(d/2) and
+  the rest, each in sequence from +0.0, then the two added;
+* d a multiple of 32: 32-wide chunks, each in sequence, then the chunk
+  sums in sequence (at d = 64 the same as two halves);
+* every other d: not known; ``torch.sum`` here.
+
+``_screen_sum`` takes the two factors of each term and adds them in that
+order, as the receive kernel's screen does on the card. With the square
+roots correctly rounded (``_sqrt``) every verdict and rescale then equals
+the jitted reference's bit for bit, exact ties included.
 
 The reference's arithmetic flushes subnormal floats to zero (XLA on the
 CPU and the TPU both do; PyTorch and CUDA keep them), and the screen's
@@ -39,8 +52,9 @@ coefficient into a subnormal one, whose product with lastModel decides a
 ``cosine_gate`` verdict on sign alone. So ``apply_defense`` flushes, as the
 reference's arithmetic does, its inputs and every product, ratio and
 square root it compares (``_ftz``), and the receive kernel's screen does
-the same. Only the sums are not flushed; their terms are never subnormal,
-so only a cancellation below 2^-126 in ``dot`` could tell them apart.
+the same. Under fusion the flush applies to the inputs and to each fused
+result, never to a product that is not rounded; every partial sum is
+flushed too.
 """
 from __future__ import annotations
 
@@ -219,24 +233,76 @@ def _ftz(x):
     return torch.where(torch.abs(x) < _FLT_MIN, x * 0.0, x)
 
 
-# the widest row whose screen sums are taken in sequence
-SEQUENTIAL_SUM_MAX_WIDTH = 32
+# XLA's order for the screen's row sums, by the row's width d
+FUSED_SUM_MAX_WIDTH = 32          # fused multiply-adds at d <= 32 ...
+UNFUSED_WIDTHS = range(5, 9)      # ... but for these widths
+HALVES_MAX_WIDTH = 64             # two halves at 33 <= d <= 64
+SUM_CHUNK = 32                    # 32-wide chunks at multiples of 32
 
 
-def _screen_sum(terms):
-    """The (m, d) terms' row sums in XLA's order at d <= 32: in sequence
-    from +0.0 over j = 0 ... d - 1 (at d = 1 XLA returns the one term as it
-    is, so a -0.0 stays -0.0); ``torch.sum`` at d > 32."""
-    d = terms.shape[-1]
-    if d > SEQUENTIAL_SUM_MAX_WIDTH:
-        return torch.sum(terms, dim=-1)
-    if d == 1:
-        return terms[..., 0].clone()
+def _fma(a, b, c):
+    """float32 ``fma(a, b, c)``, correctly rounded (PyTorch has no fused
+    multiply-add). The float64 product of two float32 values is exact, so
+    only the add rounds: the float64 sum, rounded to odd with its TwoSum
+    error term, then cast to float32, rounds once, as the fused operation
+    does (a float64 add and a cast alone would round twice)."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c = c.to(torch.float64)
+    s = p + c
+    v = s - p
+    err = (p - (s - v)) + (c - v)             # s + err == p + c exactly
+    bits = s.view(torch.int64)
+    odd = torch.where((err > 0) == (s > 0), bits + 1, bits - 1)
+    inexact = (err != 0) & ((bits & 1) == 0) & torch.isfinite(s)
+    return torch.where(inexact, odd, bits).view(torch.float64).to(a.dtype)
+
+
+def _in_sequence(terms):
+    """The (..., d) terms' row sums added in sequence from +0.0, j = 0 ...
+    d - 1, each partial sum flushed as XLA's arithmetic flushes it."""
     total = torch.zeros(terms.shape[:-1], dtype=terms.dtype,
                         device=terms.device)
-    for j in range(d):
-        total = total + terms[..., j]
+    for j in range(terms.shape[-1]):
+        total = _ftz(total + terms[..., j])
     return total
+
+
+def screen_order_known(d: int) -> bool:
+    """Whether ``_screen_sum`` takes the jitted reference's order at width
+    d (every d up to 64 and the multiples of 32), so that the screen's
+    rescale equals the reference's bit for bit."""
+    return d <= HALVES_MAX_WIDTH or d % SUM_CHUNK == 0
+
+
+def _screen_sum(a, b):
+    """The row sums of ``a * b`` over the (..., d) factors ``a`` and ``b``
+    (flushed), in the order of the jitted reference (the module note).
+    At d = 1 the one product as it is (a -0.0 stays -0.0); at 2 <= d <= 32
+    fused multiply-adds in sequence from +0.0, each result flushed, but
+    for d = 5 ... 8, where the products round apart and add in sequence;
+    at 33 <= d <= 64 the rounded products in two halves, j < ceil(d/2)
+    and the rest, each in sequence, then added; at multiples of 32 above
+    64 32-wide chunks in sequence, then the chunk sums in sequence; at
+    every other d ``torch.sum`` (XLA's order is not known there)."""
+    d = a.shape[-1]
+    if d == 1:
+        return _ftz(a[..., 0] * b[..., 0])
+    if d <= FUSED_SUM_MAX_WIDTH and d not in UNFUSED_WIDTHS:
+        total = torch.zeros(a.shape[:-1], dtype=a.dtype, device=a.device)
+        for j in range(d):
+            total = _ftz(_fma(a[..., j], b[..., j], total))
+        return total
+    terms = _ftz(a * b)
+    if d <= FUSED_SUM_MAX_WIDTH:
+        return _in_sequence(terms)
+    if d <= HALVES_MAX_WIDTH:
+        h = (d + 1) // 2
+        return _ftz(_in_sequence(terms[..., :h])
+                    + _in_sequence(terms[..., h:]))
+    if d % SUM_CHUNK == 0:
+        return _in_sequence(_in_sequence(
+            terms.unflatten(-1, (d // SUM_CHUNK, SUM_CHUNK))))
+    return torch.sum(terms, dim=-1)
 
 
 def _sqrt(x):
@@ -260,8 +326,11 @@ def apply_defense(defense: str, msg_w, valid, recv_w):
         zeros = torch.zeros_like(valid)
         return msg_w, valid, zeros, zeros
     m, r = _ftz(msg_w), _ftz(recv_w)
-    sq = _screen_sum(_ftz(m * m))
-    rn = _screen_sum(_ftz(r * r))
+    if defense == "cosine_gate":    # the three sums in one pass
+        sq, rn, dot = _screen_sum(torch.stack((m, r, m)),
+                                  torch.stack((m, r, r)))
+    else:
+        sq, rn = _screen_sum(torch.stack((m, r)), torch.stack((m, r)))
     finite = torch.isfinite(sq)            # NaN/inf anywhere poisons the sum
     if defense == "norm_clip":
         thr = torch.clamp_min(NORM_CLIP_MULT_SQ * rn, NORM_CLIP_FLOOR_SQ)
@@ -270,7 +339,6 @@ def apply_defense(defense: str, msg_w, valid, recv_w):
         msg_w = torch.where(clip[:, None], _ftz(m * scale[:, None]), msg_w)
         return msg_w, valid & finite, valid & ~finite, valid & clip
     if defense == "cosine_gate":
-        dot = _screen_sum(_ftz(m * r))
         anti = (rn > COSINE_GATE_MIN_NORM_SQ) & (
             dot < COSINE_GATE_THRESHOLD_F32 * _sqrt(_ftz(sq * rn)))
         reject = ~finite | anti

@@ -36,12 +36,16 @@
 //
 // Screen (template argument F), between the decode and the merge of every
 // valid round, against the current lastModel lw, with sq = sum m^2 and
-// rn = sum lw^2 (shuffle sums; nothing is padded, so nothing is masked). At
-// d <= 32 the screen's sums (sq, rn, dot) are XLA's: the d terms read in
-// lane order by __shfl_sync and added in sequence from +0.0 (screen_sums),
-// as faults._screen_sum adds them, so verdicts on exact ties are the
-// reference's; at d > 32 they are 32-lane butterflies (warp_sum). The
-// screens:
+// rn = sum lw^2 (shuffle sums; nothing is padded, so nothing is masked).
+// The screen's sums (sq, rn, dot) take the order of the jitted reference,
+// the order its engines run (faults._screen_sum and its note): at d <= 32
+// each term's two factors are read in lane order by __shfl_sync and
+// added from +0.0 by fused multiply-adds in sequence (the products
+// rounded apart at 5 <= d <= 8; screen_sums); at 33 <= d <= 64 the
+// rounded products in two halves (sum_halves), and at multiples of 32
+// in 32-wide chunks, both on the strided route only; so verdicts on exact
+// ties are the reference's. At other d the order is not known, and the
+// sums are 32-lane butterflies (warp_sum). The screens:
 //   none         nothing; the gated/clipped counts stay 0;
 //   norm_clip    thr = max(4 rn, 1); a non-finite sq rejects the message,
 //                sq > thr rescales it by sqrt(thr / max(sq, 1e-30));
@@ -128,8 +132,8 @@
 // The round loop is uniform across the warp (a round no group of the warp
 // receives is skipped by __any_sync), so every shuffle runs with all 32
 // lanes; a group whose round is not valid, or whose message was rejected,
-// predicates its work off. The screen's sums are sequential on both routes
-// (screen_sums); the margins are xor butterflies over the group's G lanes
+// predicates its work off. The screen's sums take the same order on both
+// routes (screen_sums); the margins are xor butterflies over the group's G lanes
 // (group_sum): for d <= G the 32-lane tree's other levels add only +0.0 to
 // each lane's one term, and no partial sum is -0.0 (each starts at +0.0),
 // so the two trees give the same bits, and the grouped route gives the
@@ -147,6 +151,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tiled.cuh"  // the cp.async helpers
 
 namespace {
 
@@ -184,6 +190,9 @@ constexpr float kGateMinNormSq = 1e-6f;    // COSINE_GATE_MIN_NORM ** 2
 constexpr float kGateThreshold = -0.2f;    // COSINE_GATE_THRESHOLD
 constexpr float kFltMin = 1.17549435e-38f;  // smallest normal float
 constexpr float kNoClip = -1.0f;  // clip factor of a message not rescaled
+// the widths whose screen sums the jitted reference does not fuse
+constexpr int kUnfusedMin = 5;
+constexpr int kUnfusedMax = 8;
 
 // bytes per payload element
 template <int M>
@@ -291,26 +300,93 @@ __device__ __forceinline__ float group_sum(float v, int g) {
   return v;
 }
 
-// The screen's sums at d <= 32 in XLA's order: each of sq, rn and (with
-// DOT) dot holds one term a lane, coefficient j of the node on lane base +
-// j, and becomes the sum of the node's d terms added in sequence from +0.0,
-// j = 0 ... d - 1 (faults._screen_sum). A lane's term is 0.0f + its
-// product, never -0.0, which a sequential sum from +0.0 cannot tell from
-// the product itself (at d = 1, where XLA returns the one term, a lone
-// -0.0 dot becomes +0.0, a sign no comparison reads). Every lane of the
-// warp must call it.
+// a b + c rounded once, a b and a + b, with subnormal operands and results
+// flushed to a zero of their sign (the .ftz forms), as the reference's
+// arithmetic flushes them
+__device__ __forceinline__ float fma_ftz(float a, float b, float c) {
+  float r;
+  asm("fma.rn.ftz.f32 %0, %1, %2, %3;" : "=f"(r) : "f"(a), "f"(b), "f"(c));
+  return r;
+}
+__device__ __forceinline__ float mul_ftz(float a, float b) {
+  float r;
+  asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float add_ftz(float a, float b) {
+  float r;
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// The screen's sums at d <= 32 in the jitted reference's order
+// (faults._screen_sum): coefficient j of the node lies on lane base + j,
+// where m and l hold its two factors (flushed; +0.0 where the node's round
+// is not active), and sq = sum m m, rn = sum l l and (with DOT) dot =
+// sum m l read them in lane order and add from +0.0: at d = 1 the one
+// product; at kUnfusedMin <= d <= kUnfusedMax the products rounded apart,
+// in sequence; at every other d fused multiply-adds in sequence. Each
+// result is flushed, as the reference's arithmetic flushes it, by the
+// instruction's own .ftz form (the inputs are flushed already): on an H100
+// at 700 W that took the cosine_gate screen at N = 10^6, d = 10 from 0.90
+// ms to 0.67 ms a launch against a flush after each operation, and the
+// loops stay rolled (unrolled, some instantiations spill). Every lane of
+// the warp must call it.
 template <bool DOT>
-__device__ __forceinline__ void screen_sums(float& sq, float& rn, float& dot,
-                                            int base, int d) {
+__device__ __forceinline__ void screen_sums(float m, float l, float& sq,
+                                            float& rn, float& dot, int base,
+                                            int d) {
   float s = 0.0f, r = 0.0f, t = 0.0f;
-  for (int j = 0; j < d; ++j) {
-    s += __shfl_sync(0xffffffffu, sq, base + j);
-    r += __shfl_sync(0xffffffffu, rn, base + j);
-    if (DOT) t += __shfl_sync(0xffffffffu, dot, base + j);
+  if (d == 1) {
+    const float mj = __shfl_sync(0xffffffffu, m, base);
+    const float lj = __shfl_sync(0xffffffffu, l, base);
+    s = ftz(mj * mj);
+    r = ftz(lj * lj);
+    if (DOT) t = ftz(mj * lj);
+  } else if (d < kUnfusedMin || d > kUnfusedMax) {
+#pragma unroll 1
+    for (int j = 0; j < d; ++j) {
+      const float mj = __shfl_sync(0xffffffffu, m, base + j);
+      const float lj = __shfl_sync(0xffffffffu, l, base + j);
+      s = fma_ftz(mj, mj, s);
+      r = fma_ftz(lj, lj, r);
+      if (DOT) t = fma_ftz(mj, lj, t);
+    }
+  } else {
+#pragma unroll 1
+    for (int j = 0; j < d; ++j) {
+      const float mj = __shfl_sync(0xffffffffu, m, base + j);
+      const float lj = __shfl_sync(0xffffffffu, l, base + j);
+      s = add_ftz(s, mul_ftz(mj, mj));
+      r = add_ftz(r, mul_ftz(lj, lj));
+      if (DOT) t = add_ftz(t, mul_ftz(mj, lj));
+    }
   }
   sq = s;
   rn = r;
   if (DOT) dot = t;
+}
+
+// acc plus v of lanes from ... to - 1, added in lane order, each partial
+// sum flushed; every lane of the warp must call it
+__device__ __forceinline__ float lanes_in_sequence(float acc, float v,
+                                                   int from, int to) {
+#pragma unroll 1
+  for (int j = from; j < to; ++j) {
+    acc = ftz(acc + __shfl_sync(0xffffffffu, v, j));
+  }
+  return acc;
+}
+
+// the sum of a row of 32 < d <= 64 rounded terms, term j on lane j % 32 of
+// t0 (j < 32) or t1, as two halves, j < ceil(d / 2) and the rest, each in
+// sequence from +0.0, then added (the jitted reference's order there)
+__device__ __forceinline__ float sum_halves(float t0, float t1, int d) {
+  const int h = (d + 1) / 2;
+  const float a = lanes_in_sequence(0.0f, t0, 0, h);
+  const float b = lanes_in_sequence(lanes_in_sequence(0.0f, t0, h, kWarp),
+                                    t1, 0, d - kWarp);
+  return ftz(a + b);
 }
 
 // the screen's verdict on the summed sq, rn and dot (dot is read only by
@@ -394,23 +470,43 @@ fused_receive_kernel(float* __restrict__ last_w, int* __restrict__ last_t,
       return F == kNormClip ? rescaled(v, prev_f) : v;
     };
 
-    // the screen against the current lastModel
+    // the screen against the current lastModel, its sums in the jitted
+    // reference's order where that is known (the note above)
     float f = kNoClip;
     if constexpr (F != kNone) {
+      constexpr bool kDot = F == kCosineGate;
+      // the factors of coefficient j, flushed, and +0.0 past d
+      auto mf = [&](int j) { return j < d ? ftz(raw(j)) : 0.0f; };
+      auto lf = [&](int j) { return j < d ? ftz(l(j)) : 0.0f; };
       float sq = 0.0f, rn = 0.0f, dot = 0.0f;
-      for (int j = lane; j < d; j += kWarp) {
-        const float mj = ftz(raw(j));
-        const float lj = ftz(l(j));
-        sq += ftz(mj * mj);
-        rn += ftz(lj * lj);
-        if (F == kCosineGate) dot += ftz(mj * lj);
-      }
-      if (d <= kWarp) {  // one term a lane
-        screen_sums<F == kCosineGate>(sq, rn, dot, 0, d);
-      } else {
+      if (d <= kWarp) {
+        screen_sums<kDot>(mf(lane), lf(lane), sq, rn, dot, 0, d);
+      } else if (d <= 2 * kWarp) {
+        const float m0 = mf(lane), m1 = mf(lane + kWarp);
+        const float l0 = lf(lane), l1 = lf(lane + kWarp);
+        sq = sum_halves(ftz(m0 * m0), ftz(m1 * m1), d);
+        rn = sum_halves(ftz(l0 * l0), ftz(l1 * l1), d);
+        if (kDot) dot = sum_halves(ftz(m0 * l0), ftz(m1 * l1), d);
+      } else if (d % kWarp == 0) {  // 32-wide chunks, then their sums
+        for (int c0 = 0; c0 < d; c0 += kWarp) {
+          const float mj = mf(c0 + lane), lj = lf(c0 + lane);
+          sq = ftz(sq + lanes_in_sequence(0.0f, ftz(mj * mj), 0, kWarp));
+          rn = ftz(rn + lanes_in_sequence(0.0f, ftz(lj * lj), 0, kWarp));
+          if (kDot) {
+            dot = ftz(dot + lanes_in_sequence(0.0f, ftz(mj * lj), 0, kWarp));
+          }
+        }
+      } else {  // the order is not known: 32-lane butterflies
+        for (int j = lane; j < d; j += kWarp) {
+          const float mj = ftz(raw(j));
+          const float lj = ftz(l(j));
+          sq += ftz(mj * mj);
+          rn += ftz(lj * lj);
+          if (kDot) dot += ftz(mj * lj);
+        }
         sq = warp_sum(sq);
         rn = warp_sum(rn);
-        if (F == kCosineGate) dot = warp_sum(dot);
+        if (kDot) dot = warp_sum(dot);
       }
       const bool reject = screen_rejects<F>(sq, rn, dot, f);
       if (f != kNoClip) clipped += 1;
@@ -484,23 +580,6 @@ fused_receive_kernel(float* __restrict__ last_w, int* __restrict__ last_t,
     ptr[i] = p;
     count[i] = cnt;
   }
-}
-
-// 4 bytes from global to shared memory, asynchronously (cp.async)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most one group of this thread's copies is in flight
-__device__ __forceinline__ void cp_async_wait_all_but_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // Trip 1 of one stage of kGroupedThreads nodes, thread t's node base + t:
@@ -641,15 +720,9 @@ fused_receive_grouped_kernel(
         // the screen against the current lastModel
         float f = kNoClip;
         if constexpr (F != kNone) {
-          float sq = 0.0f, rn = 0.0f, dot = 0.0f;
-          if (on) {
-            const float mj = ftz(raw);
-            const float lj = ftz(lcur);
-            sq += ftz(mj * mj);
-            rn += ftz(lj * lj);
-            if (F == kCosineGate) dot += ftz(mj * lj);
-          }
-          screen_sums<F == kCosineGate>(sq, rn, dot,
+          float sq, rn, dot = 0.0f;
+          screen_sums<F == kCosineGate>(on ? ftz(raw) : 0.0f,
+                                        on ? ftz(lcur) : 0.0f, sq, rn, dot,
                                         (threadIdx.x % kWarp) & ~(g - 1), d);
           const bool reject = screen_rejects<F>(sq, rn, dot, f);
           if (f != kNoClip) clipped += act;
@@ -718,8 +791,7 @@ fused_receive_grouped_kernel(
       }
     }
   }
-  // the last (empty) group of copies: nothing is left in flight
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  cp_async_wait_all();  // the last (empty) group: nothing left in flight
 }
 
 struct Args {

@@ -20,24 +20,50 @@
 // version's, so w' equals the plain version bit for bit except in a row
 // whose margin lies within that sum's rounding of 1; t' always equals it.
 //
-// Layout: narrow rows (d < kWideD) take one warp each, kRows rows a
-// 256-thread block; lanes stride over d (no padding: the loop bound masks
-// the ragged edge, so one layout serves d = 10 and 57) and the margin is a
-// warp-shuffle sum. Wide rows (d >= kWideD, Reuters' d = 9947) take a
-// whole block each: the margin is tiled over d across the block's eight
-// warps, each warp's partial sum goes to shared memory and every thread
-// adds the eight in warp order, so the sum's order is fixed and the result
-// reproducible. Both passes over a row (margin, then update) read w and x
-// again; the second read of a row hits the cache.
+// Two layouts for the merge, chosen before the launch by
+// pegasos_update.py::row_route (the merge's C entry takes the choice as an
+// argument and refuses a tiled launch outside its range); the step alone
+// (#6) takes the strided layout only.
 //
-// Bound: device memory (3.35 TB/s on an H100 SXM). A launch must read w
-// (w1 and w2 for the merge), x, t and y once and write w' and t' once:
-// 12 d + 12 bytes a row (16 d + 16 with the merge), against about 5
-// operations an element (7 with the merge). Compile with --fmad=false, as
-// the other kernels.
-
+// strided (the first layout; every d): narrow rows (d < kWideD) take one
+// warp each, kRows rows a 256-thread block; lanes stride over d (no
+// padding: the loop bound masks the ragged edge, so one layout serves
+// d = 10 and 57) and the margin is a warp-shuffle sum. Wide rows
+// (d >= kWideD, Reuters' d = 9947) take a whole block each: the margin is
+// tiled over d across the block's eight warps, each warp's partial sum
+// goes to shared memory and every thread adds the eight in warp order, so
+// the sum's order is fixed and the result reproducible. Both passes over a
+// row (margin, then update) read w and x again; the second read of a row
+// hits the cache. At d = 10 it is latency-bound: 22 of 32 lanes idle, a
+// five-level shuffle for a 10-term margin, 4-byte loads from scattered
+// 40-byte rows, and two passes that each read w1, w2 and x.
+//
+// tiled (the merge at d <= kMergeTiledMaxWidth, every operand on a 16-byte
+// boundary; row_route sends it up to the widest d of chip_smoke.py's sweep
+// (10, 32, 57, 128) at which it beats the strided layout on an H100):
+// tiled.cuh's walk, persistent blocks of 256 threads over tiles of R rows,
+// each tile of w1, w2 and x (R d floats) and of t1, t2 and y (R values)
+// copied with 16-byte cp.async into a ring of two slots. R is as many rows
+// as a slot of kMergeSlotBytes holds (a multiple of 16, at least 16):
+// 112 at d = 10, a 36 KB block, six blocks an SM, each with a 15 KB slot
+// in flight. On a landed tile:
+//   1. an element pass over the flat tile forms m = (w1 + w2) / 2 in place
+//      of w1's tile and the product m x into a copy of the tile whose rows
+//      are an odd number of floats apart (d, or d + 1 for even d);
+//   2. a row pass, one thread a row, sums that row's products in j order
+//      from +0.0 (the odd row pitch spreads a warp's reads over all 32
+//      banks), then forms t' (written out, coalesced), eta, the decay, the
+//      hinge and eta y;
+//   3. an element pass writes w' = decay m + [hinge] (eta y) x, four
+//      elements a thread, 16-byte stores, coalesced.
+// Every row is read once and written once; only the margin's order
+// differs from the strided layout's, so the two give the same t' and the
+// same w' but in a row whose margin lies within that sum's rounding of 1.
+//
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tiled.cuh"
 
 namespace {
 
@@ -45,6 +71,20 @@ constexpr int kWarp = 32;
 constexpr int kThreads = 256;
 constexpr int kWarpsPerBlock = kThreads / kWarp;
 constexpr int kWideD = 1024;  // rows at least this wide take a whole block
+
+// the merge's tiled layout
+constexpr int kMergeSlotBytes = 16384;     // a slot's tiles at most
+constexpr int kMergeTiledMaxWidth = 128;   // d it takes at most (16 rows)
+
+enum Route { kTiled = 0, kStrided = 1 };
+
+// rows a tile of the tiled merge holds at width d: w1, w2 and x (d floats
+// each) and t1, t2 and y a row (pegasos_update.py::merge_tile_rows)
+int merge_rows(int d) { return tiled_rows(4 * (3 * d + 3), kMergeSlotBytes); }
+
+// the row pitch of the tiled merge's products: odd, so that the row pass's
+// reads of one column by a warp's 32 rows fall in 32 banks
+__host__ __device__ __forceinline__ int product_pitch(int d) { return d | 1; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -113,6 +153,109 @@ pegasos_kernel(const float* __restrict__ w1, const int* __restrict__ t1,
   if (r == 0) t_out[i] = t;
 }
 
+// The tiled merge (the note above). A slot holds, in order, the tiles of
+// w1, w2, x (R d floats each), t1, t2 and y (R each); behind the two slots
+// lie the products (R rows at product_pitch(d)) and each row's decay, eta
+// y and hinge.
+__global__ void __launch_bounds__(kTiledThreads)
+merge_tiled_kernel(const float* __restrict__ w1, const int* __restrict__ t1,
+                   const float* __restrict__ w2, const int* __restrict__ t2,
+                   const float* __restrict__ x, const float* __restrict__ y,
+                   float* __restrict__ w_out, int* __restrict__ t_out, int n,
+                   int d, float lam, int rows_per_tile, int tiles) {
+  extern __shared__ __align__(16) float smem[];
+  const int tile = rows_per_tile * d;
+  const int slot = 3 * tile + 3 * rows_per_tile;
+  const int pitch = product_pitch(d);
+  float* s_prod = smem + 2 * slot;
+  float* s_decay = s_prod + rows_per_tile * pitch;
+  float* s_coef = s_decay + rows_per_tile;
+  int* s_hinge = reinterpret_cast<int*>(s_coef + rows_per_tile);
+  auto stage = [&](int buf, int t) {
+    float* sl = smem + buf * slot;
+    stage_tile(sl, w1, t, rows_per_tile, n, d);
+    stage_tile(sl + tile, w2, t, rows_per_tile, n, d);
+    stage_tile(sl + 2 * tile, x, t, rows_per_tile, n, d);
+    stage_tile(sl + 3 * tile, t1, t, rows_per_tile, n, 1);
+    stage_tile(sl + 3 * tile + rows_per_tile, t2, t, rows_per_tile, n, 1);
+    stage_tile(sl + 3 * tile + 2 * rows_per_tile, y, t, rows_per_tile, n, 1);
+  };
+  walk_tiles(n, rows_per_tile, tiles, stage,
+             [&](int buf, int64_t r0, int rows) {
+    float* s_m = smem + buf * slot;  // w1's tile, then the merged model
+    const float* s_w2 = s_m + tile;
+    const float* s_x = s_m + 2 * tile;
+    const int* s_t1 = reinterpret_cast<const int*>(s_m + 3 * tile);
+    const int* s_t2 = s_t1 + rows_per_tile;
+    const float* s_y = s_m + 3 * tile + 2 * rows_per_tile;
+    const int elems = rows * d;
+    // 1. the merge and the margin's products, a flat element a thread
+    for (int e = threadIdx.x; e < elems; e += kTiledThreads) {
+      const float m = (s_m[e] + s_w2[e]) / 2.0f;
+      const int row = e / d;
+      s_m[e] = m;
+      s_prod[row * pitch + (e - row * d)] = m * s_x[e];
+    }
+    __syncthreads();
+    // 2. the margin in j order from +0.0 and the step's scalars, a thread
+    // a row
+    const int r = threadIdx.x;
+    if (r < rows) {
+      const float* pr = s_prod + r * pitch;
+      float acc = 0.0f;
+      for (int j = 0; j < d; ++j) acc += pr[j];
+      const int t = max(s_t1[r], s_t2[r]) + 1;
+      const float yi = s_y[r];
+      const float eta = 1.0f / (lam * static_cast<float>(t));
+      s_decay[r] = 1.0f - eta * lam;
+      s_coef[r] = eta * yi;
+      s_hinge[r] = yi * acc < 1.0f;
+      t_out[r0 + r] = t;
+    }
+    __syncthreads();
+    // 3. w' four flat elements a thread (a tile is a multiple of four
+    // floats long, and its offset in w' a multiple of 16 bytes)
+    float* ot = w_out + r0 * d;
+    for (int e = 4 * threadIdx.x; e < elems; e += 4 * kTiledThreads) {
+      const float4 m4 = *reinterpret_cast<const float4*>(s_m + e);
+      const float4 x4 = *reinterpret_cast<const float4*>(s_x + e);
+      const float m[4] = {m4.x, m4.y, m4.z, m4.w};
+      const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+      float out[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      int row = e / d;
+      int col = e - row * d;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (e + i < elems) {
+          out[i] = s_decay[row] * m[i] +
+                   (s_hinge[row] ? s_coef[row] * xv[i] : 0.0f);
+        }
+        if (++col == d) {
+          col = 0;
+          ++row;
+        }
+      }
+      if (e + 4 <= elems) {
+        *reinterpret_cast<float4*>(ot + e) =
+            make_float4(out[0], out[1], out[2], out[3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (e + i < elems) ot[e + i] = out[i];
+        }
+      }
+    }
+  });
+}
+
+// dynamic shared memory of a tiled merge launch (the kernel's layout)
+size_t merge_smem(int d) {
+  const int rows = merge_rows(d);
+  return sizeof(float) *
+         (2 * (3 * static_cast<size_t>(rows) * d + 3 * rows) +
+          static_cast<size_t>(rows) * product_pitch(d) + 3 * rows);
+}
+
 template <bool kMerge>
 void launch(const float* w1, const int* t1, const float* w2, const int* t2,
             const float* x, const float* y, float* w_out, int* t_out, int n,
@@ -145,13 +288,32 @@ extern "C" int pegasos_update(const float* w, const int* t, const float* x,
 }
 
 // The same with the merge prologue: w1, w2 (N, d) f32 and t1, t2 (N,) i32.
+// route: 0 = tiled (d <= 128 and every pointer on a 16-byte boundary
+// only), 1 = strided.
 extern "C" int merge_update(const float* w1, const int* t1, const float* w2,
                             const int* t2, const float* x, const float* y,
                             float* w_out, int* t_out, int n, int d,
-                            float lam, void* stream) {
-  if (n > 0) {
-    launch<true>(w1, t1, w2, t2, x, y, w_out, t_out, n, d, lam,
-                 static_cast<cudaStream_t>(stream));
+                            float lam, int route, void* stream) {
+  if (route != kTiled && route != kStrided) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (route == kTiled &&
+      (d > kMergeTiledMaxWidth || !aligned16(w1) || !aligned16(t1) ||
+       !aligned16(w2) || !aligned16(t2) || !aligned16(x) || !aligned16(y) ||
+       !aligned16(w_out) || !aligned16(t_out))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kStrided) {
+    launch<true>(w1, t1, w2, t2, x, y, w_out, t_out, n, d, lam, s);
+  } else {
+    const int rows = merge_rows(d);
+    const int tiles = tiles_for(n, rows);
+    const size_t smem = merge_smem(d);
+    const unsigned blocks = tiled_blocks(merge_tiled_kernel, tiles, smem);
+    merge_tiled_kernel<<<blocks, kTiledThreads, smem, s>>>(
+        w1, t1, w2, t2, x, y, w_out, t_out, n, d, lam, rows, tiles);
   }
   return static_cast<int>(cudaGetLastError());
 }

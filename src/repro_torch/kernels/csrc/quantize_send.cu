@@ -37,35 +37,44 @@
 // C entries take the choice as an argument and refuse a tiled launch
 // outside its range):
 //
-// strided (the first layout; every d, and the only one for the _ef codecs):
-// one warp per message row, kRowsPerBlock rows per block. The row's range
-// is a warp-shuffle reduction over lanes striding over d; then lanes stride
-// over the output. For the packed codecs a lane owns whole output bytes
-// (its 2 or 5 codes), so no two lanes write one byte. Rows are read and
-// written element by element: a packed row of ceil(d/2) or ceil(d/5) bytes
-// starts at any byte. At d = 10 it is latency-bound:
+// strided (the first layout; every d): one warp per message row,
+// kRowsPerBlock rows per block. The row's range is a warp-shuffle
+// reduction over lanes striding over d; then lanes stride over the output.
+// For the packed codecs a lane owns whole output bytes (its 2 or 5 codes),
+// so no two lanes write one byte. Rows are read and written element by
+// element: a packed row of ceil(d/2) or ceil(d/5) bytes starts at any
+// byte. At d = 10 it is latency-bound:
 //   1. lanes: 22 of 32 idle in the range pass; ternary's code loop has
 //      cols = 2, so 2 of 32 lanes run, each five IEEE divisions in a row,
-//      and int8_sr's threefry runs on 10 lanes;
+//      and int8_sr's threefry runs on 10 lanes; under error feedback the
+//      residual goes out from those lanes, five or two strided floats each,
+//      and w and ef are read element by element, twice;
 //   2. bytes in flight: a warp loads its 40-byte row, waits, reduces, and
 //      reads the row again; blocks of 8 rows keep ~2.5 KB an SM in flight
 //      where 3.35 TB/s over ~1 us of latency asks for ~25 KB;
 //   3. stores: 1- and 2-byte payload stores from a few lanes, and the f16
 //      scale from lane 0 of each warp.
 //
-// tiled (the codecs without error feedback, w on a 16-byte boundary, d up
-// to kTiledMaxWidth; send_route sends it d <= 57, the widest width of
-// chip_smoke.py's sweep (10, 32, 57, 128) at which it beats the strided
-// kernels on an H100): persistent blocks of kTiledThreads threads walk tiles
-// of R rows (tiled_rows(d): a multiple of 16, at most 256, a tile at most
-// kTiledSlotBytes), tile blockIdx.x, + gridDim.x, ... A tile of w is one
-// contiguous run of R d floats, and R a multiple of 16 puts every tile's
-// byte offsets (input, int8 codes, packed bytes) on 16-byte boundaries.
-// What it does about each cause:
-//   2. the tile is copied into shared memory with 16-byte cp.async (the
+// tiled (every codec, d up to kTiledMaxWidth, w, and ef and the residual
+// under error feedback, on 16-byte boundaries; send_route sends it d <= 57,
+// the widest width of chip_smoke.py's sweep (10, 32, 57, 128) at which it
+// beats the strided kernels on an H100): tiled.cuh's walk, persistent
+// blocks of kTiledThreads threads over tiles of R rows, tile blockIdx.x,
+// + gridDim.x, ... A tile of w (and of ef) is one contiguous run of R d
+// floats, and R a multiple of 16 puts every tile's byte offsets (inputs,
+// int8 codes, packed bytes, residual) on 16-byte boundaries. R is as many
+// rows as a slot of kTiledSlotBytes holds (send_rows), at most 256: the
+// slot holds the tiles of all staged inputs, so under error feedback R is
+// smaller past d = 16 (d = 10: 256 rows either way; d = 32: 128, not 256;
+// d = 57: 64, not 128). That keeps a block's shared memory at most ~66 KB:
+// three blocks an SM at d = 32 and 57, five at d = 10 (43 KB), each with a
+// 20-32 KB slot in flight; two slots of 2 x 29 KB at d = 57 would leave
+// one block an SM. What it does about each cause:
+//   2. the tiles are copied into shared memory with 16-byte cp.async (the
 //      ragged last tile element by element), into a ring of two slots: the
 //      next tile's copy is in flight while this one is encoded, and a
-//      block's whole tile (10 KB at d = 10) is in flight at once;
+//      block's whole tile (10 KB at d = 10, 20 KB with ef) is in flight at
+//      once;
 //   1. the range pass is one thread a row, from shared memory (each thread
 //      starts at its own column so a warp's reads spread over the banks;
 //      with -0.0 ordered below +0.0 the reduction is order-free); the code
@@ -73,10 +82,15 @@
 //      four consecutive elements of the flat tile (element e of the tile is
 //      q[r0 d + e], its noise position r0 d + e as on the strided route), so
 //      all 32 lanes run threefry; for the packed codecs one thread per
-//      output byte of the tile's contiguous R ceil(d / G) bytes;
+//      output byte of the tile's contiguous R ceil(d / G) bytes. Under error
+//      feedback x = w + ef is formed once, in place of w's tile, before the
+//      passes read it, and a residual pass of four flat elements a thread
+//      recomputes each code (the same IEEE division) and writes x - code
+//      scale;
 //   3. the codes go out four bytes a thread, the packed bytes one a thread
-//      with neighbouring threads on neighbouring bytes, and the f16 scale
-//      (and zero-point) one a thread, R consecutive halves a tile.
+//      with neighbouring threads on neighbouring bytes, the residual 16
+//      bytes a thread, and the f16 scale (and zero-point) one a thread, R
+//      consecutive halves a tile.
 // The codes past d in the last byte are code 0 (nibble 0, trit digit 1), as
 // pack_int4 and pack_ternary pad, on both routes. The kernels write new
 // tensors that the wrapper allocates; the engine copies them into the
@@ -97,6 +111,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "tiled.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -104,19 +120,17 @@ constexpr int kRowsPerBlock = 8;
 constexpr float kF16Max = 65504.0f;
 constexpr float kInt8Qmax = 126.0f;
 
-// the tiled route
-constexpr int kTiledThreads = 256;
-constexpr int kTiledMaxRows = 256;      // rows a tile at most
-constexpr int kTiledSlotBytes = 32768;  // a tile of w at most
-constexpr int kTiledMaxWidth = 128;     // d it takes at most (64 rows)
+// the tiled route (the walk itself is tiled.cuh's)
+constexpr int kTiledSlotBytes = 32768;  // a slot's tiles of w (and ef)
+constexpr int kTiledMaxWidth = 128;     // d it takes at most (32-64 rows)
 
 enum Route { kTiled = 0, kStrided = 1 };
 
-// rows a tile at width d: as many as one slot holds, a multiple of 16, at
-// most kTiledMaxRows (gossip_cycle.py::send_tile_rows)
-int tiled_rows(int d) {
-  const int r = kTiledSlotBytes / (4 * d) / 16 * 16;
-  return r < kTiledMaxRows ? r : kTiledMaxRows;
+// rows a tile at width d with `inputs` (n, d) float inputs staged (w, and
+// ef under error feedback): as many as one slot holds, a multiple of 16,
+// at most kTiledMaxRows (gossip_cycle.py::send_tile_rows)
+int send_rows(int d, int inputs) {
+  return tiled_rows(4 * d * inputs, kTiledSlotBytes);
 }
 
 // min / max that keep a NaN operand and order -0.0 below +0.0, as
@@ -322,91 +336,6 @@ unsigned blocks_for(int n) {
 // the tiled route: persistent blocks, tiles of R rows through shared memory
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most one group of this thread's copies is in flight
-__device__ __forceinline__ void cp_async_wait_all_but_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// the rows of tile `tile`: R, or fewer in the ragged last tile
-__device__ __forceinline__ int tile_rows(int tile, int rows_per_tile, int n) {
-  const int64_t left = n - static_cast<int64_t>(tile) * rows_per_tile;
-  return left < rows_per_tile ? static_cast<int>(left) : rows_per_tile;
-}
-
-// Copy tile `tile` of w (one contiguous run of rows d floats) into `dst`,
-// asynchronously: a full tile in 16-byte copies (its start and length are
-// multiples of 16 bytes), the ragged last tile element by element.
-__device__ __forceinline__ void stage_tile(float* dst,
-                                           const float* __restrict__ w,
-                                           int tile, int rows_per_tile, int n,
-                                           int d) {
-  const int rows = tile_rows(tile, rows_per_tile, n);
-  const float* src = w + static_cast<int64_t>(tile) * rows_per_tile * d;
-  if (rows == rows_per_tile) {
-    const int chunks = rows * d / 4;
-    for (int c = threadIdx.x; c < chunks; c += kTiledThreads) {
-      cp_async16(dst + 4 * c, src + 4 * c);
-    }
-  } else {
-    const int elems = rows * d;
-    for (int e = threadIdx.x; e < elems; e += kTiledThreads) {
-      cp_async4(dst + e, src + e);
-    }
-  }
-}
-
-// Walk this block's tiles, blockIdx.x, + gridDim.x, ..., with the next
-// tile's copy in flight while encode(tile in shared memory, first row,
-// rows) runs on this one. smem holds the two slots of rows_per_tile d
-// floats each.
-template <typename Encode>
-__device__ __forceinline__ void walk_tiles(const float* __restrict__ w,
-                                           int n, int d, int rows_per_tile,
-                                           int tiles, float* smem,
-                                           Encode encode) {
-  const int slot = rows_per_tile * d;
-  if (static_cast<int>(blockIdx.x) < tiles) {
-    stage_tile(smem, w, blockIdx.x, rows_per_tile, n, d);
-  }
-  cp_async_commit();
-  int buf = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, buf ^= 1) {
-    // every thread is done with the other slot (the previous tile) and
-    // with the per-row scalars, so the next tile may land there
-    __syncthreads();
-    const int next = tile + gridDim.x;
-    if (next < tiles) {
-      stage_tile(smem + (buf ^ 1) * slot, w, next, rows_per_tile, n, d);
-    }
-    cp_async_commit();
-    cp_async_wait_all_but_one();  // this tile's copies have landed
-    __syncthreads();
-    encode(smem + buf * slot,
-           static_cast<int64_t>(tile) * rows_per_tile,
-           tile_rows(tile, rows_per_tile, n));
-  }
-  // the last (empty) group of copies: nothing is left in flight
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 template <bool SR>
 __global__ void __launch_bounds__(kTiledThreads)
 affine8_tiled_kernel(const float* __restrict__ w,
@@ -422,8 +351,13 @@ affine8_tiled_kernel(const float* __restrict__ w,
     k0 = static_cast<uint32_t>(key[0]);
     k1 = static_cast<uint32_t>(key[1]);
   }
-  walk_tiles(w, n, d, rows_per_tile, tiles, smem,
-             [&](const float* s, int64_t r0, int rows) {
+  const int slot = rows_per_tile * d;
+  auto stage = [&](int buf, int tile) {
+    stage_tile(smem + buf * slot, w, tile, rows_per_tile, n, d);
+  };
+  walk_tiles(n, rows_per_tile, tiles, stage,
+             [&](int buf, int64_t r0, int rows) {
+    const float* s = smem + buf * slot;
     // the range pass: thread r owns row r
     const int r = threadIdx.x;
     if (r < rows) {
@@ -480,86 +414,168 @@ affine8_tiled_kernel(const float* __restrict__ w,
   });
 }
 
+// The packed kernels' range pass on a tile in shared memory: thread r owns
+// row r, from its own column on (max|x| is order-free), and writes the
+// row's f16 scale to scale[r], its divisor to s_sf[r] and, where s_scf is
+// not null, the scale as f32 to s_scf[r].
+template <int G>
+__device__ __forceinline__ void packed_range_pass(const float* s, int d,
+                                                  int rows, float* s_sf,
+                                                  float* s_scf,
+                                                  __half* scale) {
+  constexpr float kQmax = G == 2 ? 7.0f : 1.0f;
+  const int r = threadIdx.x;
+  if (r >= rows) return;
+  const float* sr = s + r * d;
+  float amax = 0.0f;
+  int j = r % d;
+  for (int t = 0; t < d; ++t) {
+    amax = abs_max(amax, fabsf(sr[j]));
+    j = j + 1 == d ? 0 : j + 1;
+  }
+  const __half sc = sat_f16(amax / kQmax);
+  const float scf = __half2float(sc);
+  s_sf[r] = guarded(scf);
+  if (s_scf != nullptr) s_scf[r] = scf;
+  scale[r] = sc;
+}
+
+// The packed kernels' code pass: one thread per output byte of the tile's
+// rows ceil(d / G) contiguous bytes, neighbouring threads on neighbouring
+// bytes.
+template <int G>
+__device__ __forceinline__ void packed_code_pass(const float* s, int d,
+                                                 int rows, const float* s_sf,
+                                                 uint8_t* pt) {
+  constexpr float kQmax = G == 2 ? 7.0f : 1.0f;
+  const int cols = (d + G - 1) / G;
+  const int nbytes = rows * cols;
+  for (int b = threadIdx.x; b < nbytes; b += kTiledThreads) {
+    const int row = b / cols;
+    const int c = b - row * cols;
+    const float* sr = s + row * d;
+    const float sf = s_sf[row];
+    int byte = 0;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int j = c * G + g;
+      const int code = j < d ? clip_code(rintf(sr[j] / sf), kQmax) : 0;
+      byte = pack_code<G>(byte, code, g);
+    }
+    pt[b] = static_cast<uint8_t>(byte);
+  }
+}
+
 template <int G>
 __global__ void __launch_bounds__(kTiledThreads)
 packed_tiled_kernel(const float* __restrict__ w,
                     uint8_t* __restrict__ payload,
                     __half* __restrict__ scale_out, int n, int d,
                     int rows_per_tile, int tiles) {
-  constexpr float kQmax = G == 2 ? 7.0f : 1.0f;
   extern __shared__ __align__(16) float smem[];
   float* s_sf = smem + 2 * rows_per_tile * d;  // each row's divisor
-  const int cols = (d + G - 1) / G;
-  walk_tiles(w, n, d, rows_per_tile, tiles, smem,
-             [&](const float* s, int64_t r0, int rows) {
-    // the range pass: thread r owns row r
-    const int r = threadIdx.x;
-    if (r < rows) {
-      const float* sr = s + r * d;
-      float amax = 0.0f;
-      int j = r % d;
-      for (int t = 0; t < d; ++t) {
-        amax = abs_max(amax, fabsf(sr[j]));
-        j = j + 1 == d ? 0 : j + 1;
-      }
-      const __half sc = sat_f16(amax / kQmax);
-      s_sf[r] = guarded(__half2float(sc));
-      scale_out[r0 + r] = sc;
+  const int slot = rows_per_tile * d;
+  auto stage = [&](int buf, int tile) {
+    stage_tile(smem + buf * slot, w, tile, rows_per_tile, n, d);
+  };
+  walk_tiles(n, rows_per_tile, tiles, stage,
+             [&](int buf, int64_t r0, int rows) {
+    const float* s = smem + buf * slot;
+    packed_range_pass<G>(s, d, rows, s_sf, nullptr, scale_out + r0);
+    __syncthreads();
+    packed_code_pass<G>(s, d, rows, s_sf, payload + r0 * ((d + G - 1) / G));
+  });
+}
+
+// The tiled packed kernel under error feedback (int4_ef, ternary_ef): a
+// slot holds the tile of w and then the tile of ef; x = w + ef is formed
+// once, in place of w's tile, four elements a thread, before the passes
+// read it; after the range and code passes the residual pass writes resid
+// four elements a thread, coalesced, recomputing each code from x as the
+// code pass does (the same IEEE division gives the same code).
+template <int G>
+__global__ void __launch_bounds__(kTiledThreads)
+packed_ef_tiled_kernel(const float* __restrict__ w,
+                       const float* __restrict__ ef,
+                       uint8_t* __restrict__ payload,
+                       __half* __restrict__ scale_out,
+                       float* __restrict__ resid, int n, int d,
+                       int rows_per_tile, int tiles) {
+  constexpr float kQmax = G == 2 ? 7.0f : 1.0f;
+  extern __shared__ __align__(16) float smem[];
+  const int tile_floats = rows_per_tile * d;
+  const int slot = 2 * tile_floats;
+  float* s_sf = smem + 2 * slot;         // each row's divisor
+  float* s_scf = s_sf + rows_per_tile;   // and its f16 scale as f32
+  auto stage = [&](int buf, int tile) {
+    stage_tile(smem + buf * slot, w, tile, rows_per_tile, n, d);
+    stage_tile(smem + buf * slot + tile_floats, ef, tile, rows_per_tile, n,
+               d);
+  };
+  walk_tiles(n, rows_per_tile, tiles, stage,
+             [&](int buf, int64_t r0, int rows) {
+    float* s = smem + buf * slot;
+    const float* se = s + tile_floats;
+    // x = w + ef, four elements a thread (a tile is a multiple of four
+    // floats long; past the ragged tile's rows the sums go unread)
+    const int elems = rows * d;
+    for (int e = 4 * threadIdx.x; e < elems; e += 4 * kTiledThreads) {
+      float4 x4 = *reinterpret_cast<const float4*>(s + e);
+      const float4 e4 = *reinterpret_cast<const float4*>(se + e);
+      x4.x = x4.x + e4.x;
+      x4.y = x4.y + e4.y;
+      x4.z = x4.z + e4.z;
+      x4.w = x4.w + e4.w;
+      *reinterpret_cast<float4*>(s + e) = x4;
     }
     __syncthreads();
-    // the code pass: one thread per output byte of the tile's rows cols
-    // contiguous bytes, neighbouring threads on neighbouring bytes
-    const int nbytes = rows * cols;
-    uint8_t* pt = payload + r0 * cols;
-    for (int b = threadIdx.x; b < nbytes; b += kTiledThreads) {
-      const int row = b / cols;
-      const int c = b - row * cols;
-      const float* sr = s + row * d;
-      const float sf = s_sf[row];
-      int byte = 0;
+    packed_range_pass<G>(s, d, rows, s_sf, s_scf, scale_out + r0);
+    __syncthreads();
+    packed_code_pass<G>(s, d, rows, s_sf, payload + r0 * ((d + G - 1) / G));
+    // the residual pass: element e of the flat tile is resid[r0 d + e]
+    float* rt = resid + r0 * d;
+    for (int e = 4 * threadIdx.x; e < elems; e += 4 * kTiledThreads) {
+      const float4 x4 = *reinterpret_cast<const float4*>(s + e);
+      const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+      float out[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      int row = e / d;
+      int col = e - row * d;
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const int j = c * G + g;
-        const int code = j < d ? clip_code(rintf(sr[j] / sf), kQmax) : 0;
-        byte = pack_code<G>(byte, code, g);
+      for (int i = 0; i < 4; ++i) {
+        if (e + i < elems) {
+          const int code = clip_code(rintf(x[i] / s_sf[row]), kQmax);
+          out[i] = x[i] - static_cast<float>(code) * s_scf[row];
+        }
+        if (++col == d) {
+          col = 0;
+          ++row;
+        }
       }
-      pt[b] = static_cast<uint8_t>(byte);
+      if (e + 4 <= elems) {
+        *reinterpret_cast<float4*>(rt + e) =
+            make_float4(out[0], out[1], out[2], out[3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (e + i < elems) rt[e + i] = out[i];
+        }
+      }
     }
   });
 }
 
-// dynamic shared memory of a tiled launch: two slots of R d floats, then
-// R floats of per-row scalars for each of `scalars`
-size_t tiled_smem(int d, int scalars) {
-  const int rows = tiled_rows(d);
-  return sizeof(float) * (2 * static_cast<size_t>(rows) * d +
+// dynamic shared memory of a tiled launch: two slots of `inputs` tiles of
+// R d floats, then R floats of per-row scalars for each of `scalars`
+size_t tiled_smem(int d, int inputs, int scalars) {
+  const int rows = send_rows(d, inputs);
+  return sizeof(float) * (2 * static_cast<size_t>(inputs) * rows * d +
                           static_cast<size_t>(scalars) * rows);
-}
-
-// persistent blocks: as many as fit on the card at once, at most one a tile
-template <typename Kernel>
-unsigned tiled_blocks(Kernel kernel, int tiles, size_t smem) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                kTiledThreads, smem);
-  const int blocks = sms * per_sm;
-  return static_cast<unsigned>(blocks < 1 ? 1 : (blocks < tiles ? blocks
-                                                                : tiles));
-}
-
-int tiles_for(int n, int d) {
-  const int rows = tiled_rows(d);
-  return static_cast<int>((static_cast<int64_t>(n) + rows - 1) / rows);
 }
 
 // whether the tiled route takes these operands: d in range, w on a 16-byte
 // boundary (its tiles are copied 16 bytes at a time)
 bool tiled_takes(const void* w, int d) {
-  return d <= kTiledMaxWidth && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  return d <= kTiledMaxWidth && aligned16(w);
 }
 
 template <bool SR>
@@ -571,11 +587,12 @@ void launch_affine8(const float* w, const int64_t* key, int8_t* q,
         w, key, q, sc, zp, n, d);
     return;
   }
-  const int tiles = tiles_for(n, d);
-  const size_t smem = tiled_smem(d, 2);
+  const int rows = send_rows(d, 1);
+  const int tiles = tiles_for(n, rows);
+  const size_t smem = tiled_smem(d, 1, 2);
   const unsigned blocks = tiled_blocks(affine8_tiled_kernel<SR>, tiles, smem);
   affine8_tiled_kernel<SR><<<blocks, kTiledThreads, smem, s>>>(
-      w, key, q, sc, zp, n, d, tiled_rows(d), tiles);
+      w, key, q, sc, zp, n, d, rows, tiles);
 }
 
 template <int G>
@@ -590,11 +607,22 @@ void launch_packed(const float* w, const float* ef, uint8_t* payload,
                                                         resid, n, d);
     return;
   }
-  const int tiles = tiles_for(n, d);
-  const size_t smem = tiled_smem(d, 1);
+  if (ef) {
+    const int rows = send_rows(d, 2);
+    const int tiles = tiles_for(n, rows);
+    const size_t smem = tiled_smem(d, 2, 2);
+    const unsigned blocks =
+        tiled_blocks(packed_ef_tiled_kernel<G>, tiles, smem);
+    packed_ef_tiled_kernel<G><<<blocks, kTiledThreads, smem, s>>>(
+        w, ef, payload, sc, resid, n, d, rows, tiles);
+    return;
+  }
+  const int rows = send_rows(d, 1);
+  const int tiles = tiles_for(n, rows);
+  const size_t smem = tiled_smem(d, 1, 1);
   const unsigned blocks = tiled_blocks(packed_tiled_kernel<G>, tiles, smem);
   packed_tiled_kernel<G><<<blocks, kTiledThreads, smem, s>>>(
-      w, payload, sc, n, d, tiled_rows(d), tiles);
+      w, payload, sc, n, d, rows, tiles);
 }
 
 }  // namespace
@@ -630,7 +658,8 @@ extern "C" int quantize_send_affine8(const float* w, const int64_t* key,
 // int4 (group 2) / ternary (group 5), with error feedback when ef is not
 // null: w (and ef) (n, d) f32 -> payload (n, ceil(d / group)) uint8, scale
 // (n,) f16, resid (n, d) f32 (written only with ef). route: 0 = tiled
-// (without ef, d <= 128 and w on a 16-byte boundary only), 1 = strided.
+// (d <= 128 and w, and ef and resid where given, on 16-byte boundaries
+// only), 1 = strided.
 extern "C" int quantize_send_packed(const float* w, const float* ef,
                                     uint8_t* payload, void* scale,
                                     float* resid, int n, int d, int group,
@@ -639,7 +668,9 @@ extern "C" int quantize_send_packed(const float* w, const float* ef,
       (route != kTiled && route != kStrided)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (route == kTiled && (ef != nullptr || !tiled_takes(w, d))) {
+  if (route == kTiled && (!tiled_takes(w, d) ||
+                          (ef != nullptr &&
+                           (!aligned16(ef) || !aligned16(resid))))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());

@@ -27,9 +27,9 @@ lanes sized to d a node, every valid round's operands loaded before the
 rounds run) for d <= 32 and K <= 8, ``"strided"`` (a warp a node) for the
 rest; they give the same bits where both apply. The send encode has two
 too, chosen by ``send_route``: ``"tiled"`` (persistent blocks walking tiles
-of rows through shared memory) for the codecs without error feedback at
-d <= 57 on 16-byte aligned models, ``"strided"`` (a warp a row) for the
-rest, bit for bit alike. There is no fallback: a CUDA tensor reaches a
+of rows through shared memory) at d <= 57 on 16-byte aligned models (and
+residuals), ``"strided"`` (a warp a row) for the rest, bit for bit
+alike. There is no fallback: a CUDA tensor reaches a
 kernel or an exception. The plain versions follow the Pallas kernels' op
 order; the CPU tests hold them to the JAX kernels, and ``chip_smoke.py``
 holds the CUDA kernels to them on the card. The kernels' designs and
@@ -79,28 +79,40 @@ def receive_route(d: int, k: int) -> str:
 SEND_ROUTES = ("tiled", "strided")
 TILED_MAX_WIDTH = 57
 TILED_KERNEL_MAX_WIDTH = 128
-# a tile of the tiled route: at most 256 rows and 32 KB of w, a multiple of
-# 16 rows (csrc/quantize_send.cu::tiled_rows)
+# a tile of the tiled route: at most 256 rows and a 32 KB slot for the
+# tiles of w (and ef), a multiple of 16 rows (csrc/tiled.cuh::tiled_rows,
+# csrc/quantize_send.cu::send_rows)
 _TILED_MAX_ROWS = 256
 _TILED_SLOT_BYTES = 32768
 
 
-def send_tile_rows(d: int) -> int:
-    """Rows a tile of the tiled send route holds at width d: as many as 32
-    KB of float32 holds, rounded down to a multiple of 16, at most 256."""
-    return min(_TILED_MAX_ROWS, _TILED_SLOT_BYTES // (4 * d) // 16 * 16)
+def send_tile_rows(d: int, ef: bool = False) -> int:
+    """Rows a tile of the tiled send route holds at width d: as many as a
+    32 KB slot holds of the staged float32 inputs (w, and ef under error
+    feedback), rounded down to a multiple of 16, at most 256."""
+    row_bytes = 4 * d * (2 if ef else 1)
+    return min(_TILED_MAX_ROWS, _TILED_SLOT_BYTES // row_bytes // 16 * 16)
 
 
 def send_route(d: int, name: str, aligned: bool = True) -> str:
     """Which send kernel encodes codec ``name`` at width d on CUDA:
-    ``"tiled"`` for the codecs without error feedback (int8, int8_sr, int4,
-    ternary) at d <= 57 when the models' data starts on a 16-byte boundary
+    ``"tiled"`` at d <= 57 when the models' data, and the error-feedback
+    residual's for the ``_ef`` codecs, start on a 16-byte boundary
     (``aligned``; the tiles are copied 16 bytes at a time), else
-    ``"strided"`` (a warp a row): wider rows, the ``_ef`` codecs, and models
-    at an unaligned offset, such as a view that starts mid-row."""
-    if not get_codec(name).ef and d <= TILED_MAX_WIDTH and aligned:
+    ``"strided"`` (a warp a row): wider rows, and operands at an unaligned
+    offset, such as a view that starts mid-row."""
+    get_codec(name)                       # raises on an unknown codec
+    if d <= TILED_MAX_WIDTH and aligned:
         return "tiled"
     return "strided"
+
+
+def send_aligned(w, ef=None) -> bool:
+    """Whether the send operands start on 16-byte boundaries, as the tiled
+    route copies them: the models ``w`` and, under error feedback, ``ef``
+    (the residual the wrapper allocates always does)."""
+    return w.data_ptr() % 16 == 0 and (ef is None
+                                       or ef.data_ptr() % 16 == 0)
 
 
 def _wire_mode(wire, msg_scale, msg_zp) -> str:
@@ -431,14 +443,14 @@ def _check_send(w, name, key, ef):
 def _launch_send(w, codec, key, ef, route=None):
     """Launch the send kernel on checked operands. ``route`` overrides
     ``send_route`` (for holding the two routes to each other and timing
-    them on the card): ``"tiled"`` is refused for the ``_ef`` codecs, past
-    d = 128 and on unaligned models; the public wrapper never passes it."""
+    them on the card): ``"tiled"`` is refused past d = 128 and on
+    unaligned models or residuals; the public wrapper never passes it."""
     n, d = w.shape
-    aligned = w.data_ptr() % 16 == 0
+    aligned = send_aligned(w, ef)
     if route is None:
         route = send_route(d, codec.name, aligned)
     elif route not in SEND_ROUTES or (route == "tiled" and (
-            codec.ef or d > TILED_KERNEL_MAX_WIDTH or not aligned)):
+            d > TILED_KERNEL_MAX_WIDTH or not aligned)):
         raise ValueError(f"the {route!r} send route does not take "
                          f"{codec.name!r} at d={d}"
                          + ("" if aligned else " on unaligned models"))
@@ -484,7 +496,7 @@ def quantize_send(w, name: str, key=None, ef=None):
     error-feedback residual) is given: ``w + ef`` is encoded and ``resid =
     (w + ef) - decode(...)``; the caller applies the send mask. The outputs
     are new tensors (the caller copies them into its buffer row). On CUDA,
-    ``send_route(d, name, aligned)`` picks the kernel."""
+    ``send_route(d, name, send_aligned(w, ef))`` picks the kernel."""
     codec = _check_send(w, name, key, ef)
     if w.device.type == "cpu":
         return quantize_send_plain(w, name, key=key, ef=ef)

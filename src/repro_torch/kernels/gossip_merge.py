@@ -6,13 +6,18 @@ Pegasos step of ``pegasos_update``, in one pass that reads the two models
 and the example once and writes the new model once.
 
 ``merge_update`` dispatches on the tensors' device: CUDA tensors go to the
-hand-written kernel in ``csrc/pegasos_merge.cu`` (kernel #6 with its merge
-prologue switched on by a template flag), CPU tensors to the plain version
+hand-written kernels in ``csrc/pegasos_merge.cu``, on the layout
+``pegasos_update.row_route`` picks (``"tiled"``, persistent blocks walking
+tiles of rows through shared memory, at d <= 57 on aligned operands;
+``"strided"``, kernel #6 with its merge prologue switched on by a template
+flag, for the rest), CPU tensors to the plain version
 ``ref.merge_update_ref``. There is no fallback.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.pegasos_update import check_rows, launch_rows
+from repro_torch.kernels.pegasos_update import (
+    MERGE_TILED_KERNEL_MAX_WIDTH, ROW_ROUTES, check_rows, launch_rows,
+    row_route)
 from repro_torch.kernels.ref import merge_update_ref
 
 
@@ -24,12 +29,30 @@ def merge_update(w1, t1, w2, t2, x, y, *, lam: float):
     n, d = check_rows({"w1": (w1, t1), "w2": (w2, t2)}, x, y)
     if w1.device.type == "cpu":
         return merge_update_ref(w1, t1, w2, t2, x, y, lam)
-    out = launch_rows("merge_update", (w1, t1, w2, t2, x, y), n, d, lam,
-                      w1.device)
+    return _launch_merge((w1, t1, w2, t2, x, y), n, d, lam)
+
+
+def _launch_merge(tensors, n: int, d: int, lam: float, route=None):
+    """Launch the merge on checked operands (w1, t1, w2, t2, x, y).
+    ``route`` overrides ``row_route`` (for holding the two layouts to each
+    other and timing them on the card): ``"tiled"`` is refused past
+    d = 128 and on unaligned operands; the public wrapper never passes
+    it."""
+    aligned = all(a.data_ptr() % 16 == 0 for a in tensors)
+    if route is None:
+        route = row_route(d, True, aligned)
+    elif route not in ROW_ROUTES or (route == "tiled" and (
+            d > MERGE_TILED_KERNEL_MAX_WIDTH or not aligned)):
+        raise ValueError(f"the {route!r} merge layout does not take d={d}"
+                         + ("" if aligned else " on unaligned operands"))
+    out = launch_rows("merge_update", tensors, n, d, lam, tensors[0].device,
+                      route=route)
     _MERGE.launches += 1
+    _MERGE.route_launches[route] += 1
     return out
 
 
-# Kernel launches so far; only the CUDA path counts.
+# Kernel launches so far, in all and by layout; only the CUDA path counts.
 merge_update.launches = 0
+merge_update.route_launches = dict.fromkeys(ROW_ROUTES, 0)
 _MERGE = merge_update

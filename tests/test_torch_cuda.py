@@ -3,9 +3,10 @@ receive kernel on the f32 wire, in every decode mode and with each defense
 screen, its two routes (the launch counts by route, and the grouped kernel
 bitwise equal to the strided one at d <= 32), the send kernels of the
 quantized codecs (bitwise) and their two routes (the launch counts by
-route, and the tiled kernels bitwise equal to the strided ones at d <= 57),
-the voted-predict kernel (bitwise), the population Pegasos and merge
-kernels, the flash-attention kernel on both its routes (tensor cores for
+route, and the tiled kernels bitwise equal to the strided ones at d <= 57,
+the error-feedback codecs included), the voted-predict kernel (bitwise),
+the population Pegasos and merge kernels and the merge's two layouts
+(launch counts by layout), the flash-attention kernel on both its routes (tensor cores for
 TMA-readable bf16 at head_dim 64/128, CUDA cores for the rest), and the
 sharded engine against the reference engine on the f32 and the quantized
 wires and under Byzantine faults, with and without a serving hook; and the
@@ -153,6 +154,42 @@ def test_tiled_send_route_equals_strided_route_bitwise(cuda, name, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 7, 10, 16, 32, 57])
+@pytest.mark.parametrize("name", smoke.EF_CODECS)
+def test_tiled_ef_send_route_equals_strided_route_bitwise(cuda, name, d):
+    """Under error feedback: the tiled send kernel against the strided one
+    forced on the same models and residuals (ragged last tile, the edge
+    rows) and against the plain version: packed bytes, scales and
+    residuals equal bit for bit."""
+    w, ef = smoke.send_inputs(11 * d, 1031, d, cuda)
+    _, route = smoke.compare_send(name, w, ef, None)
+    assert route == "tiled"
+    smoke.same_outputs(name, ("payload", "scale", "resid"),
+                       smoke.run_send(w, name, None, ef, route="tiled"),
+                       smoke.run_send(w, name, None, ef, route="strided"),
+                       "strided route")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", smoke.EF_CODECS)
+def test_ef_send_route_counts_the_residual_alignment(cuda, name):
+    """An aligned model with a residual view at an unaligned offset takes
+    the strided route (bitwise equal to the plain version); the aligned
+    pair takes the tiled one."""
+    w, ef = smoke.send_inputs(3, 515, 10, cuda)
+    odd = torch.empty(515 * 10 + 1, device=cuda)[1:].view(515, 10)
+    odd.copy_(ef)
+    routes = dict(gc.quantize_send.route_launches)
+    assert smoke.compare_send(name, w, odd, None)[1] == "strided"
+    assert gc.quantize_send.route_launches == dict(
+        routes, strided=routes["strided"] + 1)
+    routes = dict(gc.quantize_send.route_launches)
+    assert smoke.compare_send(name, w, ef, None)[1] == "tiled"
+    assert gc.quantize_send.route_launches == dict(
+        routes, tiled=routes["tiled"] + 1, strided=routes["strided"] + 1)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [10, 32, 57, 58])
 @pytest.mark.parametrize("name", smoke.MAIN_WIRES)
 def test_send_route_launch_counts_follow_the_rule(cuda, name, d):
@@ -162,7 +199,7 @@ def test_send_route_launch_counts_follow_the_rule(cuda, name, d):
     w, ef = smoke.send_inputs(d, 515, d, cuda)
     key = random.key(d, device=cuda)
     want = gc.send_route(d, name)
-    assert want == ("tiled" if d <= 57 and name != "int4_ef" else "strided")
+    assert want == ("tiled" if d <= 57 else "strided")
     kernel = gc.send_kernel_name(name)
     launches = dict(gc.quantize_send.launches)
     routes = dict(gc.quantize_send.route_launches)
@@ -258,6 +295,56 @@ def test_row_kernels_match_plain_versions(cuda, name, n, d):
     before = fn.launches
     smoke.compare_rows(name, inputs, 1e-3)
     assert fn.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1, 1), (4099, 7), (4099, 10), (1031, 32),
+                                 (1031, 57), (515, 128)])
+def test_merge_layouts_match_each_other_and_plain_version(cuda, n, d):
+    """#7's tiled and strided layouts forced on the same inputs: t equal,
+    w within rtol 2e-5 and atol 1e-5 of the plain version's; each forced
+    launch counted on its layout."""
+    from repro_torch.kernels import gossip_merge as gm
+    from repro_torch.kernels import ref
+    inputs = smoke.row_inputs(n + d, n, d, cuda, merge=True)
+    pw, pt = ref.merge_update_ref(*inputs, 1e-3)
+    for route in ("tiled", "strided"):
+        before = dict(gm.merge_update.route_launches)
+        w, t = gm._launch_merge(inputs, n, d, 1e-3, route=route)
+        torch.cuda.synchronize()
+        assert gm.merge_update.route_launches == dict(
+            before, **{route: before[route] + 1})
+        assert torch.equal(t, pt)
+        torch.testing.assert_close(w, pw, rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [10, 57, 58, 9947])
+def test_row_route_launch_counts_follow_the_rule(cuda, d):
+    """Through ``kernels/ops.py``: the merge on ``row_route(d, True)``'s
+    layout (an operand at an unaligned offset on the strided one), the
+    step alone always on the strided one."""
+    from repro_torch.kernels import gossip_merge as gm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pegasos_update as pu
+    n = 515 if d < 1000 else 33
+    w1, t1, w2, t2, x, y = smoke.row_inputs(d, n, d, cuda, merge=True)
+    want = pu.row_route(d, True)
+    assert want == ("tiled" if d <= 57 else "strided")
+    merge, step = (dict(gm.merge_update.route_launches),
+                   dict(pu.pegasos_update.route_launches))
+    ops.merge_update(w1, t1, w2, t2, x, y, lam=1e-3)
+    ops.pegasos_update(w1, t1, x, y, lam=1e-3)
+    assert gm.merge_update.route_launches == dict(
+        merge, **{want: merge[want] + 1})
+    assert pu.pegasos_update.route_launches == dict(
+        step, strided=step["strided"] + 1)
+    odd = torch.empty(n * d + 1, device=cuda)[1:].view(n, d)
+    odd.copy_(x)
+    merge = dict(gm.merge_update.route_launches)
+    smoke.compare_rows("merge_update", (w1, t1, w2, t2, odd, y), 1e-3)
+    assert gm.merge_update.route_launches == dict(
+        merge, strided=merge["strided"] + 1)
 
 
 @pytest.mark.cuda

@@ -5,14 +5,19 @@ package.
 ``bitflip_payload`` must equal the reference bit for bit (numpy inputs
 handed to both packages). ``apply_defense``'s verdicts (surviving mask,
 gated, clipped) must be equal and its rescaled messages within 1e-6
-relative; at d <= 32 its sums must equal ``jnp.sum`` bit for bit (XLA's
-order, in sequence), and with them norm_clip's rescaled messages. The
+relative; its sums must equal ``jnp.sum`` under ``jax.jit`` bit for bit
+(the order the reference's engines run: fused multiply-adds at most
+d <= 32, two halves at 33-64, 32-wide chunks at multiples of 32), and
+with them norm_clip's rescaled messages and, at the engine's level,
+``apply_receives``' lastModel and counts. The
 receive step's plain version with each defense must match the Pallas
 kernel in interpret mode (integer state and counts equal, floats within
 ``rtol=1e-5, atol=1e-6`` as in ``tests/test_torch_gossip_cycle.py``). Both port engines must match the
 JAX reference engine under every fault: economy and ``fault_stats`` exact,
 curves within 0.02. The JAX compact_all and Pallas engine legs are no
 oracle here (ROADMAP.md queue 3); the reference engine is."""
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -24,6 +29,8 @@ from repro.core import faults as jf
 from repro.core import wire_codec as jwc
 from repro.core.cache import ModelCache as JCache
 from repro.core.cache import cache_oldest as jax_cache_oldest
+from repro.core.learners import make_update as jax_make_update
+from repro.core.simulation import apply_receives as jax_apply_receives
 from repro.core.simulation import run_simulation as jax_run
 from repro.data.synthetic import make_linear_dataset
 from repro.kernels.gossip_cycle import fused_receive_apply as jax_fused
@@ -31,6 +38,8 @@ from repro_torch import random
 from repro_torch.configs.gossip_linear import GossipLinearConfig
 from repro_torch.core import faults as pf
 from repro_torch.core.cache import ModelCache, cache_oldest
+from repro_torch.core.learners import make_update as port_make_update
+from repro_torch.core.simulation import apply_receives as port_apply_receives
 from repro_torch.core.simulation import run_simulation
 from repro_torch.kernels import gossip_cycle as pgc
 
@@ -264,40 +273,124 @@ def test_apply_defense_matches_jax(defense):
         assert np.asarray(jg)[8:15].all() and not np.asarray(jg)[20:25].any()
 
 
-@pytest.mark.parametrize("d", [1, 7, 10, 32])
+# the widths whose order the screen takes from the jitted reference: the
+# one term, fused multiply-adds, the unfused widths 5 ... 8, two halves,
+# and 32-wide chunks
+SCREEN_WIDTHS = [1, 7, 10, 32, 33, 57, 64, 128]
+jit_row_sum = jax.jit(lambda a, b: jnp.sum(a * b, axis=-1))
+jit_defense = jax.jit(jf.apply_defense, static_argnums=0)
+
+
+@pytest.mark.parametrize("d", SCREEN_WIDTHS)
 def test_screen_sums_equal_jnp_sum_bitwise(d):
-    """At d <= 32 the screen sums in XLA's order, in sequence from +0.0:
-    equal to ``jnp.sum`` bit for bit on rows of squares and of products of
-    both signs, zeros of both signs among them."""
+    """The screen sums in the order of the jitted reference (the engines
+    run ``apply_defense`` inside ``jax.jit``, where XLA fuses the products
+    into the sum at most widths): equal to ``jnp.sum`` under ``jax.jit``
+    bit for bit on rows of squares and of products of both signs, zeros
+    of both signs among them."""
     rng = np.random.default_rng(d)
     m = (rng.normal(size=(4000, d)) * 3).astype(np.float32)
     r = rng.normal(size=(4000, d)).astype(np.float32)
     m[:8] = -0.0
     r[8:16] = np.where(np.arange(d) % 2 == 0, -0.0, 0.0)
-    for terms in (m * m, r * r, m * r, -m * r):
-        want = jnp.sum(jnp.asarray(terms), axis=-1)
-        got = pf._screen_sum(torch.from_numpy(terms))
+    for a, b in ((m, m), (r, r), (m, r), (-m, r)):
+        want = jit_row_sum(jnp.asarray(a), jnp.asarray(b))
+        got = pf._screen_sum(torch.from_numpy(a), torch.from_numpy(b))
         assert np.array_equal(as_bytes(got), as_bytes(want))
 
 
-@pytest.mark.parametrize("d", [1, 7, 10, 32])
+@pytest.mark.parametrize("d", [2, 10, 32, 57, 64, 96])
+def test_screen_sums_flush_like_the_jitted_reference(d):
+    """Subnormals under fusion: the reference flushes the inputs and each
+    fused result, not a product that is never rounded. Rows of products
+    in the subnormal range, sums near the smallest normal, subnormal
+    inputs, the ``screen_cases`` row of 1e-20 and near-cancelling dots."""
+    rng = np.random.default_rng(200 + d)
+    n = 3000
+    a = rng.normal(size=(n, d)).astype(np.float32)
+    b = rng.normal(size=(n, d)).astype(np.float32)
+    tiny = np.float32(2.0) ** rng.integers(-80, -50, size=(1000, 1))
+    a[:1000] *= tiny.astype(np.float32)
+    b[:1000] *= tiny.astype(np.float32)
+    a[1000:1500, 0] = 1e-40
+    b[1500:2000, d // 2] = -3e-39
+    a[2000:2500] = 1e-20
+    b[2000:2500] = 1e-20
+    b[2500:] = a[2500:] * (1 + 1e-7 * rng.normal(size=(500, d))
+                           ).astype(np.float32)
+    a[2500:, ::2] *= -1
+    for x, y in ((a, a), (b, b), (a, b)):
+        want = jit_row_sum(jnp.asarray(x), jnp.asarray(y))
+        got = pf._screen_sum(pf._ftz(torch.from_numpy(x)),
+                             pf._ftz(torch.from_numpy(y)))
+        assert np.array_equal(as_bytes(got), as_bytes(want))
+    assert np.asarray(jit_row_sum(jnp.asarray(a[2000:2500]),
+                                  jnp.asarray(a[2000:2500]))).max() == 0.0
+
+
+@pytest.mark.parametrize("d", SCREEN_WIDTHS)
 def test_norm_clip_rescale_equals_jax_bitwise(d):
-    """With ``sq`` and ``rn`` summed in the reference's order, norm_clip's
-    factor sqrt(thr / sq), and every rescaled coefficient, equal the
-    reference's bit for bit."""
+    """With ``sq`` and ``rn`` summed in the jitted reference's order,
+    norm_clip's factor sqrt(thr / sq), and every rescaled coefficient,
+    equal the jitted reference's bit for bit, and so do cosine_gate's
+    verdicts."""
     rng = np.random.default_rng(50 + d)
     recv = rng.normal(size=(4000, d)).astype(np.float32)
     msg = (rng.normal(size=(4000, d)) * 20).astype(np.float32)
     valid = np.ones(4000, bool)
-    jm, jv, jg, jc = jf.apply_defense("norm_clip", jnp.asarray(msg),
-                                      jnp.asarray(valid), jnp.asarray(recv))
-    pm, pv, pg, pc = pf.apply_defense("norm_clip", torch.from_numpy(msg),
-                                      torch.from_numpy(valid),
-                                      torch.from_numpy(recv))
-    for got, want in ((pv, jv), (pg, jg), (pc, jc)):
+    for defense in ("norm_clip", "cosine_gate"):
+        jm, jv, jg, jc = jit_defense(defense, jnp.asarray(msg),
+                                     jnp.asarray(valid), jnp.asarray(recv))
+        pm, pv, pg, pc = pf.apply_defense(defense, torch.from_numpy(msg),
+                                          torch.from_numpy(valid),
+                                          torch.from_numpy(recv))
+        for got, want in ((pv, jv), (pg, jg), (pc, jc)):
+            assert np.array_equal(got.numpy(), np.asarray(want))
+        assert np.array_equal(as_bytes(pm), as_bytes(jm))
+        if defense == "norm_clip":
+            assert np.asarray(jc).mean() > 0.5
+
+
+@pytest.mark.parametrize("defense,d", [("norm_clip", 10), ("cosine_gate", 10),
+                                       ("norm_clip", 57),
+                                       ("cosine_gate", 57)])
+def test_apply_receives_equals_the_jitted_reference(defense, d):
+    """The port's ``apply_receives`` against the reference's under
+    ``jax.jit``, as its engine runs it (mu, N = 20 000): lastModel (the
+    screened, possibly rescaled message) and the gated and clipped counts
+    bit for bit. The cache rows hold the Pegasos step, which XLA also
+    fuses (``decay w + coef x``) and the port rounds apart, so they are
+    held to a float tolerance."""
+    n, c, k = 20_000, 10, (1 if d == 10 else 2)
+    rng = np.random.default_rng(d)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    i = lambda lo, hi, *s: rng.integers(lo, hi, size=s).astype(np.int32)
+    a = dict(last_w=f(n, d) * 0.3, last_t=i(1, 40, n), cache_w=f(n, c, d),
+             cache_t=i(0, 40, n, c), ptr=i(1, 3 * c, n), count=i(1, c + 1, n),
+             msg_w=f(k, n, d) * (3.0 if defense == "norm_clip" else 1.0),
+             msg_t=i(1, 40, k, n), valid=rng.random((k, n)) < 0.9, x=f(n, d),
+             y=np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32))
+    jfn = jax.jit(functools.partial(
+        jax_apply_receives, variant="mu",
+        update=jax_make_update("pegasos", lam=1e-3), defense=defense))
+    J = {key: jnp.asarray(v) for key, v in a.items()}
+    jw, jt, jcache, jg, jc = jfn(
+        J["last_w"], J["last_t"], JCache(J["cache_w"], J["cache_t"],
+                                         J["ptr"], J["count"]),
+        J["msg_w"], J["msg_t"], J["valid"], J["x"], J["y"])
+    T = {key: torch.from_numpy(v) for key, v in a.items()}
+    pw, pt, pcache, pg, pc = port_apply_receives(
+        T["last_w"], T["last_t"], ModelCache(T["cache_w"], T["cache_t"],
+                                             T["ptr"], T["count"]),
+        T["msg_w"], T["msg_t"], T["valid"], T["x"], T["y"], variant="mu",
+        update=port_make_update("pegasos", lam=1e-3), defense=defense)
+    assert np.array_equal(as_bytes(pw), as_bytes(jw))
+    for got, want in ((pt, jt), (pg, jg), (pc, jc), (pcache.t, jcache.t),
+                      (pcache.ptr, jcache.ptr), (pcache.count, jcache.count)):
         assert np.array_equal(got.numpy(), np.asarray(want))
-    assert np.asarray(jc).mean() > 0.5
-    assert np.array_equal(as_bytes(pm), as_bytes(jm))
+    assert int(np.asarray(jg if defense == "cosine_gate" else jc).sum()) > 500
+    np.testing.assert_allclose(pcache.w.numpy(), np.asarray(jcache.w),
+                               rtol=1e-5, atol=1e-6)
 
 
 def crafted_inputs(seed, n, d, c, k):

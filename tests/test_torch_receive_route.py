@@ -11,8 +11,9 @@ card; here:
 - the G-lane and the 32-lane butterflies, emulated lane by lane in
   float32: for d <= G they give the same bits (a zero sum may differ in
   sign), so the three comparisons that read a sum give the same verdicts;
-- the grouped kernel's arithmetic (decode, the screen's sums in sequence
-  over the node's d lanes, the margins' butterflies, the rounds in order
+- the grouped kernel's arithmetic (decode, the screen's sums over the
+  node's d lanes in the jitted reference's order, fused multiply-adds in
+  sequence, the margins' butterflies, the rounds in order
   from registers) emulated in PyTorch and held to
   ``fused_receive_apply_plain`` (integers and gated/clipped counts equal
   on every node, floats within ``chip_smoke.compare_kernel``'s atol 1e-5
@@ -235,21 +236,21 @@ def apply_step(step, w, x):
                                             coef[:, None] * x, 0.0)
 
 
-def screen_sum(partials, on, d: int):
+def screen_sum(a, b, on, d: int):
     """The kernels' screen sums at d <= 32 (``screen_sums``): lane j < d of
-    a node holds ``0.0f + term j`` where ``on`` (+0.0 elsewhere), read in
-    lane order and added in sequence from +0.0."""
-    v = torch.where(on, 0.0 + partials, torch.zeros((), dtype=F32))
-    total = torch.zeros(v.shape[0], dtype=F32)
-    for j in range(d):
-        total = total + v[:, j]
-    return total
+    a node holds its two factors where ``on`` (+0.0 elsewhere), read in
+    lane order and added in the jitted reference's order (fused
+    multiply-adds in sequence from +0.0, the products apart at d = 5 ...
+    8), as ``faults._screen_sum`` adds them."""
+    zero = torch.zeros((), dtype=F32)
+    return faults._screen_sum(torch.where(on, a, zero)[:, :d],
+                              torch.where(on, b, zero)[:, :d])
 
 
 def grouped_receive(inputs, variant, lam, wire=None, defense="none"):
     """The grouped kernel, emulated: each node on g lanes (coefficient j on
-    lane j, lanes >= d hold 0), the screen's sums in sequence over the
-    node's d lanes and the margins g-lane butterflies of partials that
+    lane j, lanes >= d hold 0), the screen's sums over the node's d lanes
+    in the jitted reference's order and the margins g-lane butterflies of partials that
     start at +0.0, the rounds in order with the running lastModel held as
     the screened message of the latest accepted round. Returns the six
     state tensors (new), the gated and clipped counts, and the nodes where
@@ -291,8 +292,8 @@ def grouped_receive(inputs, variant, lam, wire=None, defense="none"):
         if defense != "none":
             on = act[:, None] & lane_on
             mf, lf = ftz(raw), ftz(lcur)
-            sq = screen_sum(ftz(mf * mf), on, d)
-            rn = screen_sum(ftz(lf * lf), on, d)
+            sq = screen_sum(mf, mf, on, d)
+            rn = screen_sum(lf, lf, on, d)
             reject = ~torch.isfinite(sq)
             if defense == "norm_clip":
                 thr = torch.clamp_min(faults.NORM_CLIP_MULT_SQ * rn,
@@ -304,7 +305,7 @@ def grouped_receive(inputs, variant, lam, wire=None, defense="none"):
                 mj = torch.where(clip[:, None], ftz(ftz(raw) * f[:, None]),
                                  raw)
             else:
-                dot = screen_sum(ftz(mf * lf), on, d)
+                dot = screen_sum(mf, lf, on, d)
                 reject |= (rn > faults.COSINE_GATE_MIN_NORM_SQ) & (
                     dot < faults.COSINE_GATE_THRESHOLD_F32
                     * torch.sqrt(ftz(sq * rn)))
@@ -364,8 +365,9 @@ def test_grouped_emulation_matches_plain_version(variant, mode, wire,
     under a screen): integer state and counts equal, float state within
     atol 1e-5 and rtol 1e-5, on every node. The screen's verdicts equal the
     plain version's on every node and round, exact ties included (on the
-    packed wires a cosine of exactly -0.2 is reachable): both sum in
-    sequence, XLA's order at d <= 32."""
+    packed wires a cosine of exactly -0.2 is reachable): both sum in the
+    jitted reference's order at d <= 32 (fused multiply-adds in sequence
+    from +0.0)."""
     crafted = defense != "none"
     inputs = smoke.receive_inputs(d * 31 + k, 64 * group(d), d, c, k, "cpu",
                                   wire=wire, crafted=crafted)

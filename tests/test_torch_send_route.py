@@ -1,12 +1,13 @@
 """The send encode's two routes, on the CPU: the route rule, and the tiled
 route's walk and arithmetic emulated in float32.
 
-``kernels/gossip_cycle.py::send_route`` sends the codecs without error
-feedback (int8, int8_sr, int4, ternary) at d <= 57 on 16-byte aligned
-models to the tiled kernels (persistent blocks walking tiles of R rows
-through shared memory: a range pass of one thread a row, then a code pass
-spread over the tile's flat elements or output bytes) and the rest to the
-strided kernels (a warp a row). The kernels run only on the card; here:
+``kernels/gossip_cycle.py::send_route`` sends every codec at d <= 57 on
+16-byte aligned models (and residuals) to the tiled kernels (persistent
+blocks walking tiles of R rows through shared memory: a range pass of one
+thread a row, then a code pass spread over the tile's flat elements or
+output bytes, and under error feedback x = w + ef formed once and a
+residual pass over the flat elements) and the rest to the strided kernels
+(a warp a row). The kernels run only on the card; here:
 
 - the rule, the rows a tile holds, and a forced route it refuses;
 - the tiled walk: every element, noise position and output byte written
@@ -14,7 +15,9 @@ strided kernels (a warp a row). The kernels run only on the card; here:
   the ragged last tile;
 - the tiled kernels' arithmetic (the range pass's min/max with -0.0
   ordered below +0.0, read from each row's own starting column; the codes
-  four elements a thread or a byte a thread) emulated in PyTorch and held
+  four elements a thread or a byte a thread; the residual four elements a
+  thread, every element, byte and scale written once) emulated in PyTorch
+  and held
   bit for bit to ``quantize_send_plain`` and to the JAX Pallas kernel in
   interpret mode (for int8_sr, whose Pallas kernel raises under jax's
   partitionable threefry, to ``quantize_wire`` with the same key), on rows
@@ -56,10 +59,28 @@ BLOCKS = 3              # persistent blocks in the emulated walk
 @pytest.mark.parametrize("name", smoke.SEND_CODECS)
 @pytest.mark.parametrize("d", [1, 7, 10, 32, 57, 58, 128, 9947])
 def test_send_route(d, name, aligned):
-    want = ("tiled" if d <= 57 and aligned and not get_codec(name).ef
-            else "strided")
+    """Every codec, the ``_ef`` ones too, takes the tiled route at d <= 57
+    on aligned operands."""
+    want = "tiled" if d <= 57 and aligned else "strided"
     assert gc.send_route(d, name, aligned) == want
     assert gc.send_route(d, name) == gc.send_route(d, name, True)
+
+
+@pytest.mark.parametrize("name", ["int4_ef", "ternary_ef"])
+def test_send_route_needs_the_residual_aligned_apart_from_the_models(name):
+    """Under error feedback the residual's alignment counts apart from the
+    models': an aligned ``w`` with an ``ef`` that starts mid-row takes the
+    strided route, and the tiled route forced on it is refused before any
+    library loads."""
+    w, ef = smoke.send_inputs(0, 40, 10, "cpu")
+    odd = torch.zeros(41 * 10)[1:401].view(40, 10)   # 4 bytes past 16
+    assert w.data_ptr() % 16 == 0 and ef.data_ptr() % 16 == 0
+    assert gc.send_aligned(w, ef) and gc.send_aligned(w)
+    assert not gc.send_aligned(w, odd) and not gc.send_aligned(odd, ef)
+    assert gc.send_route(10, name, gc.send_aligned(w, ef)) == "tiled"
+    assert gc.send_route(10, name, gc.send_aligned(w, odd)) == "strided"
+    with pytest.raises(ValueError, match="unaligned"):
+        gc._launch_send(w, get_codec(name), None, odd, route="tiled")
 
 
 @pytest.mark.parametrize("d", [1, 7, 10, 16, 32, 33, 57, 100, 128])
@@ -74,6 +95,18 @@ def test_send_tile_rows(d):
         assert r == THREADS
 
 
+@pytest.mark.parametrize("d", [1, 7, 10, 16, 17, 32, 57, 128])
+def test_send_tile_rows_under_error_feedback(d):
+    """A slot holds both tiles (w and ef): a multiple of 16 rows, at most
+    256, at most 32 KB of the two together (the rows of the codecs without
+    error feedback up to d = 16, fewer past it)."""
+    r = gc.send_tile_rows(d, ef=True)
+    assert r % 16 == 0 and 16 <= r <= THREADS
+    assert 8 * r * d <= 32768
+    assert r == THREADS or 8 * (r + 16) * d > 32768
+    assert (r == gc.send_tile_rows(d)) == (d <= 16)
+
+
 def test_send_route_counts_start_at_zero_and_cpu_never_launches():
     assert set(gc.quantize_send.route_launches) == set(gc.SEND_ROUTES)
     before = dict(gc.quantize_send.route_launches)
@@ -84,12 +117,18 @@ def test_send_route_counts_start_at_zero_and_cpu_never_launches():
 
 
 def test_forced_tiled_route_outside_its_range_raises():
-    """The override is checked before any library loads: tiled takes no
-    ``_ef`` codec, no d past 128 and no model at an unaligned offset."""
+    """The override is checked before any library loads: tiled takes no d
+    past 128 (with or without error feedback) and no model or residual at
+    an unaligned offset."""
     w, ef = smoke.send_inputs(0, 40, 10, "cpu")
+    odd_ef = torch.zeros(41 * 10)[1:401].view(40, 10)
     with pytest.raises(ValueError, match="tiled"):
-        gc._launch_send(w, get_codec("int4_ef"), None, ef, route="tiled")
+        gc._launch_send(w, get_codec("int4_ef"), None, odd_ef,
+                        route="tiled")
     wide = torch.zeros(4, gc.TILED_KERNEL_MAX_WIDTH + 1)
+    with pytest.raises(ValueError, match="tiled"):
+        gc._launch_send(wide, get_codec("ternary_ef"), None,
+                        torch.zeros_like(wide), route="tiled")
     with pytest.raises(ValueError, match="tiled"):
         gc._launch_send(wide, get_codec("ternary"), None, None,
                         route="tiled")
@@ -108,10 +147,11 @@ def test_forced_tiled_route_outside_its_range_raises():
 # ---------------------------------------------------------------------------
 
 
-def tiles_by_block(n: int, d: int, blocks: int = BLOCKS):
+def tiles_by_block(n: int, d: int, blocks: int = BLOCKS, ef: bool = False):
     """The tiles each persistent block encodes, in order: tile b, b +
-    blocks, ... as (first row, rows)."""
-    r = gc.send_tile_rows(d)
+    blocks, ... as (first row, rows); ``ef``: the tiles of the error-feedback
+    kernel."""
+    r = gc.send_tile_rows(d, ef)
     tiles = -(-n // r)
     return [[(t * r, min(r, n - t * r)) for t in range(b, tiles, blocks)]
             for b in range(blocks)]
@@ -143,8 +183,8 @@ def flat_groups(rows: int, d: int):
 N_CASES = ["1", "R-1", "R", "R+1", "4099"]
 
 
-def population(case: str, d: int) -> int:
-    r = gc.send_tile_rows(d)
+def population(case: str, d: int, ef: bool = False) -> int:
+    r = gc.send_tile_rows(d, ef)
     return {"1": 1, "R-1": r - 1, "R": r, "R+1": r + 1, "4099": 4099}[case]
 
 
@@ -258,36 +298,77 @@ def tiled_affine8(w, name, key=None):
     return q.view(n, d), scale, zp
 
 
+def packed_tile(s, codec):
+    """The packed kernels' range and code passes on one tile ``s`` (rows,
+    d): the tile's scales (f16), divisors and packed bytes (one a thread,
+    the tile's rows ceil(d / G) bytes in order)."""
+    rows, d = s.shape
+    g, qmax = codec.group, float(codec.qmax)
+    cols = codec.payload_cols(d)
+    amax = range_pass(s.abs(), nan_max, lambda m: torch.zeros(m))
+    sc_t = sat_f16(div(amax, qmax))
+    sf = guarded(sc_t)
+    b = torch.arange(rows * cols)                     # a thread a byte
+    row, c = b // cols, b % cols
+    byte = torch.zeros_like(b)
+    for k in range(g):
+        j = c * g + k
+        x = s[row, torch.clamp_max(j, d - 1)]
+        code = torch.where(j < d, clip_code(torch.round(x / sf[row]), qmax),
+                           0)
+        byte = ((byte | ((code & 0xF) << (4 * k))) if g == 2
+                else byte + (code + 1) * 3 ** k)
+    return sc_t, sf, byte
+
+
 def tiled_packed(w, name):
     """The tiled packed kernel (no error feedback), emulated tile by tile:
     (payload, scale)."""
     codec = get_codec(name)
     n, d = w.shape
-    g, qmax = codec.group, float(codec.qmax)
     cols = codec.payload_cols(d)
     payload = torch.full((n * cols,), -1, dtype=torch.int64)
     scale = torch.full((n,), float("nan"), dtype=torch.float16)
     for block in tiles_by_block(n, d):
         for r0, rows in block:
-            s = w[r0:r0 + rows]
-            amax = range_pass(s.abs(), nan_max, lambda m: torch.zeros(m))
-            sc_t = sat_f16(div(amax, qmax))
-            sf = guarded(sc_t)
+            sc_t, _, byte = packed_tile(w[r0:r0 + rows], codec)
             scale[r0:r0 + rows] = sc_t
-            b = torch.arange(rows * cols)             # a thread a byte
-            row, c = b // cols, b % cols
-            byte = torch.zeros_like(b)
-            for k in range(g):
-                j = c * g + k
-                x = s[row, torch.clamp_max(j, d - 1)]
-                code = torch.where(j < d,
-                                   clip_code(torch.round(x / sf[row]), qmax),
-                                   0)
-                byte = ((byte | ((code & 0xF) << (4 * k))) if g == 2
-                        else byte + (code + 1) * 3 ** k)
-            payload[r0 * cols + b] = byte
+            payload[r0 * cols:(r0 + rows) * cols] = byte
     assert (payload >= 0).all()
     return payload.to(torch.uint8).view(n, cols), scale
+
+
+def tiled_packed_ef(w, ef, name):
+    """The tiled packed kernel under error feedback, emulated tile by tile
+    on its own tiles (``send_tile_rows(d, ef=True)``): x = w + ef formed
+    once, the range and code passes on x, then the residual pass over
+    groups of four flat elements a thread, each code recomputed. Returns
+    (payload, scale, resid) and how often each residual element was
+    written."""
+    codec = get_codec(name)
+    n, d = w.shape
+    qmax = float(codec.qmax)
+    cols = codec.payload_cols(d)
+    payload = torch.full((n * cols,), -1, dtype=torch.int64)
+    scale = torch.full((n,), float("nan"), dtype=torch.float16)
+    resid = torch.full((n * d,), float("nan"), dtype=F32)
+    written = torch.zeros(n * d, dtype=torch.int64)
+    for block in tiles_by_block(n, d, ef=True):
+        for r0, rows in block:
+            x = w[r0:r0 + rows] + ef[r0:r0 + rows]
+            sc_t, sf, byte = packed_tile(x, codec)
+            scale[r0:r0 + rows] = sc_t
+            payload[r0 * cols:(r0 + rows) * cols] = byte
+            e, row = (torch.tensor(v) for v in zip(*(
+                (e_i, r) for _, group in flat_groups(rows, d)
+                for e_i, r, _ in group)))
+            xe = x.reshape(-1)[e]
+            code = clip_code(torch.round(xe / sf[row]), qmax)
+            resid[r0 * d + e] = xe - code.to(F32) * sc_t.to(F32)[row]
+            written[r0 * d + e] += 1
+    assert (payload >= 0).all()
+    return ((payload.to(torch.uint8).view(n, cols), scale,
+             resid.view(n, d)), written)
 
 
 def tiled_send(w, name, key=None):
@@ -357,5 +438,78 @@ def test_tiled_emulation_matches_pallas_kernel(name, d):
         got = tiled_send(w, name)
         want = jax_send(jnp.asarray(w.numpy()), name, interpret=True)
     assert len(got) == len(want)
+    for g, p in zip(got, want):
+        assert same_bits(g, p)
+
+
+# ---------------------------------------------------------------------------
+# the tiled route under error feedback (int4_ef, ternary_ef)
+# ---------------------------------------------------------------------------
+
+EF_CODECS = ("int4_ef", "ternary_ef")
+
+
+@pytest.mark.parametrize("n", N_CASES)
+@pytest.mark.parametrize("d", [1, 7, 10, 32, 57])
+def test_tiled_ef_walk_writes_every_element_once(d, n):
+    """On the error-feedback kernel's own tiles: every residual element
+    (four flat elements a thread), packed byte and scale written once by
+    one tile; the tile offsets of w, ef and the residual (4 r0 d bytes) and
+    of the packed bytes multiples of 16; a group's float4 read of x and its
+    16-byte residual store inside the tile's slot."""
+    n, r = population(n, d, ef=True), gc.send_tile_rows(d, ef=True)
+    seen = np.zeros(n * d, np.int64)
+    seen_scale = np.zeros(n, np.int64)
+    seen_bytes = {g: np.zeros(n * -(-d // g), np.int64) for g in (2, 5)}
+    walked = [t for block in tiles_by_block(n, d, ef=True) for t in block]
+    assert sorted(r0 for r0, _ in walked) == list(range(0, n, r))
+    for r0, rows in walked:
+        assert r0 % 16 == 0 and (4 * r0 * d) % 16 == 0
+        seen_scale[r0:r0 + rows] += 1
+        for e, group in flat_groups(rows, d):
+            assert e % 4 == 0 and e + 3 < r * d     # the tile holds r d
+            for e_i, row, col in group:
+                assert (r0 + row) * d + col == r0 * d + e_i and row < rows
+                seen[r0 * d + e_i] += 1
+        for g, out in seen_bytes.items():
+            cols = -(-d // g)
+            assert (r0 * cols) % 16 == 0
+            out[r0 * cols:(r0 + rows) * cols] += 1
+    assert (seen == 1).all() and (seen_scale == 1).all()
+    assert all((out == 1).all() for out in seen_bytes.values())
+
+
+@pytest.mark.parametrize("n", N_CASES)
+@pytest.mark.parametrize("d", [1, 7, 10, 32, 57])
+@pytest.mark.parametrize("name", EF_CODECS)
+def test_tiled_ef_emulation_matches_plain_version(name, d, n):
+    """Packed bytes, scales and residuals bit for bit (``same_bits``), each
+    residual element written once, at N < R, N = R - 1, R, R + 1 and
+    several tiles with a ragged last one, on the edge rows."""
+    n = population(n, d, ef=True)
+    w = edge_models(n, d)
+    _, ef = smoke.send_inputs(n + d + 1, max(n, 8), d, "cpu")
+    ef = ef[:n]
+    got, written = tiled_packed_ef(w, ef, name)
+    assert (written == 1).all()
+    want = gc.quantize_send_plain(w, name, ef=ef)
+    assert len(got) == len(want) == 3
+    for g, p in zip(got, want):
+        assert same_bits(g, p)
+
+
+@pytest.mark.parametrize("d", [1, 7, 10, 32, 57])
+@pytest.mark.parametrize("name", EF_CODECS)
+def test_tiled_ef_emulation_matches_pallas_kernel(name, d):
+    """Against ``repro.kernels.gossip_cycle.quantize_send`` with ``ef`` in
+    interpret mode on 300 models (two to five tiles, a ragged last one),
+    the edge rows among them."""
+    n = 300
+    w = edge_models(n, d)
+    _, ef = smoke.send_inputs(7 * d, n, d, "cpu")
+    got, _ = tiled_packed_ef(w, ef, name)
+    want = jax_send(jnp.asarray(w.numpy()), name, ef=jnp.asarray(ef.numpy()),
+                    interpret=True)
+    assert len(got) == len(want) == 3
     for g, p in zip(got, want):
         assert same_bits(g, p)

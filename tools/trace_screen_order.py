@@ -7,19 +7,22 @@
 Runs ``chip_smoke.py`` phase 2's sign_flip run (N nodes, d = 10, the
 extreme scenario, MU, K = 4, cache 10, 20 cycles, 10 % sign_flip
 Byzantine senders, the given defense, seed 0) on the port's reference
-engine twice:
+engine three times:
 
-- with the screen's sums in sequence from +0.0 (``faults._screen_sum``,
-  XLA's order at d <= 32, which the plain version and both routes of the
-  receive kernel use);
+- with the screen's sums in the jitted reference's order, fused
+  multiply-adds in sequence from +0.0 at d = 10 (``faults._screen_sum``,
+  which the plain version and both routes of the receive kernel use);
+- with the rounded products added in sequence from +0.0 (the eager
+  reference's order at d <= 32, and the port's screen before it took the
+  jitted order);
 - with each sum a G-lane xor butterfly of partials that start at +0.0
   (the receive kernel's grouped route before its screen summed in
   sequence: G = 16 lanes at d = 10).
 
 Prints each run's fault counters and, for the first screen call, round
-and node whose verdict differs, the node's sq, rn and threshold under both
-orders, bit for bit. Needs only the port: it runs on the CPU, or on a card
-with ``--device cuda``."""
+and node whose verdict or rescaled message differs from the fused run's,
+the node's sq, rn and threshold under all three orders, bit for bit. Needs only the port:
+it runs on the CPU, or on a card with ``--device cuda``."""
 from __future__ import annotations
 
 import argparse
@@ -38,28 +41,41 @@ from repro_torch.data.synthetic import make_linear_dataset
 K_ROUNDS = 4
 
 
-def butterfly_sum(terms):
-    """The (m, d) terms' sums as the grouped kernel's xor butterfly over
-    G = 2^ceil(log2 d) lanes: lane j < d holds 0.0 + term j, the rest
-    +0.0; levels G/2 ... 1, each lane adding its partner's partial."""
-    m, d = terms.shape
+def butterfly_sum(a, b):
+    """The row sums of ``a * b`` (rounded, flushed products) as the grouped
+    kernel's xor butterfly over G = 2^ceil(log2 d) lanes: lane j < d holds
+    0.0 + term j, the rest +0.0; levels G/2 ... 1, each lane adding its
+    partner's partial."""
+    terms = faults._ftz(a * b)
+    *rows, d = terms.shape
     g = 1 << max(d - 1, 0).bit_length()
-    lanes = torch.zeros(m, g, dtype=terms.dtype, device=terms.device)
-    lanes[:, :d] = 0.0 + terms
+    lanes = torch.zeros(*rows, g, dtype=terms.dtype, device=terms.device)
+    lanes[..., :d] = 0.0 + terms
     idx = torch.arange(g, device=terms.device)
     o = g // 2
     while o:
-        lanes = lanes + lanes[:, idx ^ o]
+        lanes = lanes + lanes[..., idx ^ o]
         o //= 2
-    return lanes[:, 0]
+    return lanes[..., 0]
+
+
+def sequential_sum(a, b):
+    """The row sums of the rounded, flushed products ``a * b``, added in
+    sequence from +0.0."""
+    return faults._in_sequence(faults._ftz(a * b))
+
+
+ORDERS = (("fused", faults._screen_sum), ("sequential", sequential_sum),
+          ("butterfly", butterfly_sum))
 
 
 def run(cfg, data, device, order, reference=None):
     """One reference-engine run with ``order`` as the screen's sum. Each
-    screen call's (gated, clipped) verdicts are recorded; against
-    ``reference`` (another run's record) the first call and node whose
-    verdict differs is kept with its sums under both orders. Returns the
-    result, the record and that first difference (or None)."""
+    screen call's (gated, clipped) verdicts and screened messages are
+    recorded; against ``reference`` (another run's record) the first call
+    and node whose verdict or rescaled message differs is kept with its
+    sums under every order. Returns the result, the record and that first
+    difference (or None)."""
     record, first = [], []
     screen, plain_sum = faults.apply_defense, faults._screen_sum
 
@@ -69,21 +85,24 @@ def run(cfg, data, device, order, reference=None):
             out = screen(defense, msg_w, valid, recv_w)
         finally:
             faults._screen_sum = plain_sum
-        verdict = (out[2].cpu(), out[3].cpu())
+        got = (out[2].cpu(), out[3].cpu(), out[0].cpu())
         call = len(record)
-        record.append(verdict)
+        record.append(got)
         if reference is not None and not first:
             want = reference[call]
-            moved = (verdict[0] != want[0]) | (verdict[1] != want[1])
+            verdict = (got[0] != want[0]) | (got[1] != want[1])
+            moved = verdict | (valid.cpu() & (
+                got[2].view(torch.int32) != want[2].view(torch.int32)
+            ).any(-1))
             if bool(moved.any()):
                 i = int(torch.nonzero(moved)[0])
                 m, r = faults._ftz(msg_w[i:i + 1]), faults._ftz(
                     recv_w[i:i + 1])
-                first.append(dict(call=call, node=i, sums={
-                    name: (float(fn(faults._ftz(m * m))[0]),
-                           float(fn(faults._ftz(r * r))[0]))
-                    for name, fn in (("sequential", plain_sum),
-                                     ("butterfly", butterfly_sum))}))
+                first.append(dict(
+                    call=call, node=i, kind=("verdict" if verdict[i] else
+                                             "rescaled message"),
+                    sums={name: (float(fn(m, m)[0]), float(fn(r, r)[0]))
+                          for name, fn in ORDERS}))
         return out
 
     faults.apply_defense = traced
@@ -115,24 +134,27 @@ def main(argv=None) -> int:
         lam=1e-3, variant="mu", cache_size=10), "extreme"),
         fault_model="sign_flip", byzantine_frac=0.1, defense=args.defense)
     data = (X[:n], y[:n], X[n:], y[n:])
-    seq, record, _ = run(cfg, data, args.device, faults._screen_sum)
-    fly, _, first = run(cfg, data, args.device, butterfly_sum, record)
+    fused, record, _ = run(cfg, data, args.device, faults._screen_sum)
     print(f"N={n} sign_flip 10% {args.defense}, 20 cycles, reference "
           f"engine on {args.device}:")
-    print(f"  sums in sequence (XLA's order): {seq.fault_stats}")
-    print(f"  sums by 16-lane butterfly:      {fly.fault_stats}")
-    if first is None:
-        print("  no verdict differs")
-        return 0
-    cycle, rnd = divmod(first["call"], K_ROUNDS)
-    print(f"  first verdict that differs: cycle {cycle}, round {rnd}, node "
-          f"{first['node']}")
-    for name, (sq, rn) in first["sums"].items():
-        thr = np.maximum(np.float32(faults.NORM_CLIP_MULT_SQ)
-                         * np.float32(rn), np.float32(
-                             faults.NORM_CLIP_FLOOR_SQ))
-        print(f"    {name:10s} sq {bits(sq)}, rn {bits(rn)}, threshold "
-              f"{bits(float(thr))}, sq > threshold: {np.float32(sq) > thr}")
+    print(f"  fused (the jitted reference's order): {fused.fault_stats}")
+    for name, order in ORDERS[1:]:
+        res, _, first = run(cfg, data, args.device, order, record)
+        print(f"  {name}: {res.fault_stats}")
+        if first is None:
+            print("    no verdict or rescaled message differs from the fused "
+                  "run's")
+            continue
+        cycle, rnd = divmod(first["call"], K_ROUNDS)
+        print(f"    first {first['kind']} that differs: cycle {cycle}, "
+              f"round {rnd}, node {first['node']}")
+        for order_name, (sq, rn) in first["sums"].items():
+            thr = np.maximum(np.float32(faults.NORM_CLIP_MULT_SQ)
+                             * np.float32(rn), np.float32(
+                                 faults.NORM_CLIP_FLOOR_SQ))
+            print(f"      {order_name:10s} sq {bits(sq)}, rn {bits(rn)}, "
+                  f"threshold {bits(float(thr))}, sq > threshold: "
+                  f"{np.float32(sq) > thr}")
     return 0
 
 
