@@ -20,13 +20,16 @@ and ``nvcc``. The phases, each of which raises on failure:
    cosine_gate) after the f32, affine int8, int4 and ternary decodes on
    rows crafted for every verdict (gated and clipped counts equal, and the
    screened lastModel bit for bit where the screen's sum order is known;
-   also at d = 33, 64, 96, 100 and 128 on the strided route), and at
-   every d <= 32 its grouped route against its strided route forced on the
-   same inputs (bit for bit; K = 9 on the strided route); the bf16/f16
+   also at d = 33, 64, 96, 100 and 128 on the strided route, and at
+   d = 6 and 8 where the jitted reference sums some nodes unfused, N =
+   20 003 and 40 001), and at every d <= 32 its grouped route against its
+   strided route forced on the same inputs (bit for bit; K = 9 on the
+   strided route); the bf16/f16
    decodes timed at N = 10^6, and the f32 decode at spambase's and
    reuters' shapes (d = 57, N = 4140; d = 9947, N = 2000); the
-   voted-predict kernel at the serving shapes (bitwise, with zero scores
-   and exact-half ties); the send kernels for int8, int8_sr, int4,
+   voted-predict kernel at the serving shapes on both its routes (grouped
+   at d <= 32, strided), in snapshot and gathered form (bitwise, with zero
+   scores and exact-half ties); the send kernels for int8, int8_sr, int4,
    int4_ef, ternary and ternary_ef (bitwise, on rows of mixed-sign zeros
    and NaN too), each shape on the route ``send_route`` picks and, where
    that is the tiled one, against the strided route forced on the same
@@ -35,9 +38,9 @@ and ``nvcc``. The phases, each of which raises on failure:
    cosine_gate screen timed at N = 10^6; kernels #6 and #7
    (``pegasos_update``, ``merge_update``) at N = 10^6, d = 10 and 57, and
    N = 4096, d = 9947, driven ten steps each through ``kernels/ops.py``
-   (the merge's launches on its tiled layout, the step's on the strided
-   one) and timed at N = 10^6, d = 10, and #7's two layouts against each
-   other and timed at N = 10^6, d = 10, 32, 57 and 128; kernel #8 (``flash_attention``) over
+   (every launch of both on the tiled layout) and timed at N = 10^6,
+   d = 10, and each kernel's two layouts against each other and timed at
+   N = 10^6, d = 10, 32, 57 and 128; kernel #8 (``flash_attention``) over
    head_dim 64, 128 and 48, H/KV 1, 2 and 8, causal or not, window None
    or 64, S = 1, 37, 128, 300 and 2048, in float32 and bfloat16, and on
    strided and unaligned inputs, each case on the route it must take
@@ -68,10 +71,11 @@ and ``nvcc``. The phases, each of which raises on failure:
    test queries at each eval point: launches, fault counters, economy,
    node-cycles/s, the snapshot copies' time, queries/s, p50/p99 batch
    latency, served accuracy, peak memory, the screened receive kernel's
-   and the voted-predict kernel's (M = 256 and 65 536) time per launch
-   beside their bounds (the voted-predict kernel's replayed from a CUDA
-   graph, so that the host's cost of a call is left out, and also per
-   call as the server makes it), and a profiled rerun;
+   and the voted-predict kernel's (M = 1, 256 and 65 536; its launches by
+   route) time per launch beside their bounds (the voted-predict kernel's
+   replayed from a CUDA graph, so that the host's cost of a call is left
+   out, on its grouped route and its strided one, and also per call as
+   the server makes it), and a profiled rerun;
 6. LM serving at full width: the reduced qwen3-1.7b (f32) served on the
    card (kernel #8's CUDA-core route) against the same weights served on
    the CPU (its plain version), then qwen3-1.7b in bf16 with random
@@ -142,16 +146,22 @@ SEND_SWEEP_WIDTHS = (10, 32, 57, 128)
 SEND_SHAPES = ((4099, 10), (4099, 57), (2000, 9947), (257, 1), (257, 7),
                (1031, 16), (4099, 32), (255, 10), (4097, 57))
 DEFENSE_MODES = ("norm_clip", "cosine_gate")
-# the screen's sum orders past d = 32, on the strided route (f32, mu): two
+# the screen's sum orders (f32, mu): past d = 32, on the strided route, two
 # halves at 33-64, 32-wide chunks at multiples of 32, and a width whose
-# order is not known (butterflies); (N, d)
+# order is not known (butterflies); at d = 6 and 8 the nodes the jitted
+# reference sums unfused (faults.screen_split: on an 8-CPU host every node
+# fused at N = 20 003, a vector loop in each of three workgroups at
+# N = 40 001), on both routes; (N, d)
 SCREEN_ORDER_SHAPES = ((4099, 33), (4099, 64), (4099, 96), (2000, 100),
-                       (2000, 128))
+                       (2000, 128), (20_003, 6), (40_001, 8))
 # the screens are checked after each decode family: f32, affine int8,
 # int4 and ternary
 SCREEN_WIRES = {"affine8": "int8", "int4": "int4", "ternary": "ternary"}
 VOTED_SHAPES = ((256, 10, 10), (4099, 10, 57), (64, 10, 9947),
                 (65_536, 10, 10))
+# phase 5's voted-predict batches: one query's chain, the server's batch,
+# and a large one
+VOTED_BATCHES = (1, 256, 65_536)
 # phase 2's fault runs (fault model, wire, defense) at N = 20 000
 FAULT_RUNS = (("sign_flip", None, "norm_clip"),
               ("sign_flip", None, "cosine_gate"),
@@ -172,8 +182,8 @@ ROW_KERNELS = {"pegasos_update": "src/repro/kernels/pegasos_update.py:63",
                "merge_update": "src/repro/kernels/gossip_merge.py:48"}
 ROW_STEPS = 10          # steps a phase-1 run of each takes through ops.py
 ROW_SHAPES = ((1_000_000, 10), (1_000_000, 57), (4096, 9947))
-# the widths at which phase 1 times #7's tiled layout against its strided
-# one (N = 10^6)
+# the widths at which phase 1 times #6's and #7's tiled layouts against
+# their strided ones (N = 10^6)
 ROW_SWEEP_WIDTHS = (10, 32, 57, 128)
 # row #8, its two routes' sources, and the shapes of phase 1's sweep of it
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:121"
@@ -437,25 +447,39 @@ def voted_inputs(seed, m, c, d, device):
     return t(w), t(count), t(X), t(assign)
 
 
+def voted_routes(d: int, c: int):
+    """The voted-predict kernel's routes that take (d, C): ``voted_route``'s
+    first, then the strided one where that is another."""
+    from repro_torch.kernels import voted_predict as vp
+    route = vp.voted_route(d, c)
+    return (route,) if route == "strided" else (route, "strided")
+
+
 def compare_voted(w, count, X, assign):
     """The voted-predict kernel against its plain version on the card, on
     the snapshot rows (``assign``) and on the gathered rows (the TPU
-    kernel's form: ``assign = arange(M)``): answers must be equal bit for
-    bit. Returns the answers."""
+    kernel's form: ``assign = arange(M)``), through the wrapper (the route
+    ``voted_route`` picks) and on the strided route forced where that is
+    another: answers must be equal bit for bit. Returns the answers."""
     import torch
     from repro_torch.kernels import voted_predict as vp
     a = assign.long()
     want = vp.voted_predict_batched_plain(w[a], count[a], X)
     rows = torch.arange(len(a), dtype=torch.int32, device=a.device)
-    for got in (vp.voted_predict_batched(w, count, X, assign=assign),
-                vp.voted_predict_batched(w[a].contiguous(),
-                                         count[a].contiguous(), X, rows)):
-        torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            bad = int((got != want).sum())
-            raise AssertionError(f"voted_predict_batched differs from the "
-                                 f"plain version in {bad} of {len(want)} "
-                                 "answers")
+    _, c, d = w.shape
+    for form in ((w, count, X, assign),
+                 (w[a].contiguous(), count[a].contiguous(), X, rows)):
+        for route in voted_routes(d, c):
+            got = (vp.voted_predict_batched(*form)
+                   if route == vp.voted_route(d, c) else
+                   vp._launch(*form, route=route))
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)):
+                bad = int((got != want).sum())
+                raise AssertionError(
+                    f"voted_predict_batched ({route}) differs from the plain "
+                    f"version in {bad} of {len(want)} answers")
     return want
 
 
@@ -646,13 +670,17 @@ def voted_bound(count, assign, d: int):
     return ms, by, nbytes
 
 
-def time_voted(snap, X_test, m: int, seed: int):
+def time_voted(snap, X_test, m: int, seed: int) -> dict:
     """The voted-predict kernel on a snapshot at M queries (test points
     drawn with numpy, nodes assigned as the server assigns them): bitwise
-    agreement with the plain version, ms per launch and the plain
-    version's ms (``serving.serve_voted``: gather and plain vote), both
-    replayed from a CUDA graph, the kernel's ms per call as the server
-    makes it (the wrapper's host time included) and the bound."""
+    agreement with the plain version on both routes, ms per launch on the
+    route ``voted_route`` picks, on the grouped route at each of its two
+    widths a query (one warp; all C groups at once) and on the strided
+    route on the same inputs, and the plain version's ms
+    (``serving.serve_voted``: gather and plain vote), all replayed from a
+    CUDA graph, the kernel's ms per call
+    as the server makes it (the wrapper's host time included) and the
+    bound."""
     import numpy as np
     import torch
     from repro_torch.core import serving
@@ -664,12 +692,20 @@ def time_voted(snap, X_test, m: int, seed: int):
         m, snap.count.shape[0], seed=seed)).to(dev)
     compare_voted(snap.w, snap.count, Xq, aq)
     kernel = lambda: vp.voted_predict_batched(snap.w, snap.count, Xq, aq)
-    ms = graph_time_ms(kernel, reps=50)
-    call_ms = cuda_time_ms(kernel, reps=50)
-    plain_ms = graph_time_ms(lambda: serving.serve_voted(
-        snap.w, snap.count, Xq, aq), reps=20)
-    bound_ms, bound_by, nbytes = voted_bound(snap.count, aq, Xq.shape[1])
-    return ms, call_ms, plain_ms, bound_ms, bound_by, nbytes
+    _, c, d = snap.w.shape
+    bound_ms, bound_by, nbytes = voted_bound(snap.count, aq, d)
+    lanes = {n: graph_time_ms(lambda: vp._launch(
+        snap.w, snap.count, Xq, aq, route="grouped", lanes=n), reps=50)
+        for n in sorted({32, vp.grouped_lanes_all(c, d)})}
+    return dict(
+        route=vp.voted_route(d, c), ms=graph_time_ms(kernel, reps=50),
+        grouped_lanes_ms=lanes,
+        strided_ms=graph_time_ms(lambda: vp._launch(
+            snap.w, snap.count, Xq, aq, route="strided"), reps=50),
+        call_ms=cuda_time_ms(kernel, reps=50),
+        plain_ms=graph_time_ms(lambda: serving.serve_voted(
+            snap.w, snap.count, Xq, aq), reps=20),
+        bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes)
 
 
 def bound(nbytes: float, ops: float):
@@ -821,7 +857,7 @@ def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None):
     the codec at d = 10. Returns (result, wall s, peak bytes, receive
     launches, send launches by kernel, captured receive inputs, captured
     send inputs, voted-predict launches, receive launches by route, send
-    launches by route)."""
+    launches by route, voted-predict launches by route)."""
     import numpy as np
     import torch
     from repro_torch.core.simulation import run_simulation
@@ -858,6 +894,8 @@ def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None):
             recv.route_launches[k] = 0
         for k in send.route_launches:
             send.route_launches[k] = 0
+        for k in vp.voted_predict_batched.route_launches:
+            vp.voted_predict_batched.route_launches[k] = 0
         t0 = time.perf_counter()
         res = run_simulation(cfg, X[:n], y[:n], X[n:], y[n:],
                              engine="sharded", cycles=cycles, eval_every=10,
@@ -869,6 +907,7 @@ def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None):
         routes = dict(recv.route_launches)
         send_routes = dict(send.route_launches)
         voted = vp.voted_predict_batched.launches
+        voted_by_route = dict(vp.voted_predict_batched.route_launches)
     finally:
         gc.fused_receive_apply, gc.quantize_send = recv, send
     peak = torch.cuda.max_memory_allocated()
@@ -892,7 +931,7 @@ def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None):
             and all(0.0 <= e <= 0.5 for e in res.err_fresh + res.err_voted)):
         raise AssertionError(f"bad curves {curves}")
     return (res, wall, peak, launches, sends, got_recv, got_send, voted,
-            routes, send_routes)
+            routes, send_routes, voted_by_route)
 
 
 def time_receive(captured, variant: str, lam: float, d: int,
@@ -1070,33 +1109,44 @@ def rows_bound(name, n: int, d: int):
     return ms, by, nbytes
 
 
+def launch_layout(name):
+    """The forcing helper of kernel #6 (``name`` "pegasos_update") or #7
+    ("merge_update"): (tensors, n, d, lam, route=) -> (w', t')."""
+    from repro_torch.kernels import gossip_merge as gm
+    from repro_torch.kernels import pegasos_update as pu
+    return {"pegasos_update": pu._launch_step,
+            "merge_update": gm._launch_merge}[name]
+
+
 def time_rows(name, inputs, lam):
     """ms per launch of kernel #6 or #7 through ``kernels/ops.py``, the
-    strided layout's ms on the same inputs (the merge's other layout;
-    #6 has only that one), its plain version's ms, and the bound."""
-    from repro_torch.kernels import gossip_merge as gm
+    strided layout's ms on the same inputs, its plain version's ms, and
+    the bound."""
     from repro_torch.kernels import ops
     fn = getattr(ops, name)
     ms = cuda_time_ms(lambda: fn(*inputs, lam=lam), reps=20)
     n, d = inputs[0].shape
-    strided_ms = (cuda_time_ms(lambda: gm._launch_merge(
+    strided_ms = cuda_time_ms(lambda: launch_layout(name)(
         inputs, n, d, lam, route="strided"), reps=20)
-                  if name == "merge_update" else ms)
     plain = row_plain(name)
     plain_ms = cuda_time_ms(lambda: plain(*inputs, lam), reps=10)
     return (ms, strided_ms, plain_ms) + rows_bound(name, n, d)
 
 
 def hinge_may_flip(inputs):
-    """The rows of a merge (w1, t1, w2, t2, x, y) whose hinge (margin < 1)
-    another order of the margin's sum may decide the other way: the plain
-    version's margin lies within 2 gamma_(d-1) sum_j |m_j x_j| of 1, twice
-    the bound on a float32 sum's rounding error in any order (Higham), the
-    products rounded as both round them. A flipped hinge moves w' by eta y
-    x, far past any float tolerance."""
+    """The rows of a step (w, t, x, y) or a merge (w1, t1, w2, t2, x, y)
+    whose hinge (margin < 1) another order of the margin's sum may decide
+    the other way: the plain version's margin lies within 2 gamma_(d-1)
+    sum_j |m_j x_j| of 1, twice the bound on a float32 sum's rounding error
+    in any order (Higham), the products rounded as both round them. A
+    flipped hinge moves w' by eta y x, far past any float tolerance."""
     import torch
-    w1, _, w2, _, x, y = inputs
-    terms = (w1 + w2) / 2.0 * x
+    if len(inputs) == 6:
+        w1, _, w2, _, x, y = inputs
+        terms = (w1 + w2) / 2.0 * x
+    else:
+        w, _, x, y = inputs
+        terms = w * x
     d = x.shape[1]
     u = 2.0 ** -24
     gamma = (d - 1) * u / (1 - (d - 1) * u)
@@ -1104,51 +1154,57 @@ def hinge_may_flip(inputs):
     return (margin - 1.0).abs() <= 2 * gamma * terms.double().abs().sum(-1)
 
 
-def merge_width_sweep(card: str, dev) -> dict:
-    """#7's two layouts forced on the same inputs at N = 10^6 and d = 10,
-    32, 57 and 128: t' equal, w' within ``compare_rows``' tolerance of
-    the plain version on every row whose hinge no sum order can flip
+def row_width_sweep(card: str, dev) -> dict:
+    """#6's and #7's two layouts forced on the same inputs at N = 10^6 and
+    d = 10, 32, 57 and 128: t' equal, w' within ``compare_rows``' tolerance
+    of the plain version on every row whose hinge no sum order can flip
     (``hinge_may_flip``; at these sizes a few rows lie that close to 1),
     and each layout's ms per launch (where the tiled layout is no slower,
-    ``row_route``'s limit may reach). Returns {d: {...}}."""
+    ``row_route``'s limit for that kernel may reach). Returns
+    {kernel: {d: {...}}}."""
     import torch
-    from repro_torch.kernels import gossip_merge as gm
     from repro_torch.kernels import pegasos_update as pu
     out = {}
-    for d in ROW_SWEEP_WIDTHS:
-        n = 1_000_000
-        inputs = row_inputs(d, n, d, dev, merge=True)
-        got = {route: gm._launch_merge(inputs, n, d, 1e-3, route=route)
-               for route in pu.ROW_ROUTES}
-        pw, pt = row_plain("merge_update")(*inputs, 1e-3)
-        fixed = ~hinge_may_flip(inputs)
-        torch.cuda.synchronize()
-        off = {}
-        for route, (w, t) in got.items():
-            if not (torch.equal(t, pt) and torch.allclose(
-                    w[fixed], pw[fixed], rtol=2e-5, atol=1e-5)):
-                raise AssertionError(f"merge_update {route} d={d}: off the "
-                                     "plain version")
-            off[route] = int((w != pw).any(dim=1).sum())
-        apart = int((got["tiled"][0] != got["strided"][0]).any(dim=1).sum())
-        row = dict(
-            tiled_ms=cuda_time_ms(lambda: gm._launch_merge(
-                inputs, n, d, 1e-3, route="tiled"), 20),
-            strided_ms=cuda_time_ms(lambda: gm._launch_merge(
-                inputs, n, d, 1e-3, route="strided"), 20),
-            bound_ms=rows_bound("merge_update", n, d)[0],
-            rows_not_bitwise=off, rows_apart=apart,
-            hinge_may_flip=int((~fixed).sum()))
-        out[d] = row
-        print(f"[1] {card}: merge_update N=10^6 d={d}: tiled "
-              f"{row['tiled_ms']:.4f} ms, strided {row['strided_ms']:.4f} ms "
-              f"(t equal, w within rtol 2e-5 atol 1e-5 but on the "
-              f"{row['hinge_may_flip']} rows whose hinge an order may flip; "
-              f"rows not bitwise equal to plain {off}, to each other "
-              f"{apart}), bound {row['bound_ms']:.4f} ms; row_route takes "
-              f"{pu.row_route(d, True)}")
-        del inputs, got
-        torch.cuda.empty_cache()
+    for name in ROW_KERNELS:
+        merge = name == "merge_update"
+        launch = launch_layout(name)
+        out[name] = {}
+        for d in ROW_SWEEP_WIDTHS:
+            n = 1_000_000
+            inputs = row_inputs(d, n, d, dev, merge=merge)
+            got = {route: launch(inputs, n, d, 1e-3, route=route)
+                   for route in pu.ROW_ROUTES}
+            pw, pt = row_plain(name)(*inputs, 1e-3)
+            fixed = ~hinge_may_flip(inputs)
+            torch.cuda.synchronize()
+            off = {}
+            for route, (w, t) in got.items():
+                if not (torch.equal(t, pt) and torch.allclose(
+                        w[fixed], pw[fixed], rtol=2e-5, atol=1e-5)):
+                    raise AssertionError(f"{name} {route} d={d}: off the "
+                                         "plain version")
+                off[route] = int((w != pw).any(dim=1).sum())
+            apart = int((got["tiled"][0] != got["strided"][0]).any(
+                dim=1).sum())
+            row = dict(
+                tiled_ms=cuda_time_ms(lambda: launch(
+                    inputs, n, d, 1e-3, route="tiled"), 20),
+                strided_ms=cuda_time_ms(lambda: launch(
+                    inputs, n, d, 1e-3, route="strided"), 20),
+                bound_ms=rows_bound(name, n, d)[0],
+                rows_not_bitwise=off, rows_apart=apart,
+                hinge_may_flip=int((~fixed).sum()))
+            out[name][d] = row
+            print(f"[1] {card}: {name} N=10^6 d={d}: tiled "
+                  f"{row['tiled_ms']:.4f} ms, strided "
+                  f"{row['strided_ms']:.4f} ms (t equal, w within rtol 2e-5 "
+                  f"atol 1e-5 but on the {row['hinge_may_flip']} rows whose "
+                  f"hinge an order may flip; rows not bitwise equal to "
+                  f"plain {off}, to each other {apart}), bound "
+                  f"{row['bound_ms']:.4f} ms; row_route takes "
+                  f"{pu.row_route(d, merge)}")
+            del inputs, got
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1334,8 +1390,8 @@ def phase1_rows(card: str, results: dict):
     if launches != dict.fromkeys(counters, ROW_STEPS):
         raise AssertionError(f"{ROW_STEPS} steps through ops.py launched "
                              f"{launches}")
-    want_routes = {"pegasos_update": dict(tiled=0, strided=ROW_STEPS),
-                   "merge_update": dict(tiled=ROW_STEPS, strided=0)}
+    want_routes = {name: dict(tiled=ROW_STEPS, strided=0)
+                   for name in counters}
     if by_route != want_routes:
         raise AssertionError(f"{ROW_STEPS} steps through ops.py at d={d} "
                              f"launched by layout {by_route}, expected "
@@ -1353,8 +1409,7 @@ def phase1_rows(card: str, results: dict):
         ms, strided_ms, plain_ms, b_ms, by, nbytes = time_rows(name, inputs,
                                                                1e-3)
         route = pu.row_route(d, name == "merge_update")
-        other = (f"; the strided layout {strided_ms:.4f} ms on the same "
-                 "inputs" if route != "strided" else "")
+        other = f"; the strided layout {strided_ms:.4f} ms on the same inputs"
         print(f"[1] {card}: {name} at N={n} d={d}: {ms:.4f} ms/launch "
               f"({route}) vs bound {b_ms:.4f} ms ({by}, {nbytes} B)"
               f"{other}; plain version {plain_ms:.4f} ms")
@@ -1362,7 +1417,7 @@ def phase1_rows(card: str, results: dict):
                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=by, row_route=route, strided_ms=strided_ms)
     results["rows"] = out
-    results["merge_width_sweep"] = merge_width_sweep(card, dev)
+    results["row_width_sweep"] = row_width_sweep(card, dev)
     return out
 
 
@@ -1729,8 +1784,9 @@ def main() -> int:
                           f"{err:.3e}; route {took}")
                 del inputs
         torch.cuda.empty_cache()
-    # the screen's sum orders past d = 32 (strided route), lastModel bit for
-    # bit in compare_kernel
+    # the screen's sum orders past d = 32 (strided route) and where the
+    # reference sums some nodes unfused (d = 6, 8; both routes), lastModel
+    # bit for bit in compare_kernel
     for si, (n, d) in enumerate(SCREEN_ORDER_SHAPES):
         inputs = receive_inputs(100 + si, n, d, 10, 4, dev, crafted=True)
         for defense in DEFENSE_MODES:
@@ -1740,10 +1796,15 @@ def main() -> int:
             known = ("and lastModel bitwise equal"
                      if faults.screen_order_known(d) else
                      "equal (the sum order is not known at this d)")
+            took = gc.receive_route(d, 4)
+            if took == "grouped":
+                compare_routes(inputs, "mu", 1e-3, None, defense)
+                took += ", bitwise equal to strided"
+            split = (f"; unfused split {gc.screen_splits(n, d, defense)}"
+                     if d in faults.UNFUSED_WIDTHS else "")
             print(f"[1] fused_receive_apply {defense} f32 N={n} d={d} C=10 "
                   f"K=4 mu: ints and counts (gated {g}, clipped {cl}) "
-                  f"{known}, max abs err {err:.3e}; route "
-                  f"{gc.receive_route(d, 4)}")
+                  f"{known}, max abs err {err:.3e}; route {took}{split}")
         del inputs
     print(f"[1] fused_receive_apply: {route_cases['grouped']} cases at "
           "d <= 32 on the grouped route, each bitwise equal to the strided "
@@ -1787,9 +1848,10 @@ def main() -> int:
         if ans[:4].tolist() != [1.0, 1.0, 1.0, -1.0]:
             raise AssertionError(f"voted_predict_batched: zero-score, tie "
                                  f"and below-tie answers {ans[:4].tolist()}")
-        print(f"[1] voted_predict_batched M={m} C={c} d={d}: answers "
-              "bitwise equal to the plain version (snapshot and gathered "
-              "forms; zero scores and exact-half ties answer +1)")
+        print(f"[1] voted_predict_batched M={m} C={c} d={d}: answers on "
+              f"{' and '.join(voted_routes(d, c))} bitwise equal to the "
+              "plain version (snapshot and gathered forms; zero scores and "
+              "exact-half ties answer +1)")
     del w, count, Xq, aq
     key = random.key(12345, device=dev)
     for n, d in SEND_SHAPES:
@@ -1926,7 +1988,7 @@ def main() -> int:
         class_ratio=(1, 1), lam=1e-3, variant="mu", cache_size=10),
         "extreme")
 
-    res, wall, peak, launches, _, captured, _, _, routes, _ = main_path(
+    res, wall, peak, launches, _, captured, _, _, routes, _, _ = main_path(
         cfg3, X, y, n3, cycles, dev)
     rate = n3 * cycles / wall
     print(f"[3] {card}: N={n3} d=10 extreme MU K=4 C=10 {cycles} cycles: "
@@ -1982,7 +2044,7 @@ def main() -> int:
         cfg4 = dataclasses.replace(cfg3, wire_dtype=wire)
         kernel = gc.send_kernel_name(wire)
         (res, wall, peak, launches, sends, cap_r, cap_s, _, routes,
-         send_routes) = main_path(cfg4, X, y, n3, cycles, dev)
+         send_routes, _) = main_path(cfg4, X, y, n3, cycles, dev)
         if sends[kernel] != cycles or sum(sends.values()) != cycles:
             raise AssertionError(f"{wire}: main path launched the send "
                                  f"kernels {sends}, expected {cycles} "
@@ -2078,8 +2140,9 @@ def main() -> int:
 
     serving.snapshot_from_carry = timed_snapshot
     try:
-        res, wall, peak, launches, _, cap_r, _, voted, routes, _ = (
-            main_path(cfg5, X, y, n3, cycles, dev, serve_hook=hook))
+        (res, wall, peak, launches, _, cap_r, _, voted, routes, _,
+         voted_by_route) = main_path(cfg5, X, y, n3, cycles, dev,
+                                     serve_hook=hook)
     finally:
         serving.snapshot_from_carry = take
     server.flush()
@@ -2091,13 +2154,19 @@ def main() -> int:
     if voted != st.batches or voted == 0:
         raise AssertionError(f"phase 5: the server answered {st.batches} "
                              f"batches with {voted} voted-predict launches")
+    want_voted = dict.fromkeys(voted_by_route, 0)
+    want_voted[voted_routes(X.shape[1], cfg5.cache_size)[0]] = voted
+    if voted_by_route != want_voted:
+        raise AssertionError(f"phase 5: voted-predict launches by route "
+                             f"{voted_by_route}, expected {want_voted}")
     if not 0.5 < acc <= 1.0:
         raise AssertionError(f"phase 5: served accuracy {acc}")
     rate = n3 * cycles / wall
     print(f"[5] {card}: N={n3} d=10 extreme MU K=4 C=10 {cycles} cycles, "
           f"sign_flip 10% + norm_clip, served: launches receive {launches} "
           f"(by route {routes}), "
-          f"voted_predict {voted}; err_fresh {res.err_fresh} err_voted "
+          f"voted_predict {voted} (by route {voted_by_route}); err_fresh "
+          f"{res.err_fresh} err_voted "
           f"{res.err_voted}; fault counters {fs}")
     print(f"[5] {card}: economy sent {res.sent_total} = delivered "
           f"{res.delivered_total} + lost {res.lost_total} + overflow "
@@ -2115,16 +2184,16 @@ def main() -> int:
           f"{receive_line(t5)}")
     del cap_r
     voted_rows = {}
-    for m in (256, 65_536):
-        v_ms, v_call, v_plain, v_bound, v_by, v_bytes = time_voted(
-            server.snapshot, X[n3:], m, seed=m)
-        voted_rows[m] = dict(ms=v_ms, call_ms=v_call, plain_ms=v_plain,
-                             bound_ms=v_bound, bound_by=v_by,
-                             bound_bytes=v_bytes)
+    for m in VOTED_BATCHES:
+        v = voted_rows[m] = time_voted(server.snapshot, X[n3:], m, seed=m)
         print(f"[5] {card}: voted_predict_batched M={m} on the N={n3} "
-              f"snapshot: {v_ms:.4f} ms/launch in a CUDA graph vs bound "
-              f"{v_bound:.4f} ms ({v_by}, {v_bytes} B), {v_call:.4f} ms "
-              f"per call; plain version {v_plain:.4f} ms in a graph; "
+              f"snapshot: {v['ms']:.4f} ms/launch ({v['route']}) in a CUDA "
+              f"graph vs bound {v['bound_ms']:.6f} ms ({v['bound_by']}, "
+              f"{v['bound_bytes']} B), strided {v['strided_ms']:.4f} ms on "
+              f"the same inputs, grouped at forced threads a query "
+              f"{ {n: round(t, 5) for n, t in v['grouped_lanes_ms'].items()} }"
+              f", {v['call_ms']:.4f} ms per call; plain "
+              f"version {v['plain_ms']:.4f} ms in a graph; both routes "
               "bitwise equal to plain")
     prof5 = profile_run(
         lambda: run_simulation(
@@ -2134,7 +2203,8 @@ def main() -> int:
                                    y[n3:], 2048)[0]), "5", card)
     results["phase5"] = dict(
         wall_s=wall, node_cycles_per_s=rate, peak_bytes=peak,
-        launches=launches, voted_launches=voted, fault_stats=fs,
+        launches=launches, voted_launches=voted,
+        voted_route_launches=voted_by_route, fault_stats=fs,
         err_fresh=res.err_fresh, err_voted=res.err_voted,
         sent=res.sent_total, delivered=res.delivered_total,
         lost=res.lost_total, overflow=res.overflow_total,
@@ -2181,7 +2251,8 @@ def main() -> int:
         replaces="src/repro/kernels/voted_predict.py:73", launches=voted,
         max_abs_err=0.0, ms=v256["ms"], plain_ms=v256["plain_ms"],
         bound_ms=v256["bound_ms"], bound_by=v256["bound_by"],
-        library_ms=None))
+        library_ms=None, voted_route=v256["route"],
+        strided_ms=v256["strided_ms"], m1_ms=voted_rows[1]["ms"]))
     for name, replaces in ROW_KERNELS.items():
         kernels.append(dict(
             name=name, route="cuda",

@@ -28,12 +28,10 @@ width, squares and products, with jax 0.9.0):
 
 * d = 1: the one product;
 * 2 <= d <= 32: fused multiply-adds in sequence from +0.0, ``acc =
-  fma(a_j, b_j, acc)``, j = 0 ... d - 1, except at 5 <= d <= 8, where the
-  products round apart and add in sequence on the rows XLA vectorises in
-  fours, which at 4000 rows are all of them; it fuses the rest (rows past
-  the last full four, most arrays below 16 rows, the choice varying with
-  the fusion), and the port takes the unfused order for every row there
-  (ROADMAP queue 3);
+  fma(a_j, b_j, acc)``, j = 0 ... d - 1, except at 5 <= d <= 8 on the rows
+  XLA's vector loop takes, where the products round apart and add in
+  sequence (``screen_split``: which rows those are depends on N, d, the
+  number of arrays the sum reads and the host's CPU count);
 * 33 <= d <= 64: the rounded products in two halves, j < ceil(d/2) and
   the rest, each in sequence from +0.0, then the two added;
 * d a multiple of 32: 32-wide chunks, each in sequence, then the chunk
@@ -58,6 +56,8 @@ flushed too.
 """
 from __future__ import annotations
 
+import math
+import os
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -235,9 +235,24 @@ def _ftz(x):
 
 # XLA's order for the screen's row sums, by the row's width d
 FUSED_SUM_MAX_WIDTH = 32          # fused multiply-adds at d <= 32 ...
-UNFUSED_WIDTHS = range(5, 9)      # ... but for these widths
+UNFUSED_WIDTHS = range(5, 9)      # ... but on vectorised rows at these
 HALVES_MAX_WIDTH = 64             # two halves at 33 <= d <= 64
 SUM_CHUNK = 32                    # 32-wide chunks at multiples of 32
+
+# Which rows of a screen sum XLA's vector loop takes at 5 <= d <= 8
+# (measured on jax.jit of the sums and of apply_receives, jax 0.9.0, on an
+# 8-CPU x86 host). XLA on the CPU splits the fusion's rows into P
+# workgroups, P = min(ceil(sqrt(CPUs)), max(1, bytes // 256 KiB)), bytes
+# = 4 N (factors d + 1) for a sum reading `factors` (N, d) arrays, each
+# ceil(N / P) rows but the last; LLVM vectorises each workgroup's loop 4
+# rows wide, twice interleaved (an 8-row step) from the trip count below
+# (never for a two-array sum at d = 7, 8), and the rows past the last full
+# step take the scalar loop, which fuses. A loop under 16 rows is scalar
+# but at 4 and 8 rows (and at 2 for the squares at d >= 6), and at P = 2
+# with N odd every row is (XLA guards each row of the uneven split).
+_WORKGROUP_BYTES = 256 << 10
+_INTERLEAVED_FROM = {(5, 1): 32, (6, 1): 32, (5, 2): 48, (6, 2): 48,
+                     (7, 1): 88, (8, 1): 80}
 
 
 def _fma(a, b, c):
@@ -267,6 +282,47 @@ def _in_sequence(terms):
     return total
 
 
+def xla_workgroups(n: int, d: int, factors: int) -> int:
+    """The workgroups XLA on this host splits a sum of N rows of
+    ``factors`` (N, d) arrays into (the note above ``_WORKGROUP_BYTES``)."""
+    most = math.ceil(math.sqrt(len(os.sched_getaffinity(0))))
+    return max(1, min(most, 4 * n * (factors * d + 1) // _WORKGROUP_BYTES))
+
+
+def _vector_rows(rows: int, d: int, factors: int) -> int:
+    """How many of a workgroup's first rows XLA's vector loop takes."""
+    if rows < 16:
+        return rows if rows in (4, 8) or (rows == 2 and factors == 1
+                                          and d >= 6) else 0
+    step = 8 if rows >= _INTERLEAVED_FROM.get((d, factors), rows + 1) else 4
+    return rows // step * step
+
+
+def screen_split(n: int, d: int, factors: int):
+    """Which rows of a screen sum at 5 <= d <= 8 over N rows of ``factors``
+    arrays XLA sums unfused, as (rows a workgroup, vector rows of every
+    workgroup but the last, vector rows of the last): row i lies in
+    workgroup q = i // rows, and is summed unfused where i - q rows is
+    below its workgroup's vector rows. The receive kernel takes the same
+    three numbers."""
+    p = xla_workgroups(n, d, factors)
+    if p == 2 and n % 2:
+        return n, 0, 0
+    rows = max(1, -(-n // p))
+    last = n - (-(-n // rows) - 1) * rows
+    return rows, _vector_rows(rows, d, factors), _vector_rows(last, d,
+                                                              factors)
+
+
+def _unfused_rows(n: int, d: int, factors: int, device):
+    """(N,) bool: the rows ``screen_split`` sums unfused."""
+    rows, full, last = screen_split(n, d, factors)
+    i = torch.arange(n, device=device)
+    q = i // rows
+    vector = torch.where(q == (n - 1) // rows, last, full)
+    return i - q * rows < vector
+
+
 def screen_order_known(d: int) -> bool:
     """Whether ``_screen_sum`` takes the jitted reference's order at width
     d (every d up to 64 and the multiples of 32), so that the screen's
@@ -274,27 +330,37 @@ def screen_order_known(d: int) -> bool:
     return d <= HALVES_MAX_WIDTH or d % SUM_CHUNK == 0
 
 
-def _screen_sum(a, b):
-    """The row sums of ``a * b`` over the (..., d) factors ``a`` and ``b``
-    (flushed), in the order of the jitted reference (the module note).
-    At d = 1 the one product as it is (a -0.0 stays -0.0); at 2 <= d <= 32
-    fused multiply-adds in sequence from +0.0, each result flushed, but
-    for d = 5 ... 8, where the products round apart and add in sequence;
-    at 33 <= d <= 64 the rounded products in two halves, j < ceil(d/2)
-    and the rest, each in sequence, then added; at multiples of 32 above
-    64 32-wide chunks in sequence, then the chunk sums in sequence; at
-    every other d ``torch.sum`` (XLA's order is not known there)."""
+def _fused_sum(a, b):
+    """The row sums of ``a * b`` by fused multiply-adds in sequence from
+    +0.0, each result flushed."""
+    total = torch.zeros(a.shape[:-1], dtype=a.dtype, device=a.device)
+    for j in range(a.shape[-1]):
+        total = _ftz(_fma(a[..., j], b[..., j], total))
+    return total
+
+
+def _screen_sum(a, b, factors=None):
+    """The row sums of ``a * b`` over the (..., N, d) factors ``a`` and
+    ``b`` (flushed), in the order of the jitted reference (the module
+    note), whose sum reads ``factors`` arrays (1 where ``a is b``, else 2
+    by default). At d = 1 the one product as it is (a -0.0 stays -0.0);
+    at 2 <= d <= 32 fused multiply-adds in sequence from +0.0, each result
+    flushed, but at d = 5 ... 8 on the rows ``screen_split`` names, where
+    the products round apart and add in sequence; at 33 <= d <= 64 the
+    rounded products in two halves, j < ceil(d/2) and the rest, each in
+    sequence, then added; at multiples of 32 above 64 32-wide chunks in
+    sequence, then the chunk sums in sequence; at every other d
+    ``torch.sum`` (XLA's order is not known there)."""
     d = a.shape[-1]
     if d == 1:
         return _ftz(a[..., 0] * b[..., 0])
     if d <= FUSED_SUM_MAX_WIDTH and d not in UNFUSED_WIDTHS:
-        total = torch.zeros(a.shape[:-1], dtype=a.dtype, device=a.device)
-        for j in range(d):
-            total = _ftz(_fma(a[..., j], b[..., j], total))
-        return total
+        return _fused_sum(a, b)
     terms = _ftz(a * b)
     if d <= FUSED_SUM_MAX_WIDTH:
-        return _in_sequence(terms)
+        factors = factors or (1 if a is b else 2)
+        unfused = _unfused_rows(a.shape[-2], d, factors, a.device)
+        return torch.where(unfused, _in_sequence(terms), _fused_sum(a, b))
     if d <= HALVES_MAX_WIDTH:
         h = (d + 1) // 2
         return _ftz(_in_sequence(terms[..., :h])
@@ -326,11 +392,10 @@ def apply_defense(defense: str, msg_w, valid, recv_w):
         zeros = torch.zeros_like(valid)
         return msg_w, valid, zeros, zeros
     m, r = _ftz(msg_w), _ftz(recv_w)
-    if defense == "cosine_gate":    # the three sums in one pass
-        sq, rn, dot = _screen_sum(torch.stack((m, r, m)),
-                                  torch.stack((m, r, r)))
-    else:
-        sq, rn = _screen_sum(torch.stack((m, r)), torch.stack((m, r)))
+    squares = torch.stack((m, r))
+    sq, rn = _screen_sum(squares, squares)       # each reads one array
+    if defense == "cosine_gate":
+        dot = _screen_sum(m, r)                  # reads two
     finite = torch.isfinite(sq)            # NaN/inf anywhere poisons the sum
     if defense == "norm_clip":
         thr = torch.clamp_min(NORM_CLIP_MULT_SQ * rn, NORM_CLIP_FLOOR_SQ)

@@ -41,7 +41,9 @@
 // the order its engines run (faults._screen_sum and its note): at d <= 32
 // each term's two factors are read in lane order by __shfl_sync and
 // added from +0.0 by fused multiply-adds in sequence (the products
-// rounded apart at 5 <= d <= 8; screen_sums); at 33 <= d <= 64 the
+// rounded apart at 5 <= d <= 8 on the nodes faults.screen_split names,
+// which the launch passes as two ScreenSplits; screen_sums); at
+// 33 <= d <= 64 the
 // rounded products in two halves (sum_halves), and at multiples of 32
 // in 32-wide chunks, both on the strided route only; so verdicts on exact
 // ties are the reference's. At other d the order is not known, and the
@@ -190,9 +192,26 @@ constexpr float kGateMinNormSq = 1e-6f;    // COSINE_GATE_MIN_NORM ** 2
 constexpr float kGateThreshold = -0.2f;    // COSINE_GATE_THRESHOLD
 constexpr float kFltMin = 1.17549435e-38f;  // smallest normal float
 constexpr float kNoClip = -1.0f;  // clip factor of a message not rescaled
-// the widths whose screen sums the jitted reference does not fuse
+// the widths at which the jitted reference sums some nodes' screen sums
+// unfused (faults.screen_split)
 constexpr int kUnfusedMin = 5;
 constexpr int kUnfusedMax = 8;
+
+// Which nodes the jitted reference sums unfused at kUnfusedMin <= d <=
+// kUnfusedMax, for the squares (one array read) or the dot (two), as
+// faults.screen_split gives it: node i lies in workgroup i / rows and is
+// summed unfused where its place in it is below that workgroup's vector
+// rows (`last` from the last workgroup's first node `last_start` on,
+// `full` before).
+struct ScreenSplit {
+  int rows, full, last, last_start;
+};
+
+__device__ __forceinline__ bool sums_apart(int i, int d, ScreenSplit s) {
+  if (d < kUnfusedMin || d > kUnfusedMax) return false;
+  const int vec = i >= s.last_start ? s.last : s.full;
+  return i % s.rows < vec;
+}
 
 // bytes per payload element
 template <int M>
@@ -325,7 +344,9 @@ __device__ __forceinline__ float add_ftz(float a, float b) {
 // is not active), and sq = sum m m, rn = sum l l and (with DOT) dot =
 // sum m l read them in lane order and add from +0.0: at d = 1 the one
 // product; at kUnfusedMin <= d <= kUnfusedMax the products rounded apart,
-// in sequence; at every other d fused multiply-adds in sequence. Each
+// in sequence, for sq and rn where `apart` (sums_apart with the squares'
+// split) and for dot where `dot_apart`, else fused multiply-adds in
+// sequence; at every other d fused multiply-adds in sequence. Each
 // result is flushed, as the reference's arithmetic flushes it, by the
 // instruction's own .ftz form (the inputs are flushed already): on an H100
 // at 700 W that took the cosine_gate screen at N = 10^6, d = 10 from 0.90
@@ -335,7 +356,8 @@ __device__ __forceinline__ float add_ftz(float a, float b) {
 template <bool DOT>
 __device__ __forceinline__ void screen_sums(float m, float l, float& sq,
                                             float& rn, float& dot, int base,
-                                            int d) {
+                                            int d, bool apart,
+                                            bool dot_apart) {
   float s = 0.0f, r = 0.0f, t = 0.0f;
   if (d == 1) {
     const float mj = __shfl_sync(0xffffffffu, m, base);
@@ -352,14 +374,16 @@ __device__ __forceinline__ void screen_sums(float m, float l, float& sq,
       r = fma_ftz(lj, lj, r);
       if (DOT) t = fma_ftz(mj, lj, t);
     }
-  } else {
+  } else {  // the lanes of one warp may hold nodes of either order
 #pragma unroll 1
     for (int j = 0; j < d; ++j) {
       const float mj = __shfl_sync(0xffffffffu, m, base + j);
       const float lj = __shfl_sync(0xffffffffu, l, base + j);
-      s = add_ftz(s, mul_ftz(mj, mj));
-      r = add_ftz(r, mul_ftz(lj, lj));
-      if (DOT) t = add_ftz(t, mul_ftz(mj, lj));
+      s = apart ? add_ftz(s, mul_ftz(mj, mj)) : fma_ftz(mj, mj, s);
+      r = apart ? add_ftz(r, mul_ftz(lj, lj)) : fma_ftz(lj, lj, r);
+      if (DOT) {
+        t = dot_apart ? add_ftz(t, mul_ftz(mj, lj)) : fma_ftz(mj, lj, t);
+      }
     }
   }
   sq = s;
@@ -442,11 +466,17 @@ fused_receive_kernel(float* __restrict__ last_w, int* __restrict__ last_t,
                      const float* __restrict__ x,
                      const float* __restrict__ y,
                      int* __restrict__ counts, int n, int d, int c, int k,
-                     int pw, float lam) {
+                     int pw, float lam, ScreenSplit sq_split,
+                     ScreenSplit dot_split) {
   const int lane = threadIdx.x % kWarp;
   const int64_t i =
       static_cast<int64_t>(blockIdx.x) * kNodesPerBlock + threadIdx.x / kWarp;
   if (i >= n) return;
+  // the screen's sum order for this node (at 5 <= d <= 8)
+  const bool apart =
+      F != kNone && sums_apart(static_cast<int>(i), d, sq_split);
+  const bool dot_apart =
+      F == kCosineGate && sums_apart(static_cast<int>(i), d, dot_split);
 
   const float* xi = x + i * d;
   const float yi = y[i];
@@ -480,7 +510,8 @@ fused_receive_kernel(float* __restrict__ last_w, int* __restrict__ last_t,
       auto lf = [&](int j) { return j < d ? ftz(l(j)) : 0.0f; };
       float sq = 0.0f, rn = 0.0f, dot = 0.0f;
       if (d <= kWarp) {
-        screen_sums<kDot>(mf(lane), lf(lane), sq, rn, dot, 0, d);
+        screen_sums<kDot>(mf(lane), lf(lane), sq, rn, dot, 0, d, apart,
+                          dot_apart);
       } else if (d <= 2 * kWarp) {
         const float m0 = mf(lane), m1 = mf(lane + kWarp);
         const float l0 = lf(lane), l1 = lf(lane + kWarp);
@@ -627,7 +658,8 @@ fused_receive_grouped_kernel(
     const __half* __restrict__ mzp, const int* __restrict__ msg_t,
     const int* __restrict__ valid, const float* __restrict__ x,
     const float* __restrict__ y, int* __restrict__ counts, int n, int d,
-    int c, int k, int pw, float lam, int log2g, int stages) {
+    int c, int k, int pw, float lam, ScreenSplit sq_split,
+    ScreenSplit dot_split, int log2g, int stages) {
   constexpr bool kReadsLast = V != kRw || F != kNone;
   constexpr int kFields = 2 * KMAX + 4;
   // two stages' fields: valid (k rows), msg_t (k rows), ptr, count,
@@ -676,6 +708,11 @@ fused_receive_grouped_kernel(
       }
       // a warp none of whose nodes receives has nothing to load or write
       if (!__any_sync(0xffffffffu, mask != 0)) continue;
+      // the screen's sum order for this node (at 5 <= d <= 8)
+      const bool apart =
+          F != kNone && sums_apart(static_cast<int>(i), d, sq_split);
+      const bool dot_apart =
+          F == kCosineGate && sums_apart(static_cast<int>(i), d, dot_split);
 
       // trip 2: every valid round's payload bits, scale and zero-point, and
       // x and last_w, all issued before the rounds run
@@ -721,9 +758,9 @@ fused_receive_grouped_kernel(
         float f = kNoClip;
         if constexpr (F != kNone) {
           float sq, rn, dot = 0.0f;
-          screen_sums<F == kCosineGate>(on ? ftz(raw) : 0.0f,
-                                        on ? ftz(lcur) : 0.0f, sq, rn, dot,
-                                        (threadIdx.x % kWarp) & ~(g - 1), d);
+          screen_sums<F == kCosineGate>(
+              on ? ftz(raw) : 0.0f, on ? ftz(lcur) : 0.0f, sq, rn, dot,
+              (threadIdx.x % kWarp) & ~(g - 1), d, apart, dot_apart);
           const bool reject = screen_rejects<F>(sq, rn, dot, f);
           if (f != kNoClip) clipped += act;
           if (reject) {
@@ -812,7 +849,13 @@ struct Args {
                 // never read) under kNone
   int n, d, c, k, pw;  // pw: payload elements per message row
   float lam;
+  ScreenSplit sq_split, dot_split;  // read at kUnfusedMin <= d <= kUnfusedMax
 };
+
+// a ScreenSplit from faults.screen_split's three ints for N nodes
+ScreenSplit screen_split(const int* s, int n) {
+  return {s[0], s[1], s[2], (n - 1) / s[0] * s[0]};
+}
 
 // the smallest log2 g with 2^g >= d
 int group_log2(int d) {
@@ -830,7 +873,7 @@ void launch(const Args& a, int route, cudaStream_t stream) {
         <<<blocks, kWarp * kNodesPerBlock, 0, stream>>>(
             a.last_w, a.last_t, a.cache_w, a.cache_t, a.ptr, a.count, a.msg,
             a.msc, a.mzp, a.msg_t, a.valid, a.x, a.y, a.counts, a.n, a.d,
-            a.c, a.k, a.pw, a.lam);
+            a.c, a.k, a.pw, a.lam, a.sq_split, a.dot_split);
     return;
   }
   const int log2g = group_log2(a.d);
@@ -849,7 +892,7 @@ void launch(const Args& a, int route, cudaStream_t stream) {
   kernel<<<blocks, kGroupedThreads, 0, stream>>>(
       a.last_w, a.last_t, a.cache_w, a.cache_t, a.ptr, a.count, a.msg, a.msc,
       a.mzp, a.msg_t, a.valid, a.x, a.y, a.counts, a.n, a.d, a.c, a.k, a.pw,
-      a.lam, log2g, stages);
+      a.lam, a.sq_split, a.dot_split, log2g, stages);
 }
 
 template <int V, int F>
@@ -883,7 +926,9 @@ bool launch_variant(const Args& a, int variant, int mode, int route,
 // only). defense: 0 = none, 1 = norm_clip, 2 = cosine_gate. route: 0 =
 // grouped (d <= 32 and K <= 8 only), 1 = strided. msg is the (K, N, P)
 // payload; counts the (2, N) gated and clipped counts, zeroed by the
-// caller, or null under defense 0, which writes none. Returns
+// caller, or null under defense 0, which writes none. split: the screen's
+// faults.screen_split(N, d, 1) and then (N, d, 2) (rows > 0; read only at
+// 5 <= d <= 8 under a screen). Returns
 // cudaGetLastError() after the launch (0 on success); the launch is
 // asynchronous on `stream`.
 extern "C" int gossip_cycle_fused_receive_apply(
@@ -891,8 +936,11 @@ extern "C" int gossip_cycle_fused_receive_apply(
     int* count, const void* msg, const void* msc, const void* mzp,
     const int* msg_t, const int* valid, const float* x, const float* y,
     int* counts, int n, int d, int c, int k, int p, float lam, int variant,
-    int mode, int defense, int route, void* stream) {
+    int mode, int defense, int route, const int* split, void* stream) {
   if (route != kGrouped && route != kStrided) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (split[0] <= 0 || split[3] <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (route == kGrouped && (d > kGroupedMaxWidth || k > kGroupedMaxRounds)) {
@@ -903,7 +951,8 @@ extern "C" int gossip_cycle_fused_receive_apply(
                static_cast<const unsigned char*>(msg),
                static_cast<const __half*>(msc),
                static_cast<const __half*>(mzp), msg_t, valid, x, y, counts,
-               n, d, c, k, p, lam};
+               n, d, c, k, p, lam, screen_split(split, n),
+               screen_split(split + 3, n)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
   switch (defense) {

@@ -20,10 +20,9 @@
 // version's, so w' equals the plain version bit for bit except in a row
 // whose margin lies within that sum's rounding of 1; t' always equals it.
 //
-// Two layouts for the merge, chosen before the launch by
-// pegasos_update.py::row_route (the merge's C entry takes the choice as an
-// argument and refuses a tiled launch outside its range); the step alone
-// (#6) takes the strided layout only.
+// Two layouts for each, chosen before the launch by
+// pegasos_update.py::row_route (each C entry takes the choice as an
+// argument and refuses a tiled launch outside its range).
 //
 // strided (the first layout; every d): narrow rows (d < kWideD) take one
 // warp each, kRows rows a 256-thread block; lanes stride over d (no
@@ -38,22 +37,24 @@
 // five-level shuffle for a 10-term margin, 4-byte loads from scattered
 // 40-byte rows, and two passes that each read w1, w2 and x.
 //
-// tiled (the merge at d <= kMergeTiledMaxWidth, every operand on a 16-byte
-// boundary; row_route sends it up to the widest d of chip_smoke.py's sweep
+// tiled (d <= kTiledMaxWidth, every operand on a 16-byte boundary;
+// row_route sends each kernel up to the widest d of chip_smoke.py's sweep
 // (10, 32, 57, 128) at which it beats the strided layout on an H100):
 // tiled.cuh's walk, persistent blocks of 256 threads over tiles of R rows,
-// each tile of w1, w2 and x (R d floats) and of t1, t2 and y (R values)
-// copied with 16-byte cp.async into a ring of two slots. R is as many rows
-// as a slot of kMergeSlotBytes holds (a multiple of 16, at least 16):
-// 112 at d = 10, a 36 KB block, six blocks an SM, each with a 15 KB slot
-// in flight. On a landed tile:
-//   1. an element pass over the flat tile forms m = (w1 + w2) / 2 in place
-//      of w1's tile and the product m x into a copy of the tile whose rows
-//      are an odd number of floats apart (d, or d + 1 for even d);
+// each tile of the model(s) and x (R d floats) and of the counter(s) and y
+// (R values) copied with 16-byte cp.async into a ring of two slots. R is
+// as many rows as a slot of kSlotBytes holds (a multiple of 16, at least
+// 16): for the merge (w1, w2, x, t1, t2, y) 112 at d = 10, a 36 KB block,
+// six blocks an SM, each with a 15 KB slot in flight; for the step (w, x,
+// t, y) 176 at d = 10, a 40 KB block, five an SM. On a landed tile:
+//   1. an element pass over the flat tile forms the model m, the merge's
+//      (w1 + w2) / 2 in place of w1's tile or the step's w as it lies,
+//      and the product m x into a copy of the tile whose rows are an odd
+//      number of floats apart (d, or d + 1 for even d);
 //   2. a row pass, one thread a row, sums that row's products in j order
 //      from +0.0 (the odd row pitch spreads a warp's reads over all 32
-//      banks), then forms t' (written out, coalesced), eta, the decay, the
-//      hinge and eta y;
+//      banks), then forms t' = max(t1, t2) + 1 or t + 1 (written out,
+//      coalesced), eta, the decay, the hinge and eta y;
 //   3. an element pass writes w' = decay m + [hinge] (eta y) x, four
 //      elements a thread, 16-byte stores, coalesced.
 // Every row is read once and written once; only the margin's order
@@ -72,15 +73,26 @@ constexpr int kThreads = 256;
 constexpr int kWarpsPerBlock = kThreads / kWarp;
 constexpr int kWideD = 1024;  // rows at least this wide take a whole block
 
-// the merge's tiled layout
-constexpr int kMergeSlotBytes = 16384;     // a slot's tiles at most
-constexpr int kMergeTiledMaxWidth = 128;   // d it takes at most (16 rows)
+// the tiled layout
+constexpr int kSlotBytes = 16384;     // a slot's tiles at most
+constexpr int kTiledMaxWidth = 128;   // d it takes at most (16 rows)
 
 enum Route { kTiled = 0, kStrided = 1 };
 
-// rows a tile of the tiled merge holds at width d: w1, w2 and x (d floats
-// each) and t1, t2 and y a row (pegasos_update.py::merge_tile_rows)
-int merge_rows(int d) { return tiled_rows(4 * (3 * d + 3), kMergeSlotBytes); }
+// the (N, d) arrays a tiled slot holds: the model(s) and x; and as many
+// (N,) ones, the counter(s) and y
+template <bool kMerge>
+__host__ __device__ constexpr int tiled_arrays() {
+  return kMerge ? 3 : 2;
+}
+
+// rows a tile holds at width d: the merge's w1, w2 and x (d floats each)
+// and t1, t2 and y a row (pegasos_update.py::merge_tile_rows), the step's
+// w and x and t and y (step_tile_rows)
+template <bool kMerge>
+int tile_rows_at(int d) {
+  return tiled_rows(4 * tiled_arrays<kMerge>() * (d + 1), kSlotBytes);
+}
 
 // the row pitch of the tiled merge's products: odd, so that the row pass's
 // reads of one column by a warp's 32 rows fall in 32 banks
@@ -153,20 +165,28 @@ pegasos_kernel(const float* __restrict__ w1, const int* __restrict__ t1,
   if (r == 0) t_out[i] = t;
 }
 
-// The tiled merge (the note above). A slot holds, in order, the tiles of
-// w1, w2, x (R d floats each), t1, t2 and y (R each); behind the two slots
-// lie the products (R rows at product_pitch(d)) and each row's decay, eta
-// y and hinge.
+// The tiled layout (the note above). A slot holds, in order, the tiles of
+// w1, w2 (with the merge), x (R d floats each), t1, t2 (with the merge)
+// and y (R each); behind the two slots lie the products (R rows at
+// product_pitch(d)) and each row's decay, eta y and hinge. w2 and t2 are
+// read only with the merge.
+template <bool kMerge>
 __global__ void __launch_bounds__(kTiledThreads)
-merge_tiled_kernel(const float* __restrict__ w1, const int* __restrict__ t1,
-                   const float* __restrict__ w2, const int* __restrict__ t2,
-                   const float* __restrict__ x, const float* __restrict__ y,
-                   float* __restrict__ w_out, int* __restrict__ t_out, int n,
-                   int d, float lam, int rows_per_tile, int tiles) {
+tiled_kernel(const float* __restrict__ w1, const int* __restrict__ t1,
+             const float* __restrict__ w2, const int* __restrict__ t2,
+             const float* __restrict__ x, const float* __restrict__ y,
+             float* __restrict__ w_out, int* __restrict__ t_out, int n, int d,
+             float lam, int rows_per_tile, int tiles) {
   extern __shared__ __align__(16) float smem[];
+  constexpr int kArrays = tiled_arrays<kMerge>();
   const int tile = rows_per_tile * d;
-  const int slot = 3 * tile + 3 * rows_per_tile;
+  const int slot = kArrays * (tile + rows_per_tile);
   const int pitch = product_pitch(d);
+  // offsets in a slot: x's tile after the model tiles, then the counters
+  // and y
+  const int x_at = (kArrays - 1) * tile;
+  const int t_at = kArrays * tile;
+  const int y_at = t_at + (kArrays - 1) * rows_per_tile;
   float* s_prod = smem + 2 * slot;
   float* s_decay = s_prod + rows_per_tile * pitch;
   float* s_coef = s_decay + rows_per_tile;
@@ -174,26 +194,31 @@ merge_tiled_kernel(const float* __restrict__ w1, const int* __restrict__ t1,
   auto stage = [&](int buf, int t) {
     float* sl = smem + buf * slot;
     stage_tile(sl, w1, t, rows_per_tile, n, d);
-    stage_tile(sl + tile, w2, t, rows_per_tile, n, d);
-    stage_tile(sl + 2 * tile, x, t, rows_per_tile, n, d);
-    stage_tile(sl + 3 * tile, t1, t, rows_per_tile, n, 1);
-    stage_tile(sl + 3 * tile + rows_per_tile, t2, t, rows_per_tile, n, 1);
-    stage_tile(sl + 3 * tile + 2 * rows_per_tile, y, t, rows_per_tile, n, 1);
+    stage_tile(sl + x_at, x, t, rows_per_tile, n, d);
+    stage_tile(sl + t_at, t1, t, rows_per_tile, n, 1);
+    stage_tile(sl + y_at, y, t, rows_per_tile, n, 1);
+    if constexpr (kMerge) {
+      stage_tile(sl + tile, w2, t, rows_per_tile, n, d);
+      stage_tile(sl + t_at + rows_per_tile, t2, t, rows_per_tile, n, 1);
+    }
   };
   walk_tiles(n, rows_per_tile, tiles, stage,
              [&](int buf, int64_t r0, int rows) {
     float* s_m = smem + buf * slot;  // w1's tile, then the merged model
     const float* s_w2 = s_m + tile;
-    const float* s_x = s_m + 2 * tile;
-    const int* s_t1 = reinterpret_cast<const int*>(s_m + 3 * tile);
+    const float* s_x = s_m + x_at;
+    const int* s_t1 = reinterpret_cast<const int*>(s_m + t_at);
     const int* s_t2 = s_t1 + rows_per_tile;
-    const float* s_y = s_m + 3 * tile + 2 * rows_per_tile;
+    const float* s_y = s_m + y_at;
     const int elems = rows * d;
-    // 1. the merge and the margin's products, a flat element a thread
+    // 1. the model and the margin's products, a flat element a thread
     for (int e = threadIdx.x; e < elems; e += kTiledThreads) {
-      const float m = (s_m[e] + s_w2[e]) / 2.0f;
+      float m = s_m[e];
+      if constexpr (kMerge) {
+        m = (m + s_w2[e]) / 2.0f;
+        s_m[e] = m;
+      }
       const int row = e / d;
-      s_m[e] = m;
       s_prod[row * pitch + (e - row * d)] = m * s_x[e];
     }
     __syncthreads();
@@ -204,7 +229,7 @@ merge_tiled_kernel(const float* __restrict__ w1, const int* __restrict__ t1,
       const float* pr = s_prod + r * pitch;
       float acc = 0.0f;
       for (int j = 0; j < d; ++j) acc += pr[j];
-      const int t = max(s_t1[r], s_t2[r]) + 1;
+      const int t = (kMerge ? max(s_t1[r], s_t2[r]) : s_t1[r]) + 1;
       const float yi = s_y[r];
       const float eta = 1.0f / (lam * static_cast<float>(t));
       s_decay[r] = 1.0f - eta * lam;
@@ -248,18 +273,19 @@ merge_tiled_kernel(const float* __restrict__ w1, const int* __restrict__ t1,
   });
 }
 
-// dynamic shared memory of a tiled merge launch (the kernel's layout)
-size_t merge_smem(int d) {
-  const int rows = merge_rows(d);
-  return sizeof(float) *
-         (2 * (3 * static_cast<size_t>(rows) * d + 3 * rows) +
-          static_cast<size_t>(rows) * product_pitch(d) + 3 * rows);
+// dynamic shared memory of a tiled launch (the kernel's layout)
+template <bool kMerge>
+size_t tiled_smem(int d) {
+  const size_t rows = tile_rows_at<kMerge>(d);
+  return sizeof(float) * (2 * tiled_arrays<kMerge>() * rows * (d + 1) +
+                          rows * product_pitch(d) + 3 * rows);
 }
 
 template <bool kMerge>
-void launch(const float* w1, const int* t1, const float* w2, const int* t2,
-            const float* x, const float* y, float* w_out, int* t_out, int n,
-            int d, float lam, cudaStream_t stream) {
+void launch_strided(const float* w1, const int* t1, const float* w2,
+                    const int* t2, const float* x, const float* y,
+                    float* w_out, int* t_out, int n, int d, float lam,
+                    cudaStream_t stream) {
   if (d >= kWideD) {
     pegasos_kernel<kMerge, kWarpsPerBlock>
         <<<static_cast<unsigned>(n), kThreads, 0, stream>>>(
@@ -272,33 +298,18 @@ void launch(const float* w1, const int* t1, const float* w2, const int* t2,
   }
 }
 
-}  // namespace
-
-// w, x, w_out (N, d) f32; t, t_out (N,) i32; y (N,) f32 ±1.
-// Returns cudaGetLastError() after the launch (0 on success); the launch
-// is asynchronous on `stream`.
-extern "C" int pegasos_update(const float* w, const int* t, const float* x,
-                              const float* y, float* w_out, int* t_out,
-                              int n, int d, float lam, void* stream) {
-  if (n > 0) {
-    launch<false>(w, t, nullptr, nullptr, x, y, w_out, t_out, n, d, lam,
-                  static_cast<cudaStream_t>(stream));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The same with the merge prologue: w1, w2 (N, d) f32 and t1, t2 (N,) i32.
-// route: 0 = tiled (d <= 128 and every pointer on a 16-byte boundary
-// only), 1 = strided.
-extern "C" int merge_update(const float* w1, const int* t1, const float* w2,
-                            const int* t2, const float* x, const float* y,
-                            float* w_out, int* t_out, int n, int d,
-                            float lam, int route, void* stream) {
+// Check the route and launch on it: a tiled launch only at d <=
+// kTiledMaxWidth with every pointer it reads or writes on a 16-byte
+// boundary (w2 and t2 are null without the merge).
+template <bool kMerge>
+int launch(const float* w1, const int* t1, const float* w2, const int* t2,
+           const float* x, const float* y, float* w_out, int* t_out, int n,
+           int d, float lam, int route, void* stream) {
   if (route != kTiled && route != kStrided) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (route == kTiled &&
-      (d > kMergeTiledMaxWidth || !aligned16(w1) || !aligned16(t1) ||
+      (d > kTiledMaxWidth || !aligned16(w1) || !aligned16(t1) ||
        !aligned16(w2) || !aligned16(t2) || !aligned16(x) || !aligned16(y) ||
        !aligned16(w_out) || !aligned16(t_out))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -306,16 +317,39 @@ extern "C" int merge_update(const float* w1, const int* t1, const float* w2,
   if (n <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == kStrided) {
-    launch<true>(w1, t1, w2, t2, x, y, w_out, t_out, n, d, lam, s);
+    launch_strided<kMerge>(w1, t1, w2, t2, x, y, w_out, t_out, n, d, lam, s);
   } else {
-    const int rows = merge_rows(d);
+    const int rows = tile_rows_at<kMerge>(d);
     const int tiles = tiles_for(n, rows);
-    const size_t smem = merge_smem(d);
-    const unsigned blocks = tiled_blocks(merge_tiled_kernel, tiles, smem);
-    merge_tiled_kernel<<<blocks, kTiledThreads, smem, s>>>(
+    const size_t smem = tiled_smem<kMerge>(d);
+    const unsigned blocks = tiled_blocks(tiled_kernel<kMerge>, tiles, smem);
+    tiled_kernel<kMerge><<<blocks, kTiledThreads, smem, s>>>(
         w1, t1, w2, t2, x, y, w_out, t_out, n, d, lam, rows, tiles);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// w, x, w_out (N, d) f32; t, t_out (N,) i32; y (N,) f32 ±1. route: 0 =
+// tiled (d <= 128 and every pointer on a 16-byte boundary only), 1 =
+// strided. Returns cudaGetLastError() after the launch (0 on success);
+// the launch is asynchronous on `stream`.
+extern "C" int pegasos_update(const float* w, const int* t, const float* x,
+                              const float* y, float* w_out, int* t_out,
+                              int n, int d, float lam, int route,
+                              void* stream) {
+  return launch<false>(w, t, nullptr, nullptr, x, y, w_out, t_out, n, d, lam,
+                       route, stream);
+}
+
+// The same with the merge prologue: w1, w2 (N, d) f32 and t1, t2 (N,) i32.
+extern "C" int merge_update(const float* w1, const int* t1, const float* w2,
+                            const int* t2, const float* x, const float* y,
+                            float* w_out, int* t_out, int n, int d,
+                            float lam, int route, void* stream) {
+  return launch<true>(w1, t1, w2, t2, x, y, w_out, t_out, n, d, lam, route,
+                      stream);
 }
 
 extern "C" const char* pegasos_merge_error_string(int code) {

@@ -321,7 +321,8 @@ def _launch_receive(last_w, last_t, cache_w, cache_t, ptr, count, msg_w,
                          f"K={k}")
     fn, err = _entry("gossip_cycle", "gossip_cycle_fused_receive_apply",
                      (_VP,) * 14 + (_INT,) * 5 + (_FLOAT,) + (_INT,) * 4
-                     + (_VP,))
+                     + (_VP,) * 2)
+    split = (ctypes.c_int * 6)(*screen_splits(n, d, defense))
     # (2, N) gated/clipped counts: zero, and written by the kernel only
     # where a screen rejected or rescaled; none under "none", which screens
     # nothing and answers with a shared zero
@@ -335,7 +336,7 @@ def _launch_receive(last_w, last_t, cache_w, cache_t, ptr, count, msg_w,
                   y.data_ptr(), _ptr(counts), n, d, cache_w.shape[1], k,
                   msg_w.shape[2], lam, VARIANTS[variant], DECODE_MODES[mode],
                   DEFENSE_CODES[defense], RECEIVE_ROUTES.index(route),
-                  _stream(last_w))
+                  ctypes.addressof(split), _stream(last_w))
     _raise_on(code, err, f"gossip_cycle ({route})")
     _RECEIVE.launches += 1
     _RECEIVE.route_launches[route] += 1
@@ -343,6 +344,16 @@ def _launch_receive(last_w, last_t, cache_w, cache_t, ptr, count, msg_w,
         zero = _zero_counts(last_w.device).expand(n)
         return zero, zero
     return counts[0], counts[1]
+
+
+def screen_splits(n: int, d: int, defense: str):
+    """The six ints the receive kernel takes for its screen's sum order:
+    ``faults.screen_split`` for the squares (one array) and the dot (two)
+    where a screen sums some rows unfused (5 <= d <= 8), else a split it
+    never reads."""
+    if defense == "none" or d not in faults.UNFUSED_WIDTHS:
+        return (1, 0, 0) * 2
+    return faults.screen_split(n, d, 1) + faults.screen_split(n, d, 2)
 
 
 @functools.lru_cache(maxsize=None)

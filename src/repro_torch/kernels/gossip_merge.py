@@ -9,15 +9,15 @@ and the example once and writes the new model once.
 hand-written kernels in ``csrc/pegasos_merge.cu``, on the layout
 ``pegasos_update.row_route`` picks (``"tiled"``, persistent blocks walking
 tiles of rows through shared memory, at d <= 57 on aligned operands;
-``"strided"``, kernel #6 with its merge prologue switched on by a template
-flag, for the rest), CPU tensors to the plain version
+``"strided"``, a warp a row, for the rest; each is kernel #6's layout with
+its merge prologue switched on by a template flag), CPU tensors to the
+plain version
 ``ref.merge_update_ref``. There is no fallback.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.pegasos_update import (
-    MERGE_TILED_KERNEL_MAX_WIDTH, ROW_ROUTES, check_rows, launch_rows,
-    row_route)
+from repro_torch.kernels.pegasos_update import (ROW_ROUTES, check_rows,
+                                                launch_rows)
 from repro_torch.kernels.ref import merge_update_ref
 
 
@@ -38,18 +38,7 @@ def _launch_merge(tensors, n: int, d: int, lam: float, route=None):
     other and timing them on the card): ``"tiled"`` is refused past
     d = 128 and on unaligned operands; the public wrapper never passes
     it."""
-    aligned = all(a.data_ptr() % 16 == 0 for a in tensors)
-    if route is None:
-        route = row_route(d, True, aligned)
-    elif route not in ROW_ROUTES or (route == "tiled" and (
-            d > MERGE_TILED_KERNEL_MAX_WIDTH or not aligned)):
-        raise ValueError(f"the {route!r} merge layout does not take d={d}"
-                         + ("" if aligned else " on unaligned operands"))
-    out = launch_rows("merge_update", tensors, n, d, lam, tensors[0].device,
-                      route=route)
-    _MERGE.launches += 1
-    _MERGE.route_launches[route] += 1
-    return out
+    return launch_rows(_MERGE, tensors, n, d, lam, route)
 
 
 # Kernel launches so far, in all and by layout; only the CUDA path counts.

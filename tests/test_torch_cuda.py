@@ -4,9 +4,10 @@ screen, its two routes (the launch counts by route, and the grouped kernel
 bitwise equal to the strided one at d <= 32), the send kernels of the
 quantized codecs (bitwise) and their two routes (the launch counts by
 route, and the tiled kernels bitwise equal to the strided ones at d <= 57,
-the error-feedback codecs included), the voted-predict kernel (bitwise),
-the population Pegasos and merge kernels and the merge's two layouts
-(launch counts by layout), the flash-attention kernel on both its routes (tensor cores for
+the error-feedback codecs included), the voted-predict kernel on both its
+routes (bitwise, launch counts by route), the population Pegasos and merge
+kernels and each one's two layouts (launch counts by layout), the
+flash-attention kernel on both its routes (tensor cores for
 TMA-readable bf16 at head_dim 64/128, CUDA cores for the rest), and the
 sharded engine against the reference engine on the f32 and the quantized
 wires and under Byzantine faults, with and without a serving hook; and the
@@ -252,10 +253,17 @@ def test_receive_kernel_screens_like_plain_version(cuda, defense, mode):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,c,d", smoke.VOTED_SHAPES)
 def test_voted_predict_kernel_matches_plain_version_bitwise(cuda, m, c, d):
+    """Both routes (grouped at d <= 32, strided), snapshot and gathered
+    forms, bit for bit; each launch counted on its route."""
     from repro_torch.kernels import voted_predict as vp
-    before = vp.voted_predict_batched.launches
+    before = dict(vp.voted_predict_batched.route_launches)
     ans = smoke.compare_voted(*smoke.voted_inputs(m + 1, m, c, d, cuda))
-    assert vp.voted_predict_batched.launches == before + 2
+    want = dict(before)
+    for route in smoke.voted_routes(d, c):
+        want[route] += 2
+    assert smoke.voted_routes(d, c) == (
+        ("grouped", "strided") if d <= 32 else ("strided",))
+    assert vp.voted_predict_batched.route_launches == want
     assert ans[:4].tolist() == [1.0, 1.0, 1.0, -1.0]
 
 
@@ -319,18 +327,41 @@ def test_merge_layouts_match_each_other_and_plain_version(cuda, n, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1, 1), (4099, 7), (4099, 10), (1031, 32),
+                                 (1031, 57), (515, 128)])
+def test_step_layouts_match_each_other_and_plain_version(cuda, n, d):
+    """#6's tiled and strided layouts forced on the same inputs: t equal,
+    w within rtol 2e-5 and atol 1e-5 of the plain version's; each forced
+    launch counted on its layout."""
+    from repro_torch.kernels import pegasos_update as pu
+    from repro_torch.kernels import ref
+    inputs = smoke.row_inputs(n + d, n, d, cuda)
+    pw, pt = ref.pegasos_update_ref(*inputs, 1e-3)
+    for route in ("tiled", "strided"):
+        before = dict(pu.pegasos_update.route_launches)
+        w, t = pu._launch_step(inputs, n, d, 1e-3, route=route)
+        torch.cuda.synchronize()
+        assert pu.pegasos_update.route_launches == dict(
+            before, **{route: before[route] + 1})
+        assert torch.equal(t, pt)
+        torch.testing.assert_close(w, pw, rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [10, 57, 58, 9947])
 def test_row_route_launch_counts_follow_the_rule(cuda, d):
     """Through ``kernels/ops.py``: the merge on ``row_route(d, True)``'s
-    layout (an operand at an unaligned offset on the strided one), the
-    step alone always on the strided one."""
+    layout and the step on ``row_route(d, False)``'s (an operand at an
+    unaligned offset on the strided one)."""
     from repro_torch.kernels import gossip_merge as gm
     from repro_torch.kernels import ops
     from repro_torch.kernels import pegasos_update as pu
     n = 515 if d < 1000 else 33
     w1, t1, w2, t2, x, y = smoke.row_inputs(d, n, d, cuda, merge=True)
     want = pu.row_route(d, True)
+    want_step = pu.row_route(d, False)
     assert want == ("tiled" if d <= 57 else "strided")
+    assert want_step == ("tiled" if d <= 57 else "strided")
     merge, step = (dict(gm.merge_update.route_launches),
                    dict(pu.pegasos_update.route_launches))
     ops.merge_update(w1, t1, w2, t2, x, y, lam=1e-3)
@@ -338,13 +369,17 @@ def test_row_route_launch_counts_follow_the_rule(cuda, d):
     assert gm.merge_update.route_launches == dict(
         merge, **{want: merge[want] + 1})
     assert pu.pegasos_update.route_launches == dict(
-        step, strided=step["strided"] + 1)
+        step, **{want_step: step[want_step] + 1})
     odd = torch.empty(n * d + 1, device=cuda)[1:].view(n, d)
     odd.copy_(x)
-    merge = dict(gm.merge_update.route_launches)
+    merge, step = (dict(gm.merge_update.route_launches),
+                   dict(pu.pegasos_update.route_launches))
     smoke.compare_rows("merge_update", (w1, t1, w2, t2, odd, y), 1e-3)
+    smoke.compare_rows("pegasos_update", (w1, t1, odd, y), 1e-3)
     assert gm.merge_update.route_launches == dict(
         merge, strided=merge["strided"] + 1)
+    assert pu.pegasos_update.route_launches == dict(
+        step, strided=step["strided"] + 1)
 
 
 @pytest.mark.cuda

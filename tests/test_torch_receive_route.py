@@ -241,10 +241,13 @@ def screen_sum(a, b, on, d: int):
     a node holds its two factors where ``on`` (+0.0 elsewhere), read in
     lane order and added in the jitted reference's order (fused
     multiply-adds in sequence from +0.0, the products apart at d = 5 ...
-    8), as ``faults._screen_sum`` adds them."""
+    8 on the rows ``faults.screen_split`` names for a sum of one array,
+    the squares, or of two, the dot), as ``faults._screen_sum`` adds
+    them."""
     zero = torch.zeros((), dtype=F32)
     return faults._screen_sum(torch.where(on, a, zero)[:, :d],
-                              torch.where(on, b, zero)[:, :d])
+                              torch.where(on, b, zero)[:, :d],
+                              1 if a is b else 2)
 
 
 def grouped_receive(inputs, variant, lam, wire=None, defense="none"):
