@@ -58,7 +58,12 @@ and ``nvcc``. The phases, each of which raises on failure:
    the message economy, wall time, node-cycles/s and peak memory, then the
    receive kernel's time per launch on the main path's own inputs beside
    its bound, the strided route's and its plain version's time and its
-   agreement with both there, and a profiled rerun;
+   agreement with both there, and a profiled rerun; then the same run
+   armed with a ``Telemetry`` (bit for bit the unarmed run, its metric
+   streams summing to the run's totals) and unarmed once more: the armed
+   wall time against both unarmed ones, the split of the host's time by
+   span (``repro_torch.core.telemetry.SPAN_NAMES``), and the Chrome trace,
+   written next to ``--out`` and read back by ``tools/trace_report.py``;
 4. the same path on the quantized wire (int8_sr, int4_ef, ternary): for
    each, 20 receive and 20 send launches (the send launches all on the
    tiled route), the economy, the wire and buffer bytes against f32's, wall
@@ -75,7 +80,10 @@ and ``nvcc``. The phases, each of which raises on failure:
    route) time per launch beside their bounds (the voted-predict kernel's
    replayed from a CUDA graph, so that the host's cost of a call is left
    out, on its grouped route and its strided one, and also per call as
-   the server makes it), and a profiled rerun;
+   the server makes it), and a profiled rerun; then the protocol and a
+   new server armed on one ``Telemetry``: bit for bit the unarmed run and
+   its answers, the server's histogram shared, the ``snapshot_adopt`` and
+   ``serve_batch`` spans' totals;
 6. LM serving at full width: the reduced qwen3-1.7b (f32) served on the
    card (kernel #8's CUDA-core route) against the same weights served on
    the CPU (its plain version), then qwen3-1.7b in bf16 with random
@@ -89,8 +97,9 @@ and ``nvcc``. The phases, each of which raises on failure:
    same server on the plain attention path (``attn_impl="xla"``): prefill
    logits within a stated tolerance, the share of equal greedy tokens.
 
-Prints one JSON line of per-kernel results, the ``nvidia-smi`` name and
-power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero,
+Prints one JSON line of per-kernel results (with phase 3's armed seconds
+by span under ``"phase3_spans"``), the ``nvidia-smi`` name and power
+limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
 """
 from __future__ import annotations
@@ -100,6 +109,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -848,9 +858,11 @@ def profile_run(run, tag: str, card: str):
                 top=[dict(name=k, ms=t, count=c) for k, t, c in top])
 
 
-def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None):
+def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None,
+              telemetry=None):
     """One main-path run (``run_simulation(engine="sharded")`` on the card,
-    with ``serve_hook`` if given) with every launch count set to 0 just
+    with ``serve_hook`` and ``telemetry`` if given) with every launch count
+    set to 0 just
     before it and read just after, keeping a copy of the last receive and
     send launches' inputs; every receive launch must take the grouped
     route (d = 10, K = 4), and every send launch ``send_route``'s route for
@@ -900,7 +912,7 @@ def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None):
         res = run_simulation(cfg, X[:n], y[:n], X[n:], y[n:],
                              engine="sharded", cycles=cycles, eval_every=10,
                              seed=0, k_rounds=4, device=device,
-                             serve_hook=serve_hook)
+                             serve_hook=serve_hook, telemetry=telemetry)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, sends = recv.launches, dict(send.launches)
@@ -932,6 +944,78 @@ def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None):
         raise AssertionError(f"bad curves {curves}")
     return (res, wall, peak, launches, sends, got_recv, got_send, voted,
             routes, send_routes, voted_by_route)
+
+
+def run_outcome(res):
+    """What an armed run must leave bit for bit as the unarmed run has it:
+    curves, economy, fault counters, wire bytes and the EF norm."""
+    return (res.cycles, res.err_fresh, res.err_voted, res.similarity,
+            res.sent_total, res.delivered_total, res.lost_total,
+            res.overflow_total, res.in_flight_total,
+            list(res.delivered_per_cycle), dict(res.fault_stats),
+            res.wire_bytes_total, res.buf_payload_bytes,
+            res.ef_residual_norm)
+
+
+def check_armed(tel, armed, unarmed, cycles: int, tag: str):
+    """An armed run against its unarmed twin: the outcome equal bit for
+    bit, and the metric streams, one value a cycle (a value an eval point
+    for the EF residual), summing to the run's totals with ``in_flight``
+    ending at sent - delivered - lost - overflow."""
+    if run_outcome(armed) != run_outcome(unarmed):
+        raise AssertionError(f"{tag}: the armed run differs from the "
+                             f"unarmed one: {run_outcome(armed)[:9]} vs "
+                             f"{run_outcome(unarmed)[:9]}")
+    s = tel.stream_array
+    totals = dict(sent=armed.sent_total, delivered=armed.delivered_total,
+                  lost=armed.lost_total, overflow=armed.overflow_total,
+                  wire_bytes=armed.wire_bytes_total, **armed.fault_stats)
+    for name, total in totals.items():
+        if s(name).size != cycles or int(s(name).sum()) != total:
+            raise AssertionError(f"{tag}: stream {name} has {s(name).size} "
+                                 f"values summing to {s(name).sum()}, "
+                                 f"expected {cycles} summing to {total}")
+    balance = (armed.sent_total - armed.delivered_total - armed.lost_total
+               - armed.overflow_total)
+    if not int(s("in_flight")[-1]) == balance == armed.in_flight_total:
+        raise AssertionError(f"{tag}: in_flight ends at "
+                             f"{s('in_flight')[-1]}, the economy at "
+                             f"{balance}")
+    if s("delivered").tolist() != list(armed.delivered_per_cycle):
+        raise AssertionError(f"{tag}: delivered stream differs")
+    ef = s("ef_residual_rms")
+    if ef.size != len(armed.cycles) or ef[-1] != armed.ef_residual_norm:
+        raise AssertionError(f"{tag}: ef_residual_rms {ef.tolist()} against "
+                             f"the run's {armed.ef_residual_norm}")
+
+
+def span_split(tel) -> dict:
+    """Per span name: total seconds, share of the spanned wall time, count
+    and kernel libraries built or loaded inside."""
+    wall = tel.wall_seconds()
+    out = {}
+    for sp in tel.spans:
+        row = out.setdefault(sp.name, dict(s=0.0, count=0, compiles=0))
+        row["s"] += sp.seconds
+        row["count"] += 1
+        row["compiles"] += sp.compiles
+    for row in out.values():
+        row["share"] = row["s"] / wall if wall > 0 else 0.0
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["s"]))
+
+
+def trace_report(path) -> str:
+    """``tools/trace_report.py`` on an exported trace: it must read it and
+    find the streams' balance invariant."""
+    proc = subprocess.run([sys.executable,
+                           str(ROOT / "tools" / "trace_report.py"),
+                           str(path)], capture_output=True, text=True,
+                          timeout=120)
+    if proc.returncode != 0 or "balance invariant OK" not in proc.stdout:
+        raise AssertionError(f"tools/trace_report.py on {path}: exit "
+                             f"{proc.returncode}\n{proc.stdout}\n"
+                             f"{proc.stderr}")
+    return proc.stdout
 
 
 def time_receive(captured, variant: str, lam: float, d: int,
@@ -1656,6 +1740,7 @@ def main() -> int:
     from repro_torch.core import faults
     from repro_torch.core import sharded_engine as se
     from repro_torch.core.simulation import run_simulation
+    from repro_torch.core.telemetry import Telemetry
     from repro_torch.data.synthetic import make_linear_dataset
     from repro_torch.kernels import _build
     from repro_torch.kernels import gossip_cycle as gc
@@ -2027,6 +2112,57 @@ def main() -> int:
                                eval_every=10, seed=0, k_rounds=4,
                                device="cuda"), "3", card)
 
+    # the same run armed with telemetry, then unarmed once more: bit for
+    # bit the unarmed run, its streams adding up, and where the host's
+    # time goes. Each makes its churn trace anew, as the first run did.
+    from repro_torch.core import simulation
+    tel3 = Telemetry(label=f"chip_smoke phase 3 N={n3}")
+    simulation._host_scenario.cache_clear()
+    (res_a, wall_a, _, launches_a, _, _, _, _, routes_a, _,
+     _) = main_path(cfg3, X, y, n3, cycles, dev, telemetry=tel3)
+    simulation._host_scenario.cache_clear()
+    res_u, wall_u = main_path(cfg3, X, y, n3, cycles, dev)[:2]
+    if (launches_a, routes_a) != (launches, routes):
+        raise AssertionError(f"phase 3: the armed run launched {launches_a} "
+                             f"(by route {routes_a}), the unarmed "
+                             f"{launches} ({routes})")
+    check_armed(tel3, res_a, f32_res, cycles, "phase 3")
+    if run_outcome(res_u) != run_outcome(f32_res):
+        raise AssertionError("phase 3: the unarmed rerun differs")
+    split3 = span_split(tel3)
+    spanned = tel3.wall_seconds()
+    print(f"[3] {card}: armed with telemetry: wall {wall_a:.3f} s against "
+          f"the unarmed run's {wall:.3f} s (ratio {wall_a / wall:.4f}) and "
+          f"an unarmed rerun's {wall_u:.3f} s (ratio {wall_a / wall_u:.4f});"
+          f" launches {launches_a} (by route {routes_a}); curves, economy, "
+          "fault counters, wire bytes and EF norm bit for bit the unarmed "
+          "run's; the streams add up")
+    for line in tel3.phase_report().splitlines():
+        print(f"[3] {card}: {line}")
+    for name, row in split3.items():
+        print(f"[3] {card}:   span {name:<16} {row['s']:.6f} s "
+              f"{row['share']:7.2%} of the spanned {spanned:.6f} s, "
+              f"x{row['count']}, compiles {row['compiles']}")
+    print(f"[3] {card}: spans cover {sum(r['s'] for r in split3.values()):.6f}"
+          f" s of the armed run's {wall_a:.3f} s wall")
+    # next to --out; without it, in a directory removed once it is read
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        trace3 = tel3.export_chrome_trace(
+            (Path(opts.out).resolve().parent if opts.out else Path(tmp))
+            / "phase3_trace.json")
+        report = trace_report(trace3)
+        size = trace3.stat().st_size
+    print(f"[3] {card}: Chrome trace {trace3} ({size} B"
+          f"{'' if opts.out else ', removed: no --out'}); "
+          "tools/trace_report.py reads it:")
+    for line in report.splitlines()[:4]:
+        print(f"[3] {card}:   {line}")
+    results["phase3"].update(
+        armed_wall_s=wall_a, unarmed_rerun_wall_s=wall_u,
+        armed_ratio=wall_a / wall, armed_ratio_rerun=wall_a / wall_u,
+        spanned_s=spanned, spans=split3, trace=str(trace3))
+    del res_a, res_u
+
     kernels = [dict(
         name="fused_receive_apply", route="cuda",
         source="src/repro_torch/kernels/csrc/gossip_cycle.cu",
@@ -2201,6 +2337,47 @@ def main() -> int:
             cycles=cycles, eval_every=10, seed=0, k_rounds=4, device="cuda",
             serve_hook=feed_server(GossipServer(batch_size=256), X[n3:],
                                    y[n3:], 2048)[0]), "5", card)
+
+    # the protocol and the server armed on one Telemetry: bit for bit the
+    # unarmed run and its answers, the server's histogram shared
+    tel5 = Telemetry(label=f"chip_smoke phase 5 N={n3}")
+    server_a = GossipServer(batch_size=256, telemetry=tel5)
+    hook_a, _ = feed_server(server_a, X[n3:], y[n3:], 2048)
+    (res_a, wall_a, _, launches_a, _, _, _, voted_a, routes_a, _,
+     voted_by_route_a) = main_path(cfg5, X, y, n3, cycles, dev,
+                                   serve_hook=hook_a, telemetry=tel5)
+    server_a.flush()
+    st_a = server_a.stats()
+    if (launches_a, routes_a, voted_a, voted_by_route_a) != (
+            launches, routes, voted, voted_by_route):
+        raise AssertionError(f"phase 5: the armed run launched "
+                             f"{launches_a} ({routes_a}) and {voted_a} "
+                             f"({voted_by_route_a}), the unarmed {launches} "
+                             f"({routes}) and {voted} ({voted_by_route})")
+    check_armed(tel5, res_a, res, cycles, "phase 5")
+    if not (np.array_equal(server_a.answers(), server.answers())
+            and np.array_equal(server_a.answers_fresh(),
+                               server.answers_fresh())):
+        raise AssertionError("phase 5: the armed server's answers differ")
+    if (tel5.histograms.get("serve_batch_latency") is not server_a.hist
+            or not server_a.hist.count == st_a.batches == st.batches):
+        raise AssertionError("phase 5: the server's histogram is not "
+                             "shared into the telemetry")
+    split5 = span_split(tel5)
+    if (split5["snapshot_adopt"]["count"] != len(res.cycles)
+            or split5["serve_batch"]["count"] != st.batches):
+        raise AssertionError(f"phase 5: serving spans {split5}")
+    print(f"[5] {card}: armed protocol and server: wall {wall_a:.3f} s "
+          f"(unarmed {wall:.3f} s, ratio {wall_a / wall:.4f}); curves, "
+          "economy, fault counters and served answers bit for bit the "
+          f"unarmed run's; serve_batch_latency shared (n={st_a.batches}, "
+          f"p50 {st_a.p50_latency_s * 1e3:.4f} ms); snapshot_adopt "
+          f"{split5['snapshot_adopt']['s']:.6f} s x"
+          f"{split5['snapshot_adopt']['count']}, serve_batch "
+          f"{split5['serve_batch']['s']:.6f} s x"
+          f"{split5['serve_batch']['count']}, snapshot "
+          f"{split5['snapshot']['s']:.6f} s x{split5['snapshot']['count']}")
+    del res_a, server_a, hook_a
     results["phase5"] = dict(
         wall_s=wall, node_cycles_per_s=rate, peak_bytes=peak,
         launches=launches, voted_launches=voted,
@@ -2217,7 +2394,7 @@ def main() -> int:
                      max_abs_err=t5["err"], route=t5["route"],
                      strided_ms=t5["strided_ms"]),
         route_launches=routes,
-        voted=voted_rows, profile=prof5)
+        voted=voted_rows, profile=prof5, armed_wall_s=wall_a, spans=split5)
     del server
     torch.cuda.empty_cache()
     kernels[0]["max_abs_err"] = max_err
@@ -2272,7 +2449,8 @@ def main() -> int:
         out = Path(opts.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(results, indent=1))
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "phase3_spans": {
+        name: row["s"] for name, row in split3.items()}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

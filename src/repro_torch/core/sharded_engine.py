@@ -48,9 +48,10 @@ from repro_torch.core import faults, serving
 from repro_torch.core.cache import ModelCache
 from repro_torch.core.simulation import (SimResult, _eval, byzantine_tensor,
                                          check_slice, draw_sends,
-                                         ef_residual_norm, eval_points,
-                                         message_wire_bytes,
+                                         ef_residual_norm, ef_residual_rms,
+                                         eval_points, message_wire_bytes,
                                          payload_buffer_bytes, sim_setup)
+from repro_torch.core.telemetry import maybe_span
 from repro_torch.core.wire_codec import WireCodec, get_codec
 from repro_torch.kernels import gossip_cycle
 from repro_torch.utils.device import resolve_device
@@ -102,7 +103,7 @@ class _HostRouter:
         self.p_arr = _EMPTY_I32
 
     def route_chunk(self, dsts, arrivals, online_rows, clock0: int,
-                    k_rounds: int):
+                    k_rounds: int, per_cycle_stats: bool = False):
         """Resolve winner-per-destination rounds for a chunk of cycles, in
         one batched numpy pass: every candidate message arriving inside the
         chunk is ranked within its (cycle, destination) group by descending
@@ -111,7 +112,13 @@ class _HostRouter:
 
         Returns ``(win, stats)``: the winner tuple ``(t, round, dst, slot)``
         of parallel int32 arrays, and the chunk's message economy with
-        ``delivered_cycles``, the (T,) per-cycle delivered counts."""
+        ``delivered_cycles``, the (T,) per-cycle delivered counts.
+
+        ``per_cycle_stats`` (armed telemetry only) adds the (T,) per-cycle
+        ``lost_cycles`` and ``overflow_cycles``, both counted at the
+        arrival cycle as the reference engine counts them, and the round-1
+        and round-2 receiver counts ``recv_sizes`` and ``multi_sizes``,
+        straight from the winners."""
         T, n = dsts.shape
         D, K = self.delay_max, k_rounds
 
@@ -135,6 +142,7 @@ class _HostRouter:
         # a message due while its destination is offline leaves the system
         on = online_rows[c_t, c_dst]
         lost = int(c_slot.size - int(on.sum()))
+        lost_t = c_t[~on] if per_cycle_stats else None
         c_slot, c_dst, c_t = c_slot[on], c_dst[on], c_t[on]
 
         # sort by (cycle, dst) group, ascending slot id inside each group:
@@ -152,6 +160,12 @@ class _HostRouter:
                      overflow=int(g_s.size - delivered),
                      delivered_cycles=np.bincount(
                          win[0], minlength=T).astype(np.int64))
+        if per_cycle_stats:
+            per_cycle = lambda t: np.bincount(t, minlength=T).astype(np.int64)
+            stats["lost_cycles"] = per_cycle(lost_t)
+            stats["overflow_cycles"] = per_cycle(c_t[order][~wm])
+            stats["recv_sizes"] = per_cycle(win[0][win[1] == 0])
+            stats["multi_sizes"] = per_cycle(win[0][win[1] == 1])
         return win, stats
 
     @property
@@ -213,7 +227,8 @@ def init_carry(n: int, d: int, cache_size: int, delay_max: int, device,
 
 def run_dense_chunk(carry: Carry, table, X, y, *, variant: str, lam: float,
                     wire=None, keys=None, send_mask=None, fault_model=None,
-                    byz=None, defense: str = "none"):
+                    byz=None, defense: str = "none",
+                    per_cycle: bool = False):
     """Run the chunk's cycles over the dense (T, K, N) routing table, in
     place — the reference's ``dense_body`` under ``lax.scan`` with the fused
     receive kernel and, for the quantized codecs, the send kernel.
@@ -229,7 +244,9 @@ def run_dense_chunk(carry: Carry, table, X, y, *, variant: str, lam: float,
     or their payload after it (``bitflip``), with the fault keys
     ``fold_in(keys, FAULT_FOLD)`` made on the device; ``defense`` is the
     receive kernel's screen. Returns ``(carry, screen)``: ``screen`` is the
-    (2,) int64 device tensor of the chunk's gated and clipped totals."""
+    (2,) int64 device tensor of the chunk's gated and clipped totals, or
+    with ``per_cycle`` (armed telemetry) the (T, 2) tensor of each cycle's,
+    as the reference's armed chunk returns them."""
     codec = get_codec(wire)
     fault = faults.get_fault(fault_model)
     D, n, P = carry.buf_w.shape
@@ -241,7 +258,8 @@ def run_dense_chunk(carry: Carry, table, X, y, *, variant: str, lam: float,
     flat_zp = carry.buf_zp.view(-1)
     kr = recv_keys(keys) if codec.stochastic else None
     fk = faults.fault_key(keys) if fault is not None else None
-    screen = torch.zeros(2, dtype=torch.int64, device=carry.buf_w.device)
+    screen = torch.zeros((table.shape[0], 2) if per_cycle else 2,
+                         dtype=torch.int64, device=carry.buf_w.device)
     c = carry.cache
     for t in range(table.shape[0]):
         src = table[t]                                  # (K, n) int32
@@ -259,7 +277,11 @@ def run_dense_chunk(carry: Carry, table, X, y, *, variant: str, lam: float,
             msg_zp=flat_zp[idx] if codec.has_zp else None,
             wire=codec.name, variant=variant, lam=lam, defense=defense)
         if defense != "none":
-            screen += torch.stack([out[6].sum(), out[7].sum()])
+            counts = torch.stack([out[6].sum(), out[7].sum()])
+            if per_cycle:
+                screen[t] = counts
+            else:
+                screen += counts
         slot = ((c.ptr - 1) % C).long()                 # freshest slot
         carry.fresh_w = c.w[rows, slot]
         carry.fresh_t = c.t[rows, slot]
@@ -305,7 +327,7 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
                            device=None, use_kernel: Optional[bool] = None,
                            compact_mode: Optional[str] = None, mesh=None,
                            use_send_kernel: Optional[bool] = None,
-                           serve_hook=None) -> SimResult:
+                           serve_hook=None, telemetry=None) -> SimResult:
     """Run the protocol with the mega-population engine on one device.
 
     The receive step is the fused kernel on CUDA and its plain version on
@@ -320,7 +342,19 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
 
     ``serve_hook(cycle, snapshot)`` is called at every eval point with
     ``serving.snapshot_from_carry(carry)``, a copy of the live cache, before
-    the next chunk updates the carry in place."""
+    the next chunk updates the carry in place.
+
+    ``telemetry`` (a :class:`repro_torch.core.telemetry.Telemetry`), when
+    armed, gets the reference's per-cycle streams, counted on the host from
+    the router's tables, but for the screen's counts, kept per cycle on the
+    device and read with the curves after the last chunk, and the EF
+    residual's RMS, queued at each eval point before the next chunk runs
+    and read there too; and host spans that never nest, one per phase of
+    the driver: ``setup``, ``draw_enqueue``, ``draw_readback``,
+    ``route_chunk`` (the numpy router alone), ``dense_table``,
+    ``table_upload``, ``chunk_dispatch``, ``eval``, ``snapshot`` and
+    ``collect_results``. An armed run adds no synchronisation and no kernel
+    launch of #1 to #5, and is bit for bit the unarmed run."""
     dev = resolve_device(device)
     codec = get_codec(cfg.wire_dtype)
     if use_send_kernel and not codec.quantized:
@@ -345,23 +379,25 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
             f"learner={cfg.learner!r} on the sharded engine: the vector "
             "apply for non-Pegasos learners is ROADMAP.md queue 1 item 5")
     check_slice(cfg)
+    tel = telemetry
+    armed = tel is not None
 
-    n, d = X.shape[0], X.shape[-1]
-    D = max(cfg.delay_max_cycles, 1)
-    online_mat, eval_idx, X, y, X_test, y_test = sim_setup(
-        cfg, X, y, X_test, y_test, cycles=cycles, seed=seed,
-        eval_nodes=eval_nodes, device=dev)
-    carry = init_carry(n, d, cfg.cache_size, D, dev, codec)
-    byz = byzantine_tensor(cfg, seed, n, dev)
-    byz_np = None if byz is None else byz.cpu().numpy()
-
-    res = SimResult([], [], [], [], 0, cfg)
-    res.buf_payload_bytes = payload_buffer_bytes(D, n, d, cfg.wire_dtype)
-    pts = eval_points(cycles, eval_every)
+    with maybe_span(tel, "setup", track="host"):
+        n, d = X.shape[0], X.shape[-1]
+        D = max(cfg.delay_max_cycles, 1)
+        online_mat, eval_idx, X, y, X_test, y_test = sim_setup(
+            cfg, X, y, X_test, y_test, cycles=cycles, seed=seed,
+            eval_nodes=eval_nodes, device=dev)
+        carry = init_carry(n, d, cfg.cache_size, D, dev, codec)
+        byz = byzantine_tensor(cfg, seed, n, dev)
+        byz_np = None if byz is None else byz.cpu().numpy()
+        res = SimResult([], [], [], [], 0, cfg)
+        res.buf_payload_bytes = payload_buffer_bytes(D, n, d, cfg.wire_dtype)
+        pts = eval_points(cycles, eval_every)
+        keys = key_schedule(seed, cycles, dev) if pts else None
     if not pts:
         return res
 
-    keys = key_schedule(seed, cycles, dev)
     router = _HostRouter(D)
     bounds = list(zip([0] + pts[:-1], pts))
 
@@ -370,45 +406,69 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
         mask ``arrival >= 0`` kept on the device: the reference's
         ``send_ok``, without uploading it again."""
         lo, hi = bounds[i]
-        dsts, arrivals = _draw_chunk(
-            keys[lo:hi], torch.as_tensor(online_mat[lo:hi], device=dev), lo,
-            n=n, drop=cfg.drop_prob, delay_max=D, sampler=sampler)
-        mask = arrivals >= 0 if codec.ef else None
-        return dsts.cpu().numpy(), arrivals.cpu().numpy(), mask
+        with maybe_span(tel, "draw_enqueue", track="control", chunk=i):
+            dsts, arrivals = _draw_chunk(
+                keys[lo:hi], torch.as_tensor(online_mat[lo:hi], device=dev),
+                lo, n=n, drop=cfg.drop_prob, delay_max=D, sampler=sampler)
+            mask = arrivals >= 0 if codec.ef else None
+        with maybe_span(tel, "draw_readback", track="device", chunk=i):
+            return dsts.cpu().numpy(), arrivals.cpu().numpy(), mask
 
     def route(i, drawn):
         lo, hi = bounds[i]
         dsts, arrivals, mask = drawn
-        win, stats = router.route_chunk(dsts, arrivals, online_mat[lo:hi],
-                                        lo, k_rounds)
-        # Byzantine senders with send_ok (arrival >= 0), off the host table
-        stats["corrupted"] = (int(byz_np[np.nonzero(arrivals >= 0)[1]].sum())
-                              if byz_np is not None else 0)
-        table = torch.from_numpy(dense_table(win, hi - lo, k_rounds, n))
+        with maybe_span(tel, "route_chunk", track="control", chunk=i):
+            win, stats = router.route_chunk(dsts, arrivals,
+                                            online_mat[lo:hi], lo, k_rounds,
+                                            per_cycle_stats=armed)
+            # Byzantine senders with send_ok (arrival >= 0), off the host
+            # table
+            stats["corrupted"] = (
+                int(byz_np[np.nonzero(arrivals >= 0)[1]].sum())
+                if byz_np is not None else 0)
+            if armed:
+                send_ok = arrivals >= 0
+                stats["sent_cycles"] = send_ok.sum(axis=1).astype(np.int64)
+                stats["corrupted_cycles"] = (
+                    (send_ok & byz_np[None, :]).sum(axis=1).astype(np.int64)
+                    if byz_np is not None else np.zeros(hi - lo, np.int64))
+        with maybe_span(tel, "dense_table", track="control", chunk=i):
+            table = torch.from_numpy(dense_table(win, hi - lo, k_rounds, n))
         if dev.type == "cuda":
             # pinned + non_blocking: the upload queues behind the device's
             # work instead of making the host wait for it
-            table = table.pin_memory().to(dev, non_blocking=True)
+            with maybe_span(tel, "table_upload", track="control", chunk=i):
+                table = table.pin_memory().to(dev, non_blocking=True)
         return table, stats, mask
 
     # Draws run one chunk ahead. Chunk i+1's tables are read back before
     # chunk i is enqueued, so the read waits only for chunk i-1, which ran
     # while the host routed chunk i; routing chunk i+1 then overlaps the
     # device's chunk i. The host holds one chunk of draws at a time.
-    evals, screens = [], []
+    msg_bytes = message_wire_bytes(d, cfg.wire_dtype)
+    in_flight = 0
+    evals, screens, ef_rms = [], [], []
     pending = route(0, draw(0))
     for i, p in enumerate(pts):
         table, stats, mask = pending
         drawn = draw(i + 1) if i + 1 < len(pts) else None
         lo, hi = bounds[i]
-        _, screen = run_dense_chunk(
-            carry, table, X, y, variant=cfg.variant, lam=cfg.lam,
-            wire=codec.name, keys=keys[lo:hi], send_mask=mask,
-            fault_model=cfg.fault_model, byz=byz, defense=cfg.defense)
+        with maybe_span(tel, "chunk_dispatch", track="device", chunk=i,
+                        cycles=hi - lo):
+            _, screen = run_dense_chunk(
+                carry, table, X, y, variant=cfg.variant, lam=cfg.lam,
+                wire=codec.name, keys=keys[lo:hi], send_mask=mask,
+                fault_model=cfg.fault_model, byz=byz, defense=cfg.defense,
+                per_cycle=armed)
         screens.append(screen)
-        evals.append(_eval(carry.cache, eval_idx, X_test, y_test))
+        with maybe_span(tel, "eval", track="eval", cycle=p):
+            evals.append(_eval(carry.cache, eval_idx, X_test, y_test))
+        if armed:
+            # queued before chunk i+1 updates the carry; read at the end
+            ef_rms.append(ef_residual_rms(carry.ef))
         if serve_hook is not None:
-            serve_hook(p, serving.snapshot_from_carry(carry))
+            with maybe_span(tel, "snapshot", track="serving", cycle=p):
+                serve_hook(p, serving.snapshot_from_carry(carry))
         if drawn is not None:
             pending = route(i + 1, drawn)   # overlaps the device's chunk i
         res.sent_total += stats["sent"]
@@ -419,17 +479,43 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
         res.delivered_per_cycle.extend(
             int(x) for x in stats["delivered_cycles"])
         res.cycles.append(p)
-    for err_f, err_v, sim in evals:
-        res.err_fresh.append(float(err_f))
-        res.err_voted.append(float(err_v))
-        res.similarity.append(float(sim))
-    for screen in screens:
-        gated, clipped = screen.tolist()
-        res.fault_stats["gated"] += gated
-        res.fault_stats["clipped"] += clipped
+        if armed:
+            sc, dc = stats["sent_cycles"], stats["delivered_cycles"]
+            flow = np.cumsum(sc - dc - stats["lost_cycles"]
+                             - stats["overflow_cycles"]) + in_flight
+            in_flight = int(flow[-1])
+            tel.emit_row(
+                sent=sc, delivered=dc, lost=stats["lost_cycles"],
+                overflow=stats["overflow_cycles"], in_flight=flow,
+                wire_bytes=sc * msg_bytes, recv_nodes=stats["recv_sizes"],
+                multi_nodes=stats["multi_sizes"],
+                online_nodes=online_mat[lo:hi].sum(axis=1),
+                corrupted=stats["corrupted_cycles"])
+    with maybe_span(tel, "collect_results", track="device", chunks=len(pts)):
+        for err_f, err_v, sim in evals:
+            res.err_fresh.append(float(err_f))
+            res.err_voted.append(float(err_v))
+            res.similarity.append(float(sim))
+        for screen in screens:
+            if armed:
+                per = np.asarray(screen.tolist(), np.int64)     # (T, 2)
+                tel.emit("gated", per[:, 0])
+                tel.emit("clipped", per[:, 1])
+                gated, clipped = (int(v) for v in per.sum(axis=0))
+            else:
+                gated, clipped = screen.tolist()
+            res.fault_stats["gated"] += gated
+            res.fault_stats["clipped"] += clipped
+        if armed:
+            tel.emit("ef_residual_rms",
+                     [0.0 if v is None else float(v) for v in ef_rms])
     res.in_flight_total = router.in_flight
     res.compaction = dict(chunk_modes={"dense": len(pts)})
-    res.wire_bytes_total = res.sent_total * message_wire_bytes(
-        d, cfg.wire_dtype)
+    res.wire_bytes_total = res.sent_total * msg_bytes
     res.ef_residual_norm = ef_residual_norm(carry.ef)
+    if armed:
+        tel.annotations.setdefault("runs", []).append(dict(
+            engine="sharded", n_nodes=n, cycles=cycles,
+            wire_dtype=cfg.wire_dtype or "f32", message_bytes=msg_bytes,
+            chunk_modes=dict(res.compaction["chunk_modes"])))
     return res

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, field
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -36,6 +36,7 @@ from repro_torch.core import peer_sampling, serving
 from repro_torch.core.cache import ModelCache
 from repro_torch.core.learners import LinearModel, make_update
 from repro_torch.core.merge import create_model
+from repro_torch.core.telemetry import maybe_span
 from repro_torch.core.wire_codec import get_codec
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.metrics import cosine_similarity
@@ -82,16 +83,13 @@ def init_state(n: int, d: int, cache_size: int, delay_max: int, device,
     )
 
 
-def check_slice(cfg: GossipLinearConfig, *, telemetry=None) -> None:
+def check_slice(cfg: GossipLinearConfig) -> None:
     """Raise for unknown codec, fault and defense names with the
     reference's messages (``byzantine_frac`` is checked where the mask is
-    drawn, as there), and for the reference options this slice of the port
-    does not run yet, naming the ROADMAP.md item that ports each."""
+    drawn, as there)."""
     get_codec(cfg.wire_dtype)          # unknown codec names raise ValueError
     faults_mod.check_defense(cfg.defense)
     faults_mod.get_fault(cfg.fault_model)
-    if telemetry is not None:
-        raise NotImplementedError("telemetry is ROADMAP.md queue 1 item 7")
 
 
 def select_receivers(buf_dst, buf_arrival, online, clock: int,
@@ -183,7 +181,8 @@ def draw_sends(key, n: int, clock: int, online, *, drop: float,
 def simulate_cycle(state: SimState, X, y, online, key, byz=None, *,
                    variant: str, learner: str, lam: float, eta: float,
                    drop: float, delay_max: int, k_rounds: int, sampler: str,
-                   wire_dtype=None, fault_model=None, defense: str = "none"):
+                   wire_dtype=None, fault_model=None, defense: str = "none",
+                   emit_streams: bool = False):
     """One gossip cycle for the whole population. Returns (state, stats):
     over a run ``sum(sent) == sum(delivered + lost + overflow) +
     in-flight``. ``wire_dtype`` names the codec the buffer holds: winners
@@ -198,7 +197,12 @@ def simulate_cycle(state: SimState, X, y, online, key, byz=None, *,
     residual, which stays the honest encoder's). Fault draws use
     ``fault_key(key)``. A gated message still counts as delivered; the
     stats add ``corrupted`` (Byzantine senders that sent), ``gated`` and
-    ``clipped``."""
+    ``clipped``.
+
+    ``emit_streams`` (set by an armed ``telemetry=``) adds the receiver
+    occupancy streams: ``recv_nodes``, the round-1 winners, and
+    ``multi_nodes``, round 2's (0 when K = 1). Unarmed, the cycle does no
+    extra work."""
     n, d = state.last_w.shape
     D = delay_max
     codec = get_codec(wire_dtype)
@@ -256,6 +260,10 @@ def simulate_cycle(state: SimState, X, y, online, key, byz=None, *,
     stats = {"delivered": delivered, "overflow": overflow,
              "sent": send_ok.sum(), "lost": lost, "corrupted": corrupted,
              "gated": gated.sum(), "clipped": clipped.sum()}
+    if emit_streams:
+        stats["recv_nodes"] = valid[0].sum()
+        stats["multi_nodes"] = (valid[1].sum() if k_rounds > 1
+                                else torch.zeros((), dtype=torch.int64))
     return SimState(last_w, last_t, cache, buf_w, buf_t, buf_scale, buf_zp,
                     buf_dst, buf_arrival, ef, state.clock + 1), stats
 
@@ -358,12 +366,20 @@ class SimResult:
         "corrupted": 0, "gated": 0, "clipped": 0})
 
 
-def ef_residual_norm(ef) -> float:
-    """Root-mean-square per-node L2 norm of the EF residual lane."""
+def ef_residual_rms(ef) -> Optional[torch.Tensor]:
+    """Root-mean-square per-node L2 norm of the EF residual lane, as a
+    0-dim tensor on its device (queued, not waited for); None for the
+    empty lane of a codec without EF state."""
     if ef.numel() == 0:
-        return 0.0
-    return float(torch.sqrt(torch.mean(torch.sum(ef.to(torch.float32) ** 2,
-                                                 dim=-1))))
+        return None
+    return torch.sqrt(torch.mean(torch.sum(ef.to(torch.float32) ** 2,
+                                           dim=-1)))
+
+
+def ef_residual_norm(ef) -> float:
+    """:func:`ef_residual_rms` as a float (0.0 without EF state)."""
+    rms = ef_residual_rms(ef)
+    return 0.0 if rms is None else float(rms)
 
 
 def message_wire_bytes(d: int, wire_dtype_name) -> int:
@@ -456,16 +472,21 @@ def run_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     ``serve_hook``: optional ``hook(cycle, snapshot)``, called at every
     eval point after the eval with a :class:`repro_torch.core.serving.
     QuerySnapshot` of the live state. The snapshot is a copy, so a hooked
-    run equals an unhooked one bit for bit."""
+    run equals an unhooked one bit for bit.
+
+    ``telemetry``: optional :class:`repro_torch.core.telemetry.Telemetry`.
+    Armed, either engine emits the registered per-cycle metric streams
+    (bit for bit the JAX reference engine's integers) and times its phases
+    as host spans; the run itself is bit for bit the unarmed one."""
     dev = resolve_device(device)
-    check_slice(cfg, telemetry=telemetry)
+    check_slice(cfg)
     if engine == "sharded":
         from repro_torch.core.sharded_engine import run_sharded_simulation
         return run_sharded_simulation(
             cfg, X, y, X_test, y_test, cycles=cycles, eval_every=eval_every,
             seed=seed, eval_nodes=eval_nodes, sampler=sampler,
             k_rounds=k_rounds, device=dev, serve_hook=serve_hook,
-            **engine_kwargs)
+            telemetry=telemetry, **engine_kwargs)
     if engine != "reference":
         raise ValueError(f"unknown engine {engine!r} "
                          "(expected 'reference' or 'sharded')")
@@ -485,33 +506,62 @@ def run_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
 
     res = SimResult([], [], [], [], 0, cfg)
     res.buf_payload_bytes = payload_buffer_bytes(D, n, d, cfg.wire_dtype)
+    tel = telemetry
+    armed = tel is not None
+    msg_bytes = message_wire_bytes(d, cfg.wire_dtype)
+    in_flight = 0
     for c in range(cycles):
         key, sub = random.split(key)
-        online = torch.as_tensor(online_mat[c], device=dev)
-        state, stats = simulate_cycle(
-            state, X, y, online, sub, byz, variant=cfg.variant,
-            learner=cfg.learner, lam=cfg.lam, eta=cfg.eta,
-            drop=cfg.drop_prob, delay_max=D, k_rounds=k_rounds,
-            sampler=sampler, wire_dtype=cfg.wire_dtype,
-            fault_model=cfg.fault_model, defense=cfg.defense)
-        delivered = int(stats["delivered"])
-        res.sent_total += int(stats["sent"])
+        with maybe_span(tel, "cycle", track="device", cycle=c):
+            online = torch.as_tensor(online_mat[c], device=dev)
+            state, stats = simulate_cycle(
+                state, X, y, online, sub, byz, variant=cfg.variant,
+                learner=cfg.learner, lam=cfg.lam, eta=cfg.eta,
+                drop=cfg.drop_prob, delay_max=D, k_rounds=k_rounds,
+                sampler=sampler, wire_dtype=cfg.wire_dtype,
+                fault_model=cfg.fault_model, defense=cfg.defense,
+                emit_streams=armed)
+            stats = {k: int(v) for k, v in stats.items()}
+        sent, delivered = stats["sent"], stats["delivered"]
+        res.sent_total += sent
         res.delivered_total += delivered
         res.delivered_per_cycle.append(delivered)
-        res.lost_total += int(stats["lost"])
-        res.overflow_total += int(stats["overflow"])
+        res.lost_total += stats["lost"]
+        res.overflow_total += stats["overflow"]
         for k in res.fault_stats:
-            res.fault_stats[k] += int(stats[k])
+            res.fault_stats[k] += stats[k]
+        if armed:
+            # reads of the stats the driver fetched anyway
+            in_flight += (sent - delivered - stats["lost"]
+                          - stats["overflow"])
+            tel.emit_row(
+                sent=sent, delivered=delivered, lost=stats["lost"],
+                overflow=stats["overflow"], in_flight=in_flight,
+                wire_bytes=sent * msg_bytes,
+                recv_nodes=stats["recv_nodes"],
+                multi_nodes=stats["multi_nodes"],
+                online_nodes=int(online_mat[c].sum()),
+                corrupted=stats["corrupted"], gated=stats["gated"],
+                clipped=stats["clipped"])
         if (c + 1) % eval_every == 0 or c == cycles - 1:
-            err_f, err_v, sim = _eval(state.cache, eval_idx, X_test, y_test)
-            res.cycles.append(c + 1)
-            res.err_fresh.append(float(err_f))
-            res.err_voted.append(float(err_v))
-            res.similarity.append(float(sim))
+            with maybe_span(tel, "eval", track="eval", cycle=c + 1):
+                err_f, err_v, sim = _eval(state.cache, eval_idx, X_test,
+                                          y_test)
+                res.cycles.append(c + 1)
+                res.err_fresh.append(float(err_f))
+                res.err_voted.append(float(err_v))
+                res.similarity.append(float(sim))
+            if armed:
+                tel.emit("ef_residual_rms", ef_residual_norm(state.ef))
             if serve_hook is not None:
-                serve_hook(c + 1, serving.take_snapshot(state))
+                with maybe_span(tel, "snapshot", track="serving",
+                                cycle=c + 1):
+                    serve_hook(c + 1, serving.take_snapshot(state))
     res.in_flight_total = int((state.buf_arrival >= state.clock).sum())
-    res.wire_bytes_total = res.sent_total * message_wire_bytes(
-        d, cfg.wire_dtype)
+    res.wire_bytes_total = res.sent_total * msg_bytes
     res.ef_residual_norm = ef_residual_norm(state.ef)
+    if armed:
+        tel.annotations.setdefault("runs", []).append(dict(
+            engine="reference", n_nodes=n, cycles=cycles,
+            wire_dtype=cfg.wire_dtype or "f32", message_bytes=msg_bytes))
     return res

@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 LIB_DIR = Path(__file__).resolve().parent / "_lib"
@@ -27,6 +27,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# the sources this process compiled, in order (telemetry's
+# ``compile_cache_sizes`` counts them with the libraries loaded)
+built: List[str] = []
 
 
 def nvcc() -> str:
@@ -77,6 +80,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         logs[name], _ = proc.communicate()
         if proc.returncode == 0:
             os.replace(tmp, out)
+            built.append(name)
         else:
             os.unlink(tmp)
             failed.append(f"{name}:\n{logs[name]}")

@@ -15,7 +15,11 @@ pads the tail to the batch shape and slices the answers back. The batch
 latency is taken around the voted predict, ended by
 ``torch.cuda.synchronize()`` on a CUDA snapshot, and recorded in a
 :class:`repro_torch.core.telemetry.LatencyHistogram`; ``stats()`` gives
-queries/s and the p50/p90/p99/p999 batch latency from it.
+queries/s and the p50/p90/p99/p999 batch latency from it. Pass
+``telemetry=`` to share that histogram into the trace as
+``serve_batch_latency`` and to record the snapshot adoptions and the
+batches as ``snapshot_adopt`` and ``serve_batch`` spans on the "serving"
+track.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import serving
-from repro_torch.core.telemetry import LatencyHistogram
+from repro_torch.core.telemetry import LatencyHistogram, Telemetry, maybe_span
 
 
 @dataclass
@@ -68,12 +72,12 @@ class GossipServer:
     is answered through the voted-predict kernel (its plain version for a
     CPU snapshot) and, outside the latency window, by the freshest-model
     PREDICT. For a fixed ``seed`` and submission order the answers are
-    reproducible bit for bit. ``telemetry=`` (the reference's span tracing)
-    is not ported yet."""
+    reproducible bit for bit. ``telemetry``, when armed, holds the
+    server's histogram as ``serve_batch_latency`` and its spans."""
     batch_size: int = 256
     policy: str = "uniform"
     seed: int = 0
-    telemetry: Optional[object] = None
+    telemetry: Optional[Telemetry] = None
 
     snapshot: Optional[serving.QuerySnapshot] = None
     snapshot_cycle: int = -1
@@ -86,16 +90,17 @@ class GossipServer:
 
     def __post_init__(self):
         if self.telemetry is not None:
-            raise NotImplementedError("GossipServer(telemetry=): telemetry "
-                                      "is ROADMAP.md queue 1 item 7")
+            self.telemetry.histograms["serve_batch_latency"] = self.hist
 
     def serve_hook(self, cycle: int, snapshot: serving.QuerySnapshot):
         """The ``serve_hook`` for ``run_simulation``: adopt the snapshot,
         waiting until the device has made it, so that the batch latency
         measures serving and not leftover simulation work."""
-        _sync(snapshot.w)
-        self.snapshot = snapshot
-        self.snapshot_cycle = int(cycle)
+        with maybe_span(self.telemetry, "snapshot_adopt", track="serving",
+                        cycle=int(cycle)):
+            _sync(snapshot.w)
+            self.snapshot = snapshot
+            self.snapshot_cycle = int(cycle)
 
     def submit(self, X) -> None:
         """Accumulate queries (rows of X); answer every full batch."""
@@ -113,6 +118,10 @@ class GossipServer:
             self._serve_pending()
 
     def _serve_pending(self) -> None:
+        with maybe_span(self.telemetry, "serve_batch", track="serving"):
+            self._serve_pending_inner()
+
+    def _serve_pending_inner(self) -> None:
         if self.snapshot is None:
             raise RuntimeError("no snapshot yet — wire serve_hook into "
                                "run_simulation before submitting queries")

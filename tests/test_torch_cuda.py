@@ -10,8 +10,10 @@ kernels and each one's two layouts (launch counts by layout), the
 flash-attention kernel on both its routes (tensor cores for
 TMA-readable bf16 at head_dim 64/128, CUDA cores for the rest), and the
 sharded engine against the reference engine on the f32 and the quantized
-wires and under Byzantine faults, with and without a serving hook; and the
-reduced LM served on the card against the same weights served on the CPU.
+wires and under Byzantine faults, with and without a serving hook, and
+armed with telemetry (its streams equal to the reference engine's); and
+the reduced LM served on the card against the same weights served on the
+CPU.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one. They import neither JAX nor the JAX package, so they run on a
@@ -287,6 +289,45 @@ def test_sharded_engine_under_faults_matches_reference_engine(
         for engine, unhooked in (("sharded", sh), ("reference", ref)):
             assert smoke.hooked_equals_unhooked(cfg, X, y, n, cuda, engine,
                                                 unhooked, **kw) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("faulty", [False, True])
+def test_armed_sharded_engine_streams_equal_reference_engine(cuda, faulty):
+    """An armed run of the sharded engine on the card (N = 20 000, the
+    extreme scenario; with ``faulty``, int4_ef under 10 % sign_flip and
+    norm_clip): bit for bit the unarmed run, its streams adding up to the
+    totals, and every integer stream equal to the armed reference
+    engine's on the card."""
+    from repro_torch.core.simulation import run_simulation
+    from repro_torch.core.telemetry import METRIC_STREAMS, Telemetry
+    n, kw = 20_000, dict(cycles=12, eval_every=6, seed=1, device=cuda)
+    X, y = make_linear_dataset(np.random.default_rng(0), n + 500, 10,
+                               noise=0.07, separation=2.5)
+    extra = (dict(wire_dtype="int4_ef", fault_model="sign_flip",
+                  byzantine_frac=0.1, defense="norm_clip") if faulty else {})
+    cfg = with_failure_scenario(GossipLinearConfig(
+        name="cuda-test", dim=10, n_nodes=n, n_test=500, class_ratio=(1, 1),
+        lam=1e-3, variant="mu", **extra), "extreme")
+    args = (cfg, X[:n], y[:n], X[n:], y[n:])
+    plain = run_simulation(*args, engine="sharded", **kw)
+    tels = {engine: Telemetry() for engine in ("sharded", "reference")}
+    armed = run_simulation(*args, engine="sharded",
+                           telemetry=tels["sharded"], **kw)
+    run_simulation(*args, engine="reference", telemetry=tels["reference"],
+                   **kw)
+    smoke.check_armed(tels["sharded"], armed, plain, kw["cycles"], "card")
+    for name, spec in METRIC_STREAMS.items():
+        if spec.dtype == "int":
+            assert np.array_equal(tels["sharded"].stream_array(name),
+                                  tels["reference"].stream_array(name)), name
+    if faulty:
+        assert tels["sharded"].stream_array("clipped").sum() > 0
+        assert (tels["sharded"].stream_array("ef_residual_rms") > 0).all()
+    assert {s.name for s in tels["sharded"].spans} >= {
+        "setup", "draw_enqueue", "draw_readback", "route_chunk",
+        "dense_table", "table_upload", "chunk_dispatch", "eval",
+        "collect_results"}
 
 
 @pytest.mark.cuda

@@ -241,7 +241,6 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("opt", [
-    dict(run=dict(telemetry=object())),
     dict(run=dict(engine="sharded", mesh=object())),
     dict(run=dict(engine="sharded", compact_mode="compact_all")),
     dict(cfg=dict(wire_dtype="int4_ef"),

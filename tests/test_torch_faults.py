@@ -8,16 +8,16 @@ gated, clipped) must be equal and its rescaled messages within 1e-6
 relative; its sums must equal ``jnp.sum`` under ``jax.jit`` bit for bit
 (the order the reference's engines run: fused multiply-adds at most
 d <= 32, two halves at 33-64, 32-wide chunks at multiples of 32), and
-with them norm_clip's rescaled messages and, at the engine's level,
-``apply_receives``' lastModel and counts. The
+with them norm_clip's rescaled messages (the split at 5 <= d <= 8 and
+the engine's ``apply_receives`` are held to ``jax.jit`` in
+``tests/test_torch_screen_split_d56.py``, ``..._d78.py`` and
+``tests/test_torch_screen_order.py``). The
 receive step's plain version with each defense must match the Pallas
 kernel in interpret mode (integer state and counts equal, floats within
 ``rtol=1e-5, atol=1e-6`` as in ``tests/test_torch_gossip_cycle.py``). Both port engines must match the
 JAX reference engine under every fault: economy and ``fault_stats`` exact,
 curves within 0.02. The JAX compact_all and Pallas engine legs are no
 oracle here (ROADMAP.md queue 3); the reference engine is."""
-import functools
-
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -29,8 +29,6 @@ from repro.core import faults as jf
 from repro.core import wire_codec as jwc
 from repro.core.cache import ModelCache as JCache
 from repro.core.cache import cache_oldest as jax_cache_oldest
-from repro.core.learners import make_update as jax_make_update
-from repro.core.simulation import apply_receives as jax_apply_receives
 from repro.core.simulation import run_simulation as jax_run
 from repro.data.synthetic import make_linear_dataset
 from repro.kernels.gossip_cycle import fused_receive_apply as jax_fused
@@ -38,8 +36,6 @@ from repro_torch import random
 from repro_torch.configs.gossip_linear import GossipLinearConfig
 from repro_torch.core import faults as pf
 from repro_torch.core.cache import ModelCache, cache_oldest
-from repro_torch.core.learners import make_update as port_make_update
-from repro_torch.core.simulation import apply_receives as port_apply_receives
 from repro_torch.core.simulation import run_simulation
 from repro_torch.kernels import gossip_cycle as pgc
 
@@ -299,47 +295,6 @@ def test_screen_sums_equal_jnp_sum_bitwise(d):
         assert np.array_equal(as_bytes(got), as_bytes(want))
 
 
-# N for the split at 5 <= d <= 8 (faults.screen_split), one workgroup
-# unless said: under 16 rows (scalar but at 4 and 8, and at 2 for one
-# array at d >= 6), 4-row steps below 32, 8-row or interleaved 4-row
-# steps past it with a scalar tail, and at 20 003 / 30 001 / 40 001 two or
-# three workgroups on an 8-CPU host (two with N odd: every row scalar)
-SPLIT_ROWS = [1, 2, 4, 8, 12, 13, 17, 31, 36, 37, 52, 60, 84, 92, 100, 4099,
-              10_083, 20_002, 20_003, 30_001, 40_001]
-
-
-# every (d, factors, N) but d = 5, N = 2 on one array, where XLA's rows
-# follow no split (ROADMAP queue 3)
-SPLIT_CASES = [(d, factors, n) for d in (5, 6, 7, 8) for factors in (1, 2)
-               for n in SPLIT_ROWS if (d, factors, n) != (5, 1, 2)]
-
-
-@pytest.mark.parametrize("d,factors,n", SPLIT_CASES)
-def test_screen_split_matches_the_jitted_sums(d, factors, n):
-    """At 5 <= d <= 8 ``_screen_sum`` sums unfused exactly the rows
-    ``screen_split`` names, and equals ``jnp.sum`` of the products under
-    ``jax.jit`` bit for bit, for a sum of one array (the squares) and of
-    two (the dot), on rows whose fused and unfused sums differ (so every
-    row shows which order it took)."""
-    rng = np.random.default_rng(1000 * d + n)
-    a = rng.normal(size=(4 * n + 64, d)).astype(np.float32)
-    b = a if factors == 1 else rng.normal(size=a.shape).astype(np.float32)
-    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
-    fused = pf._fused_sum(ta, tb)
-    apart = pf._in_sequence(pf._ftz(ta * tb))
-    keep = torch.nonzero(fused != apart)[:, 0]
-    keep = keep[torch.arange(n) % len(keep)]
-    a, b = a[keep.numpy()], b[keep.numpy()]
-    ta, tb = torch.from_numpy(a), (ta if factors == 1 else tb)[keep]
-    got = pf._screen_sum(ta, ta if factors == 1 else tb)
-    want = (jax.jit(lambda u: jnp.sum(u * u, axis=-1))(jnp.asarray(a))
-            if factors == 1 else jit_row_sum(jnp.asarray(a), jnp.asarray(b)))
-    assert np.array_equal(as_bytes(got), as_bytes(want))
-    unfused = pf._unfused_rows(n, d, factors, "cpu").numpy()
-    assert np.array_equal(as_bytes(got)[unfused.repeat(4)],
-                          as_bytes(apart[keep])[unfused.repeat(4)])
-
-
 @pytest.mark.parametrize("d", [2, 10, 32, 57, 64, 96])
 def test_screen_sums_flush_like_the_jitted_reference(d):
     """Subnormals under fusion: the reference flushes the inputs and each
@@ -390,58 +345,6 @@ def test_norm_clip_rescale_equals_jax_bitwise(d):
         assert np.array_equal(as_bytes(pm), as_bytes(jm))
         if defense == "norm_clip":
             assert np.asarray(jc).mean() > 0.5
-
-
-# (defense, d, N): N = 20 000 at the paper's widths; at d = 6 and 8, where
-# XLA sums some rows unfused (faults.screen_split), N = 20 003 (two
-# workgroups on an 8-CPU host, N odd: every row fused; 19 998 rows
-# vectorised on one CPU) and N = 13 (one scalar loop)
-APPLY_RECEIVES_CASES = [
-    pytest.param(defense, d, n, id="-".join(map(str, (defense, d) + (
-        () if n == 20_000 else (n,)))))
-    for d, n in ((10, 20_000), (57, 20_000), (6, 20_003), (6, 13),
-                 (8, 20_003), (8, 13))
-    for defense in ("norm_clip", "cosine_gate")]
-
-
-@pytest.mark.parametrize("defense,d,n", APPLY_RECEIVES_CASES)
-def test_apply_receives_equals_the_jitted_reference(defense, d, n):
-    """The port's ``apply_receives`` against the reference's under
-    ``jax.jit``, as its engine runs it (mu): lastModel (the screened,
-    possibly rescaled message) and the gated and clipped counts bit for
-    bit. The cache rows hold the Pegasos step, which XLA also fuses
-    (``decay w + coef x``) and the port rounds apart, so they are held to
-    a float tolerance."""
-    c, k = 10, (1 if d == 10 else 2)
-    rng = np.random.default_rng(d)
-    f = lambda *s: rng.normal(size=s).astype(np.float32)
-    i = lambda lo, hi, *s: rng.integers(lo, hi, size=s).astype(np.int32)
-    a = dict(last_w=f(n, d) * 0.3, last_t=i(1, 40, n), cache_w=f(n, c, d),
-             cache_t=i(0, 40, n, c), ptr=i(1, 3 * c, n), count=i(1, c + 1, n),
-             msg_w=f(k, n, d) * (3.0 if defense == "norm_clip" else 1.0),
-             msg_t=i(1, 40, k, n), valid=rng.random((k, n)) < 0.9, x=f(n, d),
-             y=np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32))
-    jfn = jax.jit(functools.partial(
-        jax_apply_receives, variant="mu",
-        update=jax_make_update("pegasos", lam=1e-3), defense=defense))
-    J = {key: jnp.asarray(v) for key, v in a.items()}
-    jw, jt, jcache, jg, jc = jfn(
-        J["last_w"], J["last_t"], JCache(J["cache_w"], J["cache_t"],
-                                         J["ptr"], J["count"]),
-        J["msg_w"], J["msg_t"], J["valid"], J["x"], J["y"])
-    T = {key: torch.from_numpy(v) for key, v in a.items()}
-    pw, pt, pcache, pg, pc = port_apply_receives(
-        T["last_w"], T["last_t"], ModelCache(T["cache_w"], T["cache_t"],
-                                             T["ptr"], T["count"]),
-        T["msg_w"], T["msg_t"], T["valid"], T["x"], T["y"], variant="mu",
-        update=port_make_update("pegasos", lam=1e-3), defense=defense)
-    assert np.array_equal(as_bytes(pw), as_bytes(jw))
-    for got, want in ((pt, jt), (pg, jg), (pc, jc), (pcache.t, jcache.t),
-                      (pcache.ptr, jcache.ptr), (pcache.count, jcache.count)):
-        assert np.array_equal(got.numpy(), np.asarray(want))
-    assert int(np.asarray(jg if defense == "cosine_gate" else jc).sum()) > n // 40
-    np.testing.assert_allclose(pcache.w.numpy(), np.asarray(jcache.w),
-                               rtol=1e-5, atol=1e-6)
 
 
 def crafted_inputs(seed, n, d, c, k):

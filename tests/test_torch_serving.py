@@ -210,8 +210,6 @@ def test_gossip_server_answers_like_the_jax_server():
         st = srv.stats()
         assert st.queries == 70 and st.batches == 5
         assert st.latency_hist["count"] == 5 and st.p99_latency_s > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        GossipServer(telemetry=object())
     with pytest.raises(RuntimeError, match="no snapshot"):
         GossipServer(batch_size=2).submit(X[:2])
 
