@@ -95,7 +95,22 @@ and ``nvcc``. The phases, each of which raises on failure:
    plain version and ``scaled_dot_product_attention``, and its CUDA-core
    route on the same q, k, v in float32 beside the float32 bound; and the
    same server on the plain attention path (``attn_impl="xla"``): prefill
-   logits within a stated tolerance, the share of equal greedy tokens.
+   logits within a stated tolerance, the share of equal greedy tokens;
+7. the compact packings and the vector apply: at N = 20 000 (extreme) on
+   the f32, int8_sr, int4_ef and ternary wires and under sign_flip +
+   norm_clip, the forced ``compact`` and ``compact_all`` runs and the cost
+   model's choice bit for bit the forced dense run (curves, economy, fault
+   counters, EF norm, the cache at every eval point), with kernel #1's
+   launches by route (once a cycle, twice under ``compact``: K = 1 over
+   all N, then K - 1 rounds over the gathered round-2 receivers) and
+   #2-#4's on the senders' rows; kernel #2 with ``rows`` bitwise its plain
+   version on both routes and the dense encode's rows; Adaline and
+   logistic regression on the sharded engine (the vector apply) against
+   the reference engine; then the three packings at N = 10^6, d = 10 in
+   the extreme and sparse-d0.8-o0.1 scenarios, armed: wall time,
+   node-cycles/s, the host's spans, launches, peak memory, bit for bit
+   across packings, and kernel #1 on the last subset launch beside its
+   bound.
 
 Prints one JSON line of per-kernel results (with phase 3's armed seconds
 by span under ``"phase3_spans"``), the ``nvidia-smi`` name and power
@@ -214,6 +229,18 @@ LM_ARCH, LM_BATCH, LM_MAX_LEN, LM_PROMPT, LM_STEPS = (
 # 28 layers amplify. Measured 0.033 at a largest |logit| of 4.5 on an H100
 # with the CUDA-core kernel (p in float32); the bound is 3x.
 LM_PATH_LOGIT_TOL = 0.1
+# phase 7: the packings (core/sharded_engine.py's PACKINGS), the wire and
+# fault mixes they run at N = 20 000 against the dense run, the scenarios
+# timed at N = 10^6, the learners of the vector apply, and kernel #2's
+# ``rows`` shapes (senders, d, population; d = 4500 puts the noise's
+# positions past 2^32)
+PACKINGS = ("dense", "compact", "compact_all")
+PACKING_MIXES = ((None, None, "none"), ("int8_sr", None, "none"),
+                 ("int4_ef", None, "none"), ("ternary", None, "none"),
+                 (None, "sign_flip", "norm_clip"))
+PACKING_SCENARIOS = ("extreme", "sparse-d0.8-o0.1")
+VECTOR_LEARNERS = ("adaline", "logistic")
+SEND_ROWS_SHAPES = ((20_000, 10, 1_000_000), (3_000, 4500, 1_000_000))
 
 
 def smi() -> str:
@@ -514,12 +541,12 @@ def send_inputs(seed, n, d, device):
     return torch.from_numpy(w).to(device), torch.from_numpy(ef).to(device)
 
 
-def run_send(w, name, key=None, ef=None, route=None):
+def run_send(w, name, key=None, ef=None, route=None, rows=None):
     """``quantize_send`` on the card with ``route`` forced (``send_route``'s
     choice when None), through the wrapper's own checks."""
     from repro_torch.kernels import gossip_cycle as gc
-    codec = gc._check_send(w, name, key, ef)
-    return gc._launch_send(w, codec, key, ef, route=route)
+    codec = gc._check_send(w, name, key, ef, rows)
+    return gc._launch_send(w, codec, key, ef, route=route, rows=rows)
 
 
 def same_outputs(name, label, got, want, what):
@@ -791,8 +818,9 @@ _INT32_OPCODES = ("IADD3", "IADD", "VIADD", "LOP3", "LOP", "SHF", "SHL",
 def threefry_sass(lib) -> dict:
     """Integer instructions an element of int8_sr's threefry noise, from
     the built ``quantize_send`` library's SASS (``cuobjdump -sass``): the
-    tiled affine8 kernel with the noise minus the one without, over the
-    four elements one pass of its code loop encodes. Returns {"int32",
+    tiled affine8 kernel with the noise minus the one without, both
+    without ``rows`` (the dense send's instantiations), over the four
+    elements one pass of its code loop encodes. Returns {"int32",
     "imad", "other": instructions an element, "by_opcode": the difference
     by opcode}."""
     import collections
@@ -812,7 +840,7 @@ def threefry_sass(lib) -> dict:
         if fn and ins:
             counts[fn][ins.group(1)] += 1
     pick = {sr: [c for f, c in counts.items()
-                 if f"affine8_tiled_kernelILb{sr}E" in f]
+                 if f"affine8_tiled_kernelILb{sr}ELb0E" in f]
             for sr in (0, 1)}
     if any(len(v) != 1 for v in pick.values()):
         raise AssertionError(f"threefry_sass: affine8 tiled kernels not found "
@@ -889,11 +917,11 @@ def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None,
             got_recv["defense"] = kw.get("defense", "none")
         return recv(*a, **kw)
 
-    def capture_send(w, name, key=None, ef=None):
+    def capture_send(w, name, key=None, ef=None, rows=None):
         if send.launches[gc.send_kernel_name(name)] == cycles - 1:
             got_send.update(w=w.clone(), name=name, key=clone(key),
                             ef=clone(ef))
-        return send(w, name, key=key, ef=ef)
+        return send(w, name, key=key, ef=ef, rows=rows)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1715,6 +1743,382 @@ def phase6(card: str, results: dict, flash_err: dict) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the compact packings and the vector apply
+# ---------------------------------------------------------------------------
+
+
+def packing_run(cfg, X, y, n: int, cycles: int, device, mode,
+                telemetry=None, snaps=None):
+    """One run of the sharded engine under packing ``mode`` (None: the
+    reference's cost model chooses, ``compact_rounds=True``), every launch
+    count set to 0 just before it and read just after; with a forced
+    ``mode`` a copy of the last receive launch's inputs (under ``compact``
+    the last subset launch) and of the last send launch's (with its
+    ``rows``) is kept. Every receive launch must take the grouped route and
+    every send launch the tiled one; the receive kernel launches once a
+    cycle for ``dense`` and ``compact_all`` chunks and twice for
+    ``compact`` ones (K = 1 over all N, then K - 1 rounds over the round-2
+    receivers), the send kernel once a cycle. ``snaps`` collects each eval
+    point's cache. Returns a dict: res, wall, peak, recv, recv_routes,
+    sends, send_routes, cap_r, cap_s."""
+    import torch
+    from repro_torch.core.simulation import run_simulation
+    from repro_torch.core.wire_codec import get_codec
+    from repro_torch.kernels import gossip_cycle as gc
+
+    recv, send = gc.fused_receive_apply, gc.quantize_send
+    got_r, got_s = {}, {}
+    clone = lambda v: v.clone() if isinstance(v, torch.Tensor) else v
+    last_r = (cycles * (2 if mode == "compact" else 1) - 1 if mode
+              else None)
+
+    def capture_recv(*a, **kw):
+        if recv.launches == last_r:
+            got_r.update({k: v.clone() for k, v in zip(ORDER, a)})
+            got_r.update({k: kw[k].clone() for k in META
+                          if kw.get(k) is not None})
+            got_r["wire"] = kw.get("wire")
+            got_r["defense"] = kw.get("defense", "none")
+        return recv(*a, **kw)
+
+    def capture_send(w, name, key=None, ef=None, rows=None):
+        if mode and sum(send.launches.values()) == cycles - 1:
+            got_s.update(w=w.clone(), name=name, key=clone(key),
+                         ef=clone(ef), rows=clone(rows))
+        return send(w, name, key=key, ef=ef, rows=rows)
+
+    hook = None
+    if snaps is not None:
+        def hook(cycle, snap):
+            snaps.append([t.clone() for t in (snap.w, snap.t, snap.count,
+                                              snap.fresh_w, snap.fresh_t)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gc.fused_receive_apply, gc.quantize_send = capture_recv, capture_send
+    try:
+        recv.launches = 0
+        for counts in (send.launches, recv.route_launches,
+                       send.route_launches):
+            for k in counts:
+                counts[k] = 0
+        t0 = time.perf_counter()
+        res = run_simulation(cfg, X[:n], y[:n], X[n:], y[n:],
+                             engine="sharded", cycles=cycles, eval_every=10,
+                             seed=0, k_rounds=4, device=device,
+                             compact_mode=mode, compact_rounds=True,
+                             serve_hook=hook, telemetry=telemetry)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, sends = recv.launches, sum(send.launches.values())
+        routes, send_routes = (dict(recv.route_launches),
+                               dict(send.route_launches))
+    finally:
+        gc.fused_receive_apply, gc.quantize_send = recv, send
+    peak = torch.cuda.max_memory_allocated()
+    modes = res.compaction["chunk_modes"]
+    if mode is not None and modes[mode] != len(res.cycles):
+        raise AssertionError(f"{mode}: the chunks took {modes}")
+    chunk = 10
+    want = chunk * (modes["dense"] + 2 * modes["compact"]
+                    + modes["compact_all"])
+    if launches != want or routes != dict(grouped=want, strided=0):
+        raise AssertionError(f"{mode}: {launches} receive launches by route "
+                             f"{routes}, expected {want} grouped")
+    want_s = cycles if get_codec(cfg.wire_dtype).quantized else 0
+    if sends != want_s or send_routes != dict(tiled=want_s, strided=0):
+        raise AssertionError(f"{mode}: {sends} send launches by route "
+                             f"{send_routes}, expected {want_s} tiled")
+    return dict(res=res, wall=wall, peak=peak, recv=launches,
+                recv_routes=routes, sends=sends, send_routes=send_routes,
+                cap_r=got_r, cap_s=got_s)
+
+
+def same_snapshots(a, b, tag: str):
+    """Two runs' caches at every eval point, bit for bit."""
+    import torch
+    if len(a) != len(b):
+        raise AssertionError(f"{tag}: {len(a)} snapshots against {len(b)}")
+    for sa, sb in zip(a, b):
+        for x, y in zip(sa, sb):
+            if not torch.equal(x.contiguous().view(torch.uint8),
+                               y.contiguous().view(torch.uint8)):
+                raise AssertionError(f"{tag}: the cache differs from the "
+                                     "dense run's")
+
+
+def time_send_rows(captured, threefry: dict):
+    """The send kernel with ``rows`` on captured ``compact_all`` inputs
+    (the senders' rows): bitwise its plain version with the same rows and
+    the strided route forced; ms per launch, the strided route's, the
+    plain version's, and the bound (the rows' int64 ids read too)."""
+    from repro_torch.kernels import gossip_cycle as gc
+    w, name, key, ef, rows = (captured[k] for k in ("w", "name", "key",
+                                                    "ef", "rows"))
+    kw = dict(key=key, ef=ef, rows=rows)
+    route = gc.send_route(w.shape[1], name, gc.send_aligned(w, ef))
+    got = gc.quantize_send(w, name, **kw)
+    want = gc.quantize_send_plain(w, name, **kw)
+    names = ("q", "scale", "zp", "resid")
+    same_outputs(name, names, got, want, "plain version")
+    if route == "tiled":
+        same_outputs(name, names, got,
+                     run_send(w, name, route="strided", **kw),
+                     "strided route")
+    ms = cuda_time_ms(lambda: gc.quantize_send(w, name, **kw), reps=20)
+    strided_ms = (cuda_time_ms(lambda: run_send(w, name, route="strided",
+                                                **kw), reps=20)
+                  if route != "strided" else ms)
+    plain_ms = cuda_time_ms(lambda: gc.quantize_send_plain(w, name, **kw),
+                            reps=5, warmup=1)
+    m, d = w.shape
+    bound_ms, bound_by, nbytes = send_bound(name, m, d, threefry)
+    extra = 8 * m if rows is not None else 0
+    bound_ms = max(bound_ms, (nbytes + extra) / HBM_BYTES_PER_S * 1e3)
+    return dict(ms=ms, route=route, strided_ms=strided_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes + extra, rows=m)
+
+
+def check_send_rows(dev):
+    """Kernel #2 with ``rows`` against its plain version bit for bit on
+    both routes, and, at d = 10, against the dense encode of the whole
+    population read at those rows: the noise of a sender's row is the
+    dense draw's. Returns the number of shapes checked."""
+    import numpy as np
+    import torch
+    from repro_torch import random
+    from repro_torch.kernels import gossip_cycle as gc
+    key = random.split(random.key(11, device=dev))[0]
+    for m, d, pop in SEND_ROWS_SHAPES:
+        rng = np.random.default_rng(m + d)
+        rows = torch.as_tensor(np.sort(rng.choice(pop, m, replace=False)),
+                               dtype=torch.int64, device=dev)
+        w = torch.as_tensor(rng.standard_normal((m, d), dtype=np.float32),
+                            device=dev)
+        kw = dict(key=key, rows=rows)
+        got = gc.quantize_send(w, "int8_sr", **kw)
+        names = ("q", "scale", "zp")
+        same_outputs("int8_sr rows", names, got,
+                     gc.quantize_send_plain(w, "int8_sr", **kw),
+                     "plain version")
+        same_outputs("int8_sr rows", names, got,
+                     run_send(w, "int8_sr", route="strided", **kw),
+                     "strided route")
+        if d == 10:
+            full = torch.zeros((pop, d), device=dev)
+            full[rows] = w
+            dense = gc.quantize_send(full, "int8_sr", key=key)
+            same_outputs("int8_sr rows", names, got,
+                         [t[rows] for t in dense], "dense encode's rows")
+        print(f"[7] int8_sr send with rows: {m} of {pop} rows at d={d} "
+              f"(positions up to {int(rows.max()) * d + d - 1}), route "
+              f"{gc.send_route(d, 'int8_sr')}: bitwise the plain version, "
+              "the strided route"
+              + (" and the dense encode's rows" if d == 10 else ""))
+    return len(SEND_ROWS_SHAPES)
+
+
+def phase7(card: str, results: dict, threefry: dict, dev) -> list:
+    """The compact packings and the vector apply on the card: every
+    packing bit for bit the dense run at N = 20 000 (extreme) on the f32,
+    int8_sr, int4_ef and ternary wires and under sign_flip + norm_clip,
+    with kernel #1's and #2-#4's launches by route on the subset paths;
+    kernel #2 with ``rows`` bitwise its plain version; Adaline and
+    logistic regression on the sharded engine against the reference
+    engine; and the three packings timed at N = 10^6, d = 10 in the
+    extreme and sparse-d0.8-o0.1 scenarios (armed: wall, node-cycles/s,
+    the host's spans, launches, peak memory, kernel #1 on its last
+    launch). Returns the ``kernels`` line's rows of the subset launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.gossip_linear import (GossipLinearConfig,
+                                                   with_failure_scenario)
+    from repro_torch.core import simulation
+    from repro_torch.core.simulation import run_simulation
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.data.synthetic import make_linear_dataset
+    from repro_torch.kernels import gossip_cycle as gc
+
+    out = results.setdefault("phase7", {})
+    n2, cycles = 20_000, 20
+    rng = np.random.default_rng(0)
+    X, y = make_linear_dataset(rng, n2 + 1000, 10, noise=0.07,
+                               separation=2.5)
+    cfg2 = with_failure_scenario(GossipLinearConfig(
+        name="smoke-20k", dim=10, n_nodes=n2, n_test=1000,
+        class_ratio=(1, 1), lam=1e-3, variant="mu", cache_size=10),
+        "extreme")
+    rows_cap = None
+    out["mixes"] = {}
+    for wire, fault, defense in PACKING_MIXES:
+        cfg = dataclasses.replace(cfg2, wire_dtype=wire, fault_model=fault,
+                                  byzantine_frac=0.1 if fault else 0.0,
+                                  defense=defense)
+        tag = f"{wire or 'f32'}/{fault or 'clean'}/{defense}"
+        snaps = {m: [] for m in PACKINGS + (None,)}
+        runs = {m: packing_run(cfg, X, y, n2, cycles, dev, m,
+                               snaps=snaps[m]) for m in PACKINGS + (None,)}
+        base = runs["dense"]["res"]
+        row = {}
+        for m, r in runs.items():
+            if run_outcome(r["res"]) != run_outcome(base):
+                raise AssertionError(f"{tag} {m}: differs from the dense "
+                                     f"run: {run_outcome(r['res'])[:9]} vs "
+                                     f"{run_outcome(base)[:9]}")
+            same_snapshots(snaps[m], snaps["dense"], f"{tag} {m}")
+            key = m or "chooser"
+            row[key] = dict(recv=r["recv"], recv_routes=r["recv_routes"],
+                            sends=r["sends"], send_routes=r["send_routes"],
+                            chunk_modes=r["res"].compaction["chunk_modes"])
+            print(f"[7] {tag} N={n2} {key}: receive launches {r['recv']} "
+                  f"{r['recv_routes']}, send launches {r['sends']} "
+                  f"{r['send_routes']}, chunks "
+                  f"{r['res'].compaction['chunk_modes']}: bit for bit the "
+                  "dense run (curves, economy, fault counters, EF norm, "
+                  "cache at every eval point)")
+        if runs[None]["res"].compaction["chunk_modes"]["compact"] != 2:
+            raise AssertionError(f"{tag}: the chooser took "
+                                 f"{runs[None]['res'].compaction}")
+        out["mixes"][tag] = dict(row, err_fresh=base.err_fresh,
+                                 fault_stats=base.fault_stats,
+                                 ef_residual_norm=base.ef_residual_norm,
+                                 sent=base.sent_total)
+        if wire == "int8_sr":
+            rows_cap = runs["compact_all"]["cap_s"]
+            rows_launches = runs["compact_all"]["sends"]
+        del runs, snaps
+    out["send_rows_shapes"] = check_send_rows(dev)
+    t_rows = time_send_rows(rows_cap, threefry)
+    print(f"[7] {card}: quantize_send int8_sr with rows ({t_rows['rows']} "
+          f"senders of {n2}): {t_rows['ms']:.4f} ms/launch "
+          f"({t_rows['route']}) vs bound {t_rows['bound_ms']:.4f} ms "
+          f"({t_rows['bound_by']}); strided {t_rows['strided_ms']:.4f} ms; "
+          f"plain {t_rows['plain_ms']:.4f} ms; bitwise equal")
+    out["send_rows"] = t_rows
+
+    # the vector apply: Adaline and logistic regression
+    out["learners"] = {}
+    for learner in VECTOR_LEARNERS:
+        cfg = dataclasses.replace(cfg2, learner=learner)
+        args = (cfg, X[:n2], y[:n2], X[n2:], y[n2:])
+        kw = dict(cycles=cycles, eval_every=10, seed=0, k_rounds=4,
+                  device=dev)
+        before = gc.fused_receive_apply.launches
+        ref = run_simulation(*args, engine="reference", **kw)
+        sh = run_simulation(*args, engine="sharded", **kw)
+        dense = run_simulation(*args, engine="sharded",
+                               compact_mode="dense", **kw)
+        if gc.fused_receive_apply.launches != before:
+            raise AssertionError(f"{learner}: the vector apply launched "
+                                 "the Pegasos receive kernel")
+        econ = lambda r: (r.sent_total, r.delivered_total, r.lost_total,
+                          r.overflow_total, r.in_flight_total,
+                          list(r.delivered_per_cycle))
+        if econ(sh) != econ(ref) or run_outcome(sh) != run_outcome(dense):
+            raise AssertionError(f"{learner}: economy differs from the "
+                                 "reference engine's, or the packing from "
+                                 "the dense run")
+        diff = max(abs(a - b) for a, b in zip(sh.err_fresh + sh.err_voted,
+                                              ref.err_fresh + ref.err_voted))
+        if not diff <= 0.02:
+            raise AssertionError(f"{learner}: curves differ by {diff}")
+        print(f"[7] {learner} N={n2} extreme: sharded (chunks "
+              f"{sh.compaction['chunk_modes']}) against the reference "
+              f"engine: economy equal (sent {sh.sent_total}), max curve "
+              f"difference {diff:.3e}; bit for bit its dense run; err_fresh "
+              f"{sh.err_fresh}")
+        out["learners"][learner] = dict(curve_diff=diff, sent=sh.sent_total,
+                                        err_fresh=sh.err_fresh,
+                                        chunk_modes=sh.compaction[
+                                            "chunk_modes"])
+    torch.cuda.empty_cache()
+
+    # the packings at N = 10^6, armed
+    n3 = 1_000_000
+    rng = np.random.default_rng(0)
+    X, y = make_linear_dataset(rng, n3 + 1000, 10, noise=0.07,
+                               separation=2.5)
+    rows = []
+    out["million"] = {}
+    for scenario in PACKING_SCENARIOS:
+        cfg = with_failure_scenario(GossipLinearConfig(
+            name=f"million-{n3}", dim=10, n_nodes=n3, n_test=1000,
+            class_ratio=(1, 1), lam=1e-3, variant="mu", cache_size=10),
+            scenario)
+        outcome = None
+        for mode in PACKINGS:
+            tel = Telemetry(label=f"chip_smoke phase 7 {scenario} {mode}")
+            simulation._host_scenario.cache_clear()
+            r = packing_run(cfg, X, y, n3, cycles, dev, mode, telemetry=tel)
+            res = r["res"]
+            if outcome is None:
+                outcome = run_outcome(res)
+            elif run_outcome(res) != outcome:
+                raise AssertionError(f"{scenario} {mode}: differs from the "
+                                     "dense run at N = 10^6")
+            # kernel #1 on the last subset launch (the dense launch over
+            # all N is phase 3's)
+            t = (time_receive(r["cap_r"], cfg.variant, cfg.lam, 10)
+                 if mode != "dense" else None)
+            split = span_split(tel)
+            rate = n3 * cycles / r["wall"]
+            occ = res.compaction
+            print(f"[7] {card}: {scenario} {mode} N={n3}: wall "
+                  f"{r['wall']:.3f} s (armed), {rate:.0f} node-cycles/s, "
+                  f"peak {r['peak'] / 2**30:.2f} GiB, receive launches "
+                  f"{r['recv']} {r['recv_routes']}; round-1 occupancy "
+                  f"{occ['round1_occupancy_mean']:.4f}, round-2 "
+                  f"{occ['multi_occupancy_mean']:.4f}, widths "
+                  f"{occ['packed_widths']}")
+            if t is not None:
+                print(f"[7] {card}:   last receive launch "
+                      f"({launch_rows(r['cap_r'])} rows): {receive_line(t)}")
+            print(f"[7] {card}:   spans " + ", ".join(
+                f"{k} {v['s']:.4f} s ({v['share']:.2%})"
+                for k, v in split.items()))
+            out["million"][f"{scenario}/{mode}"] = dict(
+                wall_s=r["wall"], node_cycles_per_s=rate, peak_bytes=r["peak"],
+                launches=r["recv"], route_launches=r["recv_routes"],
+                receive=None if t is None else dict(
+                    ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], rows=launch_rows(r["cap_r"]),
+                    route=t["route"], strided_ms=t["strided_ms"]),
+                spans=split, sent=res.sent_total,
+                delivered=res.delivered_total, err_fresh=res.err_fresh,
+                compaction=res.compaction)
+            if mode != "dense" and (scenario, mode) in (
+                    ("extreme", "compact"),
+                    ("sparse-d0.8-o0.1", "compact_all")):
+                rows.append(dict(
+                    name=f"fused_receive_apply[{mode}]", route="cuda",
+                    source="src/repro_torch/kernels/csrc/gossip_cycle.cu",
+                    replaces="src/repro/kernels/gossip_cycle.py:272",
+                    launches=r["recv"], max_abs_err=t["err"], ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                    bound_by=t["bound_by"], library_ms=None,
+                    receive_route=t["route"], rows=launch_rows(r["cap_r"]),
+                    scenario=scenario))
+            del r, res, tel
+            torch.cuda.empty_cache()
+    rows.append(dict(
+        name="quantize_send_affine8[rows]", route="cuda",
+        source="src/repro_torch/kernels/csrc/quantize_send.cu",
+        replaces="src/repro/kernels/gossip_cycle.py:422",
+        launches=rows_launches, max_abs_err=0.0, ms=t_rows["ms"],
+        plain_ms=t_rows["plain_ms"], bound_ms=t_rows["bound_ms"],
+        bound_by=t_rows["bound_by"], library_ms=None,
+        send_route=t_rows["route"], rows=t_rows["rows"]))
+    return rows
+
+
+def launch_rows(captured) -> int:
+    """The row count of a captured receive launch."""
+    return int(captured["last_w"].shape[0])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -2442,9 +2846,14 @@ def main() -> int:
         kernels.append(dict(
             name=f"flash_attention[{route}]", route="cuda",
             source=FLASH_SOURCES[route], replaces=FLASH_REPLACES, **row))
+    torch.cuda.empty_cache()
+
+    # ---- 7. the compact packings and the vector apply ---------------------
+    phase(7)
+    kernels.extend(phase7(card, results, threefry, dev))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - start
-    print(f"[6] {card}: the whole run took {results['total_s']:.1f} s")
+    print(f"[7] {card}: the whole run took {results['total_s']:.1f} s")
     if opts.out:
         out = Path(opts.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -1,26 +1,38 @@
 """Mega-population gossip engine (``run_simulation(engine="sharded")``).
 
-Counterpart of ``repro/core/sharded_engine.py`` with the dense packing on
-one device, on every wire codec and fault model, with the defense screens
-in the receive kernel and a ``serve_hook`` at every eval point. The
-protocol is split the way a router splits a network:
+Counterpart of ``repro/core/sharded_engine.py`` on one device, with its
+three packings, on every wire codec, learner and fault model, with the
+defense screens and a ``serve_hook`` at every eval point. The protocol is
+split the way a router splits a network:
 
-* **control plane on the host** — which message reaches which node in which
+* **control plane on the host**: which message reaches which node in which
   round depends only on the threefry draws, the churn matrix and the
   delay/drop outcomes. The engine draws each cycle's destinations and
   arrivals on the device with the same threefry calls as the reference
   engine (``_draw_chunk``), pulls the integer tables to the host and
   resolves the K winner rounds in numpy (``_HostRouter``, a copy of the
-  reference's). The message economy falls out of the same pass.
-* **data plane on the device** — per chunk of cycles between two eval
+  reference's), which also lists each cycle's round-1 and round-2
+  receivers. The message economy falls out of the same pass.
+* **the packing**: per chunk the engine picks, from those lists, the
+  cheapest of the reference's three packings with its cost model:
+  ``dense`` (the (T, K, N) table, K rounds over all N), ``compact`` (round
+  1 dense, rounds 2..K over the padded list of round-2 receivers) or
+  ``compact_all`` (every round over the padded list of round-1 receivers,
+  and the send over the senders alone), and builds the tables it reads
+  (``dense_table``, ``pack_compact_rounds``, ``pack_compact_all``).
+* **data plane on the device**: per chunk of cycles between two eval
   points, a Python loop over the chunk's cycles (the reference's
   ``lax.scan``) gathers the winning payloads (in the wire codec's
-  representation, with their scale and zero-point) from the dense
-  (T, K, N) routing table, applies the K receives with the fused receive
-  kernel, which decodes them (``repro_torch.kernels.gossip_cycle``; its
-  plain version on CPU tensors), and refreshes the in-flight buffer row
-  with each node's freshest model, encoded by the send kernel
-  (``quantize_send``) for the quantized codecs. The carry is updated in
+  representation, with their scale and zero-point) and applies the
+  receives, over all N or over a gathered subset whose real rows are
+  scattered back. For Pegasos the apply is the fused receive kernel
+  (``repro_torch.kernels.gossip_cycle``; its plain version on CPU
+  tensors), which decodes the payloads; for the other learners it is the
+  vector apply (``_vector_apply``), plain PyTorch on both devices, as the
+  reference runs its vector apply for them on every backend. Then each
+  node's freshest model, encoded by the send kernel (``quantize_send``)
+  for the quantized codecs, refreshes the in-flight buffer row, or under
+  ``compact_all`` only the senders' slots of it. The carry is updated in
   place, as the JAX chunk function donates it. A Byzantine sender's model
   is corrupted before the encode (or its payload after it) with the
   cycle's ``fault_key``, made on the device for the whole chunk. Launches
@@ -31,7 +43,10 @@ protocol is split the way a router splits a network:
 
 Determinism: the same seed gives the same host stream, the same per-cycle
 draws and the same winner semantics as both reference engines, so the
-economy is exactly theirs and the curves agree.
+economy is exactly theirs and the curves agree. Every packing gives the
+dense packing's bits, but where a screen's sum order depends on the row
+count it sums (5 <= d <= 8, ``faults.screen_split``): there the subset
+apply sums over its padded width, as the reference's does.
 """
 from __future__ import annotations
 
@@ -46,6 +61,8 @@ from repro_torch.configs.gossip_linear import GossipLinearConfig
 from repro_torch.core import cache as cache_mod
 from repro_torch.core import faults, serving
 from repro_torch.core.cache import ModelCache
+from repro_torch.core.learners import LinearModel, make_update
+from repro_torch.core.merge import create_model
 from repro_torch.core.simulation import (SimResult, _eval, byzantine_tensor,
                                          check_slice, draw_sends,
                                          ef_residual_norm, ef_residual_rms,
@@ -110,15 +127,17 @@ class _HostRouter:
         flat slot id, and rank r < K receives in round r — the semantics of
         ``select_receivers``.
 
-        Returns ``(win, stats)``: the winner tuple ``(t, round, dst, slot)``
-        of parallel int32 arrays, and the chunk's message economy with
-        ``delivered_cycles``, the (T,) per-cycle delivered counts.
+        Returns ``(win, stats, multi, recv)``: the winner tuple ``(t,
+        round, dst, slot)`` of parallel int32 arrays, ascending in (t,
+        dst); the chunk's message economy with ``delivered_cycles``, the
+        (T,) per-cycle delivered counts; and, a list a cycle, the ascending
+        int32 node ids that receive in round 2 (``multi``; winner rounds
+        fill in order, so they include every deeper round's) and in round 1
+        (``recv``, every receiver).
 
         ``per_cycle_stats`` (armed telemetry only) adds the (T,) per-cycle
         ``lost_cycles`` and ``overflow_cycles``, both counted at the
-        arrival cycle as the reference engine counts them, and the round-1
-        and round-2 receiver counts ``recv_sizes`` and ``multi_sizes``,
-        straight from the winners."""
+        arrival cycle as the reference engine counts them."""
         T, n = dsts.shape
         D, K = self.delay_max, k_rounds
 
@@ -150,12 +169,22 @@ class _HostRouter:
         group = c_t.astype(np.int64) * n + c_dst
         order = np.lexsort((c_slot, group))
         g_s = group[order]
+        t_s, dst_s = c_t[order], c_dst[order]
         rank = np.searchsorted(g_s, g_s, side="right") - 1 \
             - np.arange(g_s.size)
         wm = rank < K
-        win = (c_t[order][wm].astype(np.int32), rank[wm].astype(np.int32),
-               c_dst[order][wm], c_slot[order][wm])
+        win = (t_s[wm].astype(np.int32), rank[wm].astype(np.int32),
+               dst_s[wm], c_slot[order][wm])
         delivered = int(wm.sum())
+
+        def ids_by_cycle(mask):
+            # groups ascend in (cycle, dst): each cycle's ids ascend
+            tm, dm = t_s[mask], dst_s[mask]
+            return [a.astype(np.int32, copy=False) for a in
+                    np.split(dm, np.searchsorted(tm, np.arange(1, T)))]
+
+        recv = ids_by_cycle(rank == 0)
+        multi = ids_by_cycle(rank == 1) if K > 1 else [_EMPTY_I32] * T
         stats = dict(sent=sent, delivered=delivered, lost=lost,
                      overflow=int(g_s.size - delivered),
                      delivered_cycles=np.bincount(
@@ -163,10 +192,8 @@ class _HostRouter:
         if per_cycle_stats:
             per_cycle = lambda t: np.bincount(t, minlength=T).astype(np.int64)
             stats["lost_cycles"] = per_cycle(lost_t)
-            stats["overflow_cycles"] = per_cycle(c_t[order][~wm])
-            stats["recv_sizes"] = per_cycle(win[0][win[1] == 0])
-            stats["multi_sizes"] = per_cycle(win[0][win[1] == 1])
-        return win, stats
+            stats["overflow_cycles"] = per_cycle(t_s[~wm])
+        return win, stats, multi, recv
 
     @property
     def in_flight(self) -> int:
@@ -177,6 +204,20 @@ class _HostRouter:
 _EMPTY_I32 = np.empty(0, np.int32)
 
 
+def shard_list_width(lists) -> int:
+    """Smallest width that fits every per-cycle index list: the longest
+    list (one shard; the reference's node-mesh split waits for the mesh)."""
+    return max((r.size for r in lists), default=0)
+
+
+def _pack_index_lists(lists, width: int):
+    """(T,) ascending index lists -> (T, width) int32, -1 padded."""
+    ridx = np.full((len(lists), width), -1, np.int32)
+    for t, r in enumerate(lists):
+        ridx[t, :r.size] = r
+    return ridx
+
+
 def dense_table(win, T: int, K: int, n: int) -> np.ndarray:
     """The dense (T, K, n) routing table from a winner tuple: entry
     [t, r, dst] holds the flat slot id of dst's round-r receive at cycle
@@ -185,6 +226,47 @@ def dense_table(win, T: int, K: int, n: int) -> np.ndarray:
     src_slot = np.full((T, K, n), -1, np.int32)
     src_slot[t_w, r_w, dst_w] = slot_w
     return src_slot
+
+
+def _packed_columns(lists, t_w, dst_w):
+    """Packed-table column of each winner: the position of ``dst_w[i]``
+    inside its cycle's index list. ``t_w`` ascends, and every dst is in
+    its cycle's list (winner rounds nest)."""
+    cols = np.empty(t_w.size, np.int64)
+    bounds = np.searchsorted(t_w, np.arange(len(lists) + 1))
+    for t, r in enumerate(lists):
+        lo, hi = bounds[t], bounds[t + 1]
+        if hi > lo:
+            cols[lo:hi] = np.searchsorted(r, dst_w[lo:hi])
+    return cols
+
+
+def pack_compact_rounds(win, multi, T: int, K: int, n: int, width: int):
+    """The ``compact`` tables: ``src0`` (T, n) the round-1 slots (dense),
+    ``ridx`` (T, M) the round-2 receivers' node ids, -1 padded, and
+    ``rslot`` (T, K-1, M) their rounds 2..K's slots, -1 = none."""
+    t_w, r_w, dst_w, slot_w = win
+    m0 = r_w == 0
+    src0 = np.full((T, n), -1, np.int32)
+    src0[t_w[m0], dst_w[m0]] = slot_w[m0]
+    ridx = _pack_index_lists(multi, width)
+    rslot = np.full((T, K - 1, width), -1, np.int32)
+    mk = ~m0
+    cols = _packed_columns(multi, t_w[mk], dst_w[mk])
+    rslot[t_w[mk], r_w[mk] - 1, cols] = slot_w[mk]
+    return src0, ridx, rslot
+
+
+def pack_compact_all(win, recv, T: int, K: int, width: int):
+    """The ``compact_all`` tables: ``ridx`` (T, M) the round-1 receivers'
+    node ids, -1 padded, and ``rslot`` (T, K, M) their K rounds' slots,
+    -1 = none."""
+    t_w, r_w, dst_w, slot_w = win
+    ridx = _pack_index_lists(recv, width)
+    rslot = np.full((T, K, width), -1, np.int32)
+    cols = _packed_columns(recv, t_w, dst_w)
+    rslot[t_w, r_w, cols] = slot_w
+    return ridx, rslot
 
 
 # ---------------------------------------------------------------------------
@@ -225,92 +307,269 @@ def init_carry(n: int, d: int, cache_size: int, delay_max: int, device,
                  z(*lane(codec.ef, n, d)), 0)
 
 
-def run_dense_chunk(carry: Carry, table, X, y, *, variant: str, lam: float,
-                    wire=None, keys=None, send_mask=None, fault_model=None,
-                    byz=None, defense: str = "none",
-                    per_cycle: bool = False):
-    """Run the chunk's cycles over the dense (T, K, N) routing table, in
-    place — the reference's ``dense_body`` under ``lax.scan`` with the fused
-    receive kernel and, for the quantized codecs, the send kernel.
+def _vector_apply(last_w, last_t, fresh_w, fresh_t, cache: ModelCache,
+                  msg_w, msg_t, valid, X, y, *, variant: str, update,
+                  defense: str = "none"):
+    """The reference's vector apply (Algorithm 1 ON RECEIVE, K rounds) in
+    plain PyTorch, for Adaline and logistic regression (the engine applies
+    Pegasos with the receive kernel): the screen of each round against the
+    receiver's current chain model (``faults.apply_defense``), then the K
+    CREATEMODEL calls batched over (K, N, d) (the merge partner of round k
+    is the round-(k-1) message, known up front), the K cache writes as one
+    one-hot combine, and the freshest model tracked. ``update`` is the
+    learner's step; the engine passes ``make_update(..., fused=True)``,
+    the order XLA runs it in under ``jax.jit``, so the result equals the
+    jitted reference's bit for bit where that order is known
+    (``learners``' module note). msg_w: (K, N, d) decoded f32; msg_t,
+    valid: (K, N). Returns new tensors ``(last_w, last_t, fresh_w,
+    fresh_t, cache, gated, clipped)``, the last two (N,) int32."""
+    msg_w = msg_w.to(torch.float32)
+    K, n, _ = msg_w.shape
+    C = cache.w.shape[1]
+    dev = msg_w.device
+    rows = torch.arange(n, device=dev)
+    iota_c = torch.arange(C, dtype=torch.int32, device=dev)[None, :]
+    prev_w, prev_t = last_w, last_t
+    off = torch.zeros(n, dtype=torch.int32, device=dev)
+    sel = torch.full((n, C), -1, dtype=torch.int32, device=dev)
+    last_k = torch.zeros(n, dtype=torch.int64, device=dev)
+    gated = torch.zeros(n, dtype=torch.int32, device=dev)
+    clipped = torch.zeros_like(gated)
+    m1w, m1t, m2w, m2t = [], [], [], []
+    for k in range(K):
+        mw, vm, g, cl = faults.apply_defense(defense, msg_w[k], valid[k],
+                                             prev_w)
+        gated += g.to(torch.int32)
+        clipped += cl.to(torch.int32)
+        m1w.append(mw)
+        m1t.append(msg_t[k])
+        m2w.append(prev_w)
+        m2t.append(prev_t)
+        # round k writes slot (ptr + #valid rounds before k) % C; later
+        # rounds win on collision (only when K > C)
+        slot_k = (cache.ptr + off) % C
+        sel = torch.where((iota_c == slot_k[:, None]) & vm[:, None], k, sel)
+        off = off + vm.to(torch.int32)
+        last_k = torch.where(vm, k, last_k)
+        prev_w = torch.where(vm[:, None], mw, prev_w)
+        prev_t = torch.where(vm, msg_t[k], prev_t)
+    new = create_model(variant, update,
+                       LinearModel(torch.stack(m1w), torch.stack(m1t)),
+                       LinearModel(torch.stack(m2w), torch.stack(m2t)),
+                       X.expand(K, *X.shape), y.expand(K, *y.shape))
+    hit = sel >= 0
+    selc = torch.clamp_min(sel, 0).long()
+    cw = torch.where(hit[:, :, None], new.w[selc, rows[:, None]], cache.w)
+    ct = torch.where(hit, new.t[selc, rows[:, None]], cache.t)
+    new_cache = ModelCache(cw, ct, cache.ptr + off,
+                           torch.clamp_max(cache.count + off, C))
+    got_any = off > 0
+    fw = torch.where(got_any[:, None], new.w[last_k, rows], fresh_w)
+    ft = torch.where(got_any, new.t[last_k, rows], fresh_t)
+    return prev_w, prev_t, fw, ft, new_cache, gated, clipped
+
+
+class _Plane:
+    """What every cycle of a chunk reads: the carry's flat buffer views,
+    the codec, the fault, the learner's step and the receive's options."""
+
+    def __init__(self, carry: Carry, *, variant, lam, learner, eta, wire,
+                 fault_model, byz, defense):
+        self.codec = get_codec(wire)
+        self.fault = faults.get_fault(fault_model)
+        D, n, P = carry.buf_w.shape
+        self.n = n
+        self.flat_w = carry.buf_w.view(D * n, P)
+        self.flat_t = carry.buf_t.view(D * n)
+        self.flat_sc = carry.buf_scale.view(-1)
+        self.flat_zp = carry.buf_zp.view(-1)
+        self.variant, self.lam, self.defense, self.byz = (variant, lam,
+                                                          defense, byz)
+        # Pegasos runs the receive kernel; the other learners the vector
+        # apply with the step in the jitted reference's order
+        self.update = (None if learner == "pegasos" else
+                       make_update(learner, lam=lam, eta=eta, fused=True))
+
+    def receive(self, carry: Carry, src, Xc, yc, ridx=None, real: int = 0):
+        """Apply the rounds of the (K', W) slot table ``src`` (-1 = no
+        receive): to all N nodes, or with ``ridx`` (W,) to those node ids
+        (-1 = padding, gathered as node 0 with no valid round), whose
+        first ``real`` rows are scattered back. Returns the (N or W,)
+        gated and clipped counts."""
+        codec, c = self.codec, carry.cache
+        idx = torch.clamp_min(src, 0).long()
+        valid = src >= 0
+        if ridx is None:
+            state = [carry.last_w, carry.last_t, c.w, c.t, c.ptr, c.count]
+            fresh = [carry.fresh_w, carry.fresh_t]
+            Xs, ys = Xc, yc
+        else:
+            gi = torch.clamp_min(ridx, 0).long()
+            valid = valid & (ridx >= 0)[None, :]
+            state = [a[gi] for a in (carry.last_w, carry.last_t, c.w, c.t,
+                                     c.ptr, c.count)]
+            fresh = [carry.fresh_w[gi], carry.fresh_t[gi]]
+            Xs, ys = Xc[gi], yc[gi]
+        msc = self.flat_sc[idx] if codec.has_scale else None
+        mzp = self.flat_zp[idx] if codec.has_zp else None
+        if self.update is None:
+            out = gossip_cycle.fused_receive_apply(
+                *state, self.flat_w[idx], self.flat_t[idx],
+                valid.to(torch.int32), Xs, ys, msg_scale=msc, msg_zp=mzp,
+                wire=codec.name, variant=self.variant, lam=self.lam,
+                defense=self.defense)
+            gated, clipped = out[6], out[7]
+            # the freshest model: slot ptr - 1 of the updated ring
+            C = c.w.shape[1]
+            slot = ((state[4] - 1) % C).long()
+            at = torch.arange(slot.shape[0], device=slot.device)
+            fresh = [state[2][at, slot], state[3][at, slot]]
+        else:
+            msg_w = codec.decode(self.flat_w[idx], msc, mzp, c.w.shape[2])
+            lw, lt, fw, ft, c2, gated, clipped = _vector_apply(
+                state[0], state[1], fresh[0], fresh[1],
+                ModelCache(*state[2:]), msg_w, self.flat_t[idx], valid, Xs,
+                ys, variant=self.variant, update=self.update,
+                defense=self.defense)
+            state = [lw, lt, *c2]
+            fresh = [fw, ft]
+        if ridx is None:
+            if self.update is not None:
+                carry.last_w, carry.last_t = state[0], state[1]
+                carry.cache = ModelCache(*state[2:])
+            carry.fresh_w, carry.fresh_t = fresh
+        else:
+            # only the real rows go back; the padding is never written
+            r = gi[:real]
+            for dst, val in zip((carry.last_w, carry.last_t, c.w, c.t,
+                                 c.ptr, c.count, carry.fresh_w,
+                                 carry.fresh_t), state + fresh):
+                dst[r] = val[:real]
+        return gated, clipped
+
+    def send(self, carry: Carry, t: int, kr, fk, send_mask=None, sidx=None):
+        """Refresh this cycle's buffer row with each node's freshest model
+        (encoded for a quantized codec, corrupted on the Byzantine rows),
+        or with ``sidx`` (the cycle's sender ids) only the senders' slots,
+        their SR noise, fault draws and EF rows taken at their positions
+        in the dense draw (``rows=``)."""
+        codec, fault, c = self.codec, self.fault, carry.cache
+        row = carry.clock % carry.buf_w.shape[0]
+        if sidx is None:
+            gi, byz = None, self.byz
+            send_w, send_t = carry.fresh_w, carry.fresh_t
+            ef = carry.ef
+        else:
+            gi = sidx.long()
+            byz = None if self.byz is None else self.byz[gi]
+            send_w, send_t = carry.fresh_w[gi], carry.fresh_t[gi]
+            ef = carry.ef[gi] if codec.ef else carry.ef
+        if fault is not None and fault.kind == "model":
+            old_w = old_t = None
+            if fault.name == "stale_replay":
+                sub = c if gi is None else ModelCache(c.w[gi], c.t[gi],
+                                                      c.ptr[gi], c.count[gi])
+                old_w, old_t = cache_mod.cache_oldest(sub)
+            send_w, send_t = faults.corrupt_model(
+                fault, byz, fk[t], send_w, send_t, old_w, old_t, rows=gi,
+                n_total=self.n)
+        sc = zp = None
+        if codec.quantized:
+            out = gossip_cycle.quantize_send(
+                send_w, codec.name, key=kr[t] if codec.stochastic else None,
+                ef=ef if codec.ef else None, rows=gi)
+            payload, sc = out[0], out[1]
+            if codec.has_zp:
+                zp = out[2]
+            if codec.ef:
+                if gi is None:
+                    carry.ef = torch.where(send_mask[t][:, None], out[2],
+                                           carry.ef)
+                else:
+                    carry.ef[gi] = out[2]
+        else:
+            payload = send_w.to(codec.payload_dtype)
+        if fault is not None and fault.kind == "wire":
+            payload = faults.bitflip_payload(
+                byz, fk[t], payload.to(codec.payload_dtype), rows=gi,
+                n_total=self.n)
+        at = slice(None) if gi is None else gi
+        carry.buf_w[row, at] = payload
+        carry.buf_t[row, at] = send_t
+        if sc is not None:
+            carry.buf_scale[row, at] = sc
+        if zp is not None:
+            carry.buf_zp[row, at] = zp
+
+
+def run_chunk(carry: Carry, mode: str, tables, X, y, *, variant: str,
+              lam: float, learner: str = "pegasos", eta: float = 0.01,
+              wire=None, keys=None, send_mask=None, counts=None,
+              fault_model=None, byz=None, defense: str = "none",
+              per_cycle: bool = False):
+    """Run the chunk's cycles under packing ``mode``, in place — the
+    reference's ``dense_body``, ``compact_body`` or ``compact_all_body``
+    under ``lax.scan``. ``tables`` are the packing's device tables:
+    ``(src,)`` the (T, K, N) slots for ``dense``; ``(src0, ridx, rslot)``
+    for ``compact``; ``(ridx, rslot, sidx)`` for ``compact_all`` (the
+    ``pack_*`` functions, and the senders' ids). ``counts`` gives each
+    cycle's real (unpadded) lengths on the host: ``(multi_sizes,)`` for
+    ``compact``, ``(recv_sizes, send_sizes)`` for ``compact_all``.
     ``X``/``y`` are (N, d)/(N,) or (N, k, d)/(N, k) for k records per node
     (cycle c uses record ``c % k``). ``wire`` names the buffer's codec;
     ``int8_sr`` needs ``keys``, the chunk's (T, 2) cycle keys (its noise
-    key is ``split(key, 4)[0]``), and the ``_ef`` codecs ``send_mask``, the
-    (T, N) ``arrival >= 0`` table: the EF residual refreshes only where a
-    node sends. Both stay on the device.
+    key is ``split(key, 4)[0]``), and the ``_ef`` codecs under ``dense``
+    and ``compact`` ``send_mask``, the (T, N) ``arrival >= 0`` table: the
+    EF residual refreshes only where a node sends.
 
+    The receive is kernel #1 for Pegasos (its plain version on CPU
+    tensors): under ``compact`` a K = 1 launch over all N, then K - 1
+    rounds over the round-2 receivers; under ``compact_all`` K rounds over
+    the round-1 receivers. The other learners run ``_vector_apply``.
     ``fault_model`` with ``byz`` (the (N,) bool Byzantine mask) corrupts
     the Byzantine rows' transmitted model before the encode (model-kind)
     or their payload after it (``bitflip``), with the fault keys
-    ``fold_in(keys, FAULT_FOLD)`` made on the device; ``defense`` is the
-    receive kernel's screen. Returns ``(carry, screen)``: ``screen`` is the
-    (2,) int64 device tensor of the chunk's gated and clipped totals, or
-    with ``per_cycle`` (armed telemetry) the (T, 2) tensor of each cycle's,
-    as the reference's armed chunk returns them."""
-    codec = get_codec(wire)
-    fault = faults.get_fault(fault_model)
-    D, n, P = carry.buf_w.shape
-    C = carry.cache.w.shape[1]
-    rows = torch.arange(n, device=carry.buf_w.device)
-    flat_w = carry.buf_w.view(D * n, P)
-    flat_t = carry.buf_t.view(D * n)
-    flat_sc = carry.buf_scale.view(-1)
-    flat_zp = carry.buf_zp.view(-1)
-    kr = recv_keys(keys) if codec.stochastic else None
-    fk = faults.fault_key(keys) if fault is not None else None
-    screen = torch.zeros((table.shape[0], 2) if per_cycle else 2,
-                         dtype=torch.int64, device=carry.buf_w.device)
-    c = carry.cache
-    for t in range(table.shape[0]):
-        src = table[t]                                  # (K, n) int32
-        idx = torch.clamp_min(src, 0).long()
-        valid = (src >= 0).to(torch.int32)
+    ``fold_in(keys, FAULT_FOLD)``; ``defense`` is the receive's screen.
+    Returns ``(carry, screen)``: ``screen`` is the (2,) int64 device
+    tensor of the chunk's gated and clipped totals, or with ``per_cycle``
+    (armed telemetry) the (T, 2) tensor of each cycle's."""
+    plane = _Plane(carry, variant=variant, lam=lam, learner=learner,
+                   eta=eta, wire=wire, fault_model=fault_model, byz=byz,
+                   defense=defense)
+    kr = recv_keys(keys) if plane.codec.stochastic else None
+    fk = faults.fault_key(keys) if plane.fault is not None else None
+    T = tables[0].shape[0]
+    screen = torch.zeros((T, 2) if per_cycle else 2, dtype=torch.int64,
+                         device=carry.buf_w.device)
+    for t in range(T):
         if X.ndim == 3:
             rec = carry.clock % X.shape[1]
             Xc, yc = X[:, rec, :].contiguous(), y[:, rec].contiguous()
         else:
             Xc, yc = X, y
-        out = gossip_cycle.fused_receive_apply(
-            carry.last_w, carry.last_t, c.w, c.t, c.ptr, c.count,
-            flat_w[idx], flat_t[idx], valid, Xc, yc,
-            msg_scale=flat_sc[idx] if codec.has_scale else None,
-            msg_zp=flat_zp[idx] if codec.has_zp else None,
-            wire=codec.name, variant=variant, lam=lam, defense=defense)
-        if defense != "none":
-            counts = torch.stack([out[6].sum(), out[7].sum()])
-            if per_cycle:
-                screen[t] = counts
-            else:
-                screen += counts
-        slot = ((c.ptr - 1) % C).long()                 # freshest slot
-        carry.fresh_w = c.w[rows, slot]
-        carry.fresh_t = c.t[rows, slot]
-        send_w, send_t = carry.fresh_w, carry.fresh_t
-        if fault is not None and fault.kind == "model":
-            old_w, old_t = (cache_mod.cache_oldest(c)
-                            if fault.name == "stale_replay" else (None, None))
-            send_w, send_t = faults.corrupt_model(fault, byz, fk[t], send_w,
-                                                  send_t, old_w, old_t)
-        row = carry.clock % D
-        if codec.quantized:
-            out = gossip_cycle.quantize_send(
-                send_w, codec.name,
-                key=kr[t] if codec.stochastic else None,
-                ef=carry.ef if codec.ef else None)
-            payload = out[0]
-            carry.buf_scale[row] = out[1]
-            if codec.has_zp:
-                carry.buf_zp[row] = out[2]
-            if codec.ef:
-                carry.ef = torch.where(send_mask[t][:, None], out[2],
-                                       carry.ef)
+        if mode == "dense":
+            rounds = [plane.receive(carry, tables[0][t], Xc, yc)]
+        elif mode == "compact":
+            src0, ridx, rslot = tables
+            rounds = [plane.receive(carry, src0[t][None], Xc, yc),
+                      plane.receive(carry, rslot[t], Xc, yc, ridx[t],
+                                    int(counts[0][t]))]
         else:
-            payload = send_w               # cast by the buffer-row copy
-        if fault is not None and fault.kind == "wire":
-            payload = faults.bitflip_payload(
-                byz, fk[t], payload.to(codec.payload_dtype))
-        carry.buf_w[row] = payload
-        carry.buf_t[row] = send_t
+            ridx, rslot, _ = tables
+            rounds = [plane.receive(carry, rslot[t], Xc, yc, ridx[t],
+                                    int(counts[0][t]))]
+        if defense != "none":
+            got = torch.stack([sum(g.sum() for g, _ in rounds),
+                               sum(c.sum() for _, c in rounds)])
+            if per_cycle:
+                screen[t] = got
+            else:
+                screen += got
+        if mode == "compact_all":
+            plane.send(carry, t, kr, fk,
+                       sidx=tables[2][t, :int(counts[1][t])])
+        else:
+            plane.send(carry, t, kr, fk, send_mask=send_mask)
         carry.clock += 1
     return carry, screen
 
@@ -320,25 +579,62 @@ def run_dense_chunk(carry: Carry, table, X, y, *, variant: str, lam: float,
 # ---------------------------------------------------------------------------
 
 
+# the packings, and the reference's cost model's constants (calibrated on
+# its 2-core CPU container; kept so that the port picks what the reference
+# picks on the same tables)
+PACKINGS = ("dense", "compact", "compact_all")
+_MIN_WIDTH = 8
+
+
+def choose_packing(k_rounds: int, n: int, multi_sizes, recv_sizes, wm: int,
+                   w1: int, senders_width):
+    """The reference's per-chunk packing choice: per-cycle work estimates
+    in node rows, dense = K N + N, compact = N + (K + 1) W_multi + N,
+    compact_all = (K + 4) W_recv + 5 W_send, over the sticky widths; a
+    packing whose subset exceeds N/2 somewhere in the chunk is out.
+    ``senders_width()`` gives W_send, asked only when compact_all is in
+    the running. Returns ``(mode, ws)``, ws the senders' width if asked."""
+    cand = {"dense": k_rounds * n + n}
+    ws = None
+    if k_rounds > 1 and int(multi_sizes.max(initial=0)) <= n // 2:
+        cand["compact"] = n + (k_rounds + 1) * wm + n
+    if int(recv_sizes.max(initial=0)) <= n // 2:
+        ws = senders_width()
+        cand["compact_all"] = (k_rounds + 4) * w1 + 5 * ws
+    return min(cand, key=cand.get), ws
+
+
 def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
                            cycles: int = 200, eval_every: int = 10,
                            seed: int = 0, eval_nodes: int = 100,
                            sampler: str = "uniform", k_rounds: int = 4,
                            device=None, use_kernel: Optional[bool] = None,
+                           compact_rounds: Optional[bool] = None,
                            compact_mode: Optional[str] = None, mesh=None,
                            use_send_kernel: Optional[bool] = None,
                            serve_hook=None, telemetry=None) -> SimResult:
     """Run the protocol with the mega-population engine on one device.
 
-    The receive step is the fused kernel on CUDA and its plain version on
-    the CPU; ``use_kernel=True`` asserts the kernel (raises on the CPU) and
-    ``use_kernel=False`` asserts the plain version (raises on CUDA, where
-    the receive step is always the kernel). ``use_send_kernel`` does the
-    same for the send kernel of the quantized wire codecs, and is refused
-    for the float codecs, which send a plain cast. The reference's other
-    options are not ported yet and raise: ``compact_mode`` other than
-    "dense" (ROADMAP.md queue 1 item 5), ``mesh`` (queue 1 item 11), and a
-    learner other than Pegasos (the vector apply, queue 1 item 5).
+    The receive step of Pegasos is the fused kernel on CUDA and its plain
+    version on the CPU; ``use_kernel=True`` asserts the kernel (raises on
+    the CPU) and ``use_kernel=False`` asserts the plain version (raises on
+    CUDA, where the receive step is always the kernel). ``use_send_kernel``
+    does the same for the send kernel of the quantized wire codecs, and is
+    refused for the float codecs, which send a plain cast. Adaline and
+    logistic regression run the vector apply (``_vector_apply``) on both
+    devices, as the reference does on every backend.
+
+    ``compact_rounds`` allows the compact packings, chosen per chunk by
+    the reference's cost model from the router's receiver counts (the
+    module note); by the reference's rule it defaults to on wherever the
+    receive is not the kernel the reference runs dense: on the CPU, and
+    on CUDA for the learners other than Pegasos. On CUDA with Pegasos it
+    defaults to off, so the main path stays dense. ``compact_mode``
+    ("dense", "compact" or "compact_all") forces one packing on every
+    chunk. ``SimResult.compaction`` reports the packings taken, the round-1
+    and round-2 receivers' occupancy and the packed widths, as the
+    reference does. ``mesh`` (node sharding over devices) is not ported
+    yet and raises (ROADMAP.md queue 1 item 11).
 
     ``serve_hook(cycle, snapshot)`` is called at every eval point with
     ``serving.snapshot_from_carry(carry)``, a copy of the live cache, before
@@ -351,10 +647,12 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     residual's RMS, queued at each eval point before the next chunk runs
     and read there too; and host spans that never nest, one per phase of
     the driver: ``setup``, ``draw_enqueue``, ``draw_readback``,
-    ``route_chunk`` (the numpy router alone), ``dense_table``,
-    ``table_upload``, ``chunk_dispatch``, ``eval``, ``snapshot`` and
-    ``collect_results``. An armed run adds no synchronisation and no kernel
-    launch of #1 to #5, and is bit for bit the unarmed run."""
+    ``route_chunk`` (the numpy router alone), ``pack_tables`` (the packing
+    choice and the compact tables, where compacting is on),
+    ``dense_table``, ``table_upload``, ``chunk_dispatch``, ``eval``,
+    ``snapshot`` and ``collect_results``. An armed run adds no
+    synchronisation and no kernel launch of #1 to #5, and is bit for bit
+    the unarmed run."""
     dev = resolve_device(device)
     codec = get_codec(cfg.wire_dtype)
     if use_send_kernel and not codec.quantized:
@@ -367,17 +665,18 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
             raise ValueError(
                 f"{opt}={val} on {dev}: each step is its CUDA kernel on "
                 "CUDA tensors and its plain version on CPU tensors")
-    if compact_mode not in (None, "dense"):
-        raise NotImplementedError(
-            f"compact_mode={compact_mode!r}: the compact packings are "
-            "ROADMAP.md queue 1 item 5")
     if mesh is not None:
         raise NotImplementedError("mesh=: node sharding over several devices "
                                   "is ROADMAP.md queue 1 item 11")
-    if cfg.learner != "pegasos":
-        raise NotImplementedError(
-            f"learner={cfg.learner!r} on the sharded engine: the vector "
-            "apply for non-Pegasos learners is ROADMAP.md queue 1 item 5")
+    if compact_rounds is None:
+        compact_rounds = dev.type != "cuda" or cfg.learner != "pegasos"
+    if compact_mode is not None:
+        if compact_mode not in PACKINGS:
+            raise ValueError(f"unknown compact_mode {compact_mode!r}")
+        if compact_mode == "compact" and k_rounds == 1:
+            raise ValueError("compact_mode='compact' needs k_rounds > 1 "
+                             "(there are no rounds >= 2 to compact)")
+        compact_rounds = compact_mode != "dense"
     check_slice(cfg)
     tel = telemetry
     armed = tel is not None
@@ -400,6 +699,20 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
 
     router = _HostRouter(D)
     bounds = list(zip([0] + pts[:-1], pts))
+    # compact widths, sticky across chunks (monotone powers of two), as
+    # the reference keeps them for its jit cache: the subset applies run
+    # over these padded widths, which a screen's sum order depends on at
+    # 5 <= d <= 8
+    widths = {"compact": _MIN_WIDTH, "compact_all": _MIN_WIDTH,
+              "send": _MIN_WIDTH}
+    mode_counts = dict.fromkeys(PACKINGS, 0)
+    occ_recv, occ_multi = [], []
+
+    def bucket(kind: str, need: int) -> int:
+        w = widths[kind]
+        while w < need:
+            w *= 2
+        return w
 
     def draw(i):
         """Chunk i's tables on the host, and (for the EF codecs) its send
@@ -414,13 +727,48 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
         with maybe_span(tel, "draw_readback", track="device", chunk=i):
             return dsts.cpu().numpy(), arrivals.cpu().numpy(), mask
 
+    def pack(i, win, multi, recv, stats, arrivals):
+        """Chunk i's packing (the reference's choice, or ``compact_mode``)
+        and its host tables, with each cycle's real lengths."""
+        T, K = len(recv), k_rounds
+        senders = []
+
+        def sender_lists():
+            if not senders:
+                senders.append([np.flatnonzero(arrivals[t] >= 0)
+                                .astype(np.int32) for t in range(T)])
+            return senders[0]
+
+        send_width = lambda: bucket("send", shard_list_width(sender_lists()))
+        wm = bucket("compact", shard_list_width(multi))
+        w1 = bucket("compact_all", shard_list_width(recv))
+        mode, ws = choose_packing(K, n, stats["multi_sizes"],
+                                  stats["recv_sizes"], wm, w1, send_width)
+        mode = compact_mode or mode
+        if mode == "compact":
+            widths["compact"] = wm
+            return mode, pack_compact_rounds(win, multi, T, K, n, wm), (
+                stats["multi_sizes"],)
+        if mode == "compact_all":
+            widths["compact_all"] = w1
+            widths["send"] = ws = ws or send_width()
+            lists = sender_lists()
+            return mode, (*pack_compact_all(win, recv, T, K, w1),
+                          _pack_index_lists(lists, ws)), (
+                stats["recv_sizes"],
+                np.array([r.size for r in lists], np.int64))
+        return mode, None, None
+
     def route(i, drawn):
         lo, hi = bounds[i]
         dsts, arrivals, mask = drawn
         with maybe_span(tel, "route_chunk", track="control", chunk=i):
-            win, stats = router.route_chunk(dsts, arrivals,
-                                            online_mat[lo:hi], lo, k_rounds,
-                                            per_cycle_stats=armed)
+            win, stats, multi, recv = router.route_chunk(
+                dsts, arrivals, online_mat[lo:hi], lo, k_rounds,
+                per_cycle_stats=armed)
+            stats["recv_sizes"] = np.array([r.size for r in recv], np.int64)
+            stats["multi_sizes"] = np.array([r.size for r in multi],
+                                            np.int64)
             # Byzantine senders with send_ok (arrival >= 0), off the host
             # table
             stats["corrupted"] = (
@@ -432,14 +780,22 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
                 stats["corrupted_cycles"] = (
                     (send_ok & byz_np[None, :]).sum(axis=1).astype(np.int64)
                     if byz_np is not None else np.zeros(hi - lo, np.int64))
-        with maybe_span(tel, "dense_table", track="control", chunk=i):
-            table = torch.from_numpy(dense_table(win, hi - lo, k_rounds, n))
+        mode, tables, counts = "dense", None, None
+        if compact_rounds:
+            with maybe_span(tel, "pack_tables", track="control", chunk=i):
+                mode, tables, counts = pack(i, win, multi, recv, stats,
+                                            arrivals)
+        if mode == "dense":
+            with maybe_span(tel, "dense_table", track="control", chunk=i):
+                tables = (dense_table(win, hi - lo, k_rounds, n),)
+        tables = [torch.from_numpy(a) for a in tables]
         if dev.type == "cuda":
             # pinned + non_blocking: the upload queues behind the device's
             # work instead of making the host wait for it
             with maybe_span(tel, "table_upload", track="control", chunk=i):
-                table = table.pin_memory().to(dev, non_blocking=True)
-        return table, stats, mask
+                tables = [a.pin_memory().to(dev, non_blocking=True)
+                          for a in tables]
+        return mode, tables, counts, stats, mask
 
     # Draws run one chunk ahead. Chunk i+1's tables are read back before
     # chunk i is enqueued, so the read waits only for chunk i-1, which ran
@@ -450,16 +806,17 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     evals, screens, ef_rms = [], [], []
     pending = route(0, draw(0))
     for i, p in enumerate(pts):
-        table, stats, mask = pending
+        mode, tables, counts, stats, mask = pending
         drawn = draw(i + 1) if i + 1 < len(pts) else None
         lo, hi = bounds[i]
         with maybe_span(tel, "chunk_dispatch", track="device", chunk=i,
-                        cycles=hi - lo):
-            _, screen = run_dense_chunk(
-                carry, table, X, y, variant=cfg.variant, lam=cfg.lam,
+                        mode=mode, cycles=hi - lo):
+            _, screen = run_chunk(
+                carry, mode, tables, X, y, variant=cfg.variant,
+                lam=cfg.lam, learner=cfg.learner, eta=cfg.eta,
                 wire=codec.name, keys=keys[lo:hi], send_mask=mask,
-                fault_model=cfg.fault_model, byz=byz, defense=cfg.defense,
-                per_cycle=armed)
+                counts=counts, fault_model=cfg.fault_model, byz=byz,
+                defense=cfg.defense, per_cycle=armed)
         screens.append(screen)
         with maybe_span(tel, "eval", track="eval", cycle=p):
             evals.append(_eval(carry.cache, eval_idx, X_test, y_test))
@@ -479,6 +836,9 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
         res.delivered_per_cycle.extend(
             int(x) for x in stats["delivered_cycles"])
         res.cycles.append(p)
+        mode_counts[mode] += 1
+        occ_recv.append(stats["recv_sizes"])
+        occ_multi.append(stats["multi_sizes"])
         if armed:
             sc, dc = stats["sent_cycles"], stats["delivered_cycles"]
             flow = np.cumsum(sc - dc - stats["lost_cycles"]
@@ -510,12 +870,20 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
             tel.emit("ef_residual_rms",
                      [0.0 if v is None else float(v) for v in ef_rms])
     res.in_flight_total = router.in_flight
-    res.compaction = dict(chunk_modes={"dense": len(pts)})
+    r1 = np.concatenate(occ_recv) / n
+    mr = np.concatenate(occ_multi) / n
+    res.compaction = dict(
+        chunk_modes=dict(mode_counts),
+        round1_occupancy_mean=float(r1.mean()),
+        round1_occupancy_max=float(r1.max()),
+        multi_occupancy_mean=float(mr.mean()),
+        multi_occupancy_max=float(mr.max()),
+        packed_widths=dict(widths), shards=1)
     res.wire_bytes_total = res.sent_total * msg_bytes
     res.ef_residual_norm = ef_residual_norm(carry.ef)
     if armed:
         tel.annotations.setdefault("runs", []).append(dict(
             engine="sharded", n_nodes=n, cycles=cycles,
             wire_dtype=cfg.wire_dtype or "f32", message_bytes=msg_bytes,
-            chunk_modes=dict(res.compaction["chunk_modes"])))
+            chunk_modes=dict(mode_counts)))
     return res

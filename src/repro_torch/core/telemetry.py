@@ -25,9 +25,11 @@ them too: it draws one chunk ahead on the device (``draw_enqueue``) and
 reads the tables back before routing (``draw_readback``, where the host
 waits for the card), instead of staging every chunk's draws up front
 (the reference's ``stage_draws``, which the port never emits); it builds
-the dense table (``dense_table``) and uploads it through pinned memory
-(``table_upload``) outside ``route_chunk``, which times the numpy router
-alone; and ``setup`` times everything before cycle 0. The sharded
+the dense table (``dense_table``), or picks the chunk's packing and packs
+its compact tables (``pack_tables``, where compacting is on), and uploads
+them through pinned memory (``table_upload``) outside ``route_chunk``,
+which times the numpy router alone; and ``setup`` times everything before
+cycle 0. The sharded
 engine's spans never nest (the server's ``snapshot_adopt`` and
 ``serve_batch`` run inside the engine's ``snapshot`` when a server is
 hooked in), so :meth:`Telemetry.phase_report`'s shares of the spanned
@@ -144,6 +146,8 @@ SPAN_NAMES = {
                       "host (waits for the card)",
     "dense_table":    "control — build one chunk's dense (T, K, N) routing "
                       "table",
+    "pack_tables":    "control — pick one chunk's packing from its receiver "
+                      "counts and pack its compact tables",
     "table_upload":   "control — pin one chunk's routing table and queue "
                       "its upload",
 }

@@ -248,11 +248,15 @@ __device__ __forceinline__ int pack_code(int byte, int code, int g) {
 // the strided route: a warp a row
 // ---------------------------------------------------------------------------
 
-template <bool SR>
+// ROWS: the noise of row r is drawn at row rows[r] of a larger population
+// (the senders' rows of compact_all); a compile-time choice, so the dense
+// send's instantiations carry no lookup
+template <bool SR, bool ROWS>
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
 affine8_kernel(const float* __restrict__ w, const int64_t* __restrict__ key,
-               int8_t* __restrict__ q, __half* __restrict__ scale_out,
-               __half* __restrict__ zp_out, int n, int d) {
+               const int64_t* __restrict__ rows, int8_t* __restrict__ q,
+               __half* __restrict__ scale_out, __half* __restrict__ zp_out,
+               int n, int d) {
   const int lane = threadIdx.x % kWarp;
   const int64_t r =
       static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp;
@@ -274,9 +278,11 @@ affine8_kernel(const float* __restrict__ w, const int64_t* __restrict__ key,
     k1 = static_cast<uint32_t>(key[1]);
   }
   int8_t* qr = q + r * d;
+  // the noise's flat position: row rows[r] of the whole draw under ROWS
+  const int64_t p0 = (ROWS ? rows[r] : r) * d;
   for (int j = lane; j < d; j += kWarp) {
     qr[j] = static_cast<int8_t>(
-        affine_code<SR>(wr[j], a.zpf, a.sf, k0, k1, r * d + j));
+        affine_code<SR>(wr[j], a.zpf, a.sf, k0, k1, p0 + j));
   }
   if (lane == 0) {
     scale_out[r] = a.sc;
@@ -336,11 +342,12 @@ unsigned blocks_for(int n) {
 // the tiled route: persistent blocks, tiles of R rows through shared memory
 // ---------------------------------------------------------------------------
 
-template <bool SR>
+template <bool SR, bool ROWS>
 __global__ void __launch_bounds__(kTiledThreads)
 affine8_tiled_kernel(const float* __restrict__ w,
-                     const int64_t* __restrict__ key, int8_t* __restrict__ q,
-                     __half* __restrict__ scale_out,
+                     const int64_t* __restrict__ key,
+                     const int64_t* __restrict__ row_ids,
+                     int8_t* __restrict__ q, __half* __restrict__ scale_out,
                      __half* __restrict__ zp_out, int n, int d,
                      int rows_per_tile, int tiles) {
   extern __shared__ __align__(16) float smem[];
@@ -394,8 +401,12 @@ affine8_tiled_kernel(const float* __restrict__ w,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         if (e + i < elems) {
+          // the noise's flat position: row row_ids[r0 + row] of the
+          // whole draw under ROWS
+          const int64_t pos =
+              ROWS ? row_ids[r0 + row] * d + col : p0 + e + i;
           const int c = affine_code<SR>(v[i], s_zp[row], s_sf[row], k0, k1,
-                                        p0 + e + i);
+                                        pos);
           codes |= static_cast<uint32_t>(static_cast<uint8_t>(c)) << (8 * i);
         }
         if (++col == d) {
@@ -578,21 +589,22 @@ bool tiled_takes(const void* w, int d) {
   return d <= kTiledMaxWidth && aligned16(w);
 }
 
-template <bool SR>
-void launch_affine8(const float* w, const int64_t* key, int8_t* q,
-                    __half* sc, __half* zp, int n, int d, int route,
-                    cudaStream_t s) {
+template <bool SR, bool ROWS>
+void launch_affine8(const float* w, const int64_t* key, const int64_t* rows,
+                    int8_t* q, __half* sc, __half* zp, int n, int d,
+                    int route, cudaStream_t s) {
   if (route == kStrided) {
-    affine8_kernel<SR><<<blocks_for(n), kWarp * kRowsPerBlock, 0, s>>>(
-        w, key, q, sc, zp, n, d);
+    affine8_kernel<SR, ROWS><<<blocks_for(n), kWarp * kRowsPerBlock, 0, s>>>(
+        w, key, rows, q, sc, zp, n, d);
     return;
   }
-  const int rows = send_rows(d, 1);
-  const int tiles = tiles_for(n, rows);
+  const int tile_rows = send_rows(d, 1);
+  const int tiles = tiles_for(n, tile_rows);
   const size_t smem = tiled_smem(d, 1, 2);
-  const unsigned blocks = tiled_blocks(affine8_tiled_kernel<SR>, tiles, smem);
-  affine8_tiled_kernel<SR><<<blocks, kTiledThreads, smem, s>>>(
-      w, key, q, sc, zp, n, d, rows, tiles);
+  const unsigned blocks =
+      tiled_blocks(affine8_tiled_kernel<SR, ROWS>, tiles, smem);
+  affine8_tiled_kernel<SR, ROWS><<<blocks, kTiledThreads, smem, s>>>(
+      w, key, rows, q, sc, zp, n, d, tile_rows, tiles);
 }
 
 template <int G>
@@ -628,13 +640,17 @@ void launch_packed(const float* w, const float* ef, uint8_t* payload,
 }  // namespace
 
 // int8 / int8_sr: w (n, d) f32 -> q (n, d) int8, scale and zp (n,) f16.
-// key: the (2,) int64 threefry key (read only when stochastic). route: 0 =
+// key: the (2,) int64 threefry key (read only when stochastic). rows: null,
+// or the (n,) int64 rows of a larger population that w holds (read only
+// when stochastic): row r's noise is then drawn at flat positions
+// rows[r] * d + j of the whole draw instead of r * d + j. route: 0 =
 // tiled (d <= 128 and w on a 16-byte boundary only), 1 = strided. Returns
 // cudaGetLastError() after the launch (0 on success); asynchronous on
 // `stream`.
 extern "C" int quantize_send_affine8(const float* w, const int64_t* key,
-                                     int8_t* q, void* scale, void* zp, int n,
-                                     int d, int stochastic, int route,
+                                     const int64_t* rows, int8_t* q,
+                                     void* scale, void* zp, int n, int d,
+                                     int stochastic, int route,
                                      void* stream) {
   if (route != kTiled && route != kStrided) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -647,10 +663,12 @@ extern "C" int quantize_send_affine8(const float* w, const int64_t* key,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   __half* sc = static_cast<__half*>(scale);
   __half* z = static_cast<__half*>(zp);
-  if (stochastic) {
-    launch_affine8<true>(w, key, q, sc, z, n, d, route, s);
+  if (stochastic && rows) {
+    launch_affine8<true, true>(w, key, rows, q, sc, z, n, d, route, s);
+  } else if (stochastic) {
+    launch_affine8<true, false>(w, key, nullptr, q, sc, z, n, d, route, s);
   } else {
-    launch_affine8<false>(w, key, q, sc, z, n, d, route, s);
+    launch_affine8<false, false>(w, key, nullptr, q, sc, z, n, d, route, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

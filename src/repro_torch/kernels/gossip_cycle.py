@@ -42,6 +42,7 @@ import functools
 
 import torch
 
+from repro_torch import random
 from repro_torch.core import faults
 from repro_torch.core.wire_codec import (get_codec, quantize_wire,
                                          unpack_int4, unpack_ternary)
@@ -414,13 +415,18 @@ def send_kernel_name(name: str) -> str:
     return "packed_ef" if codec.ef else "packed"
 
 
-def quantize_send_plain(w, name: str, key=None, ef=None):
+def quantize_send_plain(w, name: str, key=None, ef=None, rows=None):
     """The send encode in plain PyTorch: the codec's ``encode`` of ``w``
     (``w + ef`` under error feedback), and the residual ``x - q·scale``
-    when ``ef`` is given; see :func:`quantize_send`."""
+    when ``ef`` is given; ``int8_sr``'s noise at the rows ``rows`` of the
+    dense draw when they are given; see :func:`quantize_send`."""
     codec = get_codec(name)
     if codec.has_zp:
-        return quantize_wire(w, name, key=key)
+        noise = None
+        if codec.stochastic and rows is not None:
+            noise = random.sr_noise_for_rows(key, rows, w.shape[1], None)
+        return quantize_wire(w, name, key=None if noise is not None else key,
+                             noise=noise)
     x = w + ef if ef is not None else w
     q, scale = codec.quantize_codes(x)
     payload = codec._pack(q)
@@ -430,7 +436,7 @@ def quantize_send_plain(w, name: str, key=None, ef=None):
         torch.float32)[:, None]
 
 
-def _check_send(w, name, key, ef):
+def _check_send(w, name, key, ef, rows=None):
     codec = get_codec(name)
     if not codec.quantized:
         raise ValueError(f"quantize_send needs a quantized wire codec, got "
@@ -447,11 +453,13 @@ def _check_send(w, name, key, ef):
         if key is None:
             raise ValueError("int8_sr quantization needs a PRNG key")
         spec["key"] = (key, torch.int64, (2,))
+    if rows is not None:
+        spec["rows"] = (rows, torch.int64, (w.shape[0],))
     _check_tensors(w, spec)
     return codec
 
 
-def _launch_send(w, codec, key, ef, route=None):
+def _launch_send(w, codec, key, ef, route=None, rows=None):
     """Launch the send kernel on checked operands. ``route`` overrides
     ``send_route`` (for holding the two routes to each other and timing
     them on the card): ``"tiled"`` is refused past d = 128 and on
@@ -471,13 +479,14 @@ def _launch_send(w, codec, key, ef, route=None):
     with torch.cuda.device(dev):
         if kernel == "affine8":
             fn, err = _entry("quantize_send", "quantize_send_affine8",
-                             (_VP,) * 5 + (_INT,) * 4 + (_VP,))
+                             (_VP,) * 6 + (_INT,) * 4 + (_VP,))
             q = torch.empty((n, d), dtype=torch.int8, device=dev)
             zp = torch.empty(n, dtype=torch.float16, device=dev)
-            code = fn(w.data_ptr(), _ptr(key if codec.stochastic else None),
-                      q.data_ptr(), scale.data_ptr(), zp.data_ptr(), n, d,
-                      int(codec.stochastic), SEND_ROUTES.index(route),
-                      _stream(w))
+            stochastic = codec.stochastic
+            code = fn(w.data_ptr(), _ptr(key if stochastic else None),
+                      _ptr(rows if stochastic else None), q.data_ptr(),
+                      scale.data_ptr(), zp.data_ptr(), n, d, int(stochastic),
+                      SEND_ROUTES.index(route), _stream(w))
             out = (q, scale, zp)
         else:
             fn, err = _entry("quantize_send", "quantize_send_packed",
@@ -490,30 +499,37 @@ def _launch_send(w, codec, key, ef, route=None):
                       SEND_ROUTES.index(route), _stream(w))
             out = (payload, scale) if ef is None else (payload, scale, resid)
     _raise_on(code, err, f"quantize_send ({route})")
-    _SEND.launches[kernel] += 1
-    _SEND.route_launches[route] += 1
+    if n:             # the entry launches nothing for an empty subset
+        _SEND.launches[kernel] += 1
+        _SEND.route_launches[route] += 1
     return out
 
 
-def quantize_send(w, name: str, key=None, ef=None):
+def quantize_send(w, name: str, key=None, ef=None, rows=None):
     """Send-side encode of a quantized wire codec for (N, d) f32 models.
 
     For the affine int8 codecs returns ``(q, scale, zp)`` (int8 (N, d), f16
     (N,), f16 (N,)), equal bit for bit to ``quantize_wire(w, name, key)``;
     "int8_sr" takes ``key``, the cycle's ``k_recv`` as an int64 (2,) tensor
-    of uint32 words on ``w``'s device (never read to the host). For the
-    packed codecs returns ``(payload, scale)`` (uint8 (N, ceil(d/g)), f16
-    (N,)), or ``(payload, scale, resid)`` when ``ef`` (the (N, d) f32
-    error-feedback residual) is given: ``w + ef`` is encoded and ``resid =
-    (w + ef) - decode(...)``; the caller applies the send mask. The outputs
-    are new tensors (the caller copies them into its buffer row). On CUDA,
-    ``send_route(d, name, send_aligned(w, ef))`` picks the kernel."""
-    codec = _check_send(w, name, key, ef)
+    of uint32 words on ``w``'s device (never read to the host). ``rows``
+    (int64 (N,) on ``w``'s device) says that ``w`` holds those rows of a
+    larger population, as the ``compact_all`` send encodes only the
+    senders: "int8_sr" then draws the noise of row r at the flat positions
+    ``rows[r]·d + j`` of the whole population's draw
+    (``random.sr_noise_for_rows``), and the deterministic codecs ignore
+    it. For the packed codecs returns ``(payload, scale)`` (uint8 (N,
+    ceil(d/g)), f16 (N,)), or ``(payload, scale, resid)`` when ``ef`` (the
+    (N, d) f32 error-feedback residual) is given: ``w + ef`` is encoded
+    and ``resid = (w + ef) - decode(...)``; the caller applies the send
+    mask. The outputs are new tensors (the caller copies them into its
+    buffer row). On CUDA, ``send_route(d, name, send_aligned(w, ef))``
+    picks the kernel."""
+    codec = _check_send(w, name, key, ef, rows)
     if w.device.type == "cpu":
-        return quantize_send_plain(w, name, key=key, ef=ef)
+        return quantize_send_plain(w, name, key=key, ef=ef, rows=rows)
     if w.device.type != "cuda":
         raise NotImplementedError(f"no send kernel for device {w.device}")
-    return _launch_send(w, codec, key, ef)
+    return _launch_send(w, codec, key, ef, rows=rows)
 
 
 # Kernel launches so far (the receive kernel's in all and by route, the

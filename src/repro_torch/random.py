@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import math
 
+from typing import Optional
+
 import torch
 
 from repro_torch.utils.device import resolve_device
@@ -118,12 +120,13 @@ def uniform_at(k, p) -> torch.Tensor:
     return _bits_to_unit_float(b1 ^ b2)
 
 
-def sr_noise_for_rows(k, rows, d: int, n: int) -> torch.Tensor:
+def sr_noise_for_rows(k, rows, d: int, n: Optional[int]) -> torch.Tensor:
     """The ``int8_sr`` noise ``uniform(k, (n, d))[rows]`` for the given row
     indices only: (len(rows), d) float32, bitwise equal to the full draw.
     ``n``, the full draw's row count, is the reference helper's argument;
     the partitionable scheme counts flat positions, so the noise of a row
-    does not depend on it (rows must lie in ``[0, n)``)."""
+    does not depend on it (rows must lie in ``[0, n)``; ``None`` where the
+    caller does not know ``n``)."""
     rows = torch.as_tensor(rows, dtype=torch.int64, device=k.device)
     p = rows[:, None] * d + torch.arange(d, dtype=torch.int64,
                                          device=k.device)[None, :]

@@ -11,9 +11,12 @@ flash-attention kernel on both its routes (tensor cores for
 TMA-readable bf16 at head_dim 64/128, CUDA cores for the rest), and the
 sharded engine against the reference engine on the f32 and the quantized
 wires and under Byzantine faults, with and without a serving hook, and
-armed with telemetry (its streams equal to the reference engine's); and
-the reduced LM served on the card against the same weights served on the
-CPU.
+armed with telemetry (its streams equal to the reference engine's); the
+compact packings bit for bit the dense run (kernel #1 on the gathered
+receivers, #2-#4 on the senders' rows, kernel #2 with ``rows`` against
+its plain version) and Adaline and logistic regression on the vector
+apply against the reference engine; and the reduced LM served on the card
+against the same weights served on the CPU.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one. They import neither JAX nor the JAX package, so they run on a
@@ -499,3 +502,73 @@ def test_flash_views_tma_cannot_read_take_cuda_core_route(cuda, layout):
 def test_reduced_lm_served_on_card_matches_cpu(cuda):
     diff, toks = smoke.small_server_check(cuda, seed=3)
     assert toks.shape == (2, 16)
+
+
+def packing_data(n=2000):
+    X, y = make_linear_dataset(np.random.default_rng(0), n + 500, 10,
+                               noise=0.07, separation=2.5)
+    cfg = with_failure_scenario(GossipLinearConfig(
+        name="cuda-test", dim=10, n_nodes=n, n_test=500, class_ratio=(1, 1),
+        lam=1e-3, variant="mu"), "extreme")
+    return cfg, X, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire,fault,defense", smoke.PACKING_MIXES)
+def test_every_packing_is_the_dense_run_on_the_card(cuda, wire, fault,
+                                                    defense):
+    """``compact``, ``compact_all`` and the chooser bit for bit the dense
+    run (curves, economy, fault counters, EF norm, the cache at each eval
+    point), kernel #1 on the grouped route once a cycle (twice under
+    ``compact``) and #2-#4 once a cycle on the tiled route, the subset's
+    rows included."""
+    n = 2000
+    cfg, X, y = packing_data(n)
+    cfg = dataclasses.replace(cfg, wire_dtype=wire, fault_model=fault,
+                              byzantine_frac=0.1 if fault else 0.0,
+                              defense=defense)
+    snaps = {m: [] for m in smoke.PACKINGS + (None,)}
+    runs = {m: smoke.packing_run(cfg, X, y, n, 20, cuda, m, snaps=snaps[m])
+            for m in smoke.PACKINGS + (None,)}
+    for m, r in runs.items():
+        assert smoke.run_outcome(r["res"]) == smoke.run_outcome(
+            runs["dense"]["res"]), m
+        smoke.same_snapshots(snaps[m], snaps["dense"], str(m))
+    assert runs["compact"]["recv"] == 40
+    assert runs["compact_all"]["recv"] == 20
+
+
+@pytest.mark.cuda
+def test_send_kernel_with_rows_matches_plain_version(cuda):
+    """int8_sr with ``rows``: bitwise the plain version and the strided
+    route, and at d = 10 the dense encode's rows."""
+    assert smoke.check_send_rows(cuda) == len(smoke.SEND_ROWS_SHAPES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("learner", smoke.VECTOR_LEARNERS)
+def test_vector_learners_on_the_card_match_the_reference_engine(cuda,
+                                                                learner):
+    """Adaline and logistic regression (the vector apply, plain PyTorch on
+    the card): economy equal to the reference engine's, curves within
+    0.02, every packing bit for bit the dense run, no launch of the
+    Pegasos receive kernel."""
+    from repro_torch.core.simulation import run_simulation
+    n = 2000
+    cfg, X, y = packing_data(n)
+    cfg = dataclasses.replace(cfg, learner=learner)
+    args = (cfg, X[:n], y[:n], X[n:], y[n:])
+    kw = dict(cycles=12, eval_every=6, seed=1, device=cuda)
+    before = gc.fused_receive_apply.launches
+    ref = run_simulation(*args, engine="reference", **kw)
+    runs = [run_simulation(*args, engine="sharded", compact_mode=m, **kw)
+            for m in smoke.PACKINGS + (None,)]
+    assert gc.fused_receive_apply.launches == before
+    for r in runs:
+        assert smoke.run_outcome(r) == smoke.run_outcome(runs[0])
+    sh = runs[-1]
+    assert (sh.sent_total, sh.delivered_total, sh.lost_total,
+            sh.overflow_total) == (ref.sent_total, ref.delivered_total,
+                                   ref.lost_total, ref.overflow_total)
+    assert max(abs(a - b) for a, b in zip(
+        sh.err_fresh + sh.err_voted, ref.err_fresh + ref.err_voted)) <= 0.02

@@ -128,7 +128,7 @@ def test_registry_equals_the_reference():
         assert SPAN_NAMES[name] == meaning
     own = set(SPAN_NAMES) - set(jtel.SPAN_NAMES)
     assert own == {"setup", "draw_enqueue", "draw_readback", "dense_table",
-                   "table_upload"}
+                   "pack_tables", "table_upload"}
     for name in own:
         assert f"``{name}``" in ptel.__doc__
         assert SPAN_NAMES[name].split(" — ")[0] in TRACKS
@@ -202,12 +202,14 @@ def test_integer_streams_equal_the_jax_reference(engine, case, jax_streams,
 @pytest.mark.parametrize("case", list(CASES))
 def test_port_engines_emit_equal_streams(case, port_runs):
     ref, _ = port_runs("reference", case)
-    sh, _ = port_runs("sharded", case)
+    sh, res = port_runs("sharded", case)
     for name in METRIC_STREAMS:
         assert np.array_equal(ref.stream_array(name),
                               sh.stream_array(name)), name
     assert ref.annotations["runs"][0]["engine"] == "reference"
-    assert sh.annotations["runs"][0]["chunk_modes"] == {"dense": N_EVALS}
+    modes = sh.annotations["runs"][0]["chunk_modes"]
+    assert modes == res.compaction["chunk_modes"]
+    assert sum(modes.values()) == N_EVALS
 
 
 @pytest.mark.parametrize("engine", ENGINES)
@@ -309,8 +311,9 @@ def test_sharded_spans_never_overlap():
     CUDA)."""
     X, y, Xt, yt = toy()
     tel = Telemetry()
-    run_simulation(port_cfg("extreme", wire_dtype="int4_ef"), X, y, Xt, yt,
-                   engine="sharded", telemetry=tel, device="cpu", **KW)
+    res = run_simulation(port_cfg("extreme", wire_dtype="int4_ef"), X, y, Xt,
+                         yt, engine="sharded", telemetry=tel, device="cpu",
+                         **KW)
     for track in TRACKS:
         spans = sorted((s for s in tel.spans if s.track == track),
                        key=lambda s: s.t0)
@@ -322,10 +325,14 @@ def test_sharded_spans_never_overlap():
     count = {}
     for s in tel.spans:
         count[s.name] = count.get(s.name, 0) + 1
+    # on the CPU the packing is chosen per chunk (``pack_tables``) and the
+    # dense table built only for the chunks that stay dense
+    dense = res.compaction["chunk_modes"]["dense"]
     assert count == {"setup": 1, "draw_enqueue": N_EVALS,
                      "draw_readback": N_EVALS, "route_chunk": N_EVALS,
-                     "dense_table": N_EVALS, "chunk_dispatch": N_EVALS,
-                     "eval": N_EVALS, "collect_results": 1}
+                     "pack_tables": N_EVALS, "chunk_dispatch": N_EVALS,
+                     "eval": N_EVALS, "collect_results": 1,
+                     **({"dense_table": dense} if dense else {})}
     assert sum(tel.phase_seconds().values()) <= tel.wall_seconds()
 
 
