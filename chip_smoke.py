@@ -110,7 +110,20 @@ and ``nvcc``. The phases, each of which raises on failure:
    the extreme and sparse-d0.8-o0.1 scenarios, armed: wall time,
    node-cycles/s, the host's spans, launches, peak memory, bit for bit
    across packings, and kernel #1 on the last subset launch beside its
-   bound.
+   bound;
+8. the paper's experiments: the five drivers of ``repro_torch.paper``
+   (Table I, Fig. 1-3, Theorem 1) at their quick settings, then Fig. 1's
+   failure-free MU run on spambase and reuters (each against the port's
+   reference engine on the card: economy equal, curves within 0.02) and
+   its WB1/WB2 over 2000 models on reuters (against the same run on the
+   CPU: indices and t equal, W within ``BAGGING_W_RTOL`` of max |W|,
+   curves within 0.02); every protocol run's economy adding up, kernel #1
+   once a cycle, kernel #6 once a bagging cycle and once a chain
+   iteration on the layout ``ROW_PATHS`` names, Theorem 1 holding on every
+   geometry; #6 on each path's last-launch inputs (replayed from a CUDA
+   graph, beside a call's time, the other layout's and the plain
+   version's) and #1 on the MU runs' beside their bounds, and the
+   phase's seconds.
 
 Prints one JSON line of per-kernel results (with phase 3's armed seconds
 by span under ``"phase3_spans"``), the ``nvidia-smi`` name and power
@@ -2119,6 +2132,427 @@ def launch_rows(captured) -> int:
     return int(captured["last_w"].shape[0])
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the paper's experiments
+# ---------------------------------------------------------------------------
+
+# the drivers of repro_torch.paper, run at quick=True, in the order of
+# benchmarks/run.py's paper entries
+PAPER_DRIVERS = ("table1", "fig1", "fig2", "fig3", "theory")
+PAPER_CYCLES = 60       # the drivers' quick cycles
+# kernel #6's launches a path takes by (kind, d), and the layout each must
+# take: the bagging population (fig1 on spambase, the reuters run) and
+# Table I's chain at N = 1 on the three datasets
+ROW_PATHS = {("bagging", 57): "tiled", ("bagging", 9947): "strided",
+             ("chain", 10): "tiled", ("chain", 57): "tiled",
+             ("chain", 9947): "strided"}
+# the stated tolerance of tests/test_torch_ensemble.py: W within this share
+# of max|W|
+BAGGING_W_RTOL = 2e-6
+
+
+def reset_counts(fn):
+    """A kernel wrapper's launch counts set to 0."""
+    fn.launches = 0
+    for route in fn.route_launches:
+        fn.route_launches[route] = 0
+
+
+def economy_adds_up(res, tag: str):
+    """A run's economy adds up and its curves are finite rates."""
+    import numpy as np
+    if res.sent_total != (res.delivered_total + res.lost_total
+                          + res.overflow_total + res.in_flight_total):
+        raise AssertionError(f"{tag}: the message economy does not add up")
+    curves = res.err_fresh + res.err_voted + res.similarity
+    if not (all(np.isfinite(curves))
+            and all(0.0 <= e <= 1.0 for e in res.err_fresh + res.err_voted)):
+        raise AssertionError(f"{tag}: bad curves {curves}")
+
+
+def paper_mu_run(cfg, data, dev, cycles: int):
+    """Fig. 1's failure-free MU run of ``cfg``'s dataset on the sharded
+    engine (kernel #1, counts set to 0 just before and read just after,
+    a copy kept of the last launch's inputs) and on the port's reference
+    engine on the card: the receive kernel once a cycle on
+    ``receive_route``'s route, both economies adding up and equal, the
+    curves within 0.02. Returns a dict."""
+    import torch
+    from repro_torch.core.simulation import run_simulation
+    from repro_torch.kernels import gossip_cycle as gc
+    X, y, Xt, yt = data
+    kw = dict(cycles=cycles, eval_every=max(cycles // 15, 1), seed=0,
+              device=dev)
+    recv = gc.fused_receive_apply
+    got = {}
+
+    def capture(*a, **k):
+        if recv.launches == cycles - 1:
+            got.update({name: v.clone() for name, v in zip(ORDER, a)})
+            got["wire"] = k.get("wire")
+            got["defense"] = k.get("defense", "none")
+        return recv(*a, **k)
+
+    torch.cuda.synchronize()
+    gc.fused_receive_apply = capture
+    try:
+        reset_counts(recv)
+        t0 = time.perf_counter()
+        sh = run_simulation(cfg, X, y, Xt, yt, engine="sharded", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, routes = recv.launches, dict(recv.route_launches)
+    finally:
+        gc.fused_receive_apply = recv
+    ref = run_simulation(cfg, X, y, Xt, yt, engine="reference", **kw)
+    d = X.shape[1]
+    want = dict.fromkeys(gc.RECEIVE_ROUTES, 0)
+    want[gc.receive_route(d, 4)] = cycles
+    if launches != cycles or routes != want:
+        raise AssertionError(f"{cfg.name} mu: {launches} receive launches by "
+                             f"route {routes}, expected {want}")
+    econ = lambda r: (r.sent_total, r.delivered_total, r.lost_total,
+                      r.overflow_total, r.in_flight_total,
+                      list(r.delivered_per_cycle))
+    for r, tag in ((sh, "sharded"), (ref, "reference")):
+        economy_adds_up(r, f"{cfg.name} mu {tag}")
+    if econ(sh) != econ(ref) or sh.cycles != ref.cycles:
+        raise AssertionError(f"{cfg.name} mu: economy or eval points differ "
+                             f"from the reference engine's: {econ(sh)[:5]} "
+                             f"vs {econ(ref)[:5]}")
+    diff = max(abs(a - b) for a, b in zip(sh.err_fresh + sh.err_voted,
+                                          ref.err_fresh + ref.err_voted))
+    if not diff <= 0.02:
+        raise AssertionError(f"{cfg.name} mu: curves differ from the "
+                             f"reference engine's by {diff}")
+    return dict(res=sh, wall=wall, launches=launches, routes=routes,
+                cap=got, curve_diff=diff)
+
+
+def bagging_run(data, n_models: int, cycles: int, lam: float, device):
+    """``run_weighted_bagging`` (Fig. 1's WB1/WB2) on ``device``. Returns
+    (result, each cycle's sample indices and the last step's (W, t), both
+    copied to the host after the run, wall s)."""
+    from repro_torch import random
+    from repro_torch.core import ensemble
+    from repro_torch.kernels import ops
+    draws, last = [], []
+    randint, step = random.randint, ops.pegasos_update
+
+    def keep_draw(*a, **k):
+        idx = randint(*a, **k)
+        draws.append(idx)
+        return idx
+
+    def keep_step(*a, **k):
+        out = step(*a, **k)
+        last[:] = out
+        return out
+
+    random.randint, ops.pegasos_update = keep_draw, keep_step
+    try:
+        t0 = time.perf_counter()
+        res = ensemble.run_weighted_bagging(
+            *data, n_models=n_models, cycles=cycles, lam=lam,
+            eval_every=max(cycles // 15, 1), device=device)
+        wall = time.perf_counter() - t0
+    finally:
+        random.randint, ops.pegasos_update = randint, step
+    return (res, [idx.cpu() for idx in draws], [a.cpu() for a in last],
+            wall)
+
+
+def compare_path_rows(inputs, lam):
+    """Kernel #6 on a path's captured inputs (w, t, x, y) against its
+    plain version: t equal; w within rtol 2e-5, atol 1e-5 (``compare_rows``)
+    in every row but those whose hinge another order of the margin's sum
+    may decide the other way (``hinge_may_flip``). Returns (max abs err,
+    rows left out)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    w, t = ops.pegasos_update(*inputs, lam=lam)
+    pw, pt = ref.pegasos_update_ref(*inputs, lam)
+    torch.cuda.synchronize()
+    if not torch.equal(t, pt) or not torch.isfinite(w).all():
+        raise AssertionError("pegasos_update on a paper path: t differs or w "
+                             "is not finite")
+    keep = ~hinge_may_flip(inputs)
+    if not torch.allclose(w[keep], pw[keep], rtol=2e-5, atol=1e-5):
+        raise AssertionError(f"pegasos_update on a paper path: w off by "
+                             f"{float((w - pw)[keep].abs().max())}")
+    return float((w - pw)[keep].abs().max()), int((~keep).sum())
+
+
+def time_path_rows(inputs, lam):
+    """ms per launch of kernel #6 on a path's captured inputs, replayed
+    from a CUDA graph (a call's host time exceeds the kernel's at these
+    sizes; the per-call time is kept beside it as ``call_ms``), the other
+    layout's where it takes them (None past d = 128) and the plain
+    version's the same way, and the bound. Returns a dict."""
+    from repro_torch.kernels import pegasos_update as pu
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops
+    n, d = inputs[0].shape
+    aligned = all(a.data_ptr() % 16 == 0 for a in inputs)
+    route = pu.row_route(d, False, aligned)
+    other = "strided" if route == "tiled" else (
+        "tiled" if d <= pu.TILED_KERNEL_MAX_WIDTH and aligned else None)
+    step = lambda: ops.pegasos_update(*inputs, lam=lam)
+    ms = graph_time_ms(step, reps=20)
+    call_ms = cuda_time_ms(step, reps=20)
+    other_ms = None if other is None else graph_time_ms(
+        lambda: pu._launch_step(inputs, n, d, lam, route=other), reps=20)
+    plain_ms = graph_time_ms(lambda: ref.pegasos_update_ref(*inputs, lam),
+                             reps=10)
+    b_ms, by, nbytes = rows_bound("pegasos_update", n, d)
+    return dict(n=n, d=d, route=route, ms=ms, call_ms=call_ms,
+                other_route=other, other_ms=other_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=by, bytes=nbytes)
+
+
+def phase8(card: str, results: dict, dev) -> list:
+    """The paper's experiments on the card: every driver of
+    ``repro_torch.paper`` at its quick settings, Fig. 1's failure-free MU
+    run and its WB1/WB2 over 2000 models on reuters, with kernel #1's and
+    #6's launches counted by route (counts set to 0 before each path and
+    read after); every protocol run's economy, the MU runs' curves against
+    the reference engine, the reuters bagging on the card against the CPU,
+    Theorem 1 on every geometry; #1 and #6 timed on the paths' last-launch
+    inputs. Returns the ``kernels`` line's rows."""
+    import dataclasses
+    import importlib
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import gossip_cycle as gc
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pegasos_update as pu
+    from repro_torch.paper import common
+
+    out = results.setdefault("phase8", {})
+    t_start = time.perf_counter()
+    recv, step6 = gc.fused_receive_apply, ops.pegasos_update
+    runs, holds = [], []
+    row_routes = {}          # (kind, d) -> launches by layout
+    row_last = {}            # (kind, d) -> (the last launch's inputs, lam)
+    recv_routes = {}         # d -> launches by route
+
+    def count_recv(*a, **k):
+        d = a[0].shape[1]
+        before = dict(recv.route_launches)
+        r = recv(*a, **k)
+        by = recv_routes.setdefault(d, dict.fromkeys(gc.RECEIVE_ROUTES, 0))
+        for route, v in recv.route_launches.items():
+            by[route] += v - before[route]
+        return r
+
+    def count_step(w, t, x, y, *, lam):
+        key = ("chain" if w.shape[0] == 1 else "bagging", w.shape[1])
+        before = dict(pu.pegasos_update.route_launches)
+        r = step6(w, t, x, y, lam=lam)
+        by = row_routes.setdefault(key, dict.fromkeys(pu.ROW_ROUTES, 0))
+        for route, v in pu.pegasos_update.route_launches.items():
+            by[route] += v - before[route]
+        row_last[key] = ((w, t, x, y), lam)
+        return r
+
+    def keep_run(fn, driver):
+        def run(cfg, *a, **k):
+            res = fn(cfg, *a, **k)
+            runs.append((driver, cfg.name, cfg.variant, cfg.drop_prob,
+                         k.get("sampler", "uniform"), res))
+            return res
+        return run
+
+    def keep_regret(fn):
+        def regret(*a, **k):
+            tr = fn(*a, **k)
+            holds.append(tr.holds)
+            return tr
+        return regret
+
+    # ---- the drivers at quick, counts set to 0 just before ---------------
+    mods = {n: importlib.import_module(f"repro_torch.paper.{n}")
+            for n in PAPER_DRIVERS}
+    protocol = [n for n, m in mods.items() if hasattr(m, "run_simulation")]
+    saved = [(mods[n], "run_simulation", mods[n].run_simulation)
+             for n in protocol]
+    saved += [(mods["theory"], "mu_chain_regret",
+               mods["theory"].mu_chain_regret),
+              (common, "OUT_DIR", common.OUT_DIR)]
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        common.OUT_DIR = Path(tmp)       # the drivers' CSVs are not kept
+        for n in protocol:
+            mods[n].run_simulation = keep_run(mods[n].run_simulation, n)
+        mods["theory"].mu_chain_regret = keep_regret(
+            mods["theory"].mu_chain_regret)
+        gc.fused_receive_apply, ops.pegasos_update = count_recv, count_step
+        try:
+            reset_counts(recv)
+            reset_counts(pu.pegasos_update)
+            for name, mod in mods.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mod.run(quick=True, device=dev)
+                torch.cuda.synchronize()
+                walls[name] = time.perf_counter() - t0
+                print(f"[8] {card}: repro_torch.paper.{name} (quick): "
+                      f"{walls[name]:.2f} s")
+            drivers_recv = recv.launches
+            drivers_rows = pu.pegasos_update.launches
+        finally:
+            gc.fused_receive_apply, ops.pegasos_update = recv, step6
+            for m, name, fn in saved:
+                setattr(m, name, fn)
+    protocol_cycles = 0
+    for driver, ds, variant, drop, sampler, res in runs:
+        economy_adds_up(res, f"{driver} {ds} {variant} drop={drop} "
+                             f"{sampler}")
+        protocol_cycles += res.cycles[-1]
+    if drivers_recv != protocol_cycles or len(runs) != 11:
+        raise AssertionError(f"the drivers' {len(runs)} protocol runs of "
+                             f"{protocol_cycles} cycles launched kernel #1 "
+                             f"{drivers_recv} times")
+    if not holds or not all(holds) or len(holds) != 3:
+        raise AssertionError(f"Theorem 1's bound: holds {holds}")
+    print(f"[8] the drivers' {len(runs)} protocol runs (sharded engine): "
+          f"every economy adds up; kernel #1 launched {drivers_recv} times "
+          f"(once a cycle), by d and route {recv_routes}; kernel #6 "
+          f"{drivers_rows} times, by path and layout {row_routes}; Theorem "
+          f"1 holds on all three geometries")
+
+    # ---- Fig. 1 on reuters: MU, and WB1/WB2 over 2000 models --------------
+    paper = {}
+    for name in ("spambase", "reuters"):
+        X, y, Xt, yt, cfg = common.dataset(name)
+        r = paper_mu_run(dataclasses.replace(cfg, variant="mu"),
+                         (X, y, Xt, yt), dev, PAPER_CYCLES)
+        d = X.shape[1]
+        by = recv_routes.setdefault(d, dict.fromkeys(gc.RECEIVE_ROUTES, 0))
+        for route, v in r["routes"].items():
+            by[route] += v
+        paper[name] = r
+        print(f"[8] {card}: Fig. 1 {name} mu (N={X.shape[0]} d={d}, "
+              f"{PAPER_CYCLES} cycles): {r['wall']:.3f} s, receive launches "
+              f"{r['launches']} {r['routes']}; economy equal to the "
+              f"reference engine's (sent {r['res'].sent_total}, delivered "
+              f"{r['res'].delivered_total}); max curve difference "
+              f"{r['curve_diff']:.3e}; err_fresh {r['res'].err_fresh[-1]:.4f}")
+    X, y, Xt, yt, cfg = common.dataset("reuters")
+    n_models = min(X.shape[0], 2048)
+    ops.pegasos_update = count_step
+    try:
+        reset_counts(pu.pegasos_update)
+        bag, draws, last, bag_wall = bagging_run((X, y, Xt, yt), n_models,
+                                                 PAPER_CYCLES, cfg.lam, dev)
+        torch.cuda.synchronize()
+        bag_launches = pu.pegasos_update.launches
+    finally:
+        ops.pegasos_update = step6
+    if bag_launches != PAPER_CYCLES:
+        raise AssertionError(f"reuters bagging launched kernel #6 "
+                             f"{bag_launches} times")
+    t0 = time.perf_counter()
+    cbag, cdraws, clast, _ = bagging_run((X, y, Xt, yt), n_models,
+                                         PAPER_CYCLES, cfg.lam, "cpu")
+    cpu_s = time.perf_counter() - t0
+    if len(draws) != PAPER_CYCLES or not all(
+            torch.equal(a, b) for a, b in zip(draws, cdraws)):
+        raise AssertionError("reuters bagging: the card's sample indices "
+                             "differ from the CPU's")
+    if not torch.equal(last[1], clast[1]):
+        raise AssertionError("reuters bagging: t differs from the CPU's")
+    w_err = float((last[0] - clast[0]).abs().max())
+    w_max = float(clast[0].abs().max())
+    if not w_err <= BAGGING_W_RTOL * w_max:
+        raise AssertionError(f"reuters bagging: W differs from the CPU's by "
+                             f"{w_err} (max |W| {w_max})")
+    bag_diff = max(abs(a - b) for a, b in zip(
+        bag.err_wb1 + bag.err_wb2 + bag.err_single,
+        cbag.err_wb1 + cbag.err_wb2 + cbag.err_single))
+    if bag.cycles != cbag.cycles or not bag_diff <= 0.02:
+        raise AssertionError(f"reuters bagging: curves differ from the "
+                             f"CPU's by {bag_diff}")
+    print(f"[8] {card}: Fig. 1 reuters WB1/WB2 over {n_models} models "
+          f"(d={X.shape[1]}, {PAPER_CYCLES} cycles): {bag_wall:.3f} s on the "
+          f"card ({cpu_s:.3f} s on the CPU), kernel #6 {bag_launches} "
+          f"launches; indices and t equal to the CPU's, W within "
+          f"{w_err:.3e} (max |W| {w_max:.4g}), curves within "
+          f"{bag_diff:.3e}; WB1 {bag.err_wb1[-1]:.4f}, WB2 "
+          f"{bag.err_wb2[-1]:.4f}, single {bag.err_single[-1]:.4f}")
+    for key, want in ROW_PATHS.items():
+        by = row_routes.get(key, {})
+        if not by.get(want) or sum(by.values()) != by[want]:
+            raise AssertionError(f"kernel #6 on the {key[0]} path at "
+                                 f"d={key[1]}: launches by layout {by}, "
+                                 f"expected all on {want}")
+
+    # ---- times on the paths' last-launch inputs ---------------------------
+    rows = []
+    out["rows"] = {}
+    for (kind, d), (inputs, lam) in sorted(row_last.items()):
+        err, left = compare_path_rows(inputs, lam)
+        t_ = time_path_rows(inputs, lam)
+        other = ("" if t_["other_ms"] is None else
+                 f"; {t_['other_route']} {t_['other_ms']:.4f} ms on the same "
+                 "inputs")
+        print(f"[8] {card}: pegasos_update [{kind}] N={t_['n']} d={d}: "
+              f"{t_['ms']:.4f} ms/launch in a graph ({t_['route']}; a call "
+              f"{t_['call_ms']:.4f} ms) vs bound {t_['bound_ms']:.6f} ms "
+              f"({t_['bound_by']}, {t_['bytes']} B){other}; plain "
+              f"{t_['plain_ms']:.4f} ms; max abs err vs plain {err:.3e} "
+              f"({left} rows whose hinge may flip left out)")
+        launches = sum(row_routes[(kind, d)].values())
+        out["rows"][f"{kind}/{d}"] = dict(t_, launches=launches,
+                                          max_abs_err=err)
+        rows.append(dict(
+            name=f"pegasos_update[{kind}]", route="cuda",
+            source="src/repro_torch/kernels/csrc/pegasos_merge.cu",
+            replaces=ROW_KERNELS["pegasos_update"], launches=launches,
+            max_abs_err=err, ms=t_["ms"], plain_ms=t_["plain_ms"],
+            bound_ms=t_["bound_ms"], bound_by=t_["bound_by"],
+            library_ms=None, row_route=t_["route"], n=t_["n"], d=d,
+            call_ms=t_["call_ms"], other_route=t_["other_route"],
+            other_ms=t_["other_ms"]))
+    out["receive"] = {}
+    for name, r in paper.items():
+        d = r["cap"]["x"].shape[1]
+        t_ = time_receive(r["cap"], "mu", r["res"].config.lam, d,
+                          1e-4 if d > 64 else 1e-5)
+        print(f"[8] {card}: fused_receive_apply [paper] {name} "
+              f"N={launch_rows(r['cap'])} d={d}: {receive_line(t_)}")
+        launches = sum(recv_routes[d].values())
+        out["receive"][name] = dict(ms=t_["ms"], plain_ms=t_["plain_ms"],
+                                    bound_ms=t_["bound_ms"],
+                                    route=t_["route"], launches=launches,
+                                    max_abs_err=t_["err"])
+        rows.append(dict(
+            name="fused_receive_apply[paper]", route="cuda",
+            source="src/repro_torch/kernels/csrc/gossip_cycle.cu",
+            replaces="src/repro/kernels/gossip_cycle.py:272",
+            launches=launches, max_abs_err=t_["err"], ms=t_["ms"],
+            plain_ms=t_["plain_ms"], bound_ms=t_["bound_ms"],
+            bound_by=t_["bound_by"], library_ms=None,
+            receive_route=t_["route"], dataset=name, d=d))
+    del paper, row_last
+    torch.cuda.empty_cache()
+    out.update(
+        driver_walls=walls, receive_routes=recv_routes,
+        row_routes={f"{k}/{d}": v for (k, d), v in row_routes.items()},
+        runs=[dict(driver=dr, dataset=ds, variant=v, drop=dp, sampler=s,
+                   err_fresh=res.err_fresh[-1], sent=res.sent_total)
+              for dr, ds, v, dp, s, res in runs],
+        theorem1_holds=holds,
+        bagging=dict(wall_s=bag_wall, cpu_s=cpu_s, w_err=w_err, w_max=w_max,
+                     curve_diff=bag_diff, err_wb1=bag.err_wb1,
+                     err_wb2=bag.err_wb2))
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"[8] {card}: phase 8 took {out['seconds']:.1f} s")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -2851,9 +3285,13 @@ def main() -> int:
     # ---- 7. the compact packings and the vector apply ---------------------
     phase(7)
     kernels.extend(phase7(card, results, threefry, dev))
+
+    # ---- 8. the paper's experiments --------------------------------------
+    phase(8)
+    kernels.extend(phase8(card, results, dev))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - start
-    print(f"[7] {card}: the whole run took {results['total_s']:.1f} s")
+    print(f"[8] {card}: the whole run took {results['total_s']:.1f} s")
     if opts.out:
         out = Path(opts.out)
         out.parent.mkdir(parents=True, exist_ok=True)

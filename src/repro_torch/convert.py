@@ -11,7 +11,9 @@ carry, as numpy arrays, into the port's
 :class:`~repro_torch.core.sharded_engine.Carry` and back, each lane in its
 own dtype, and rebuild a config from ``dataclasses.asdict`` of the
 reference's. ``snapshot_from_arrays`` does the same for the reference's
-serving ``QuerySnapshot``. numpy has no bfloat16 of its own: a bf16 ``buf_w`` comes in
+serving ``QuerySnapshot``, and ``linear_model_from_arrays`` for a
+``LinearModel`` (one model or a population, as the ensemble baselines
+carry it). numpy has no bfloat16 of its own: a bf16 ``buf_w`` comes in
 as the reference's array and goes back out as its raw bits (uint16).
 
 For the LM stack, ``model_config_from_dict`` rebuilds a ``ModelConfig`` from
@@ -32,6 +34,7 @@ import torch
 from repro_torch.config import base as cfg_base
 from repro_torch.configs.gossip_linear import GossipLinearConfig
 from repro_torch.core.cache import ModelCache
+from repro_torch.core.learners import LinearModel
 from repro_torch.core.serving import QuerySnapshot
 from repro_torch.core.sharded_engine import Carry
 
@@ -110,6 +113,18 @@ def snapshot_from_arrays(arrays: Sequence, device) -> QuerySnapshot:
     i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=device)
     return QuerySnapshot(f32(w), i32(t), i32(count), f32(fresh_w),
                          i32(fresh_t), int(clock))
+
+
+def linear_model_from_arrays(w, t, device) -> LinearModel:
+    """The reference's ``LinearModel(w, t)`` (as numpy arrays: w (d,) or
+    (N, d), t () or (N,)) as the port's, w float32 and t int32 on
+    ``device``."""
+    w, t = np.asarray(w), np.asarray(t)
+    if w.ndim not in (1, 2) or t.shape != w.shape[:-1]:
+        raise ValueError(f"expected w (d,) or (N, d) with t () or (N,), got "
+                         f"w {w.shape} and t {t.shape}")
+    return LinearModel(torch.tensor(w, dtype=torch.float32, device=device),
+                       torch.tensor(t, dtype=torch.int32, device=device))
 
 
 def config_from_dict(d: Mapping) -> GossipLinearConfig:

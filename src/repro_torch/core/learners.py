@@ -39,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import faults
+from repro_torch.utils.device import resolve_device
 
 
 class LinearModel(NamedTuple):
@@ -46,6 +47,17 @@ class LinearModel(NamedTuple):
 
     w: torch.Tensor          # (d,) or (N, d) float32
     t: torch.Tensor          # () or (N,) int32 update counter
+
+
+def init_model(d: int, n: int | None = None, device=None) -> LinearModel:
+    """INITMODEL (Algorithm 3): w = 0 (float32), t = 0 (int32); one (d,)
+    model, or a population of ``n`` when given, on ``device`` (the CUDA
+    card unless named)."""
+    dev = resolve_device(device)
+    shape = (d,) if n is None else (n, d)
+    return LinearModel(torch.zeros(shape, dtype=torch.float32, device=dev),
+                       torch.zeros(shape[:-1], dtype=torch.int32,
+                                   device=dev))
 
 
 def pegasos_update(m: LinearModel, x, y, lam: float) -> LinearModel:

@@ -15,8 +15,10 @@ armed with telemetry (its streams equal to the reference engine's); the
 compact packings bit for bit the dense run (kernel #1 on the gathered
 receivers, #2-#4 on the senders' rows, kernel #2 with ``rows`` against
 its plain version) and Adaline and logistic regression on the vector
-apply against the reference engine; and the reduced LM served on the card
-against the same weights served on the CPU.
+apply against the reference engine; the reduced LM served on the card
+against the same weights served on the CPU; and the paper's baselines,
+WB1/WB2 bagging and the sequential Pegasos chain, on kernel #6 against the
+same runs on the CPU.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one. They import neither JAX nor the JAX package, so they run on a
@@ -572,3 +574,64 @@ def test_vector_learners_on_the_card_match_the_reference_engine(cuda,
                                    ref.lost_total, ref.overflow_total)
     assert max(abs(a - b) for a, b in zip(
         sh.err_fresh + sh.err_voted, ref.err_fresh + ref.err_voted)) <= 0.02
+
+
+def small_problem(n, d, seed=0):
+    rng = np.random.default_rng(seed)
+    X, y = make_linear_dataset(rng, n + 200, d, noise=0.05, separation=3.0)
+    return X[:n], y[:n], X[n:], y[n:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,m", [(300, 10, 256), (500, 57, 2048),
+                                   (200, 9947, 64)])
+def test_bagging_on_the_card_matches_the_cpu(cuda, n, d, m):
+    """``run_weighted_bagging`` with kernel #6 (``row_route``'s layout, once
+    a cycle) against its plain version on the CPU: sample indices and t
+    equal, W within ``chip_smoke.BAGGING_W_RTOL`` of max |W|, the curves
+    within 0.02."""
+    from repro_torch.kernels import pegasos_update as pu
+    data = small_problem(n, d)
+    pu.pegasos_update.launches = 0
+    before = dict(pu.pegasos_update.route_launches)
+    res, draws, last, _ = smoke.bagging_run(data, m, 20, 1e-4, cuda)
+    assert pu.pegasos_update.launches == 20
+    want = pu.row_route(d, False)
+    assert pu.pegasos_update.route_launches[want] - before[want] == 20
+    cres, cdraws, clast, _ = smoke.bagging_run(data, m, 20, 1e-4, "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(draws, cdraws))
+    assert torch.equal(last[1], clast[1])
+    assert float((last[0] - clast[0]).abs().max()) <= (
+        smoke.BAGGING_W_RTOL * float(clast[0].abs().max()))
+    assert res.cycles == cres.cycles
+    assert max(abs(a - b) for a, b in zip(
+        res.err_wb1 + res.err_wb2 + res.err_single,
+        cres.err_wb1 + cres.err_wb2 + cres.err_single)) <= 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [10, 57, 9947])
+def test_sequential_chain_on_the_card_matches_the_cpu(cuda, d):
+    """``run_sequential_pegasos``: one launch of kernel #6 an iteration at
+    N = 1, on ``row_route``'s layout (its views of padded rows are
+    aligned); the final t equal to the CPU's, w within
+    ``chip_smoke.BAGGING_W_RTOL`` of max |w|, the points within 0.02."""
+    from repro_torch.core import ensemble
+    from repro_torch.kernels import pegasos_update as pu
+    X, y, Xt, yt = small_problem(300, d)
+    pu.pegasos_update.launches = 0
+    before = dict(pu.pegasos_update.route_launches)
+    m, pts = ensemble.run_sequential_pegasos(X, y, Xt, yt, iters=250,
+                                             lam=1e-4, eval_every=100,
+                                             device=cuda)
+    assert pu.pegasos_update.launches == 250
+    want = pu.row_route(d, False)
+    assert pu.pegasos_update.route_launches[want] - before[want] == 250
+    cm, cpts = ensemble.run_sequential_pegasos(X, y, Xt, yt, iters=250,
+                                               lam=1e-4, eval_every=100,
+                                               device="cpu")
+    assert int(m.t) == int(cm.t) == 250
+    assert float((m.w.cpu() - cm.w).abs().max()) <= (
+        smoke.BAGGING_W_RTOL * float(cm.w.abs().max()))
+    assert [p[0] for p in pts] == [p[0] for p in cpts] == [100, 200, 250]
+    assert max(abs(a[1] - b[1]) for a, b in zip(pts, cpts)) <= 0.02
