@@ -123,7 +123,21 @@ and ``nvcc``. The phases, each of which raises on failure:
    geometry; #6 on each path's last-launch inputs (replayed from a CUDA
    graph, beside a call's time, the other layout's and the plain
    version's) and #1 on the MU runs' beside their bounds, and the
-   phase's seconds.
+   phase's seconds;
+9. gossip-SGD training: ``repro_torch.launch.train.train`` at its reduced
+   default on the card (all-reduce, then gossip with 4 peers, mu,
+   hypercube, AdamW; the loss and peer disagreement each step, finite and
+   falling); qwen3-1.7b at its published widths with the depth cut to 8
+   layers (4 if the peak passes 72 GB), 4 peers, batch 8 x 128, AdamW,
+   ``make_gossip_train_step`` under mu (int4 exchange), um (int8) and rw:
+   each step's loss, disagreement and split (fwd+bwd, optimizer, merge,
+   exchange), a profiled fourth mu step, each run's peak memory; then on
+   those stacked parameters one
+   ``gossip_merge`` per codec (bf16, int8, int4, ternary, int4_ef), each
+   bit for bit the merge with the codec's plain encode on the card, send
+   kernels #2 and #4 launched once a leaf (counted from the start of the
+   full-width runs), one whole exchange timed per codec, and #2 and #4 on
+   every leaf's rows beside their plain versions and bounds.
 
 Prints one JSON line of per-kernel results (with phase 3's armed seconds
 by span under ``"phase3_spans"``), the ``nvidia-smi`` name and power
@@ -2553,6 +2567,323 @@ def phase8(card: str, results: dict, dev) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 9: gossip-SGD training
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 100       # (a): steps of each reduced train() run (its default)
+# (b): qwen3-1.7b at its published widths with the depth cut to 8 layers
+# (4 if the peak passes FULL_PEAK_LIMIT), 4 peers, the reference train()'s
+# batch of 8 x 128 tokens, AdamW; each merge rule with the exchange it runs
+FULL_LAYERS = (8, 4)
+FULL_PEAK_LIMIT = 72e9
+FULL_PEERS, FULL_BATCH, FULL_SEQ, FULL_STEPS = 4, 8, 128, 3
+FULL_RUNS = (("mu", "int4"), ("um", "int8"), ("rw", ""))
+FULL_PROFILED = "mu"    # the run that takes one more step, profiled
+# (c): the exchange's codecs, and the send kernel each launches per leaf
+EXCHANGE_KERNELS = {"bf16": None, "int8": "affine8", "int4": "packed",
+                    "ternary": "packed", "int4_ef": "packed"}
+# the kernels line's rows of the exchange: kernel -> (codec timed, the
+# Pallas call it replaces)
+EXCHANGE_ROWS = {"affine8": ("int8", SEND_ROWS["affine8"]),
+                 "packed": ("int4", SEND_ROWS["packed"])}
+
+
+def full_width_runs(card: str, dev, layers: int, out: dict):
+    """(b): ``make_gossip_train_step`` at qwen3-1.7b's widths and
+    ``layers`` layers under each of ``FULL_RUNS``, from one seeded set of
+    weights: each step's loss, peer disagreement and split (fwd+bwd,
+    optimizer, merge and, inside it, the exchange; the host synchronizes
+    around each part), one more step of ``FULL_PROFILED``'s run under the
+    profiler, and each run's peak memory. Returns the last run's stacked
+    parameters and the largest peak."""
+    import math
+
+    import torch
+    from repro_torch.config import GossipConfig, get_config
+    from repro_torch.core import gossip_optimizer as go
+    from repro_torch.data.lm_data import SyntheticLMDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import Optimizer, make_optimizer, warmup_cosine
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_config("qwen3-1.7b").replace(num_layers=layers,
+                                           attn_impl="chunked")
+    p_, b_, s_ = FULL_PEERS, FULL_BATCH, FULL_SEQ
+    ds = SyntheticLMDataset(cfg.vocab_size, s_, b_, seed=0)
+    batches = [{k: torch.as_tensor(v, device=dev).reshape(p_, b_ // p_, s_)
+                for k, v in next(ds).items()} for _ in range(FULL_STEPS)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    base = tree_map(lambda p: p.detach(), T.init_params(cfg, gen, dev))
+    print(f"[9] {card}: {cfg.name} at d_model {cfg.d_model}, "
+          f"{cfg.attention.num_heads} q / {cfg.attention.num_kv_heads} kv "
+          f"heads of {cfg.attention.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size} (tied), {cfg.param_dtype}, depth cut to "
+          f"{layers} layers: {cfg.param_count() / 1e6:.1f} M parameters a "
+          f"peer, {p_} peers, batch {b_} x {s_}")
+
+    def loss_fn(p, b):
+        return T.lm_loss(p, cfg, b["tokens"], b["labels"])
+
+    split = {}
+
+    def timed(bucket, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            split[bucket] += time.perf_counter() - t0
+            return r
+        return run
+
+    merge_fn, exchange_fn = go.gossip_merge, go._exchange
+    go.gossip_merge = timed("merge", merge_fn)
+    go._exchange = timed("exchange", exchange_fn)
+    runs, peak_max, params = {}, 0, None
+    try:
+        for merge, exchange in FULL_RUNS:
+            params = None
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            gcfg = GossipConfig(merge=merge, exchange_dtype=exchange)
+            opt = make_optimizer("adamw", warmup_cosine(
+                1e-3, min(20, FULL_STEPS // 5 + 1), FULL_STEPS))
+            opt = Optimizer(opt.init, timed("optimizer", opt.update),
+                            opt.name)
+            sp = go.stack_for_peers(base, p_)
+            state = go.GossipState(sp, opt.init(sp), torch.zeros(
+                (), dtype=torch.int32, device=dev))
+            del sp
+            step_fn = go.make_gossip_train_step(loss_fn, opt, p_, gcfg)
+            steps = []
+            for s in range(FULL_STEPS):
+                split.update(merge=0.0, exchange=0.0, optimizer=0.0)
+                perm, _ = go.perms_for_step(gcfg, s, p_)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss, _ = step_fn(state, batches[s], perm)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                loss = float(loss)
+                dis = float(go.peer_disagreement(state.params))
+                if not (math.isfinite(loss) and math.isfinite(dis)):
+                    raise AssertionError(f"phase 9 {merge}: step {s + 1} "
+                                         f"loss {loss}, disagreement {dis}")
+                row = dict(step=s + 1, loss=loss, disagreement=dis,
+                           step_s=wall, fwd_bwd_s=wall - split["merge"]
+                           - split["optimizer"], **{f"{k}_s": v for k, v
+                                                    in split.items()})
+                steps.append(row)
+                print(f"[9] {card}: {merge} (exchange "
+                      f"{exchange or 'f32'}) step {s + 1}: loss {loss:.4f}, "
+                      f"peer disagreement {dis:.3e}; {wall:.4f} s = "
+                      f"fwd+bwd {row['fwd_bwd_s']:.4f} + optimizer "
+                      f"{split['optimizer']:.4f} + merge "
+                      f"{split['merge']:.4f} s (exchange "
+                      f"{split['exchange']:.4f} s of it)")
+            prof = None
+            if merge == FULL_PROFILED:
+                box = {}
+
+                def one_step():
+                    box["state"] = step_fn(state, batches[0], perm)[0]
+                prof = profile_run(one_step, "9", card)
+                state = box.pop("state")
+            peak = torch.cuda.max_memory_allocated()
+            peak_max = max(peak_max, peak)
+            print(f"[9] {card}: {merge} peak memory {peak} B "
+                  f"({peak / 1e9:.2f} GB)")
+            runs[merge] = dict(exchange=exchange or "f32", steps=steps,
+                               peak_bytes=peak, profile=prof)
+            params = state.params
+            del state, step_fn, opt
+    finally:
+        go.gossip_merge, go._exchange = merge_fn, exchange_fn
+    out["full"] = dict(layers=layers, params_a_peer=cfg.param_count(),
+                       peers=p_, batch=b_, seq=s_, runs=runs)
+    return params, peak_max
+
+
+def leaf_rows(leaf):
+    """A stacked leaf's rows as the exchange encodes them: float32, over
+    the last axis (a trailing axis of one for a rank-1 leaf)."""
+    d = leaf.shape[-1] if leaf.ndim >= 2 else 1
+    return leaf.reshape(-1, d).float().contiguous()
+
+
+def time_exchange_kernel(name: str, leaves, card: str) -> dict:
+    """The send kernel of codec ``name`` on every leaf's rows of one
+    exchange (CUDA events, one timing for each distinct (rows, d) shape,
+    counted once a leaf of that shape), beside the plain version and the
+    bound over all leaves; the widest leaf of each width printed."""
+    import torch
+    from repro_torch.kernels import gossip_cycle as gc
+    shapes = {}
+    for leaf in leaves:
+        rows = leaf.numel() // (leaf.shape[-1] if leaf.ndim >= 2 else 1)
+        d = leaf.shape[-1] if leaf.ndim >= 2 else 1
+        shapes.setdefault((rows, d), [leaf, 0])[1] += 1
+    ms = plain_ms = nbytes = ops = 0.0
+    widths = {}
+    for (n, d), (leaf, count) in sorted(shapes.items()):
+        w = leaf_rows(leaf)
+        route = gc.send_route(d, name, gc.send_aligned(w))
+        same_outputs(name, ("payload", "scale", "zp"),
+                     gc.quantize_send(w, name),
+                     gc.quantize_send_plain(w, name), "plain version")
+        k_ms = cuda_time_ms(lambda: gc.quantize_send(w, name), reps=3,
+                            warmup=1)
+        p_ms = cuda_time_ms(lambda: gc.quantize_send_plain(w, name), reps=1,
+                            warmup=1)
+        b_ms, by, b = send_bound(name, n, d, {})
+        ms += count * k_ms
+        plain_ms += count * p_ms
+        nbytes += count * b
+        ops += count * 6 * n * d
+        if n >= widths.get(d, {}).get("rows", 0):
+            widths[d] = dict(rows=n, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=by, route=route, leaves=count)
+        del w
+    bound_ms, bound_by = bound(nbytes, ops)
+    for d, r in sorted(widths.items()):
+        print(f"[9] {card}: quantize_send {name} N={r['rows']} d={d} "
+              f"({r['route']}): {r['ms']:.4f} ms/launch vs bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); plain "
+              f"{r['plain_ms']:.4f} ms; bitwise equal to the plain version")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bytes=nbytes, widths={str(d): r for d, r
+                                                         in widths.items()},
+                routes=sorted({r["route"] for r in widths.values()}))
+
+
+def phase9(card: str, results: dict, dev) -> list:
+    """Gossip-SGD training on the card: (a) ``launch.train.train`` at its
+    reduced default under all-reduce and gossip (loss finite and falling);
+    (b) qwen3-1.7b's full width, the depth cut, each merge rule; (c) on
+    (b)'s stacked parameters one ``gossip_merge`` per codec of
+    ``EXCHANGE_KERNELS``, each bit for bit the same merge with the codec's
+    plain encode on the card, with send kernels #2 and #4 once a leaf
+    (counts set to 0 before (b) and read after (c)'s merges); the
+    exchange timed whole and by leaf shape. Returns the ``kernels`` line's
+    rows."""
+    import math
+
+    import torch
+    from repro_torch.config import GossipConfig
+    from repro_torch.core import gossip_optimizer as go
+    from repro_torch.kernels import gossip_cycle as gc
+    from repro_torch.launch.train import train
+    from repro_torch.utils.tree import tree_leaves
+
+    t_start = time.perf_counter()
+    out = results["phase9"] = {}
+    for dist in ("allreduce", "gossip"):
+        t0 = time.perf_counter()
+        _, hist = train(steps=TRAIN_STEPS, dist=dist, log_every=1)
+        wall = time.perf_counter() - t0
+        if (len(hist) != TRAIN_STEPS
+                or not all(math.isfinite(l_) and math.isfinite(d_)
+                           for _, l_, d_ in hist)
+                or not hist[-1][1] < hist[0][1]):
+            raise AssertionError(f"phase 9: the reduced {dist} run's loss "
+                                 f"is not finite and falling: {hist}")
+        print(f"[9] {card}: train(dist={dist!r}) at the reduced default, "
+              f"{TRAIN_STEPS} steps on the card: loss {hist[0][1]:.4f} -> "
+              f"{hist[-1][1]:.4f}, {wall:.2f} s with set-up")
+        out[f"reduced_{dist}"] = dict(history=hist, wall_s=wall)
+    torch.cuda.empty_cache()
+
+    # the main path: (b)'s exchanges and (c)'s counted merges
+    for layers in FULL_LAYERS:
+        for counts in (gc.quantize_send.launches,
+                       gc.quantize_send.route_launches):
+            counts.update(dict.fromkeys(counts, 0))
+        params, peak = full_width_runs(card, dev, layers, out)
+        if peak <= FULL_PEAK_LIMIT:
+            break
+        print(f"[9] {card}: peak {peak} B passes {FULL_PEAK_LIMIT:g} at "
+              f"{layers} layers; the depth is cut further")
+        params = None
+    else:
+        raise AssertionError(f"phase 9: peak {peak} B at {layers} layers")
+    leaves = tree_leaves(params)
+    b_launches = dict(gc.quantize_send.launches)
+    steps_sending = {k: len(leaves) * sum(
+        FULL_STEPS + (m == FULL_PROFILED) for m, x in FULL_RUNS
+        if x and EXCHANGE_KERNELS[x] == k) for k in b_launches}
+    if b_launches != steps_sending:
+        raise AssertionError(f"phase 9 (b): send launches {b_launches}, "
+                             f"expected {steps_sending}")
+    perm, _ = go.perms_for_step(GossipConfig(), 0, FULL_PEERS)
+    plain_send = lambda w, name, **kw: gc.quantize_send_plain(w, name, **kw)
+    for name, kernel in EXCHANGE_KERNELS.items():
+        before = dict(gc.quantize_send.launches)
+        merged = go.gossip_merge(params, perm, exchange_dtype=name)
+        sent = {k: gc.quantize_send.launches[k] - before[k] for k in before}
+        want = {k: len(leaves) if k == kernel else 0 for k in before}
+        if sent != want:
+            raise AssertionError(f"phase 9 (c) {name}: send launches {sent}, "
+                                 f"expected {want}")
+        kernel_send, gc.quantize_send = gc.quantize_send, plain_send
+        try:
+            plain = go.gossip_merge(params, perm, exchange_dtype=name)
+        finally:
+            gc.quantize_send = kernel_send
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(tree_leaves(merged),
+                                       tree_leaves(plain))):
+            if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+                raise AssertionError(f"phase 9 (c) {name}: leaf {i} of the "
+                                     "merge differs from the plain encode's")
+        del merged, plain
+        print(f"[9] {card}: gossip_merge exchange={name!r} on {len(leaves)} "
+              f"leaves: {sent[kernel] if kernel else 0} launches of "
+              f"{kernel or 'no send kernel'}, bit for bit the merge with the "
+              "codec's plain encode on the card")
+    launches = dict(gc.quantize_send.launches)
+    routes = dict(gc.quantize_send.route_launches)
+    print(f"[9] {card}: send launches on the path {launches}, by route "
+          f"{routes}")
+    for kernel in EXCHANGE_ROWS:
+        if not launches[kernel]:
+            raise AssertionError(f"phase 9: {kernel} never launched")
+
+    ex_ms = {}
+    for name in EXCHANGE_KERNELS:
+        go.gossip_merge(params, perm, exchange_dtype=name)
+        ex_ms[name] = cuda_time_ms(
+            lambda: go.gossip_merge(params, perm, exchange_dtype=name),
+            reps=1, warmup=0)
+        print(f"[9] {card}: one exchange of the whole model "
+              f"(exchange={name!r}, {len(leaves)} leaves): "
+              f"{ex_ms[name]:.3f} ms")
+    timed = {name: time_exchange_kernel(name, leaves, card)
+             for name in ("int8", "int4", "ternary")}
+    rows = []
+    for kernel, (name, replaces) in EXCHANGE_ROWS.items():
+        t_ = timed[name]
+        print(f"[9] {card}: {kernel} [exchange] ({name}): "
+              f"{t_['ms']:.4f} ms of kernel time an exchange vs bound "
+              f"{t_['bound_ms']:.4f} ms ({t_['bound_by']}, {t_['bytes']:.0f}"
+              f" B); plain {t_['plain_ms']:.4f} ms; routes {t_['routes']}")
+        rows.append(dict(
+            name=f"quantize_send_{kernel}[exchange]", route="cuda",
+            source="src/repro_torch/kernels/csrc/quantize_send.cu",
+            replaces=replaces, launches=launches[kernel], max_abs_err=0.0,
+            ms=t_["ms"], plain_ms=t_["plain_ms"], bound_ms=t_["bound_ms"],
+            bound_by=t_["bound_by"], library_ms=None, codec=name,
+            send_routes=t_["routes"], leaves=len(leaves)))
+    out.update(launches=launches, route_launches=routes,
+               exchange_ms=ex_ms, exchange_kernels=timed)
+    del params, leaves
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"[9] {card}: phase 9 took {out['seconds']:.1f} s")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -3289,9 +3620,14 @@ def main() -> int:
     # ---- 8. the paper's experiments --------------------------------------
     phase(8)
     kernels.extend(phase8(card, results, dev))
+    torch.cuda.empty_cache()
+
+    # ---- 9. gossip-SGD training ---------------------------------------------
+    phase(9)
+    kernels.extend(phase9(card, results, dev))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - start
-    print(f"[8] {card}: the whole run took {results['total_s']:.1f} s")
+    print(f"[9] {card}: the whole run took {results['total_s']:.1f} s")
     if opts.out:
         out = Path(opts.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -2,6 +2,7 @@ from repro_torch.config.base import (
     AttentionConfig,
     CrossAttnConfig,
     EncoderConfig,
+    GossipConfig,
     MoEConfig,
     ModelConfig,
     RGLRUConfig,
@@ -11,7 +12,7 @@ from repro_torch.config.registry import (get_config, list_configs,
                                          reduced_config, register_config)
 
 __all__ = [
-    "AttentionConfig", "CrossAttnConfig", "EncoderConfig", "MoEConfig",
-    "ModelConfig", "RGLRUConfig", "SSMConfig", "get_config", "list_configs",
+    "AttentionConfig", "CrossAttnConfig", "EncoderConfig", "GossipConfig",
+    "MoEConfig", "ModelConfig", "RGLRUConfig", "SSMConfig", "get_config", "list_configs",
     "reduced_config", "register_config",
 ]

@@ -6,14 +6,17 @@ imported here: its package loads JAX), with ``torch`` dtypes in place of
 models; the MoE, SSM, RG-LRU, encoder and cross-attention configs are
 plain data, kept so that every registered config converts field by field
 (``convert.model_config_from_dict``) though the port does not run those
-families yet (ROADMAP queue 1 item 12).
+families yet (ROADMAP queue 1 item 12b).
 
 One meaning differs: ``attn_impl``'s default is ``"flash"``, the flash
 kernel (#8, ``kernels/flash_attention.py``): on CUDA tensors it runs the
-hand-written kernel, on CPU tensors its plain version. ``"xla"`` is the
-plain grouped attention of ``models/attention.py``; the reference's
-default ``"chunked"`` and its ``"banded"`` are not ported yet, and the
-reference's ``"pallas"`` converts to ``"flash"``.
+hand-written kernel, on CPU tensors its plain version. It is forward only,
+as the reference's Pallas kernel is, so training (``launch/train.py``)
+sets the reference's default ``"chunked"`` (query chunks over the plain
+grouped attention, differentiable). ``"xla"`` is the plain grouped
+attention of ``models/attention.py``; the reference's ``"banded"`` is not
+ported yet, and its ``"pallas"`` converts to ``"flash"``. ``GossipConfig``
+is the gossip optimizer's (``core/gossip_optimizer.py``).
 """
 from __future__ import annotations
 
@@ -116,7 +119,8 @@ class ModelConfig:
     remat: bool = True
     scan_layers: bool = True
     citation: str = ""
-    # 'flash' (kernel #8) or 'xla' (plain grouped attention)
+    # 'flash' (kernel #8), 'chunked' (query chunks, differentiable) or
+    # 'xla' (plain grouped attention)
     attn_impl: str = "flash"
     attn_chunk: int = 512
     xent_chunk: int = 512
@@ -134,3 +138,17 @@ class ModelConfig:
         from repro_torch.models.layers import spec_param_count
         from repro_torch.models.transformer import model_spec
         return spec_param_count(model_spec(self))
+
+
+@dataclass(frozen=True)
+class GossipConfig:
+    """Gossip optimizer settings (the paper's protocol between replicas)."""
+
+    enabled: bool = True
+    schedule: str = "hypercube"    # hypercube | ring | random
+    merge: str = "mu"              # mu | um | rw  (rw = no merge: plain local SGD)
+    pod_every: int = 8             # gossip across the pod axis every K steps
+    seed: int = 0
+    # wire codec of the exchanged model ("" = the parameter dtype; "bf16"
+    # halves the wire, averaging still in f32)
+    exchange_dtype: str = ""

@@ -39,7 +39,7 @@ def get_config(arch_id: str) -> ModelConfig:
     if arch_id in NOT_PORTED:
         raise NotImplementedError(
             f"arch {arch_id!r} is not ported to repro_torch yet (ROADMAP.md, "
-            f"queue 1 item 12); ported: {sorted(_REGISTRY)}")
+            f"queue 1 item 12b); ported: {sorted(_REGISTRY)}")
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]()

@@ -22,6 +22,10 @@ moves the reference's parameter pytree (as numpy arrays) into the port's
 ``Params``: the reference stacks the layers of each pattern position
 (``blocks/l{j}`` with a leading layer axis, remainder layers under
 ``tail/t{j}``), the port keeps one entry per layer in order.
+``lm_params_to_arrays`` is its inverse (``lm_params_to_reference`` the
+same layout as tensors, which the trainer's checkpoints write), and
+``gossip_state_from_arrays`` moves a gossip optimizer's state (the
+peer-stacked parameters, the optimizer's state and the step) across.
 """
 from __future__ import annotations
 
@@ -86,19 +90,22 @@ def state_from_arrays(arrays: Sequence, device) -> Carry:
                  t["buf_scale"], t["buf_zp"], t["ef"], int(a["clock"]))
 
 
+def _np(x: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array; bfloat16 as its uint16 bits."""
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view(np.uint16)
+    return x.numpy()
+
+
 def to_arrays(carry: Carry) -> tuple:
     """The port's carry as the reference's 14-tuple of numpy arrays (a
     bf16 ``buf_w`` as its uint16 bits)."""
-    def np_(x):
-        x = x.detach().cpu()
-        if x.dtype == torch.bfloat16:
-            return x.view(torch.int16).numpy().view(np.uint16)
-        return x.numpy()
-    return (np_(carry.last_w), np_(carry.last_t), np_(carry.fresh_w),
-            np_(carry.fresh_t), np_(carry.cache.w), np_(carry.cache.t),
-            np_(carry.cache.ptr), np_(carry.cache.count), np_(carry.buf_w),
-            np_(carry.buf_t), np_(carry.buf_scale), np_(carry.buf_zp),
-            np_(carry.ef), np.asarray(carry.clock, np.int32))
+    return (_np(carry.last_w), _np(carry.last_t), _np(carry.fresh_w),
+            _np(carry.fresh_t), _np(carry.cache.w), _np(carry.cache.t),
+            _np(carry.cache.ptr), _np(carry.cache.count), _np(carry.buf_w),
+            _np(carry.buf_t), _np(carry.buf_scale), _np(carry.buf_zp),
+            _np(carry.ef), np.asarray(carry.clock, np.int32))
 
 
 def snapshot_from_arrays(arrays: Sequence, device) -> QuerySnapshot:
@@ -182,9 +189,12 @@ def model_config_from_dict(d: Mapping) -> cfg_base.ModelConfig:
     return cfg_base.ModelConfig(**kw)
 
 
-def _reference_leaf(tree: Mapping, cfg: cfg_base.ModelConfig, path):
+def _reference_leaf(tree: Mapping, cfg: cfg_base.ModelConfig, path,
+                    lead: int = 0):
     """The reference's array for the port's parameter ``path``; layer i is
-    entry i // period of ``blocks/l{i % period}``, or a ``tail`` layer."""
+    entry i // period of ``blocks/l{i % period}`` (its layer axis after
+    ``lead`` leading axes, such as the gossip optimizer's peer axis), or a
+    ``tail`` layer."""
     if path[0] != "blocks":
         node = tree
         for name in path:
@@ -200,7 +210,18 @@ def _reference_leaf(tree: Mapping, cfg: cfg_base.ModelConfig, path):
     for name in rest:
         node = node[name]
     node = np.asarray(node)
-    return node[i // period] if i < nb * period else node
+    if i >= nb * period:
+        return node
+    return node[(slice(None),) * lead + (i // period,)]
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """An array as a tensor on ``device``; a bfloat16 array (the
+    reference's ``ml_dtypes`` type) moved by its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return _bf16_tensor(a, device)
+    return torch.tensor(a, device=device)
 
 
 def lm_params_from_arrays(cfg: cfg_base.ModelConfig, tree: Mapping, device):
@@ -211,9 +232,75 @@ def lm_params_from_arrays(cfg: cfg_base.ModelConfig, tree: Mapping, device):
     from repro_torch.models.layers import build_params
     from repro_torch.models.transformer import model_spec
 
-    def leaf(path, p):
-        a = _reference_leaf(tree, cfg, path)
-        if a.dtype.name == "bfloat16":
-            return _bf16_tensor(a, device)
-        return torch.tensor(a, device=device)
-    return build_params(model_spec(cfg), leaf)
+    return build_params(model_spec(cfg), lambda path, p: _tensor(
+        _reference_leaf(tree, cfg, path), device))
+
+
+def lm_params_to_reference(cfg: cfg_base.ModelConfig, params, lead: int = 0):
+    """The port's parameters (a ``Params`` or a tree in its layout, each
+    leaf with ``lead`` leading axes, such as the gossip optimizer's peer
+    axis) in the reference's layout, as detached tensors on their device:
+    the layers of pattern position j stacked into ``blocks/l{j}`` on a
+    layer axis after the leading ones, the remainder layers under
+    ``tail/t{j}``."""
+    from repro_torch.utils.tree import tree_map
+
+    tree = tree_map(lambda x: x.detach(), params)
+    layers = tree["blocks"]
+    period = len(cfg.layer_pattern)
+    nb = cfg.num_layers // period
+    out = {k: v for k, v in tree.items() if k != "blocks"}
+    if nb > 0:
+        out["blocks"] = {
+            f"l{j}": tree_map(lambda *xs: torch.stack(xs, dim=lead),
+                              *layers[j:nb * period:period])
+            for j in range(period)}
+    if nb * period < cfg.num_layers:
+        out["tail"] = {f"t{j}": layer for j, layer
+                       in enumerate(layers[nb * period:])}
+    return out
+
+
+def lm_params_to_arrays(cfg: cfg_base.ModelConfig, params, lead: int = 0):
+    """The inverse of :func:`lm_params_from_arrays`: the reference's
+    parameter pytree (``lm_params_to_reference``'s layout) as numpy arrays,
+    a bfloat16 leaf as its uint16 bits (numpy has no bfloat16)."""
+    from repro_torch.utils.tree import tree_map
+    return tree_map(_np, lm_params_to_reference(cfg, params, lead))
+
+
+def _lm_tree(cfg: cfg_base.ModelConfig, tree: Mapping, device, lead: int):
+    """The reference's parameter-layout tree with ``lead`` leading axes in
+    the port's layout (nested dicts, ``blocks`` a list of layers)."""
+    from repro_torch.models.layers import P
+    from repro_torch.models.transformer import model_spec
+
+    def build(spec, prefix):
+        if isinstance(spec, list):
+            return [build(s, prefix + (i,)) for i, s in enumerate(spec)]
+        return {name: (_tensor(_reference_leaf(tree, cfg, prefix + (name,),
+                                               lead), device)
+                       if isinstance(s, P) else build(s, prefix + (name,)))
+                for name, s in spec.items()}
+    return build(model_spec(cfg), ())
+
+
+def gossip_state_from_arrays(params, opt_state, step, device,
+                             cfg: cfg_base.ModelConfig = None):
+    """The reference's ``GossipState`` (its peer-stacked params, its
+    optimizer state — ``{}``, ``{"m"}`` or ``{"m", "v"}``, each a tree like
+    the params — and its step, as numpy arrays or the reference's arrays)
+    as the port's on ``device``. With ``cfg`` the trees are an LM's
+    parameters, moved from the reference's stacked-layer layout into the
+    port's; without, each leaf moves as it is."""
+    from repro_torch.core.gossip_optimizer import GossipState
+    from repro_torch.utils.tree import tree_map
+
+    def move(tree):
+        if cfg is not None:
+            return _lm_tree(cfg, tree, device, lead=1)
+        return tree_map(lambda a: _tensor(a, device), tree)
+    return GossipState(move(params),
+                       {k: move(v) for k, v in opt_state.items()},
+                       torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                    device=device))

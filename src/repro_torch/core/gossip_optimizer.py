@@ -1,0 +1,274 @@
+"""Gossip-SGD: the paper's protocol as a training primitive.
+
+Counterpart of ``repro/core/gossip_optimizer.py``. Each data-parallel
+replica is a *peer* holding its own (divergent) copy of the model. Instead
+of all-reducing gradients every step, a peer takes a local optimizer step
+and **averages parameters with one partner** chosen by a time-varying
+permutation — CREATEMODELMU/UM (Algorithm 2) with a deterministic
+peer-sampling schedule:
+
+  MU:  params <- update( merge(params, partner(params)) )   (merge, then step)
+  UM:  params <- merge( update(params), update(partner) )   (step, then merge)
+  RW:  no merge (independent local SGD — the paper's baseline)
+
+The peers' parameters are stacked on a leading 'peers' dim in one process
+on one device (the reference's single-device path); the merge is a gather
+of the partner's rows. The loss of each peer is that peer's own: the step
+runs the loss and its backward once a peer, on that peer's slice of the
+stacked parameters, so each slice of the stacked gradient is that peer's
+gradient (the reference vmaps ``value_and_grad`` over the peer axis).
+
+The quantized exchange (``exchange_dtype`` a codec name) encodes each
+leaf's rows over its last axis with send kernels #2 (affine int8) and #4
+(packed int4/ternary) through ``kernels.gossip_cycle.quantize_send`` — on
+the CPU its plain version — and decodes with the codec's ``decode``. A row
+is encoded where it lives, then the codes and scales travel to the partner:
+encoding is row-local, so this gives the bits of the reference's encode of
+the gathered partner rows.
+
+The mesh path (``mesh=``, ``peer_axes=``, ``spmd_axis=``: the exchange as
+a collective permute between devices) and ``linear_gossip_mesh_step`` wait
+for ROADMAP queue 1 item 11 and raise.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config.base import GossipConfig
+from repro_torch.core.peer_sampling import partner_schedule
+from repro_torch.core.wire_codec import deterministic_codec, get_codec
+from repro_torch.optim.optimizers import Optimizer
+from repro_torch.utils.tree import tree_leaves, tree_map
+
+
+class GossipState(NamedTuple):
+    params: dict            # per-peer stacked params (peers, ...)
+    opt_state: dict         # per-peer stacked optimizer state
+    step: torch.Tensor      # () int32
+
+
+def _mesh_not_ported(what: str):
+    return NotImplementedError(
+        f"{what}: the gossip optimizer's mesh path is not ported yet "
+        "(ROADMAP.md, queue 1 item 11); the port runs the peers stacked on "
+        "one device")
+
+
+def _resolve_exchange(exchange_dtype):
+    """Normalize ``gossip_merge``'s ``exchange_dtype``: a wire-codec name
+    ("bf16", "int8", "int4_ef", ...), a torch dtype (the legacy spelling:
+    16-bit floats cast, ``torch.int8`` = the "int8" codec), or None.
+    Returns ``(codec, cast_dtype)``, at most one of them not None: the
+    codec for the scale-carrying codecs (always the deterministic sibling:
+    a train step threads no key), the dtype for plain float casts."""
+    if exchange_dtype is None:
+        return None, None
+    if isinstance(exchange_dtype, str):
+        codec = deterministic_codec(get_codec(exchange_dtype))
+        if codec.quantized:
+            return codec, None
+        if codec.name == "f32":
+            return None, None
+        return None, codec.payload_dtype
+    if not isinstance(exchange_dtype, torch.dtype):
+        raise TypeError(f"exchange_dtype must be a codec name or a torch "
+                        f"dtype, got {exchange_dtype!r}")
+    if exchange_dtype == torch.int8:
+        return get_codec("int8"), None
+    return None, exchange_dtype
+
+
+def stack_for_peers(params, n_peers: int):
+    """Replicate params onto the peer axis: (…)-tree -> (peers, …)-tree of
+    new contiguous tensors."""
+    return tree_map(lambda p: p.detach().unsqueeze(0).expand(
+        (n_peers,) + tuple(p.shape)).contiguous(), params)
+
+
+@torch.no_grad()
+def unstack_mean(params):
+    """Consensus model: the float32 average over the peer axis (what the
+    paper's nodes would each converge to; used for eval and checkpoints)."""
+    return tree_map(lambda p: torch.mean(p.float(), dim=0), params)
+
+
+def _exchange(p, perm_t, codec):
+    """The partner's rows of leaf ``p`` as they arrive through ``codec``,
+    float32: every row over the last axis (a trailing axis of one for a
+    rank-1 leaf, so no scale is shared across peers) encoded where it
+    lives, codes and scales gathered by peer, then decoded."""
+    from repro_torch.kernels.gossip_cycle import quantize_send
+
+    d = p.shape[-1] if p.ndim >= 2 else 1
+    n = p.shape[0]
+    rows = p.reshape(-1, d).to(torch.float32).contiguous()
+    enc = quantize_send(rows, codec.name)
+    del rows
+    payload, scale = enc[0], enc[1]
+    zp = enc[2] if codec.has_zp else None
+
+    def take(a):
+        return a.reshape((n, -1) + tuple(a.shape[1:]))[perm_t].reshape(
+            a.shape)
+    out = codec.decode(take(payload), take(scale),
+                       None if zp is None else take(zp), d)
+    return out.reshape(p.shape)
+
+
+@torch.no_grad()
+def gossip_merge(params, perm, *, mesh=None, peer_axes: Tuple[str, ...] = (),
+                 exchange_dtype=None):
+    """MERGE with the partner given by ``perm`` (symmetric pairing):
+    w_i <- (w_i + w_perm[i]) / 2, leaf by leaf, the average in float32 and
+    cast back to the leaf's dtype. Returns a new tree.
+
+    ``exchange_dtype``: the wire representation of the exchanged model
+    (see ``_resolve_exchange``). The quantized codecs round-trip the
+    partner's rows through the codec (send kernels #2 and #4 on CUDA
+    tensors; one launch a leaf) before the float32 average; the ``_ef``
+    codecs quantize one-shot (error feedback is a sender's state in the
+    protocol engines, not in this stateless merge), and ``int8_sr`` rounds
+    to nearest. ``mesh`` and ``peer_axes`` (the exchange between devices)
+    raise: ROADMAP queue 1 item 11."""
+    if mesh is not None or peer_axes:
+        raise _mesh_not_ported("gossip_merge(mesh=, peer_axes=)")
+    perm = np.asarray(perm)
+    codec, cast_dtype = _resolve_exchange(exchange_dtype)
+    perm_on = {}                  # the permutation on each leaf's device
+
+    def avg_take(p):
+        if p.device not in perm_on:
+            perm_on[p.device] = torch.as_tensor(perm, dtype=torch.int64,
+                                                 device=p.device)
+        perm_t = perm_on[p.device]
+        if codec is not None:
+            partner = _exchange(p, perm_t, codec)
+        else:
+            partner = p[perm_t]
+            if cast_dtype is not None:
+                partner = partner.to(cast_dtype)
+            partner = partner.to(torch.float32)
+        return ((p.to(torch.float32) + partner) / 2.0).to(p.dtype)
+
+    return tree_map(avg_take, params)
+
+
+@torch.no_grad()
+def peer_disagreement(params) -> torch.Tensor:
+    """Mean relative L2 distance of each peer from the consensus — the
+    model-similarity diagnostic of the paper's Fig. 2, for trees. Summed
+    a peer at a time, so a leaf's float32 temporaries are one peer's."""
+    mean = unstack_mean(params)
+    num = 0
+    den = 0
+    for p, m in zip(tree_leaves(params), tree_leaves(mean)):
+        num = num + sum(torch.sum(torch.square(p[i].float() - m))
+                        for i in range(p.shape[0]))
+        den = den + p.shape[0] * torch.sum(torch.square(m))
+    return torch.sqrt(num / torch.clamp(torch.as_tensor(den), min=1e-12))
+
+
+def _value_and_grad(loss_fn, params, batch):
+    """``loss_fn(params, batch)``'s value, metrics and gradient with
+    respect to every leaf of ``params`` (zeros where a leaf is unused)."""
+    leaves_in = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(leaves_in, batch)
+        flat = tree_leaves(leaves_in)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(flat, grads)]
+    metrics = tree_map(lambda m: m.detach(), metrics)
+    return loss.detach(), metrics, grads
+
+
+def make_gossip_train_step(loss_fn: Callable, opt: Optimizer, n_peers: int,
+                           cfg: GossipConfig, *,
+                           spmd_axis: Optional[str] = None, mesh=None,
+                           peer_axes: Tuple[str, ...] = ()):
+    """Build the gossip training step.
+
+    ``loss_fn(params, batch) -> (loss, metrics)`` for ONE peer; the step
+    takes stacked params (peers, …) and batch (peers, per_peer, …) and a
+    partner permutation ``perm`` (and ``pod_perm`` for the cross-pod
+    merge, or None), from :func:`perms_for_step`. It returns the new state,
+    the loss averaged over the peers and each metric stacked by peer. The
+    optimizer updates in place, so the step may write into the state it is
+    given: use only the state it returns. ``spmd_axis``, ``mesh`` and
+    ``peer_axes`` raise: ROADMAP queue 1 item 11."""
+    if spmd_axis or mesh is not None or peer_axes:
+        raise _mesh_not_ported("make_gossip_train_step(spmd_axis=, mesh=, "
+                               "peer_axes=)")
+    exchange = cfg.exchange_dtype or None
+
+    def local_update(params, opt_state, batch, step):
+        grads = tree_map(torch.empty_like, params)
+        gleaves = tree_leaves(grads)
+        losses, metrics = [], []
+        for i in range(n_peers):
+            loss, m, g = _value_and_grad(
+                loss_fn, tree_map(lambda p: p[i], params),
+                tree_map(lambda x: x[i], batch))
+            with torch.no_grad():
+                for dst, src in zip(gleaves, g):
+                    dst[i].copy_(src)
+            del g
+            losses.append(loss)
+            metrics.append(m)
+        new_params, new_opt = opt.update(grads, opt_state, params, step)
+        metrics = tree_map(lambda *xs: torch.stack(xs), *metrics)
+        return new_params, new_opt, torch.stack(losses).mean(), metrics
+
+    def train_step(state: GossipState, batch, perm, pod_perm=None):
+        params, opt_state = state.params, state.opt_state
+        if cfg.merge == "mu":
+            params = gossip_merge(params, perm, exchange_dtype=exchange)
+        params, opt_state, loss, metrics = local_update(
+            params, opt_state, batch, state.step)
+        if cfg.merge == "um":
+            params = gossip_merge(params, perm, exchange_dtype=exchange)
+        if pod_perm is not None:
+            params = gossip_merge(params, pod_perm, exchange_dtype=exchange)
+        return GossipState(params, opt_state, state.step + 1), loss, metrics
+
+    return train_step
+
+
+def make_allreduce_train_step(loss_fn: Callable, opt: Optimizer):
+    """Baseline: conventional data parallelism. Params carry NO peer dim
+    and the batch keeps its global leading dim; on one device the
+    gradient all-reduce is the gradient of the whole batch. The optimizer
+    updates in place (see :func:`make_gossip_train_step`)."""
+    def train_step(params, opt_state, batch, step):
+        loss, metrics, g = _value_and_grad(loss_fn, params, batch)
+        it = iter(g)
+        grads = tree_map(lambda p: next(it), params)
+        new_params, new_opt = opt.update(grads, opt_state, params, step)
+        return new_params, new_opt, loss, metrics
+
+    return train_step
+
+
+def perms_for_step(cfg: GossipConfig, step: int, n_peers: int,
+                   n_pods: int = 1) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Host-side partner permutations for a given step (passed as args)."""
+    perm = partner_schedule(cfg.schedule, step, n_peers, cfg.seed)
+    pod_perm = None
+    if n_pods > 1 and cfg.pod_every > 0 and (step + 1) % cfg.pod_every == 0:
+        # pair each peer with the same peer index in the partner pod:
+        # global peer id = pod * peers_per_pod + local
+        per_pod = n_peers // n_pods
+        pods = partner_schedule("hypercube", step // cfg.pod_every, n_pods,
+                                cfg.seed)
+        pod_perm = np.concatenate([pods[p] * per_pod + np.arange(per_pod)
+                                   for p in range(n_pods)])
+    return perm, pod_perm
+
+
+def linear_gossip_mesh_step(*args, **kwargs):
+    """One gossip cycle with peers = devices (the reference's
+    ``shard_map`` runtime for the paper's linear models): not ported yet."""
+    raise _mesh_not_ported("linear_gossip_mesh_step")

@@ -38,7 +38,7 @@ import math
 import torch
 
 from repro_torch.kernels.gossip_cycle import (_FLOAT, _INT, _VP, _entry,
-                                              _raise_on, _stream)
+                                              _raise_on, _stream, refuse_grad)
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -153,6 +153,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     if q.device.type != "cuda":
         raise NotImplementedError(f"no flash-attention kernel for device "
                                   f"{q.device}")
+    refuse_grad("flash_attention", q, k, v)
     return _launch(q, k, v, causal, window, route(q, k, v))
 
 

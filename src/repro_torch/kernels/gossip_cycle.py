@@ -395,6 +395,7 @@ def fused_receive_apply(last_w, last_t, cache_w, cache_t, ptr, count,
     if last_w.device.type != "cuda":
         raise NotImplementedError(
             f"no receive kernel for device {last_w.device}")
+    refuse_grad("fused_receive_apply", *args, msg_scale, msg_zp)
     gated, clipped = _launch_receive(*args, msg_scale, msg_zp, mode, variant,
                                      float(lam), defense)
     return last_w, last_t, cache_w, cache_t, ptr, count, gated, clipped
@@ -405,14 +406,33 @@ def fused_receive_apply(last_w, last_t, cache_w, cache_t, ptr, count,
 # ---------------------------------------------------------------------------
 
 
-def send_kernel_name(name: str) -> str:
-    """Which send kernel encodes codec ``name`` with or without EF: the
-    keys of ``quantize_send.launches`` ("affine8", "packed_ef", "packed"),
-    rows #2, #3 and #4 of the TPU-kernel table in PERF.md."""
+def send_kernel_name(name: str, ef=None) -> str:
+    """Which send kernel encodes codec ``name``: the keys of
+    ``quantize_send.launches`` ("affine8", "packed_ef", "packed"), rows
+    #2, #3 and #4 of the TPU-kernel table in PERF.md. A packed codec runs
+    the EF kernel only when a residual is passed: ``ef`` says whether one
+    is, and None means as the engines send the codec (a residual for the
+    ``_ef`` codecs, none for the rest); the gossip exchange sends an
+    ``_ef`` codec one-shot, without one."""
     codec = get_codec(name)
     if codec.has_zp:
         return "affine8"
-    return "packed_ef" if codec.ef else "packed"
+    if ef is None:
+        ef = codec.ef
+    return "packed_ef" if ef else "packed"
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """The CUDA kernels have no backward (nor have the Pallas kernels they
+    replace), and their outputs, written through ctypes, carry no autograd
+    history: a launch on an input that requires grad would silently cut
+    the gradient. So every wrapper raises instead, when grad mode is on
+    and any input (None is skipped) requires grad."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward; call it under "
+            "torch.no_grad() or on tensors that do not require grad")
 
 
 def quantize_send_plain(w, name: str, key=None, ef=None, rows=None):
@@ -473,7 +493,7 @@ def _launch_send(w, codec, key, ef, route=None, rows=None):
         raise ValueError(f"the {route!r} send route does not take "
                          f"{codec.name!r} at d={d}"
                          + ("" if aligned else " on unaligned models"))
-    kernel = send_kernel_name(codec.name)
+    kernel = send_kernel_name(codec.name, ef is not None)
     dev = w.device
     scale = torch.empty(n, dtype=torch.float16, device=dev)
     with torch.cuda.device(dev):
@@ -529,6 +549,7 @@ def quantize_send(w, name: str, key=None, ef=None, rows=None):
         return quantize_send_plain(w, name, key=key, ef=ef, rows=rows)
     if w.device.type != "cuda":
         raise NotImplementedError(f"no send kernel for device {w.device}")
+    refuse_grad("quantize_send", w, ef)
     return _launch_send(w, codec, key, ef, rows=rows)
 
 

@@ -16,6 +16,7 @@ plain version
 """
 from __future__ import annotations
 
+from repro_torch.kernels.gossip_cycle import refuse_grad
 from repro_torch.kernels.pegasos_update import (ROW_ROUTES, check_rows,
                                                 launch_rows)
 from repro_torch.kernels.ref import merge_update_ref
@@ -29,6 +30,7 @@ def merge_update(w1, t1, w2, t2, x, y, *, lam: float):
     n, d = check_rows({"w1": (w1, t1), "w2": (w2, t2)}, x, y)
     if w1.device.type == "cpu":
         return merge_update_ref(w1, t1, w2, t2, x, y, lam)
+    refuse_grad("merge_update", w1, w2, x, y)
     return _launch_merge((w1, t1, w2, t2, x, y), n, d, lam)
 
 

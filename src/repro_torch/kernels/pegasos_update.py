@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.kernels.gossip_cycle import (_FLOAT, _INT, _VP,
                                               _check_tensors, _entry,
-                                              _raise_on, _stream)
+                                              _raise_on, _stream, refuse_grad)
 from repro_torch.kernels.ref import pegasos_update_ref
 
 
@@ -132,6 +132,7 @@ def pegasos_update(w, t, x, y, *, lam: float):
     n, d = check_rows({"w": (w, t)}, x, y)
     if w.device.type == "cpu":
         return pegasos_update_ref(w, t, x, y, lam)
+    refuse_grad("pegasos_update", w, x, y)
     return _launch_step((w, t, x, y), n, d, lam)
 
 

@@ -26,7 +26,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.gossip_cycle import (_VP, _INT, _check_tensors,
-                                              _entry, _raise_on, _stream)
+                                              _entry, _raise_on, _stream,
+                                              refuse_grad)
 
 # the kernel's routes (their codes in the C entry) and the grouped route's
 # widest d and largest cache
@@ -119,6 +120,7 @@ def voted_predict_batched(w, count, X, assign):
     if w.device.type != "cuda":
         raise NotImplementedError(f"no voted-predict kernel for device "
                                   f"{w.device}")
+    refuse_grad("voted_predict_batched", w, X)
     return _launch(w, count, X, assign)
 
 

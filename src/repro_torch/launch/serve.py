@@ -37,7 +37,7 @@ class DecodeServer:
         if cfg.family in ("vlm", "audio"):
             raise NotImplementedError(
                 f"serving the {cfg.family} family (cross-attention K/V from "
-                "an encoder) is not ported yet (ROADMAP.md, queue 1 item 12)")
+                "an encoder) is not ported yet (ROADMAP.md, queue 1 item 12b)")
         self.cfg = cfg
         self.params = params
         self.batch = batch

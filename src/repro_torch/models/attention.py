@@ -2,12 +2,15 @@
 
 Counterpart of ``repro/models/attention.py`` for self-attention. The
 full-sequence path (prefill) runs the flash kernel (``impl="flash"``,
-kernel #8 through ``kernels/ops.py``) or the plain grouped attention
-(``impl="xla"``); the decode path attends one new token over a
-(possibly ring-buffered) KV cache, which it updates in place (the
-reference returns a new cache; the port's cache is the serve loop's own,
-so nothing is lost). Cross-attention and the reference's ``"chunked"`` and
-``"banded"`` impls are not ported yet (ROADMAP queue 1 item 12).
+kernel #8 through ``kernels/ops.py``; forward only), the plain grouped
+attention over query chunks (``impl="chunked"``, the reference's default
+and the training path: differentiable, each chunk recomputed in the
+backward pass) or in one block (``impl="xla"``); the decode path attends
+one new token over a (possibly ring-buffered) KV cache, which it updates
+in place (the reference returns a new cache; the port's cache is the
+serve loop's own, so nothing is lost). Cross-attention and the
+reference's ``"banded"`` impl are not ported yet (ROADMAP queue 1 item
+12b).
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import AttentionConfig
 from repro_torch.models.layers import P, rmsnorm, rmsnorm_spec, wcast
@@ -102,6 +106,41 @@ def _grouped_sdpa(q, k, v, a: AttentionConfig, q_pos, k_pos, compute_dtype):
     return out.reshape(b, sq, h, hd)
 
 
+def _chunked_sdpa(q, k, v, a: AttentionConfig, positions, compute_dtype,
+                  chunk: int):
+    """Memory-efficient attention: the grouped attention over query chunks
+    of ``chunk`` rows, each chunk recomputed in the backward pass (the
+    reference's ``jax.checkpoint`` of its scan body), so a chunk's
+    (B, KV, rep, chunk, Sk) logits are the only attention-sized
+    temporary. ``positions``: (S,).
+
+    Sliding-window layers read only the key span that can be in-window for
+    the chunk: ``window + chunk`` keys rounded up to a multiple of the
+    chunk, starting where the reference's ``dynamic_slice`` starts."""
+    b, s, h, hd = q.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the attention "
+                         f"chunk {chunk}")
+    kspan = s
+    if a.sliding_window is not None and a.causal:
+        win = a.sliding_window
+        kspan = min(s, -(-(win + chunk) // chunk) * chunk)
+
+    def body(q_i, k_i, v_i, pos_i, kp_i):
+        return _grouped_sdpa(q_i, k_i, v_i, a, pos_i, kp_i, compute_dtype)
+
+    out = []
+    for i in range(s // chunk):
+        q0 = i * chunk
+        start = min(max(q0 + chunk - kspan, 0), s - kspan)
+        out.append(checkpoint(
+            body, q[:, q0:q0 + chunk], k[:, start:start + kspan],
+            v[:, start:start + kspan], positions[q0:q0 + chunk],
+            positions[start:start + kspan], use_reentrant=False))
+    return torch.cat(out, dim=1)
+
+
 # ---------------------------------------------------------------------------
 # full-sequence attention (prefill)
 # ---------------------------------------------------------------------------
@@ -109,10 +148,11 @@ def _grouped_sdpa(q, k, v, a: AttentionConfig, q_pos, k_pos, compute_dtype):
 
 def attention(params, a: AttentionConfig, x, *, positions=None,
               compute_dtype=torch.bfloat16, impl: str = "flash",
-              return_kv: bool = False):
+              attn_chunk: int = 512, return_kv: bool = False):
     """Full-sequence self-attention: x (B, S, d_model) -> (B, S, d_model),
     or ``(out, (k, v))`` with the rope'd keys and values when
-    ``return_kv`` (the fused prefill's decode cache)."""
+    ``return_kv`` (the fused prefill's decode cache). ``attn_chunk``: the
+    query chunk of ``impl="chunked"``."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, a, x)
     if positions is None:
@@ -128,10 +168,13 @@ def attention(params, a: AttentionConfig, x, *, positions=None,
     elif impl == "xla":
         out = _grouped_sdpa(q, k, v, a, positions[0], positions[0],
                             compute_dtype)
-    elif impl in ("chunked", "banded"):
+    elif impl == "chunked":
+        out = _chunked_sdpa(q, k, v, a, positions[0], compute_dtype,
+                            attn_chunk)
+    elif impl == "banded":
         raise NotImplementedError(
-            f"attn_impl={impl!r} is not ported yet (ROADMAP.md, queue 1 item "
-            "12); use 'flash' or 'xla'")
+            "attn_impl='banded' is not ported yet (ROADMAP.md, queue 1 item "
+            "12b); use 'flash', 'chunked' or 'xla'")
     else:
         raise ValueError(f"unknown attn_impl {impl!r}")
     out = torch.einsum("bshk,hkd->bsd", out, wcast(params["wo"], out))

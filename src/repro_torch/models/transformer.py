@@ -7,12 +7,17 @@ each pattern position's layers and scans over them; here ``params
 ["blocks"]`` is an ``nn.ModuleList`` of the ``num_layers`` layers in order
 (kinds from ``cfg.layer_kinds()``), walked in a Python loop, and a decode
 cache is a list of per-layer ``{"k", "v"}`` dicts in the same order.
-``remat`` and ``scan_layers`` mean nothing at serve time, and the
+The forward also takes a plain tree of tensors in that layout (nested
+dicts, ``"blocks"`` a list), as the training step passes one peer's
+parameters with gradients on. ``scan_layers`` means nothing here; under
+``remat`` each layer is recomputed in the backward pass when gradients
+are on (the reference's ``jax.checkpoint`` of its block), and the
 reference's ``shard_activations`` is the identity outside a mesh.
+:func:`lm_loss` is the training loss.
 
 The moe, ssm, rglru, cross and selfcross kinds, the encoder and the
 learned positions of the vlm and audio families are not ported yet
-(ROADMAP queue 1 item 12): building a spec for them raises.
+(ROADMAP queue 1 item 12b): building a spec for them raises.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -32,7 +38,7 @@ KINDS = ("attn", "local")
 
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               "(ROADMAP.md, queue 1 item 12)")
+                               "(ROADMAP.md, queue 1 item 12b)")
 
 
 def _check_supported(cfg: ModelConfig):
@@ -149,6 +155,7 @@ def _apply_layer(lp, kind: str, cfg: ModelConfig, x, *, positions,
     a = _attn_cfg(cfg, kind)
     mix = attn_mod.attention(lp["attn"], a, h, positions=positions,
                              compute_dtype=cd, impl=cfg.attn_impl,
+                             attn_chunk=cfg.attn_chunk,
                              return_kv=cache_len is not None)
     entry = None
     if cache_len is not None:
@@ -167,16 +174,59 @@ def _apply_layer(lp, kind: str, cfg: ModelConfig, x, *, positions,
 
 def forward_hidden(params, cfg: ModelConfig, tokens, *, positions=None):
     """tokens (B, S) -> final hidden states (B, S, d_model) and the aux
-    loss (zero for the dense family)."""
+    loss (zero for the dense family). ``params``: a ``Params`` or a tree
+    of tensors in its layout."""
     b, s = tokens.shape
     x = L.embed(params["embed"], tokens, cfg.compute_dtype)
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
+    remat = cfg.remat and torch.is_grad_enabled()
     for lp, kind in zip(params["blocks"], cfg.layer_kinds()):
-        x = _apply_layer(lp, kind, cfg, x, positions=positions)
+        if remat:
+            x = checkpoint(_remat_layer, lp, kind, cfg, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _apply_layer(lp, kind, cfg, x, positions=positions)
     x = _apply_norm(cfg, params["final_norm"], x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _remat_layer(lp, kind, cfg, x, positions):
+    return _apply_layer(lp, kind, cfg, x, positions=positions)
+
+
+def lm_loss(params, cfg: ModelConfig, tokens, labels, *, seq_chunk: int = 0):
+    """Mean next-token cross-entropy plus the MoE aux loss (zero for the
+    dense family), computed in sequence chunks of ``seq_chunk`` (default
+    ``cfg.xent_chunk``). A chunk's (B, chunk, vocab) float32 logits are the
+    only vocab-sized temporary and are recomputed in the backward pass, so
+    the whole (B, S, vocab) logits never exist. Returns ``(loss, {"nll",
+    "aux"})``."""
+    x, aux = forward_hidden(params, cfg, tokens)
+    w = _head_matrix(params, cfg)
+    b, s, _ = x.shape
+    chunk = min(seq_chunk or cfg.xent_chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the loss "
+                         f"chunk {chunk}")
+    labels = labels.long()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        total = total + checkpoint(_xent_sum, x[:, c0:c0 + chunk], w,
+                                   labels[:, c0:c0 + chunk],
+                                   use_reentrant=False)
+    nll = total / (b * s)
+    return nll + aux, {"nll": nll, "aux": aux}
+
+
+def _xent_sum(x, w, labels):
+    """Summed cross-entropy of one chunk: logsumexp minus the gold logit,
+    the logits in float32."""
+    logits = x.float() @ w.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.sum(logz - gold)
 
 
 def _head_matrix(params, cfg: ModelConfig):

@@ -18,7 +18,10 @@ its plain version) and Adaline and logistic regression on the vector
 apply against the reference engine; the reduced LM served on the card
 against the same weights served on the CPU; and the paper's baselines,
 WB1/WB2 bagging and the sequential Pegasos chain, on kernel #6 against the
-same runs on the CPU.
+same runs on the CPU; the kernel wrappers refusing inputs that require
+grad, the one-shot ``_ef`` send counted as kernel #4, the gossip exchange
+on kernels #2 and #4 bit for bit its plain encode's, and the reduced
+trainer on the card.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one. They import neither JAX nor the JAX package, so they run on a
@@ -635,3 +638,103 @@ def test_sequential_chain_on_the_card_matches_the_cpu(cuda, d):
         smoke.BAGGING_W_RTOL * float(cm.w.abs().max()))
     assert [p[0] for p in pts] == [p[0] for p in cpts] == [100, 200, 250]
     assert max(abs(a[1] - b[1]) for a, b in zip(pts, cpts)) <= 0.02
+
+
+def _wrapper_calls(dev):
+    """Each CUDA kernel wrapper of the port with small inputs: (name, the
+    float input that may require grad, a call taking that input)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import voted_predict as vp
+    rec = smoke.receive_inputs(1, 257, 10, 4, 3, dev)
+    w, t, x, y = smoke.row_inputs(2, 257, 10, dev)
+    w1, t1, w2, t2, x2, y2 = smoke.row_inputs(3, 257, 10, dev, merge=True)
+    vw, vc, vx, va = smoke.voted_inputs(4, 64, 10, 10, dev)
+    q, k, v = smoke.flash_inputs(5, 1, 37, 2, 1, 64, torch.float32, dev)
+
+    def receive(a):
+        r = {key: val.clone() for key, val in rec.items()}
+        r["msg_w"] = a
+        return gc.fused_receive_apply(*(r[key] for key in smoke.ORDER),
+                                      variant="mu", lam=1e-3)
+    return [
+        ("fused_receive_apply", rec["msg_w"], receive),
+        ("quantize_send", w, lambda a: gc.quantize_send(a, "int4")),
+        ("pegasos_update", w, lambda a: ops.pegasos_update(a, t, x, y,
+                                                           lam=1e-3)),
+        ("merge_update", w1, lambda a: ops.merge_update(a, t1, w2, t2, x2,
+                                                        y2, lam=1e-3)),
+        ("voted_predict_batched", vw,
+         lambda a: vp.voted_predict_batched(a, vc, vx, va)),
+        ("flash_attention", q, lambda a: ops.flash_attention(a, k, v)),
+    ]
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda):
+    """No kernel has a backward: an input that requires grad raises while
+    grad mode is on, instead of a result whose gradient silently skips the
+    kernel; the same call runs under ``torch.no_grad()``."""
+    for name, a, call in _wrapper_calls(cuda):
+        leaf = a.clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(leaf)
+        with torch.no_grad():
+            call(leaf)
+        call(a)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["int4_ef", "ternary_ef"])
+def test_one_shot_ef_send_counts_as_the_packed_kernel(cuda, name):
+    """An ``_ef`` codec sent without a residual (the gossip exchange's
+    one-shot send) runs, and counts as, kernel #4; with one, #3."""
+    w, ef = smoke.send_inputs(7, 515, 10, cuda)
+    before = dict(gc.quantize_send.launches)
+    one_shot = gc.quantize_send(w, name)
+    assert gc.quantize_send.launches == dict(
+        before, packed=before["packed"] + 1)
+    plain = gc.quantize_send_plain(w, name)
+    smoke.same_outputs(name, ("payload", "scale"), one_shot, plain, "plain")
+    gc.quantize_send(w, name, ef=ef)
+    assert gc.quantize_send.launches == dict(
+        before, packed=before["packed"] + 1,
+        packed_ef=before["packed_ef"] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(smoke.EXCHANGE_KERNELS))
+def test_gossip_merge_on_the_card_is_the_plain_encodes(cuda, name,
+                                                       monkeypatch):
+    """The exchange on send kernels #2 and #4 (one launch a leaf) is bit for
+    bit the merge with the codec's plain encode on the card."""
+    from repro_torch.core import gossip_optimizer as go
+    from repro_torch.utils.tree import tree_leaves
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    params = {"emb": torch.randn((4, 300, 2048), generator=g, device=cuda)
+              .to(torch.bfloat16),
+              "w": [torch.randn((4, 64, 6144), generator=g, device=cuda),
+                    torch.randn((4, 128), generator=g, device=cuda)],
+              "s": torch.randn((4,), generator=g, device=cuda)}
+    perm = (1, 0, 3, 2)
+    before = dict(gc.quantize_send.launches)
+    got = go.gossip_merge(params, perm, exchange_dtype=name)
+    kernel = smoke.EXCHANGE_KERNELS[name]
+    assert gc.quantize_send.launches == dict(
+        before, **({kernel: before[kernel] + 4} if kernel else {}))
+    monkeypatch.setattr(gc, "quantize_send", gc.quantize_send_plain)
+    want = go.gossip_merge(params, perm, exchange_dtype=name)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", ["allreduce", "gossip"])
+def test_reduced_training_runs_on_the_card(cuda, dist):
+    from repro_torch.launch.train import train
+    from repro_torch.utils.tree import tree_leaves
+    params, hist = train(steps=4, batch=4, seq_len=32, d_model=64,
+                         dist=dist, n_peers=2, log_every=1)
+    assert len(hist) == 4 and all(np.isfinite(h[1]) for h in hist)
+    assert all(p.device.type == "cuda" for p in tree_leaves(params))

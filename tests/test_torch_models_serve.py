@@ -213,7 +213,7 @@ def test_attention_names_what_is_not_ported():
     _, a, _, p = layer0("qwen3-1.7b")
     x = torch.zeros((1, 4, 256))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attn.attention(p, a, x, impl="chunked")
+        attn.attention(p, a, x, impl="banded")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
