@@ -10,8 +10,10 @@ and ``nvcc``. The phases, each of which raises on failure:
 0. setup: the card's name and power limit, torch/CUDA/nvcc versions, and
    the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``,
    with each kernel's registers and spills (none allowed in the receive
-   kernel's grouped route), and int8_sr's threefry instructions an element
-   read off the tiled send kernel's SASS (``cuobjdump``) for its bound;
+   kernel's grouped route), both flash kernels' shared memory a block
+   against the card's opt-in limit, and int8_sr's threefry instructions an
+   element read off the tiled send kernel's SASS (``cuobjdump``) for its
+   bound;
 1. each kernel against its plain PyTorch version on the card, at the
    shapes of the paper's datasets (d = 10, 57, 9947), the receive kernel's
    lane groups (d = 1, 7, 16, 32), a K > C case and K = 9: the receive
@@ -41,7 +43,7 @@ and ``nvcc``. The phases, each of which raises on failure:
    (every launch of both on the tiled layout) and timed at N = 10^6,
    d = 10, and each kernel's two layouts against each other and timed at
    N = 10^6, d = 10, 32, 57 and 128; kernel #8 (``flash_attention``) over
-   head_dim 64, 128 and 48, H/KV 1, 2 and 8, causal or not, window None
+   head_dim 64, 128, 48 and 256, H/KV 1, 2 and 8, causal or not, window None
    or 64, S = 1, 37, 128, 300 and 2048, in float32 and bfloat16, and on
    strided and unaligned inputs, each case on the route it must take
    (bf16 at head_dim 64/128 on the tensor-core kernel, the rest on the
@@ -137,7 +139,29 @@ and ``nvcc``. The phases, each of which raises on failure:
    bit for bit the merge with the codec's plain encode on the card, send
    kernels #2 and #4 launched once a leaf (counted from the start of the
    full-width runs), one whole exchange timed per codec, and #2 and #4 on
-   every leaf's rows beside their plain versions and bounds.
+   every leaf's rows beside their plain versions and bounds;
+10. the moe, ssm and hybrid families: each of mixtral-8x22b,
+   llama4-scout-17b-a16e, recurrentgemma-9b and mamba2-780m reduced (f32)
+   served on the card against the same weights on the CPU (logits within
+   phase 6's tolerance, greedy tokens equal); then each at its published
+   widths in bf16 (mamba2 in f32) with random weights from a seeded
+   generator, the depth cut (``FAMILY_RUNS``): mixtral at 4 of 56 layers,
+   ``DecodeServer(batch=2, max_len=8192)``, a 4608-token prompt past its
+   4096 window (the window bites in kernel #8 and the KV ring wraps), 4
+   launches of #8 all on ``tensor_core``, 32 greedy steps; llama4-scout at
+   4 of 48 layers, top-1, 512 tokens, 8 steps; recurrentgemma at 5 of 38
+   layers (one rglru, rglru, local period and the two-rglru tail), 3072
+   tokens past its 2048 window at batch 2, #8 once on ``cuda_core`` (bf16,
+   hd 256, one kv head), 32 steps; mamba2 whole (48 layers), batch 4 x
+   2048, 32 steps, no kernel. Each run's prefill and decode times and
+   tokens/s and peak memory; where it has attention, the same server on
+   the plain path (``attn_impl="xla"``): the expert choices that differ
+   between the two prefills counted, the prefill logits within
+   ``LM_PATH_LOGIT_TOL`` with the kernel path's choices pinned on the
+   plain path (equal to the unpinned comparison where none differ), the
+   share of equal greedy tokens; #8 on the run's last attention layer's
+   q, k, v beside its bound, its plain version and
+   ``scaled_dot_product_attention`` with the band as a boolean mask.
 
 Prints one JSON line of per-kernel results (with phase 3's armed seconds
 by span under ``"phase3_spans"``), the ``nvidia-smi`` name and power
@@ -242,7 +266,7 @@ FLASH_REPLACES = "src/repro/kernels/flash_attention.py:121"
 FLASH_SOURCES = {
     "tensor_core": "src/repro_torch/kernels/csrc/flash_attention_hopper.cu",
     "cuda_core": "src/repro_torch/kernels/csrc/flash_attention.cu"}
-FLASH_HEAD_DIMS = (64, 128, 48)
+FLASH_HEAD_DIMS = (64, 128, 48, 256)
 FLASH_GROUPS = (1, 2, 8)                 # H / KV
 FLASH_SEQS = (1, 37, 128, 300, 2048)
 # H100 SXM dense bf16 on the tensor cores: the least time of attention's
@@ -256,6 +280,21 @@ LM_ARCH, LM_BATCH, LM_MAX_LEN, LM_PROMPT, LM_STEPS = (
 # 28 layers amplify. Measured 0.033 at a largest |logit| of 4.5 on an H100
 # with the CUDA-core kernel (p in float32); the bound is 3x.
 LM_PATH_LOGIT_TOL = 0.1
+# phase 10: the moe, ssm and hybrid families at their published widths,
+# the depth cut to fit the card and the phase's budget: (arch, layers,
+# batch, max_len, prompt, greedy steps, kernel #8's route; None: no
+# attention). mixtral's and recurrentgemma's prompts pass their windows
+# (4096 and 2048), so #8's window bites and the KV rings wrap.
+FAMILY_RUNS = (
+    ("mixtral-8x22b", 4, 2, 8192, 4608, 32, "tensor_core"),
+    ("llama4-scout-17b-a16e", 4, 2, 1024, 512, 8, "tensor_core"),
+    ("recurrentgemma-9b", 5, 2, 4096, 3072, 32, "cuda_core"),
+    ("mamba2-780m", 48, 4, 4096, 2048, 32, None),
+)
+# the runs whose #8 launches stand in the kernels line as rows of their
+# own: windowed GQA on the tensor cores, hd 256 MQA on the CUDA cores
+FAMILY_ROWS = {"mixtral-8x22b": "windowed_gqa",
+               "recurrentgemma-9b": "hd256_mqa"}
 # phase 7: the packings (core/sharded_engine.py's PACKINGS), the wire and
 # fault mixes they run at N = 20 000 against the dense run, the scenarios
 # timed at N = 10^6, the learners of the vector apply, and kernel #2's
@@ -1432,14 +1471,14 @@ def flash_bound(q, kv_heads: int, causal: bool, window):
             "bytes" if ms_bytes >= ms_ops else "operations", nbytes, flops)
 
 
-def serve_once(cfg, params, prompts, steps: int):
-    """A ``DecodeServer(batch=len(prompts), max_len=LM_MAX_LEN)``: fused
+def serve_once(cfg, params, prompts, steps: int, max_len: int = LM_MAX_LEN):
+    """A ``DecodeServer(batch=len(prompts), max_len=max_len)``: fused
     prefill of ``prompts``, then ``steps`` greedy decode steps. Returns
     (prefill logits, tokens, prefill s, decode s)."""
     import torch
     from repro_torch.launch.serve import DecodeServer
     srv = DecodeServer(cfg, params, batch=prompts.shape[0],
-                       max_len=LM_MAX_LEN)
+                       max_len=max_len)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, start = srv.prefill(prompts)
@@ -1450,12 +1489,13 @@ def serve_once(cfg, params, prompts, steps: int):
     return logits, toks, t1 - t0, t2 - t1
 
 
-def small_server_check(device, seed: int = 1):
-    """The reduced config (f32) served on ``device`` (kernel #8) and on
-    the CPU (its plain version) with the same weights: prefill logits
-    within rtol 1e-4 and an atol of 1e-5 times their largest magnitude,
-    and equal greedy tokens over 16 steps. Returns (max logit diff,
-    tokens)."""
+def small_server_check(device, seed: int = 1, arch: str = LM_ARCH):
+    """The reduced ``arch`` (f32) served on ``device`` (kernel #8 where it
+    has attention) and on the CPU (its plain version) with the same
+    weights, a 100-token prompt (past the reduced windows, 64 and 32):
+    prefill logits within rtol 1e-4 and an atol of 1e-5 times their
+    largest magnitude, and equal greedy tokens over 16 steps. Returns (max
+    logit diff, tokens)."""
     import copy
 
     import numpy as np
@@ -1463,7 +1503,7 @@ def small_server_check(device, seed: int = 1):
     from repro_torch.config import get_config, reduced_config
     from repro_torch.launch.serve import DecodeServer
     from repro_torch.models import transformer as T
-    cfg = reduced_config(get_config(LM_ARCH), vocab=2048)
+    cfg = reduced_config(get_config(arch), vocab=2048)
     on_cpu = T.init_params(cfg, device="cpu", seed=seed)
     on_dev = copy.deepcopy(on_cpu).to(device)
     prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size,
@@ -1477,11 +1517,11 @@ def small_server_check(device, seed: int = 1):
     diff = float((gl - cl).abs().max())
     if not torch.allclose(gl, cl, rtol=1e-4,
                           atol=1e-5 * max(1.0, float(cl.abs().max()))):
-        raise AssertionError(f"reduced server: card and CPU logits differ "
-                             f"by {diff}")
+        raise AssertionError(f"reduced {arch} server: card and CPU logits "
+                             f"differ by {diff}")
     if not np.array_equal(gt, ct):
-        raise AssertionError("reduced server: card and CPU greedy tokens "
-                             "differ")
+        raise AssertionError(f"reduced {arch} server: card and CPU greedy "
+                             "tokens differ")
     return diff, gt
 
 
@@ -2884,6 +2924,245 @@ def phase9(card: str, results: dict, dev) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the moe, ssm and hybrid families
+# ---------------------------------------------------------------------------
+
+
+def band_mask(s: int, window, device):
+    """The (S, S) boolean mask of kernel #8's causal band: key j visible
+    to query i when 0 <= i - j < window."""
+    import torch
+    i = torch.arange(s, device=device)
+    diff = i[:, None] - i[None, :]
+    mask = diff >= 0
+    if window is not None:
+        mask &= diff < window
+    return mask
+
+
+def routed(run, keep: int, pin=None):
+    """``run()`` with ``models/moe.py``'s ``route`` recording the expert
+    choices of its first ``keep`` calls (a prefill's, one a MoE layer);
+    with ``pin``, those calls take ``pin``'s choices instead of their own
+    top-k. Returns (run's result, the recorded choices)."""
+    from repro_torch.models import moe
+    real = moe.route
+    seen = []
+
+    def wrapper(params, m, x, experts=None):
+        i = len(seen)
+        if pin is not None and i < len(pin):
+            experts = pin[i]
+        out = real(params, m, x, experts=experts)
+        if i < keep:
+            seen.append(out[2].clone())
+        return out
+    moe.route = wrapper
+    try:
+        return run(), seen
+    finally:
+        moe.route = real
+
+
+def family_kernel_row(card: str, arch: str, captured: dict, route: str):
+    """Kernel #8 on a run's own last-attention-layer q, k, v: against its
+    plain version, timed, beside its bound and
+    ``scaled_dot_product_attention`` with the band as a boolean mask
+    (timed only). Returns the row's measured numbers."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = captured["q"], captured["k"], captured["v"]
+    causal, window = captured["kw"]["causal"], captured["kw"]["window"]
+    err = compare_flash(q, k, v, causal, window, route)
+    ms = cuda_time_ms(lambda: fa.flash_attention(
+        q, k, v, causal=causal, window=window), reps=10)
+    plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
+        q, k, v, causal=causal, window=window), reps=3, warmup=1)
+    mask = band_mask(q.shape[1], window, q.device)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=3, warmup=1)
+    b_ms, by, nbytes, flops = flash_bound(q, k.shape[2], causal, window)
+    print(f"[10] {card}: {arch}: flash_attention ({route}) on the last "
+          f"attention layer's q, k, v {tuple(q.shape)} kv {k.shape[2]} "
+          f"{str(q.dtype)[6:]} causal={causal} window={window}: {ms:.4f} "
+          f"ms/launch vs bound {b_ms:.4f} ms ({by}, {flops} operations, "
+          f"{nbytes} B); plain version {plain_ms:.4f} ms; "
+          f"scaled_dot_product_attention with the band as a mask "
+          f"{lib_ms:.4f} ms; max abs err vs plain {err:.3e}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by, library_ms=lib_ms, bound_bytes=nbytes,
+                bound_operations=flops, shape=list(q.shape),
+                kv_heads=k.shape[2], window=window)
+
+
+def family_run(card: str, dev, run) -> dict:
+    """One of ``FAMILY_RUNS`` at full width (see the module note): the
+    served run with kernel #8's launches counted from 0 and the last
+    attention layer's q, k, v captured, the plain-attention path's run,
+    then #8 on the captured q, k, v. Returns the run's numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gossip_cycle as gc
+    from repro_torch.kernels import gossip_merge as gm
+    from repro_torch.kernels import pegasos_update as pu
+    from repro_torch.kernels import voted_predict as vp
+    from repro_torch.models import transformer as T
+    arch, layers, batch, max_len, prompt, steps, route = run
+    cfg = get_config(arch).replace(num_layers=layers)
+    n_attn = sum(k in T.ATTENTION_KINDS for k in cfg.layer_kinds())
+    n_moe = layers if cfg.moe is not None else 0
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(10).integers(0, cfg.vocab_size,
+                                                 (batch, prompt))
+    print(f"[10] {arch}: {layers} of {get_config(arch).num_layers} layers "
+          f"({'/'.join(cfg.layer_kinds())}), {cfg.param_count()} parameters "
+          f"in {str(cfg.param_dtype)[6:]}, random from a seeded generator "
+          f"on the card in {init_s:.2f} s")
+    serve_once(cfg, params, prompts[:, :64], 2, max_len)     # warm up
+
+    flash = fa.flash_attention
+    captured = {}
+
+    def capture(q, k, v, **kw):
+        if flash.launches == n_attn - 1:         # the last attention layer
+            captured.update(q=q.clone(), k=k.clone(), v=v.clone(), kw=kw)
+        return flash(q, k, v, **kw)
+
+    others = (gc.fused_receive_apply, vp.voted_predict_batched,
+              pu.pegasos_update, gm.merge_update)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention = capture
+    try:
+        for fn in (flash,) + others:
+            fn.launches = 0
+        flash.route_launches = dict.fromkeys(fa.ROUTES, 0)
+        (logits, toks, pre_s, dec_s), experts = routed(
+            lambda: serve_once(cfg, params, prompts, steps, max_len), n_moe)
+        launches = flash.launches
+        routes = dict(flash.route_launches)
+        stray = [fn.launches for fn in others]
+    finally:
+        fa.flash_attention = flash
+    peak = torch.cuda.max_memory_allocated()
+    want_routes = dict.fromkeys(fa.ROUTES, 0)
+    if route is not None:
+        want_routes[route] = n_attn
+    if launches != n_attn or routes != want_routes or any(stray):
+        raise AssertionError(f"phase 10 {arch}: kernel #8 launched "
+                             f"{launches} times (by route {routes}) in a "
+                             f"prefill of {n_attn} attention layers, "
+                             f"expected {want_routes}; others {stray}")
+    if (tuple(logits.shape) != (batch, cfg.vocab_size)
+            or not torch.isfinite(logits).all()
+            or toks.shape != (batch, steps)
+            or not ((0 <= toks) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"phase 10 {arch}: logits "
+                             f"{tuple(logits.shape)}, tokens {toks.shape}")
+    pre_tps = batch * prompt / pre_s
+    dec_tps = batch * steps / dec_s
+    print(f"[10] {card}: {arch} DecodeServer(batch={batch}, "
+          f"max_len={max_len}): kernel #8 launches {launches} in the "
+          f"prefill (by route {routes}); prefill of {prompt} tokens "
+          f"{pre_s * 1e3:.1f} ms ({pre_tps:.0f} tokens/s); {steps} decode "
+          f"steps {dec_s * 1e3 / steps:.2f} ms/step ({dec_tps:.1f} "
+          f"tokens/s); peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
+    print(f"[10] {arch} sample continuation: {toks[0][:16].tolist()}")
+    out = dict(arch=arch, layers=layers, batch=batch, max_len=max_len,
+               prompt=prompt, steps=steps, params=cfg.param_count(),
+               init_s=init_s, prefill_s=pre_s, prefill_tokens_per_s=pre_tps,
+               decode_ms_per_step=dec_s * 1e3 / steps,
+               decode_tokens_per_s=dec_tps, peak_bytes=peak,
+               launches=launches, route_launches=routes)
+    if n_attn:
+        # the same server on the plain attention path. A MoE router may
+        # choose another expert for a token where bf16 leaves two near
+        # tied: the paths are then held equal with the kernel path's
+        # choices pinned on the plain path's prefill, and the flips counted
+        xla = cfg.replace(attn_impl="xla")
+        (p_logits, p_toks, p_pre, p_dec), p_experts = routed(
+            lambda: serve_once(xla, params, prompts, steps, max_len), n_moe)
+        ldiff = float((logits - p_logits).abs().max())
+        scale = float(p_logits.abs().max())
+        same = float(np.mean(toks == p_toks))
+        first = float(np.mean(toks[:, 0] == p_toks[:, 0]))
+        flips = [int((a != b).sum()) for a, b in zip(experts, p_experts)]
+        pinned = ldiff
+        if any(flips):
+            toks_t = torch.as_tensor(prompts, device=dev)
+            (pin_logits, _), _ = routed(
+                lambda: T.prefill(params, xla, toks_t, max_len), n_moe,
+                pin=experts)
+            pinned = float((logits - pin_logits).abs().max())
+            del pin_logits
+        print(f"[10] {card}: {arch} on the plain attention path "
+              f"(attn_impl=xla): prefill {p_pre * 1e3:.1f} ms, decode "
+              f"{p_dec * 1e3 / steps:.2f} ms/step; prefill logits max abs "
+              f"diff {ldiff:.4f} (largest |logit| {scale:.3f}, tolerance "
+              f"{LM_PATH_LOGIT_TOL}); expert choices that differ in the "
+              f"prefill, by layer {flips} of "
+              f"{experts[0].numel() if experts else 0}; with the kernel "
+              f"path's choices pinned {pinned:.4f}; first tokens equal "
+              f"{first:.2f}, all {steps} greedy tokens equal {same:.4f}")
+        if not pinned <= LM_PATH_LOGIT_TOL:
+            raise AssertionError(f"phase 10 {arch}: kernel and plain "
+                                 f"attention paths' prefill logits differ "
+                                 f"by {pinned} (expert choices pinned; "
+                                 f"{ldiff} unpinned, flips {flips})")
+        out["plain_path"] = dict(prefill_s=p_pre, decode_s=p_dec,
+                                 logit_diff=ldiff, largest_logit=scale,
+                                 expert_flips=flips,
+                                 pinned_logit_diff=pinned,
+                                 first_token_share=first, token_share=same)
+    del params, logits
+    torch.cuda.empty_cache()
+    if n_attn:
+        out["flash"] = family_kernel_row(card, arch, captured, route)
+    del captured
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase10(card: str, results: dict, dev) -> list:
+    """The moe, ssm and hybrid families (see the module note). Returns
+    kernel #8's rows of the ``kernels`` line for ``FAMILY_ROWS``."""
+    import torch
+    t_start = time.perf_counter()
+    out = results["phase10"] = {"small": {}}
+    for arch, *_ in FAMILY_RUNS:
+        diff, _ = small_server_check(dev, seed=2, arch=arch)
+        out["small"][arch] = diff
+        print(f"[10] reduced {arch} (f32) served on the card and on the CPU "
+              f"with the same weights: prefill logits within {diff:.3e}, 16 "
+              "greedy tokens a prompt equal")
+    torch.cuda.empty_cache()
+    rows = []
+    for run in FAMILY_RUNS:
+        res = out[run[0]] = family_run(card, dev, run)
+        if run[0] in FAMILY_ROWS:
+            fl = res["flash"]
+            rows.append(dict(
+                name=f"flash_attention[{run[6]}:{FAMILY_ROWS[run[0]]}]",
+                route="cuda", source=FLASH_SOURCES[run[6]],
+                replaces=FLASH_REPLACES, launches=res["launches"],
+                **{k: fl[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "library_ms")},
+                arch=run[0], shape=fl["shape"], kv_heads=fl["kv_heads"],
+                window=fl["window"]))
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"[10] {card}: phase 10 took {out['seconds']:.1f} s")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -2975,8 +3254,17 @@ def main() -> int:
     print(f"[0]   flash_attention_hopper: dynamic shared memory a block "
           f"{', '.join(f'hd {hd}: {b} B' for hd, b in smem.items())} of the "
           f"card's {optin} B (registers and spills above)")
+    core_smem = {hd: fa.cuda_core_smem_bytes(hd) for hd in FLASH_HEAD_DIMS}
+    if max(core_smem.values()) > optin:
+        raise AssertionError(f"the CUDA-core flash kernel asks for "
+                             f"{core_smem} B of shared memory, over the "
+                             f"card's {optin}")
+    sizes = ", ".join(f"hd {hd}: {b} B" for hd, b in core_smem.items())
+    print(f"[0]   flash_attention (CUDA cores): dynamic shared memory a "
+          f"block {sizes} of the card's {optin} B, opted in above 48 KB")
     results["build_s"] = build_s
     results["flash_hopper_smem"] = smem
+    results["flash_cuda_core_smem"] = core_smem
     threefry = threefry_sass(_build.library_path("quantize_send"))
     print(f"[0]   quantize_send: int8_sr's threefry noise costs "
           f"{threefry['int32']:g} INT32-pipe and {threefry['imad']:g} IMAD "
@@ -3625,9 +3913,14 @@ def main() -> int:
     # ---- 9. gossip-SGD training ---------------------------------------------
     phase(9)
     kernels.extend(phase9(card, results, dev))
+    torch.cuda.empty_cache()
+
+    # ---- 10. the moe, ssm and hybrid families ---------------------------
+    phase(10)
+    kernels.extend(phase10(card, results, dev))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - start
-    print(f"[9] {card}: the whole run took {results['total_s']:.1f} s")
+    print(f"[10] {card}: the whole run took {results['total_s']:.1f} s")
     if opts.out:
         out = Path(opts.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -2,11 +2,14 @@
 
 A copy of ``repro/config/base.py``'s model configs (that module cannot be
 imported here: its package loads JAX), with ``torch`` dtypes in place of
-``jnp`` ones. ``AttentionConfig`` and ``ModelConfig`` drive the port's
-models; the MoE, SSM, RG-LRU, encoder and cross-attention configs are
-plain data, kept so that every registered config converts field by field
-(``convert.model_config_from_dict``) though the port does not run those
-families yet (ROADMAP queue 1 item 12b).
+``jnp`` ones. ``AttentionConfig``, ``MoEConfig``, ``SSMConfig``,
+``RGLRUConfig`` and ``ModelConfig`` drive the port's models; the encoder
+and cross-attention configs are plain data, kept so that every registered
+config converts field by field (``convert.model_config_from_dict``)
+though the port does not run the vlm and audio families yet (ROADMAP
+queue 1 item 12b). ``MoEConfig.sharding`` and ``combine`` are the
+reference's mesh settings; on one device only the gather combine runs,
+as in the reference.
 
 One meaning differs: ``attn_impl``'s default is ``"flash"``, the flash
 kernel (#8, ``kernels/flash_attention.py``): on CUDA tensors it runs the
@@ -14,9 +17,10 @@ hand-written kernel, on CPU tensors its plain version. It is forward only,
 as the reference's Pallas kernel is, so training (``launch/train.py``)
 sets the reference's default ``"chunked"`` (query chunks over the plain
 grouped attention, differentiable). ``"xla"`` is the plain grouped
-attention of ``models/attention.py``; the reference's ``"banded"`` is not
-ported yet, and its ``"pallas"`` converts to ``"flash"``. ``GossipConfig``
-is the gossip optimizer's (``core/gossip_optimizer.py``).
+attention of ``models/attention.py`` and ``"banded"`` its static band of
+query blocks (as the reference's); the reference's ``"pallas"`` converts
+to ``"flash"``. ``GossipConfig`` is the gossip optimizer's
+(``core/gossip_optimizer.py``).
 """
 from __future__ import annotations
 
@@ -119,8 +123,9 @@ class ModelConfig:
     remat: bool = True
     scan_layers: bool = True
     citation: str = ""
-    # 'flash' (kernel #8), 'chunked' (query chunks, differentiable) or
-    # 'xla' (plain grouped attention)
+    # 'flash' (kernel #8), 'chunked' (query chunks, differentiable),
+    # 'banded' (static query blocks over their window's keys) or 'xla'
+    # (plain grouped attention)
     attn_impl: str = "flash"
     attn_chunk: int = 512
     xent_chunk: int = 512

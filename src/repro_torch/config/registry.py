@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution and reduced variants.
 
-Counterpart of ``repro/config/registry.py``. The port registers the dense,
-all-attention configs that one card holds (``repro_torch/configs/qwen3_*``);
-an architecture the reference has and the port does not yet raises an error
-that says so.
+Counterpart of ``repro/config/registry.py``. The port registers the dense
+(``repro_torch/configs/qwen3_*``), moe (mixtral-8x22b, llama4-scout), ssm
+(mamba2-780m) and hybrid (recurrentgemma-9b) configs; an architecture the
+reference has and the port does not yet raises an error that says so.
 """
 from __future__ import annotations
 
@@ -15,11 +15,9 @@ import torch
 from repro_torch.config.base import ModelConfig
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
-# the reference's architectures that wait for families or sharding the
-# port does not have yet
-NOT_PORTED = ("llama-3.2-vision-11b", "llama3-405b", "llama4-scout-17b-a16e",
-              "mamba2-780m", "mixtral-8x22b", "recurrentgemma-9b",
-              "whisper-medium")
+# the reference's architectures that wait for families (vlm, audio) or
+# sharding (llama3-405b) the port does not have yet
+NOT_PORTED = ("llama-3.2-vision-11b", "llama3-405b", "whisper-medium")
 
 
 def register_config(arch_id: str):

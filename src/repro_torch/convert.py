@@ -21,9 +21,13 @@ For the LM stack, ``model_config_from_dict`` rebuilds a ``ModelConfig`` from
 moves the reference's parameter pytree (as numpy arrays) into the port's
 ``Params``: the reference stacks the layers of each pattern position
 (``blocks/l{j}`` with a leading layer axis, remainder layers under
-``tail/t{j}``), the port keeps one entry per layer in order.
-``lm_params_to_arrays`` is its inverse (``lm_params_to_reference`` the
-same layout as tensors, which the trainer's checkpoints write), and
+``tail/t{j}``), the port keeps one entry per layer in order; each leaf
+keeps its dtype (a bf16 model's float32 ``router``, ``A_log``, ``D``,
+``dt_bias`` and ``lam`` stay float32). ``lm_params_to_arrays`` is the
+inverse (``lm_params_to_reference`` the same layout as tensors, which the
+trainer's checkpoints write). ``lm_cache_from_arrays`` moves the
+reference's decode cache (stacked the same way) into the port's list of
+per-layer dicts, and
 ``gossip_state_from_arrays`` moves a gossip optimizer's state (the
 peer-stacked parameters, the optimizer's state and the step) across.
 """
@@ -234,6 +238,25 @@ def lm_params_from_arrays(cfg: cfg_base.ModelConfig, tree: Mapping, device):
 
     return build_params(model_spec(cfg), lambda path, p: _tensor(
         _reference_leaf(tree, cfg, path), device))
+
+
+def lm_cache_from_arrays(cfg: cfg_base.ModelConfig, tree: Mapping, device):
+    """The reference's decode cache (``init_cache``/``prefill``'s pytree as
+    numpy arrays: ``blocks/l{j}`` stacked on a leading layer axis,
+    ``tail/t{j}``) as the port's list of per-layer dicts on ``device``
+    (``{"k", "v"}``, ``{"ssm", "conv"}`` or ``{"h", "conv"}``, each entry
+    in its own dtype; bf16 moved by its bits)."""
+    period = len(cfg.layer_pattern)
+    nb = cfg.num_layers // period
+    out = []
+    for i in range(cfg.num_layers):
+        node = (tree["blocks"][f"l{i % period}"] if i < nb * period
+                else tree["tail"][f"t{i - nb * period}"])
+        out.append({name: _tensor(_reference_leaf(tree, cfg,
+                                                  ("blocks", i, name)),
+                                  device)
+                    for name in node})
+    return out
 
 
 def lm_params_to_reference(cfg: cfg_base.ModelConfig, params, lead: int = 0):

@@ -344,6 +344,12 @@ extern "C" int flash_attention_forward(const void* q, const void* k,
   return static_cast<int>(err);
 }
 
+// the dynamic shared memory a block asks for at head_dim hd (<= kMaxHD):
+// above 48 KB (hd > 80) the launch opts in through cudaFuncSetAttribute
+extern "C" int flash_attention_smem_bytes(int hd) {
+  return static_cast<int>(smem_bytes(hd));
+}
+
 extern "C" const char* flash_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -157,6 +157,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     return _launch(q, k, v, causal, window, route(q, k, v))
 
 
+def cuda_core_smem_bytes(hd: int) -> int:
+    """The dynamic shared memory a block of the CUDA-core kernel asks for
+    at head_dim ``hd`` (at most ``MAX_HEAD_DIM``); builds the kernel if
+    needed."""
+    fn, _ = _entry("flash_attention", "flash_attention_smem_bytes", (_INT,))
+    return fn(hd)
+
+
 def tensor_core_smem_bytes(hd: int) -> int:
     """The dynamic shared memory a block of the tensor-core kernel asks
     for at head_dim ``hd`` (64 or 128); builds the kernel if needed."""

@@ -1,18 +1,25 @@
 """Batched decode server for the LM stack.
 
 Counterpart of ``repro/launch/serve.py``. Serves a batch of token prompts:
-the prompts are prefilled into the KV cache, then decoded greedily one
+the prompts are prefilled into the cache (KV rows for attention layers,
+the recurrent states of ssm and rglru layers), then decoded greedily one
 token per step for the whole batch. Prefill is fused by default (one
-full-sequence forward that emits the cache, every layer's attention on the
+full-sequence forward that emits the cache, every attention layer on the
 flash kernel #8 on the card); ``fused_prefill=False`` feeds the prompt
 through ``decode_step`` token by token. The cache stays on the parameters'
-device and is updated in place.
+device and is updated in place. A serve ``window`` makes the attention
+layers' caches rings of that many slots; the recurrent states are O(1)
+and take no window. Serves the dense, moe (mixtral-8x22b,
+llama4-scout-17b-a16e), ssm (mamba2-780m) and hybrid (recurrentgemma-9b)
+configs; the vlm and audio families raise.
 
 Usage (on the card; ``--reduced`` shrinks the model, ``--device cpu`` runs
-on the CPU):
+on the CPU; ``--layers`` cuts the depth at full width):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --batch 4 --prompt-len 32 --decode-steps 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
+      --layers 4 --batch 2 --prompt-len 512 --max-len 1024
 """
 from __future__ import annotations
 
@@ -95,6 +102,9 @@ def main(argv=None):
     p.add_argument("--decode-steps", type=int, default=32)
     p.add_argument("--max-len", type=int, default=128)
     p.add_argument("--window", type=int, default=0)
+    p.add_argument("--layers", type=int, default=0,
+                   help="cut the depth to this many layers (0: the "
+                   "config's)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="default: the CUDA card (raises without one)")
@@ -104,6 +114,8 @@ def main(argv=None):
     cfg = get_config(a.arch)
     if a.reduced:
         cfg = reduced_config(cfg, vocab=2048)
+    if a.layers:
+        cfg = cfg.replace(num_layers=a.layers)
     params = T.init_params(cfg, device=device, seed=a.seed)
     srv = DecodeServer(cfg, params, batch=a.batch, max_len=a.max_len,
                        window=a.window or None)

@@ -8,9 +8,10 @@ and the training path: differentiable, each chunk recomputed in the
 backward pass) or in one block (``impl="xla"``); the decode path attends
 one new token over a (possibly ring-buffered) KV cache, which it updates
 in place (the reference returns a new cache; the port's cache is the
-serve loop's own, so nothing is lost). Cross-attention and the
-reference's ``"banded"`` impl are not ported yet (ROADMAP queue 1 item
-12b).
+serve loop's own, so nothing is lost). ``impl="banded"`` is the
+reference's static band: unrolled query blocks, each sliced to the keys
+its window can reach. Cross-attention is not ported yet (ROADMAP queue 1
+item 12b).
 """
 from __future__ import annotations
 
@@ -141,6 +142,30 @@ def _chunked_sdpa(q, k, v, a: AttentionConfig, positions, compute_dtype,
     return torch.cat(out, dim=1)
 
 
+def _banded_sdpa(q, k, v, a: AttentionConfig, positions, compute_dtype,
+                 chunk: int):
+    """Sliding-window attention as a static band: unrolled query blocks of
+    ``max(chunk, min(window, 4096))`` rows (the last one ragged), each
+    attending over the ``window + chunk`` keys, rounded up to the block,
+    that end with it (the reference's span arithmetic). Without a causal
+    window it is the plain grouped attention. ``positions``: (S,)."""
+    s = q.shape[1]
+    win = a.sliding_window
+    if win is None or not a.causal:
+        return _grouped_sdpa(q, k, v, a, positions, positions, compute_dtype)
+    chunk = min(max(chunk, min(win, 4096)), s)
+    kspan = min(s, -(-(win + chunk) // chunk) * chunk)
+    out = []
+    for q0 in range(0, s, chunk):
+        q1 = min(q0 + chunk, s)
+        start = max(0, min(q1 - kspan, s - kspan))
+        out.append(_grouped_sdpa(
+            q[:, q0:q1], k[:, start:start + kspan], v[:, start:start + kspan],
+            a, positions[q0:q1], positions[start:start + kspan],
+            compute_dtype))
+    return torch.cat(out, dim=1)
+
+
 # ---------------------------------------------------------------------------
 # full-sequence attention (prefill)
 # ---------------------------------------------------------------------------
@@ -152,7 +177,7 @@ def attention(params, a: AttentionConfig, x, *, positions=None,
     """Full-sequence self-attention: x (B, S, d_model) -> (B, S, d_model),
     or ``(out, (k, v))`` with the rope'd keys and values when
     ``return_kv`` (the fused prefill's decode cache). ``attn_chunk``: the
-    query chunk of ``impl="chunked"``."""
+    query chunk of ``impl="chunked"`` and ``"banded"``."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, a, x)
     if positions is None:
@@ -172,9 +197,8 @@ def attention(params, a: AttentionConfig, x, *, positions=None,
         out = _chunked_sdpa(q, k, v, a, positions[0], compute_dtype,
                             attn_chunk)
     elif impl == "banded":
-        raise NotImplementedError(
-            "attn_impl='banded' is not ported yet (ROADMAP.md, queue 1 item "
-            "12b); use 'flash', 'chunked' or 'xla'")
+        out = _banded_sdpa(q, k, v, a, positions[0], compute_dtype,
+                           attn_chunk)
     else:
         raise ValueError(f"unknown attn_impl {impl!r}")
     out = torch.einsum("bshk,hkd->bsd", out, wcast(params["wo"], out))

@@ -163,6 +163,31 @@ def mlp(params, x, act: str):
     return h @ wcast(params["w_down"], x) + params["b_down"].to(x.dtype)
 
 
+def softplus(x):
+    """``jax.nn.softplus``: log(1 + e^x) as ``logaddexp(x, 0)``
+    (``F.softplus`` switches to x above 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def causal_conv(params, x, conv_state=None):
+    """Causal depthwise conv of width K = ``conv_w.shape[0]`` over
+    (B, S, C), plus ``conv_b``, the recurrent blocks' shared front: the
+    last K - 1 input rows before it are ``conv_state`` (B, K - 1, C) in
+    decode, zeros otherwise. Returns (out, the last K - 1 input rows), the
+    taps summed in order as the reference's ``sum`` does."""
+    w = wcast(params["conv_w"], x)                  # (K, C)
+    k = w.shape[0]
+    if conv_state is None:
+        conv_state = torch.zeros((x.shape[0], k - 1, x.shape[-1]),
+                                 dtype=x.dtype, device=x.device)
+    full = torch.cat([conv_state.to(x.dtype), x], dim=1)
+    s = x.shape[1]
+    out = 0
+    for i in range(k):
+        out = out + full[:, i:i + s] * w[i]
+    return out + wcast(params["conv_b"], x), full[:, -(k - 1):].clone()
+
+
 def embedding_spec(vocab: int, d_model: int, dtype=torch.float32):
     return {"table": P((vocab, d_model), init="normal", scale=0.02,
                        dtype=dtype)}

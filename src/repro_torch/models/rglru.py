@@ -1,0 +1,126 @@
+"""RG-LRU recurrent block (Griffin / RecurrentGemma [arXiv:2402.19427]).
+
+h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t),
+a_t = exp(-c · softplus(Λ) · r_t),  r_t, i_t = σ(block-diagonal linear of x_t).
+
+Counterpart of ``repro/models/rglru.py``. The reference runs the
+recurrence of the full sequence as ``jax.lax.associative_scan`` over time;
+here it is a Hillis–Steele scan, log2(S) steps of whole-tensor products
+in float32 (not a loop of S steps, which at S = 3072 would be thousands of
+launches a layer). Its products associate in another order than the
+reference's scan, so the two agree within rounding, not bit for bit.
+Decode is the one-step recurrence. The recurrence runs in float32, the
+matmuls in the compute dtype; ``jax.nn.gelu`` is the tanh approximation.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config.base import RGLRUConfig
+from repro_torch.models.layers import P, causal_conv, softplus
+
+
+def rglru_dims(d_model: int, r: RGLRUConfig):
+    width = r.lru_width or d_model
+    heads = r.num_heads or 8
+    if width % heads:
+        raise ValueError(f"lru width {width} does not split into {heads} "
+                         "heads")
+    return width, heads
+
+
+def rglru_spec(d_model: int, r: RGLRUConfig, dtype=torch.float32) -> Dict:
+    width, heads = rglru_dims(d_model, r)
+    hw = width // heads
+    return {
+        "w_x": P((d_model, width), init="fan_in", dtype=dtype),
+        "w_y": P((d_model, width), init="fan_in", dtype=dtype),
+        "conv_w": P((r.d_conv, width), init="fan_in", dtype=dtype),
+        "conv_b": P((width,), init="zeros", dtype=dtype),
+        # block-diagonal gates (recurrence gate a, input gate i)
+        "w_a": P((heads, hw, hw), init="fan_in", dtype=dtype),
+        "b_a": P((heads, hw), init="zeros", dtype=dtype),
+        "w_i": P((heads, hw, hw), init="fan_in", dtype=dtype),
+        "b_i": P((heads, hw), init="zeros", dtype=dtype),
+        "lam": P((width,), init="normal", scale=0.5, dtype=torch.float32),
+        "w_out": P((width, d_model), init="fan_in", dtype=dtype),
+    }
+
+
+def _gates(params, r: RGLRUConfig, x, width: int, heads: int):
+    """x (B, S, width) -> log a (float32) and the gated input (float32),
+    both (B, S, width)."""
+    xh = x.reshape(*x.shape[:-1], heads, width // heads)
+    ra = (torch.einsum("...hk,hkj->...hj", xh, params["w_a"].to(xh.dtype))
+          + params["b_a"].to(x.dtype))
+    ri = (torch.einsum("...hk,hkj->...hj", xh, params["w_i"].to(xh.dtype))
+          + params["b_i"].to(x.dtype))
+    rt = torch.sigmoid(ra.float()).reshape(*x.shape[:-1], width)
+    it = torch.sigmoid(ri.float()).reshape(*x.shape[:-1], width)
+    log_a = -r.c * softplus(params["lam"]) * rt
+    a2 = torch.exp(2.0 * log_a)
+    gated = torch.sqrt(torch.clamp_min(1.0 - a2, 1e-12)) * it * x.float()
+    return log_a, gated
+
+
+def linear_scan(a, b):
+    """h_t = a_t h_{t-1} + b_t over dim 1 from h_{-1} = 0: a Hillis–Steele
+    scan of the reference's combine ``(a1, b1), (a2, b2) -> (a1 a2,
+    a2 b1 + b2)`` in ceil(log2 S) steps."""
+    s = a.shape[1]
+    step = 1
+    while step < s:
+        b = torch.cat([b[:, :step], a[:, step:] * b[:, :-step] + b[:, step:]],
+                      dim=1)
+        if 2 * step < s:
+            a = torch.cat([a[:, :step], a[:, step:] * a[:, :-step]], dim=1)
+        step *= 2
+    return b
+
+
+def rglru_forward(params, r: RGLRUConfig, d_model: int, x, *,
+                  compute_dtype=torch.bfloat16, return_state: bool = False):
+    """The full-sequence block: x (B, S, d_model) -> the same shape; with
+    ``return_state`` also the decode state {"h", "conv"} after the last
+    position (the fused prefill)."""
+    width, heads = rglru_dims(d_model, r)
+    y_branch = F.gelu((x @ params["w_y"].to(x.dtype)).float(),
+                      approximate="tanh")
+    xb, conv_state = causal_conv(params, x @ params["w_x"].to(x.dtype))
+    log_a, gated = _gates(params, r, xb, width, heads)
+    h = linear_scan(torch.exp(log_a), gated)
+    out = (h * y_branch).to(compute_dtype)
+    out = out @ params["w_out"].to(out.dtype)
+    if return_state:
+        return out, {"h": h[:, -1].clone(),
+                     "conv": conv_state.to(compute_dtype)}
+    return out
+
+
+def init_rglru_state(batch: int, d_model: int, r: RGLRUConfig, dtype,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """The zero decode state: ``h`` (B, width) float32 and ``conv``
+    (B, d_conv - 1, width) in ``dtype``."""
+    width, _ = rglru_dims(d_model, r)
+    return {"h": torch.zeros((batch, width), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, r.d_conv - 1, width), dtype=dtype,
+                                device=device)}
+
+
+def rglru_step(params, r: RGLRUConfig, d_model: int, x, state, *,
+               compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict]:
+    """One token: x (B, 1, d_model). Returns the output and the new state
+    (new tensors)."""
+    width, heads = rglru_dims(d_model, r)
+    y_branch = F.gelu((x @ params["w_y"].to(x.dtype)).float(),
+                      approximate="tanh")
+    xb, conv_state = causal_conv(params, x @ params["w_x"].to(x.dtype),
+                                 conv_state=state["conv"])
+    log_a, gated = _gates(params, r, xb, width, heads)
+    h = torch.exp(log_a[:, 0]) * state["h"] + gated[:, 0]
+    out = (h[:, None] * y_branch).to(compute_dtype)
+    return out @ params["w_out"].to(out.dtype), {"h": h, "conv": conv_state}

@@ -15,8 +15,9 @@ armed with telemetry (its streams equal to the reference engine's); the
 compact packings bit for bit the dense run (kernel #1 on the gathered
 receivers, #2-#4 on the senders' rows, kernel #2 with ``rows`` against
 its plain version) and Adaline and logistic regression on the vector
-apply against the reference engine; the reduced LM served on the card
-against the same weights served on the CPU; and the paper's baselines,
+apply against the reference engine; the reduced LM (and the reduced moe,
+ssm and hybrid configs) served on the card against the same weights
+served on the CPU; and the paper's baselines,
 WB1/WB2 bagging and the sequential Pegasos chain, on kernel #6 against the
 same runs on the CPU; the kernel wrappers refusing inputs that require
 grad, the one-shot ``_ef`` send counted as kernel #4, the gossip exchange
@@ -475,6 +476,32 @@ def test_flash_tensor_core_route_matches_plain_version(cuda, hd, group, s):
                 assert fa.flash_attention.launches == total + 1
                 assert fa.flash_attention.route_launches == dict(
                     routes, tensor_core=routes["tensor_core"] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [300, 2048])
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_hd256_mqa_matches_plain_version(cuda, dtype, window, s):
+    """head_dim 256 over one kv head (recurrentgemma's local attention),
+    causal: the CUDA-core route (its count up by one), within
+    ``compare_flash``'s tolerance."""
+    from repro_torch.kernels import flash_attention as fa
+    dt = getattr(torch, dtype)
+    q, k, v = smoke.flash_inputs(s + 256, 2 if s < 2048 else 1, s, 16, 1,
+                                 256, dt, cuda)
+    routes = dict(fa.flash_attention.route_launches)
+    smoke.compare_flash(q, k, v, True, window, "cuda_core")
+    assert fa.flash_attention.route_launches == dict(
+        routes, cuda_core=routes["cuda_core"] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-scout-17b-a16e",
+                                  "mamba2-780m", "recurrentgemma-9b"])
+def test_reduced_family_served_on_card_matches_cpu(cuda, arch):
+    diff, toks = smoke.small_server_check(cuda, seed=4, arch=arch)
+    assert toks.shape == (2, 16)
 
 
 def odd_row_stride(a):
