@@ -161,7 +161,27 @@ and ``nvcc``. The phases, each of which raises on failure:
    plain path (equal to the unpinned comparison where none differ), the
    share of equal greedy tokens; #8 on the run's last attention layer's
    q, k, v beside its bound, its plain version and
-   ``scaled_dot_product_attention`` with the band as a boolean mask.
+   ``scaled_dot_product_attention`` with the band as a boolean mask;
+11. the audio and vlm families: whisper-medium and llama-3.2-vision-11b
+   reduced (f32, every cross layer's gates set to seeded values in
+   [0.3, 1): at their init of zero a cross layer adds nothing) served on
+   the card against the same weights on the CPU (logits within phase 6's
+   tolerance, greedy tokens equal; the 100-token prompt runs past
+   whisper's 64 reduced positions); then each whole at its published
+   widths with random weights from a seeded generator (``ENCDEC_RUNS``,
+   through ``family_run``): whisper-medium, 24 encoder and 24 decoder
+   layers in f32 weights and bf16 compute, ``DecodeServer(batch=4,
+   max_len=448)`` with its 1500 frames drawn from key 0 as the
+   reference's server draws them, a 256-token prompt, 64 greedy steps and
+   no launch of #8 (the reference routes whisper's attention to the plain
+   path); llama-3.2-vision-11b, 40 layers in bf16, the gates set,
+   ``DecodeServer(batch=2, max_len=2048)`` with its 1601 patches, a
+   1024-token prompt, 32 launches of #8 all on ``tensor_core``, 32 greedy
+   steps, the same server on ``attn_impl="xla"`` (prefill logits within
+   ``LM_PATH_LOGIT_TOL``, the share of equal greedy tokens) and #8 on the
+   last self-attention layer's q, k, v beside its bound, its plain
+   version and ``scaled_dot_product_attention``. Each run's prefill and
+   decode times and tokens/s and peak memory.
 
 Prints one JSON line of per-kernel results (with phase 3's armed seconds
 by span under ``"phase3_spans"``), the ``nvidia-smi`` name and power
@@ -291,10 +311,19 @@ FAMILY_RUNS = (
     ("recurrentgemma-9b", 5, 2, 4096, 3072, 32, "cuda_core"),
     ("mamba2-780m", 48, 4, 4096, 2048, 32, None),
 )
+# phase 11: the audio and vlm families whole, in FAMILY_RUNS' form.
+# whisper's attention never reaches #8 (the reference routes it to the
+# plain path); the vision model's 32 self-attention layers do
+ENCDEC_RUNS = (
+    ("whisper-medium", 24, 4, 448, 256, 64, None),
+    ("llama-3.2-vision-11b", 40, 2, 2048, 1024, 32, "tensor_core"),
+)
 # the runs whose #8 launches stand in the kernels line as rows of their
-# own: windowed GQA on the tensor cores, hd 256 MQA on the CUDA cores
+# own: windowed GQA on the tensor cores, hd 256 MQA on the CUDA cores, the
+# vision model's causal GQA beside its cross layers
 FAMILY_ROWS = {"mixtral-8x22b": "windowed_gqa",
-               "recurrentgemma-9b": "hd256_mqa"}
+               "recurrentgemma-9b": "hd256_mqa",
+               "llama-3.2-vision-11b": "vlm"}
 # phase 7: the packings (core/sharded_engine.py's PACKINGS), the wire and
 # fault mixes they run at N = 20 000 against the dense run, the scenarios
 # timed at N = 10^6, the learners of the vector apply, and kernel #2's
@@ -1489,13 +1518,15 @@ def serve_once(cfg, params, prompts, steps: int, max_len: int = LM_MAX_LEN):
     return logits, toks, t1 - t0, t2 - t1
 
 
-def small_server_check(device, seed: int = 1, arch: str = LM_ARCH):
+def small_server_check(device, seed: int = 1, arch: str = LM_ARCH,
+                       prepare=None):
     """The reduced ``arch`` (f32) served on ``device`` (kernel #8 where it
     has attention) and on the CPU (its plain version) with the same
-    weights, a 100-token prompt (past the reduced windows, 64 and 32):
-    prefill logits within rtol 1e-4 and an atol of 1e-5 times their
-    largest magnitude, and equal greedy tokens over 16 steps. Returns (max
-    logit diff, tokens)."""
+    weights (``prepare(params)`` applied to them first, where given), a
+    100-token prompt (past the reduced windows, 64 and 32, and the reduced
+    learned positions, 64): prefill logits within rtol 1e-4 and an atol of
+    1e-5 times their largest magnitude, and equal greedy tokens over 16
+    steps. Returns (max logit diff, tokens)."""
     import copy
 
     import numpy as np
@@ -1505,6 +1536,8 @@ def small_server_check(device, seed: int = 1, arch: str = LM_ARCH):
     from repro_torch.models import transformer as T
     cfg = reduced_config(get_config(arch), vocab=2048)
     on_cpu = T.init_params(cfg, device="cpu", seed=seed)
+    if prepare is not None:
+        prepare(on_cpu)
     on_dev = copy.deepcopy(on_cpu).to(device)
     prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size,
                                                    (2, 100))
@@ -2965,7 +2998,8 @@ def routed(run, keep: int, pin=None):
         moe.route = real
 
 
-def family_kernel_row(card: str, arch: str, captured: dict, route: str):
+def family_kernel_row(card: str, arch: str, captured: dict, route: str,
+                      phase: int = 10):
     """Kernel #8 on a run's own last-attention-layer q, k, v: against its
     plain version, timed, beside its bound and
     ``scaled_dot_product_attention`` with the band as a boolean mask
@@ -2985,7 +3019,7 @@ def family_kernel_row(card: str, arch: str, captured: dict, route: str):
     lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=3, warmup=1)
     b_ms, by, nbytes, flops = flash_bound(q, k.shape[2], causal, window)
-    print(f"[10] {card}: {arch}: flash_attention ({route}) on the last "
+    print(f"[{phase}] {card}: {arch}: flash_attention ({route}) on the last "
           f"attention layer's q, k, v {tuple(q.shape)} kv {k.shape[2]} "
           f"{str(q.dtype)[6:]} causal={causal} window={window}: {ms:.4f} "
           f"ms/launch vs bound {b_ms:.4f} ms ({by}, {flops} operations, "
@@ -2998,11 +3032,13 @@ def family_kernel_row(card: str, arch: str, captured: dict, route: str):
                 kv_heads=k.shape[2], window=window)
 
 
-def family_run(card: str, dev, run) -> dict:
-    """One of ``FAMILY_RUNS`` at full width (see the module note): the
-    served run with kernel #8's launches counted from 0 and the last
-    attention layer's q, k, v captured, the plain-attention path's run,
-    then #8 on the captured q, k, v. Returns the run's numbers."""
+def family_run(card: str, dev, run, phase: int = 10, prepare=None) -> dict:
+    """One of ``FAMILY_RUNS`` (or ``ENCDEC_RUNS``, ``phase`` 11) at full
+    width (see the module note): the served run with kernel #8's launches
+    counted from 0 and the last attention layer's q, k, v captured, the
+    plain-attention path's run, then #8 on the captured q, k, v.
+    ``prepare(params)`` is applied to the seeded weights first, where
+    given. Returns the run's numbers."""
     import numpy as np
     import torch
     from repro_torch.config import get_config
@@ -3018,11 +3054,14 @@ def family_run(card: str, dev, run) -> dict:
     n_moe = layers if cfg.moe is not None else 0
     t0 = time.perf_counter()
     params = T.init_params(cfg, device=dev, seed=0)
+    if prepare is not None:
+        prepare(params)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prompts = np.random.default_rng(10).integers(0, cfg.vocab_size,
                                                  (batch, prompt))
-    print(f"[10] {arch}: {layers} of {get_config(arch).num_layers} layers "
+    print(f"[{phase}] {arch}: {layers} of {get_config(arch).num_layers} "
+          "layers "
           f"({'/'.join(cfg.layer_kinds())}), {cfg.param_count()} parameters "
           f"in {str(cfg.param_dtype)[6:]}, random from a seeded generator "
           f"on the card in {init_s:.2f} s")
@@ -3057,7 +3096,7 @@ def family_run(card: str, dev, run) -> dict:
     if route is not None:
         want_routes[route] = n_attn
     if launches != n_attn or routes != want_routes or any(stray):
-        raise AssertionError(f"phase 10 {arch}: kernel #8 launched "
+        raise AssertionError(f"phase {phase} {arch}: kernel #8 launched "
                              f"{launches} times (by route {routes}) in a "
                              f"prefill of {n_attn} attention layers, "
                              f"expected {want_routes}; others {stray}")
@@ -3065,17 +3104,17 @@ def family_run(card: str, dev, run) -> dict:
             or not torch.isfinite(logits).all()
             or toks.shape != (batch, steps)
             or not ((0 <= toks) & (toks < cfg.vocab_size)).all()):
-        raise AssertionError(f"phase 10 {arch}: logits "
+        raise AssertionError(f"phase {phase} {arch}: logits "
                              f"{tuple(logits.shape)}, tokens {toks.shape}")
     pre_tps = batch * prompt / pre_s
     dec_tps = batch * steps / dec_s
-    print(f"[10] {card}: {arch} DecodeServer(batch={batch}, "
+    print(f"[{phase}] {card}: {arch} DecodeServer(batch={batch}, "
           f"max_len={max_len}): kernel #8 launches {launches} in the "
           f"prefill (by route {routes}); prefill of {prompt} tokens "
           f"{pre_s * 1e3:.1f} ms ({pre_tps:.0f} tokens/s); {steps} decode "
           f"steps {dec_s * 1e3 / steps:.2f} ms/step ({dec_tps:.1f} "
           f"tokens/s); peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
-    print(f"[10] {arch} sample continuation: {toks[0][:16].tolist()}")
+    print(f"[{phase}] {arch} sample continuation: {toks[0][:16].tolist()}")
     out = dict(arch=arch, layers=layers, batch=batch, max_len=max_len,
                prompt=prompt, steps=steps, params=cfg.param_count(),
                init_s=init_s, prefill_s=pre_s, prefill_tokens_per_s=pre_tps,
@@ -3103,7 +3142,7 @@ def family_run(card: str, dev, run) -> dict:
                 pin=experts)
             pinned = float((logits - pin_logits).abs().max())
             del pin_logits
-        print(f"[10] {card}: {arch} on the plain attention path "
+        print(f"[{phase}] {card}: {arch} on the plain attention path "
               f"(attn_impl=xla): prefill {p_pre * 1e3:.1f} ms, decode "
               f"{p_dec * 1e3 / steps:.2f} ms/step; prefill logits max abs "
               f"diff {ldiff:.4f} (largest |logit| {scale:.3f}, tolerance "
@@ -3113,7 +3152,7 @@ def family_run(card: str, dev, run) -> dict:
               f"path's choices pinned {pinned:.4f}; first tokens equal "
               f"{first:.2f}, all {steps} greedy tokens equal {same:.4f}")
         if not pinned <= LM_PATH_LOGIT_TOL:
-            raise AssertionError(f"phase 10 {arch}: kernel and plain "
+            raise AssertionError(f"phase {phase} {arch}: kernel and plain "
                                  f"attention paths' prefill logits differ "
                                  f"by {pinned} (expert choices pinned; "
                                  f"{ldiff} unpinned, flips {flips})")
@@ -3125,7 +3164,7 @@ def family_run(card: str, dev, run) -> dict:
     del params, logits
     torch.cuda.empty_cache()
     if n_attn:
-        out["flash"] = family_kernel_row(card, arch, captured, route)
+        out["flash"] = family_kernel_row(card, arch, captured, route, phase)
     del captured
     torch.cuda.empty_cache()
     return out
@@ -3162,6 +3201,57 @@ def phase10(card: str, results: dict, dev) -> list:
     print(f"[10] {card}: phase 10 took {out['seconds']:.1f} s")
     return rows
 
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the audio and vlm families
+# ---------------------------------------------------------------------------
+
+
+def set_gates(params, seed: int = 11):
+    """Every cross layer's two gates (zero at init, so the layer would add
+    nothing) to seeded values in [0.3, 1)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    for lp in params["blocks"]:
+        for name in ("gate_attn", "gate_ffn"):
+            if name in lp:
+                lp[name].data.fill_(float(torch.rand((), generator=g)) * 0.7
+                                    + 0.3)
+
+
+def phase11(card: str, results: dict, dev) -> list:
+    """The audio and vlm families (see the module note). Returns kernel
+    #8's row of the ``kernels`` line for the vision model."""
+    import torch
+    t_start = time.perf_counter()
+    out = results["phase11"] = {"small": {}}
+    for arch, *_ in ENCDEC_RUNS:
+        diff, _ = small_server_check(dev, seed=3, arch=arch,
+                                     prepare=set_gates)
+        out["small"][arch] = diff
+        print(f"[11] reduced {arch} (f32, the gates set) served on the card "
+              f"and on the CPU with the same weights: prefill logits within "
+              f"{diff:.3e}, 16 greedy tokens a prompt equal")
+    torch.cuda.empty_cache()
+    rows = []
+    for run in ENCDEC_RUNS:
+        res = out[run[0]] = family_run(card, dev, run, phase=11,
+                                       prepare=set_gates)
+        if run[0] in FAMILY_ROWS:
+            fl = res["flash"]
+            rows.append(dict(
+                name=f"flash_attention[{run[6]}:{FAMILY_ROWS[run[0]]}]",
+                route="cuda", source=FLASH_SOURCES[run[6]],
+                replaces=FLASH_REPLACES, launches=res["launches"],
+                **{k: fl[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "library_ms")},
+                arch=run[0], shape=fl["shape"], kv_heads=fl["kv_heads"],
+                window=fl["window"]))
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"[11] {card}: phase 11 took {out['seconds']:.1f} s")
+    return rows
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3918,9 +4008,14 @@ def main() -> int:
     # ---- 10. the moe, ssm and hybrid families ---------------------------
     phase(10)
     kernels.extend(phase10(card, results, dev))
+    torch.cuda.empty_cache()
+
+    # ---- 11. the audio and vlm families ---------------------------------
+    phase(11)
+    kernels.extend(phase11(card, results, dev))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - start
-    print(f"[10] {card}: the whole run took {results['total_s']:.1f} s")
+    print(f"[11] {card}: the whole run took {results['total_s']:.1f} s")
     if opts.out:
         out = Path(opts.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -3,11 +3,9 @@
 A copy of ``repro/config/base.py``'s model configs (that module cannot be
 imported here: its package loads JAX), with ``torch`` dtypes in place of
 ``jnp`` ones. ``AttentionConfig``, ``MoEConfig``, ``SSMConfig``,
-``RGLRUConfig`` and ``ModelConfig`` drive the port's models; the encoder
-and cross-attention configs are plain data, kept so that every registered
-config converts field by field (``convert.model_config_from_dict``)
-though the port does not run the vlm and audio families yet (ROADMAP
-queue 1 item 12b). ``MoEConfig.sharding`` and ``combine`` are the
+``RGLRUConfig``, ``EncoderConfig`` (whisper's encoder tower),
+``CrossAttnConfig`` (the vlm's gated cross layers) and ``ModelConfig``
+drive the port's models. ``MoEConfig.sharding`` and ``combine`` are the
 reference's mesh settings; on one device only the gather combine runs,
 as in the reference.
 

@@ -21,13 +21,15 @@ For the LM stack, ``model_config_from_dict`` rebuilds a ``ModelConfig`` from
 moves the reference's parameter pytree (as numpy arrays) into the port's
 ``Params``: the reference stacks the layers of each pattern position
 (``blocks/l{j}`` with a leading layer axis, remainder layers under
-``tail/t{j}``), the port keeps one entry per layer in order; each leaf
-keeps its dtype (a bf16 model's float32 ``router``, ``A_log``, ``D``,
-``dt_bias`` and ``lam`` stay float32). ``lm_params_to_arrays`` is the
+``tail/t{j}``), the port keeps one entry per layer in order; the
+encoder's layers (``encoder/blocks``, stacked on the encoder's own layer
+axis) likewise; each leaf keeps its dtype (a bf16 model's float32
+``router``, ``A_log``, ``D``, ``dt_bias``, ``lam`` and the cross layers'
+0-d ``gate_attn``/``gate_ffn`` stay float32). ``lm_params_to_arrays`` is the
 inverse (``lm_params_to_reference`` the same layout as tensors, which the
 trainer's checkpoints write). ``lm_cache_from_arrays`` moves the
-reference's decode cache (stacked the same way) into the port's list of
-per-layer dicts, and
+reference's decode cache (stacked the same way; a cross layer's ``ck`` and
+``cv`` too) into the port's list of per-layer dicts, and
 ``gossip_state_from_arrays`` moves a gossip optimizer's state (the
 peer-stacked parameters, the optimizer's state and the step) across.
 """
@@ -198,7 +200,12 @@ def _reference_leaf(tree: Mapping, cfg: cfg_base.ModelConfig, path,
     """The reference's array for the port's parameter ``path``; layer i is
     entry i // period of ``blocks/l{i % period}`` (its layer axis after
     ``lead`` leading axes, such as the gossip optimizer's peer axis), or a
-    ``tail`` layer."""
+    ``tail`` layer; encoder layer i is entry i of ``encoder/blocks``."""
+    if path[:2] == ("encoder", "blocks"):
+        node = tree["encoder"]["blocks"]
+        for name in path[3:]:
+            node = node[name]
+        return np.asarray(node)[(slice(None),) * lead + (path[2],)]
     if path[0] != "blocks":
         node = tree
         for name in path:
@@ -244,7 +251,8 @@ def lm_cache_from_arrays(cfg: cfg_base.ModelConfig, tree: Mapping, device):
     """The reference's decode cache (``init_cache``/``prefill``'s pytree as
     numpy arrays: ``blocks/l{j}`` stacked on a leading layer axis,
     ``tail/t{j}``) as the port's list of per-layer dicts on ``device``
-    (``{"k", "v"}``, ``{"ssm", "conv"}`` or ``{"h", "conv"}``, each entry
+    (``{"k", "v"}``, ``{"ssm", "conv"}``, ``{"h", "conv"}``, a cross
+    layer's ``{"ck", "cv"}`` or all four of a selfcross layer, each entry
     in its own dtype; bf16 moved by its bits)."""
     period = len(cfg.layer_pattern)
     nb = cfg.num_layers // period
@@ -265,7 +273,7 @@ def lm_params_to_reference(cfg: cfg_base.ModelConfig, params, lead: int = 0):
     axis) in the reference's layout, as detached tensors on their device:
     the layers of pattern position j stacked into ``blocks/l{j}`` on a
     layer axis after the leading ones, the remainder layers under
-    ``tail/t{j}``."""
+    ``tail/t{j}``, the encoder's layers stacked into ``encoder/blocks``."""
     from repro_torch.utils.tree import tree_map
 
     tree = tree_map(lambda x: x.detach(), params)
@@ -273,6 +281,10 @@ def lm_params_to_reference(cfg: cfg_base.ModelConfig, params, lead: int = 0):
     period = len(cfg.layer_pattern)
     nb = cfg.num_layers // period
     out = {k: v for k, v in tree.items() if k != "blocks"}
+    if "encoder" in tree:
+        out["encoder"] = dict(tree["encoder"], blocks=tree_map(
+            lambda *xs: torch.stack(xs, dim=lead),
+            *tree["encoder"]["blocks"]))
     if nb > 0:
         out["blocks"] = {
             f"l{j}": tree_map(lambda *xs: torch.stack(xs, dim=lead),

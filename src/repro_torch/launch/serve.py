@@ -9,9 +9,14 @@ flash kernel #8 on the card); ``fused_prefill=False`` feeds the prompt
 through ``decode_step`` token by token. The cache stays on the parameters'
 device and is updated in place. A serve ``window`` makes the attention
 layers' caches rings of that many slots; the recurrent states are O(1)
-and take no window. Serves the dense, moe (mixtral-8x22b,
-llama4-scout-17b-a16e), ssm (mamba2-780m) and hybrid (recurrentgemma-9b)
-configs; the vlm and audio families raise.
+and take no window. Serves every registered config: dense, moe
+(mixtral-8x22b, llama4-scout-17b-a16e), ssm (mamba2-780m), hybrid
+(recurrentgemma-9b), vlm (llama-3.2-vision-11b) and audio
+(whisper-medium). A vlm or audio server draws its stub source from
+threefry key 0 as the reference's does (``models/vision.py``): the patch
+embeddings, or the frames, which the encoder runs on once to fill the
+cross K/V of the token-by-token path, while the fused prefill runs the
+encoder itself.
 
 Usage (on the card; ``--reduced`` shrinks the model, ``--device cpu`` runs
 on the CPU; ``--layers`` cuts the depth at full width):
@@ -30,8 +35,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import random
 from repro_torch.config import get_config, reduced_config
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import encdec
 from repro_torch.models import transformer as T
+from repro_torch.models import vision as V
 from repro_torch.utils.device import resolve_device
 
 
@@ -41,10 +50,6 @@ class DecodeServer:
 
     def __init__(self, cfg, params, *, batch: int, max_len: int,
                  window: Optional[int] = None, fused_prefill: bool = True):
-        if cfg.family in ("vlm", "audio"):
-            raise NotImplementedError(
-                f"serving the {cfg.family} family (cross-attention K/V from "
-                "an encoder) is not ported yet (ROADMAP.md, queue 1 item 12b)")
         self.cfg = cfg
         self.params = params
         self.batch = batch
@@ -54,6 +59,29 @@ class DecodeServer:
         self.device = params["embed"]["table"].device
         self.cache = T.init_cache(cfg, batch, max_len, window,
                                   device=self.device)
+        self._src = None
+        if cfg.family in ("vlm", "audio"):
+            self._attach_cross_kv()
+
+    def _attach_cross_kv(self):
+        """Fill the cross layers' ``ck``/``cv`` from the stub source drawn
+        from key 0: the patch embeddings themselves (vlm), or the encoder's
+        output on the frames (audio), whose raw frames are kept for the
+        fused prefill, which runs the encoder itself."""
+        cfg = self.cfg
+        key = random.key(0, self.device)
+        if cfg.family == "vlm":
+            src = self._src = V.dummy_patch_embeddings(key, cfg, self.batch)
+        else:
+            self._src = V.dummy_frame_embeddings(key, cfg, self.batch)
+            src = encdec.encoder_forward(self.params["encoder"], cfg,
+                                         self._src)
+        for lp, lc in zip(self.params["blocks"], self.cache):
+            if "ck" in lc:
+                k, v = attn_mod.project_kv(lp["cross_attn"], cfg.attention,
+                                           src)
+                lc["ck"].copy_(k)
+                lc["cv"].copy_(v)
 
     def prefill(self, prompts):
         """prompts: (batch, prompt_len) integer array or tensor. Fills the
@@ -66,7 +94,9 @@ class DecodeServer:
                              f"{toks.shape[0]}")
         if self.fused_prefill:
             logits, self.cache = T.prefill(self.params, self.cfg, toks,
-                                           self.max_len, window=self.window)
+                                           self.max_len,
+                                           encoder_out=self._src,
+                                           window=self.window)
             return logits, toks.shape[1]
         logits = None
         for i in range(toks.shape[1]):

@@ -6,6 +6,11 @@ all-reduce step (``core/gossip_optimizer.py``) -> the loss and peer
 disagreement, and checkpoints in the reference's format. The peers of the
 gossip run are stacked on one device.
 
+A vlm or audio model trains on the stub source the reference draws
+(``models/vision.py``, threefry key ``seed + 1``): the same patch
+embeddings or frames every step, one batch's worth under all-reduce, and
+under gossip ``batch // n_peers`` of them broadcast across the peers.
+
 Training runs the reference's default attention, ``attn_impl="chunked"``
 (query chunks over the plain grouped attention, differentiable): the flash
 kernel #8, the port's serving default, is forward only, as the reference's
@@ -24,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import random
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.config import GossipConfig, get_config, reduced_config
 from repro_torch.convert import lm_params_to_reference
@@ -35,6 +41,7 @@ from repro_torch.core.gossip_optimizer import (GossipState,
                                                stack_for_peers, unstack_mean)
 from repro_torch.data.lm_data import SyntheticLMDataset
 from repro_torch.models import transformer as T
+from repro_torch.models import vision as V
 from repro_torch.optim import make_optimizer, warmup_cosine
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_map
@@ -65,10 +72,6 @@ def train(arch: str = "qwen3-1.7b", *, reduced: bool = True, steps: int = 100,
     ``seed`` on that device."""
     device = resolve_device(device)
     cfg = make_example_config(arch, reduced, d_model=d_model, layers=layers)
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"training the {cfg.family} family (an encoder's output beside "
-            "the tokens) is not ported yet (ROADMAP.md, queue 1 item 12b)")
     cfg = cfg.replace(attn_impl="chunked")
     print(f"training {cfg.name}: {cfg.param_count()/1e6:.1f}M params, "
           f"dist={dist}" + (f" peers={n_peers} merge={merge}"
@@ -81,12 +84,27 @@ def train(arch: str = "qwen3-1.7b", *, reduced: bool = True, steps: int = 100,
     opt = make_optimizer(optimizer, sched)
     ds = SyntheticLMDataset(cfg.vocab_size, seq_len, batch, seed=seed)
 
+    # the stub source beside the tokens (vlm, audio), the same every step:
+    # batch rows, or batch // n_peers broadcast over the peers
+    draw = {"vlm": V.dummy_patch_embeddings,
+            "audio": V.dummy_frame_embeddings}.get(cfg.family)
+    source = None
+    if draw is not None:
+        source = draw(random.key(seed + 1, device), cfg,
+                      batch // n_peers if dist == "gossip" else batch)
+        if dist == "gossip":
+            source = source[None].expand((n_peers,) + source.shape)
+
     def loss_fn(p, b):
-        return T.lm_loss(p, cfg, b["tokens"], b["labels"])
+        return T.lm_loss(p, cfg, b["tokens"], b["labels"],
+                         encoder_out=b.get("encoder_out"))
 
     def upload(raw, shape):
-        return {k: torch.as_tensor(v, device=device).reshape(shape)
-                for k, v in raw.items()}
+        b = {k: torch.as_tensor(v, device=device).reshape(shape)
+             for k, v in raw.items()}
+        if source is not None:
+            b["encoder_out"] = source
+        return b
 
     history = []
     t0 = time.time()

@@ -10,8 +10,11 @@ one new token over a (possibly ring-buffered) KV cache, which it updates
 in place (the reference returns a new cache; the port's cache is the
 serve loop's own, so nothing is lost). ``impl="banded"`` is the
 reference's static band: unrolled query blocks, each sliced to the keys
-its window can reach. Cross-attention is not ported yet (ROADMAP queue 1
-item 12b).
+its window can reach. With ``kv_source`` (B, S_src, d_model) the keys and
+values come from an encoder's output or patch embeddings instead of x:
+cross-attention, non-causal, unwindowed, no rope on either side, always on
+the plain grouped attention (the reference routes it there whatever
+``impl`` says).
 """
 from __future__ import annotations
 
@@ -70,13 +73,21 @@ def attention_spec(d_model: int, a: AttentionConfig,
     return s
 
 
-def _project_qkv(params, a: AttentionConfig, x):
+def project_kv(params, a: AttentionConfig, src):
+    """The keys and values of ``src`` (B, S, d_model), k-normed where the
+    config says: (B, S, KV, hd) each, in ``src``'s dtype."""
+    k = torch.einsum("bsd,dhk->bshk", src, wcast(params["wk"], src))
+    v = torch.einsum("bsd,dhk->bshk", src, wcast(params["wv"], src))
+    if a.qk_norm:
+        k = rmsnorm(params["k_norm"], k)
+    return k, v
+
+
+def _project_qkv(params, a: AttentionConfig, x, kv_source=None):
     q = torch.einsum("bsd,dhk->bshk", x, wcast(params["wq"], x))
-    k = torch.einsum("bsd,dhk->bshk", x, wcast(params["wk"], x))
-    v = torch.einsum("bsd,dhk->bshk", x, wcast(params["wv"], x))
     if a.qk_norm:
         q = rmsnorm(params["q_norm"], q)
-        k = rmsnorm(params["k_norm"], k)
+    k, v = project_kv(params, a, x if kv_source is None else kv_source)
     return q, k, v
 
 
@@ -166,27 +177,40 @@ def _banded_sdpa(q, k, v, a: AttentionConfig, positions, compute_dtype,
     return torch.cat(out, dim=1)
 
 
+def cross_sdpa(q, k, v, a: AttentionConfig, q_pos, compute_dtype):
+    """Cross-attention over a whole source: the grouped attention with no
+    causal mask and no window, the source at positions 0 .. S_src - 1."""
+    a_x = dataclasses.replace(a, causal=False, sliding_window=None)
+    src_pos = torch.arange(k.shape[1], dtype=torch.int32, device=k.device)
+    return _grouped_sdpa(q, k, v, a_x, q_pos, src_pos, compute_dtype)
+
+
 # ---------------------------------------------------------------------------
 # full-sequence attention (prefill)
 # ---------------------------------------------------------------------------
 
 
 def attention(params, a: AttentionConfig, x, *, positions=None,
-              compute_dtype=torch.bfloat16, impl: str = "flash",
-              attn_chunk: int = 512, return_kv: bool = False):
-    """Full-sequence self-attention: x (B, S, d_model) -> (B, S, d_model),
-    or ``(out, (k, v))`` with the rope'd keys and values when
-    ``return_kv`` (the fused prefill's decode cache). ``attn_chunk``: the
-    query chunk of ``impl="chunked"`` and ``"banded"``."""
+              kv_source=None, compute_dtype=torch.bfloat16,
+              impl: str = "flash", attn_chunk: int = 512,
+              return_kv: bool = False):
+    """Full-sequence attention: x (B, S, d_model) -> (B, S, d_model), or
+    ``(out, (k, v))`` with the (rope'd) keys and values when ``return_kv``
+    (the fused prefill's decode cache). ``kv_source`` (B, S_src, d_model):
+    cross-attention to it (see the module note); its k and v are returned.
+    ``attn_chunk``: the query chunk of ``impl="chunked"`` and
+    ``"banded"``."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(params, a, x)
+    q, k, v = _project_qkv(params, a, x, kv_source)
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
-    if a.use_rope:
+    if a.use_rope and kv_source is None:
         q = apply_rope(q, positions, a.rope_theta)
         k = apply_rope(k, positions, a.rope_theta)
-    if impl == "flash":
+    if kv_source is not None:
+        out = cross_sdpa(q, k, v, a, positions[0], compute_dtype)
+    elif impl == "flash":
         from repro_torch.kernels import ops as kops
         out = kops.flash_attention(q, k, v, causal=a.causal,
                                    window=a.sliding_window)
@@ -222,19 +246,27 @@ def init_kv_cache(batch: int, length: int, a: AttentionConfig, dtype,
 
 def decode_attention(params, a: AttentionConfig, x, cache, index: int, *,
                      compute_dtype=torch.bfloat16,
-                     window: Optional[int] = None):
+                     window: Optional[int] = None, kv_source=None):
     """One-token decode: x (B, 1, D); ``cache`` holds L past positions and
     is updated in place; ``index`` is the new token's absolute position.
     With ``window`` the cache is a ring buffer of L slots and writes wrap.
-    Returns (out, cache)."""
+    With ``kv_source`` (B, S_src, d_model) the token cross-attends to the
+    whole source, projected anew, and the cache is left alone. Returns
+    (out, cache)."""
     b = x.shape[0]
-    n_slots = cache["k"].shape[1]
     q, k_new, v_new = _project_qkv(params, a, x)
     if a.use_rope:
         pos = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
         q = apply_rope(q, pos, a.rope_theta)
         k_new = apply_rope(k_new, pos, a.rope_theta)
+    if kv_source is not None:
+        k, v = project_kv(params, a, kv_source)
+        q_pos = torch.zeros((1,), dtype=torch.int32, device=x.device)
+        out = cross_sdpa(q, k, v, a, q_pos, compute_dtype)
+        return (torch.einsum("bshk,hkd->bsd", out, wcast(params["wo"], out)),
+                cache)
 
+    n_slots = cache["k"].shape[1]
     # the reference's dynamic_update_slice clamps a start past the end
     slot = index % n_slots if window is not None else min(index, n_slots - 1)
     cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)

@@ -200,3 +200,9 @@ def embed(params, tokens, compute_dtype):
 def unembed(params, x):
     # logits in f32
     return x.float() @ params["table"].float().T
+
+
+def positional_embedding_spec(max_len: int, d_model: int, dtype=torch.float32):
+    """Learned positions (whisper's decoder): a (max_len, d_model) table."""
+    return {"pos": P((max_len, d_model), init="normal", scale=0.02,
+                     dtype=dtype)}

@@ -13,6 +13,9 @@ exactly (``jax_threefry_partitionable=True``):
   evaluates ``uniform(key, shape)`` at any flat positions without drawing
   the rest, which is how the ``int8_sr`` send kernel makes its noise.
 
+``normal`` is ``jax.random.normal`` in float32 and bfloat16: a uniform draw
+on (nextafter(-1, 0), 1) through XLA's float32 ``erf_inv`` polynomial.
+
 PyTorch has only partial ``uint32`` arithmetic, so the words live in
 ``int64`` tensors holding values in ``[0, 2**32)``: every add is masked
 with ``& 0xFFFFFFFF`` and every shift is logical (the values are never
@@ -165,3 +168,61 @@ def permutation(k, n: int) -> torch.Tensor:
         order = torch.sort(random_bits(sub, (n,)), stable=True).indices
         x = x[order]
     return x
+
+
+# XLA's float32 erf_inv (Giles' polynomial): the coefficients of p(w), highest
+# first, for w = -log1p(-x^2) < 5 (evaluated at w - 2.5) and >= 5 (at
+# sqrt(w) - 3)
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` of float32 ``x`` on [-1, 1]: Giles'
+    polynomial in ``w = -log1p(-x^2)``, the Horner steps as fused
+    multiply-adds (as XLA's CPU code contracts them), +-inf at +-1.
+    ``torch.erfinv`` is another approximation. ``log1p`` is PyTorch's,
+    not XLA's, which moves about 9 % of the ``w`` by an ulp or two and so
+    about 1 % of the results by up to 3 ulps (tests/test_torch_random.py
+    states the measured share)."""
+    from repro_torch.core.faults import _fma     # faults imports this module
+
+    w = -torch.log1p(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], device=x.device),
+                           torch.tensor(_ERFINV_GE5[i], device=x.device))
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = _fma(p, w, coef(i))
+    return torch.where(x.abs() == 1, x * math.inf, p * x)
+
+
+def normal(k, shape, dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)`` for float32 and bfloat16:
+    ``uniform`` on (nextafter(-1, 0), 1) in ``dtype`` (the span rounds to
+    2, so u = max(lo, 2 f + lo) for f on [0, 1)), then sqrt(2) times
+    ``erf_inv(u)``. A bfloat16 draw takes 8 random bits (the low byte of
+    the 32-bit word) for its 7 mantissa bits, computes ``erf_inv`` in
+    float32, rounds it to bfloat16 and multiplies by bfloat16's sqrt(2),
+    as XLA does: 128 distinct words."""
+    bits = random_bits(k, shape)
+    if dtype == torch.float32:
+        f = _bits_to_unit_float(bits)
+    elif dtype == torch.bfloat16:
+        # the bf16 word (b8 >> 1) | 0x3F80 as the top half of a float32
+        f = ((((bits & 0xFF) >> 1) | 0x3F80) << 16).to(torch.int32).view(
+            torch.float32) - 1.0
+    else:
+        raise ValueError(f"normal draws float32 or bfloat16, not {dtype}")
+    lo = torch.tensor(-1.0, dtype=dtype, device=bits.device).nextafter(
+        torch.tensor(0.0, dtype=dtype, device=bits.device)).float()
+    u = torch.maximum((2.0 * f + lo).to(dtype), lo.to(dtype))
+    sqrt2 = torch.tensor(math.sqrt(2), dtype=dtype, device=u.device)
+    return (erf_inv(u.float()).to(dtype).float() * sqrt2.float()).to(dtype)

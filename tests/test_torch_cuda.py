@@ -765,3 +765,14 @@ def test_reduced_training_runs_on_the_card(cuda, dist):
                          dist=dist, n_peers=2, log_every=1)
     assert len(hist) == 4 and all(np.isfinite(h[1]) for h in hist)
     assert all(p.device.type == "cuda" for p in tree_leaves(params))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", [a for a, *_ in smoke.ENCDEC_RUNS])
+def test_reduced_vlm_and_audio_served_on_card_match_cpu(cuda, arch):
+    """Reduced whisper-medium and llama-3.2-vision-11b with every cross
+    layer's gates set: the card's server against the CPU's, the prompt
+    past whisper's 64 reduced positions."""
+    diff, toks = smoke.small_server_check(cuda, seed=4, arch=arch,
+                                          prepare=smoke.set_gates)
+    assert toks.shape == (2, 16)

@@ -53,7 +53,7 @@ def test_train_runs_on_the_card_unless_told():
 
 def test_train_names_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_mod.train("llama-3.2-vision-11b", steps=1, device="cpu")
+        train_mod.train("llama3-405b", steps=1, device="cpu")
 
 
 def test_train_main_parses_the_reference_flags(monkeypatch):

@@ -12,9 +12,10 @@ Prints, for each run, the per-launch times of every kernel row of the
 ``kernels`` line, of the receive kernel in phases 3-5 and the bf16/f16
 and cosine_gate timings of phase 1, and of the send kernels in phase 4
 (with the strided route's on the same inputs); then checks that every
-non-timing value of phases 2-6 and 10 (economy, curves, wire and buffer
-bytes, EF residual, fault counters, launches, served queries and accuracy,
-the LM paths' token and logit agreement, phase 10's expert flips) is equal across all runs, and exits 1
+non-timing value of phases 2-6, 10 and 11 (economy, curves, wire and
+buffer bytes, EF residual, fault counters, launches, served queries and
+accuracy, the LM paths' token and logit agreement, phase 10's expert
+flips) is equal across all runs, and exits 1
 listing any that differ. Needs only the standard library: it runs
 anywhere."""
 from __future__ import annotations
@@ -32,7 +33,8 @@ EXACT = {"sent", "delivered", "lost", "overflow", "in_flight", "err_fresh",
          "voted_accuracy", "logit_diff", "first_token_share", "token_share",
          "small_check_diff", "largest_logit", "expert_flips",
          "pinned_logit_diff", "small"}
-PHASES = ("phase2", "phase3", "phase4", "phase5", "phase6", "phase10")
+PHASES = ("phase2", "phase3", "phase4", "phase5", "phase6", "phase10",
+          "phase11")
 
 
 def exact_values(node, path=""):
