@@ -10,7 +10,8 @@ and ``nvcc``. The phases, each of which raises on failure:
 0. setup: the card's name and power limit, torch/CUDA/nvcc versions, and
    the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``,
    with each kernel's registers and spills (none allowed in the receive
-   kernel's grouped route), both flash kernels' shared memory a block
+   kernel's grouped route, nor in the tensor-core flash kernel at any of
+   its head_dims), both flash kernels' shared memory a block
    against the card's opt-in limit, and int8_sr's threefry instructions an
    element read off the tiled send kernel's SASS (``cuobjdump``) for its
    bound;
@@ -45,15 +46,16 @@ and ``nvcc``. The phases, each of which raises on failure:
    N = 10^6, d = 10, 32, 57 and 128; kernel #8 (``flash_attention``) over
    head_dim 64, 128, 48 and 256, H/KV 1, 2 and 8, causal or not, window None
    or 64, S = 1, 37, 128, 300 and 2048, in float32 and bfloat16, and on
-   strided and unaligned inputs, each case on the route it must take
-   (bf16 at head_dim 64/128 on the tensor-core kernel, the rest on the
-   CUDA-core kernel);
+   strided and unaligned inputs (at head_dim 128 and 256), each case on
+   the route it must take (bf16 at head_dim 64/128/256 on the tensor-core
+   kernel, the rest on the CUDA-core kernel);
 2. the sharded engine with the kernels against the port's reference engine
    on the card (N = 20 000, the paper's extreme scenario) on the f32 wire
    and on int8_sr, int4_ef and ternary, and the first chunk's threefry draw
    tables made on the card against the CPU's; then under Byzantine faults
    with a defense (fault counters equal too), and a run with a serving hook
-   against one without (bit for bit) on both engines;
+   against one without (bit for bit) on both engines; and 200 000 float32
+   ``random.normal`` draws made on the card bit for bit the CPU's;
 3. the main path at full width: ``run_simulation(engine="sharded")`` at
    N = 10^6 nodes, d = 10, extreme scenario, MU, K = 4, cache 10, 20
    cycles; launches (all 20 on the receive kernel's grouped route), curves,
@@ -151,8 +153,9 @@ and ``nvcc``. The phases, each of which raises on failure:
    launches of #8 all on ``tensor_core``, 32 greedy steps; llama4-scout at
    4 of 48 layers, top-1, 512 tokens, 8 steps; recurrentgemma at 5 of 38
    layers (one rglru, rglru, local period and the two-rglru tail), 3072
-   tokens past its 2048 window at batch 2, #8 once on ``cuda_core`` (bf16,
-   hd 256, one kv head), 32 steps; mamba2 whole (48 layers), batch 4 x
+   tokens past its 2048 window at batch 2, #8 once on ``tensor_core``
+   (bf16, hd 256, one kv head, 64-key tiles), 32 steps; mamba2 whole (48
+   layers), batch 4 x
    2048, 32 steps, no kernel. Each run's prefill and decode times and
    tokens/s and peak memory; where it has attention, the same server on
    the plain path (``attn_impl="xla"``): the expert choices that differ
@@ -161,7 +164,9 @@ and ``nvcc``. The phases, each of which raises on failure:
    plain path (equal to the unpinned comparison where none differ), the
    share of equal greedy tokens; #8 on the run's last attention layer's
    q, k, v beside its bound, its plain version and
-   ``scaled_dot_product_attention`` with the band as a boolean mask;
+   ``scaled_dot_product_attention`` with the band as a boolean mask, and
+   at recurrentgemma's shape the CUDA-core route forced on the same q, k,
+   v in the same call (``FAMILY_FORCED_ROUTES``);
 11. the audio and vlm families: whisper-medium and llama-3.2-vision-11b
    reduced (f32, every cross layer's gates set to seeded values in
    [0.3, 1): at their init of zero a cross layer adds nothing) served on
@@ -308,7 +313,7 @@ LM_PATH_LOGIT_TOL = 0.1
 FAMILY_RUNS = (
     ("mixtral-8x22b", 4, 2, 8192, 4608, 32, "tensor_core"),
     ("llama4-scout-17b-a16e", 4, 2, 1024, 512, 8, "tensor_core"),
-    ("recurrentgemma-9b", 5, 2, 4096, 3072, 32, "cuda_core"),
+    ("recurrentgemma-9b", 5, 2, 4096, 3072, 32, "tensor_core"),
     ("mamba2-780m", 48, 4, 4096, 2048, 32, None),
 )
 # phase 11: the audio and vlm families whole, in FAMILY_RUNS' form.
@@ -319,11 +324,14 @@ ENCDEC_RUNS = (
     ("llama-3.2-vision-11b", 40, 2, 2048, 1024, 32, "tensor_core"),
 )
 # the runs whose #8 launches stand in the kernels line as rows of their
-# own: windowed GQA on the tensor cores, hd 256 MQA on the CUDA cores, the
-# vision model's causal GQA beside its cross layers
+# own: windowed GQA, hd 256 MQA (64-key tiles), the vision model's causal
+# GQA beside its cross layers, all on the tensor cores
 FAMILY_ROWS = {"mixtral-8x22b": "windowed_gqa",
                "recurrentgemma-9b": "hd256_mqa",
                "llama-3.2-vision-11b": "vlm"}
+# the other route of #8 forced on a run's captured q, k, v and timed in the
+# same call: hd 256 bf16 ran on the CUDA cores before its tensor-core tiles
+FAMILY_FORCED_ROUTES = {"recurrentgemma-9b": "cuda_core"}
 # phase 7: the packings (core/sharded_engine.py's PACKINGS), the wire and
 # fault mixes they run at N = 20 000 against the dense run, the scenarios
 # timed at N = 10^6, the learners of the vector apply, and kernel #2's
@@ -1633,14 +1641,36 @@ def phase1_rows(card: str, results: dict):
     return out
 
 
+def hopper_registers(log: str) -> dict:
+    """(registers, spill bytes) of each ``flash_hopper_kernel<HD>`` in the
+    ``-Xptxas -v`` log of ``flash_attention_hopper.cu``, by HD."""
+    out, hd = {}, None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            found = re.search(r"flash_hopper_kernelILi(\d+)E", line)
+            hd = int(found.group(1)) if found else None
+            if hd is not None:
+                out[hd] = [0, 0]
+        if hd is None:
+            continue
+        if "spill" in line:
+            out[hd][1] += sum(int(w) for w in re.findall(
+                r"(\d+) bytes spill", line))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            out[hd][0] = int(used.group(1))
+    return {hd: tuple(v) for hd, v in out.items()}
+
+
 def phase1_flash(dev) -> dict:
     """Kernel #8 against its plain version over the sweep of
     ``FLASH_HEAD_DIMS`` x ``FLASH_GROUPS`` x ``FLASH_SEQS`` x float32 and
     bfloat16 x causal or not x window None or 64 (KV = 2, H = KV x group;
     B = 2 below S = 2048), and on strided and unaligned inputs, each case
-    held to the route it must take: bf16 at head_dim 64 or 128 on TMA-
-    readable tensors to the tensor-core kernel, everything else to the
-    CUDA-core kernel. Returns each route's max abs error."""
+    held to the route it must take: bf16 at a head_dim of
+    ``TENSOR_CORE_HEAD_DIMS`` on TMA-readable tensors to the tensor-core
+    kernel, everything else to the CUDA-core kernel. Returns each route's
+    max abs error."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     worst = dict.fromkeys(fa.ROUTES, 0.0)
@@ -1671,19 +1701,21 @@ def phase1_flash(dev) -> dict:
                       f"{errs[torch.bfloat16]:.3e} "
                       f"({want(torch.bfloat16, hd)})")
             torch.cuda.empty_cache()
-    for dtype, layout, route in (
-            (torch.float32, "strided", "cuda_core"),
-            (torch.bfloat16, "strided", "tensor_core"),
-            (torch.bfloat16, "unaligned", "cuda_core")):
-        q, k, v = flash_inputs(7, 2, 300, 16, 8, 128, dtype, dev,
-                               strided=layout == "strided",
-                               unaligned=layout == "unaligned")
-        err = compare_flash(q, k, v, True, None, route)
-        worst[route] = max(worst[route], err)
-        cases += 1
-        print(f"[1] flash_attention on {layout} q, k, v (strides "
-              f"{q.stride()}, base % 16 = {q.data_ptr() % 16}) {dtype} B=2 "
-              f"S=300 H=16 KV=8 hd=128: max abs err {err:.3e} ({route})")
+    for hd, kv in ((128, 8), (256, 1)):
+        for dtype, layout, route in (
+                (torch.float32, "strided", "cuda_core"),
+                (torch.bfloat16, "strided", "tensor_core"),
+                (torch.bfloat16, "unaligned", "cuda_core")):
+            q, k, v = flash_inputs(7, 2, 300, 16, kv, hd, dtype, dev,
+                                   strided=layout == "strided",
+                                   unaligned=layout == "unaligned")
+            err = compare_flash(q, k, v, True, None, route)
+            worst[route] = max(worst[route], err)
+            cases += 1
+            print(f"[1] flash_attention on {layout} q, k, v (strides "
+                  f"{q.stride()}, base % 16 = {q.data_ptr() % 16}) {dtype} "
+                  f"B=2 S=300 H=16 KV={kv} hd={hd}: max abs err {err:.3e} "
+                  f"({route})")
     print(f"[1] flash_attention: {cases} cases within tolerance (f32 rtol = "
           "atol = 2e-4, bf16 atol 3e-2 and rtol 2^-7), each on its route; "
           f"max abs err tensor_core {worst['tensor_core']:.3e}, cuda_core "
@@ -3003,7 +3035,10 @@ def family_kernel_row(card: str, arch: str, captured: dict, route: str,
     """Kernel #8 on a run's own last-attention-layer q, k, v: against its
     plain version, timed, beside its bound and
     ``scaled_dot_product_attention`` with the band as a boolean mask
-    (timed only). Returns the row's measured numbers."""
+    (timed only), and the route ``FAMILY_FORCED_ROUTES`` names for
+    ``arch``, if any, forced through ``_launch`` on the same q, k, v,
+    against the plain version and timed. Returns the row's measured
+    numbers."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -3019,17 +3054,33 @@ def family_kernel_row(card: str, arch: str, captured: dict, route: str,
     lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=3, warmup=1)
     b_ms, by, nbytes, flops = flash_bound(q, k.shape[2], causal, window)
+    forced = {}
+    other = FAMILY_FORCED_ROUTES.get(arch)
+    if other is not None:
+        want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window).float()
+        got = fa._launch(q, k, v, causal, window, other).float()
+        forced = dict(route=other, max_abs_err=float((got - want).abs().max()),
+                      ms=cuda_time_ms(lambda: fa._launch(
+                          q, k, v, causal, window, other), reps=10))
+        if not torch.allclose(got, want, rtol=2.0 ** -7, atol=3e-2):
+            raise AssertionError(f"{arch}: flash_attention forced to {other} "
+                                 f"off by {forced['max_abs_err']}")
+        del got, want
     print(f"[{phase}] {card}: {arch}: flash_attention ({route}) on the last "
           f"attention layer's q, k, v {tuple(q.shape)} kv {k.shape[2]} "
           f"{str(q.dtype)[6:]} causal={causal} window={window}: {ms:.4f} "
           f"ms/launch vs bound {b_ms:.4f} ms ({by}, {flops} operations, "
           f"{nbytes} B); plain version {plain_ms:.4f} ms; "
           f"scaled_dot_product_attention with the band as a mask "
-          f"{lib_ms:.4f} ms; max abs err vs plain {err:.3e}")
+          f"{lib_ms:.4f} ms; max abs err vs plain {err:.3e}"
+          + (f"; the {other} route forced on the same q, k, v "
+             f"{forced['ms']:.4f} ms/launch, max abs err vs plain "
+             f"{forced['max_abs_err']:.3e}" if forced else ""))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=by, library_ms=lib_ms, bound_bytes=nbytes,
                 bound_operations=flops, shape=list(q.shape),
-                kv_heads=k.shape[2], window=window)
+                kv_heads=k.shape[2], window=window, forced_route=forced)
 
 
 def family_run(card: str, dev, run, phase: int = 10, prepare=None) -> dict:
@@ -3170,6 +3221,23 @@ def family_run(card: str, dev, run, phase: int = 10, prepare=None) -> dict:
     return out
 
 
+def family_line_row(run, res) -> dict:
+    """The ``kernels`` line's row of kernel #8 in a ``family_run``: its
+    launches on the run's route, its numbers on the captured q, k, v, and
+    the forced route's time where one was taken."""
+    fl = res["flash"]
+    forced = fl["forced_route"]
+    return dict(
+        name=f"flash_attention[{run[6]}:{FAMILY_ROWS[run[0]]}]",
+        route="cuda", source=FLASH_SOURCES[run[6]],
+        replaces=FLASH_REPLACES, launches=res["launches"],
+        **{k: fl[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")},
+        arch=run[0], shape=fl["shape"], kv_heads=fl["kv_heads"],
+        window=fl["window"],
+        **({f"{forced['route']}_ms": forced["ms"]} if forced else {}))
+
+
 def phase10(card: str, results: dict, dev) -> list:
     """The moe, ssm and hybrid families (see the module note). Returns
     kernel #8's rows of the ``kernels`` line for ``FAMILY_ROWS``."""
@@ -3187,16 +3255,7 @@ def phase10(card: str, results: dict, dev) -> list:
     for run in FAMILY_RUNS:
         res = out[run[0]] = family_run(card, dev, run)
         if run[0] in FAMILY_ROWS:
-            fl = res["flash"]
-            rows.append(dict(
-                name=f"flash_attention[{run[6]}:{FAMILY_ROWS[run[0]]}]",
-                route="cuda", source=FLASH_SOURCES[run[6]],
-                replaces=FLASH_REPLACES, launches=res["launches"],
-                **{k: fl[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by",
-                                      "library_ms")},
-                arch=run[0], shape=fl["shape"], kv_heads=fl["kv_heads"],
-                window=fl["window"]))
+            rows.append(family_line_row(run, res))
     out["seconds"] = time.perf_counter() - t_start
     print(f"[10] {card}: phase 10 took {out['seconds']:.1f} s")
     return rows
@@ -3239,16 +3298,7 @@ def phase11(card: str, results: dict, dev) -> list:
         res = out[run[0]] = family_run(card, dev, run, phase=11,
                                        prepare=set_gates)
         if run[0] in FAMILY_ROWS:
-            fl = res["flash"]
-            rows.append(dict(
-                name=f"flash_attention[{run[6]}:{FAMILY_ROWS[run[0]]}]",
-                route="cuda", source=FLASH_SOURCES[run[6]],
-                replaces=FLASH_REPLACES, launches=res["launches"],
-                **{k: fl[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by",
-                                      "library_ms")},
-                arch=run[0], shape=fl["shape"], kv_heads=fl["kv_heads"],
-                window=fl["window"]))
+            rows.append(family_line_row(run, res))
     out["seconds"] = time.perf_counter() - t_start
     print(f"[11] {card}: phase 11 took {out['seconds']:.1f} s")
     return rows
@@ -3335,6 +3385,19 @@ def main() -> int:
               "spills")
         results["grouped_registers"] = [min(regs), max(regs)]
     from repro_torch.kernels import flash_attention as fa
+    if "flash_attention_hopper" in logs:
+        hopper = hopper_registers(logs["flash_attention_hopper"])
+        if (sorted(hopper) != sorted(fa.TENSOR_CORE_HEAD_DIMS)
+                or any(sp for _, sp in hopper.values())):
+            raise AssertionError(f"the tensor-core flash kernel spills (or "
+                                 f"was not compiled at every head_dim): "
+                                 f"(registers, spill bytes) by hd {hopper}")
+        regs = ", ".join(f"hd {hd}: {r} registers"
+                         for hd, (r, _) in sorted(hopper.items()))
+        print(f"[0]   flash_attention_hopper: {regs} at entry (hd 256's "
+              "consumer warpgroups raise theirs to 240 with setmaxnreg), no "
+              "spills")
+        results["flash_hopper_registers"] = hopper
     smem = {hd: fa.tensor_core_smem_bytes(hd)
             for hd in fa.TENSOR_CORE_HEAD_DIMS}
     optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
@@ -3568,6 +3631,15 @@ def main() -> int:
         raise AssertionError("permutation differs between CUDA and CPU")
     print("[2] first chunk's key schedule and draw tables (and a "
           "permutation) bitwise equal on CUDA and CPU")
+    normals = [random.normal(random.key(5, device=d_), (200, 1000))
+               .cpu().view(torch.int32) for d_ in (dev, torch.device("cpu"))]
+    off = int((normals[0] != normals[1]).sum())
+    if off:
+        raise AssertionError(f"random.normal: {off} of 200000 float32 "
+                             "draws differ between CUDA and CPU")
+    print("[2] 200000 float32 random.normal draws (XLA's log1p, log and "
+          "erf_inv) bitwise equal on CUDA and CPU")
+    results["phase2"]["normal_draws_equal"] = normals[0].numel()
     # Byzantine faults and the defense screens, then serving hooks
     results["phase2"]["faults"] = {}
     cosine_launches = 0     # the sharded engine's, under cosine_gate

@@ -17,10 +17,16 @@ by ``route`` before the launch, from dtype, head_dim, strides and
 alignment alone:
 
 - ``"tensor_core"``: ``csrc/flash_attention_hopper.cu``, wgmma products
-  fed by TMA, for bfloat16 at head_dim 64 or 128 whose q, k and v TMA can
-  read (every stride but head_dim's a positive multiple of 8 elements,
-  each base 16-byte aligned). It rounds P to bf16 before P V, as
-  FlashAttention-2/3 and the port's plain attention path do;
+  fed by TMA, for bfloat16 at head_dim 64, 128 or 256 whose q, k and v
+  TMA can read (every stride but head_dim's a positive multiple of 8
+  elements, each base 16-byte aligned). It rounds P to bf16 before P V,
+  as FlashAttention-2/3 and the port's plain attention path do. A block
+  takes 128 queries; key tiles are 128 wide at hd 64 and 128 and 64 wide
+  at hd 256 (recurrentgemma's local attention), where the Q tile (64 KB)
+  and two K/V slots (64 KB each) take 197,672 bytes of shared memory and
+  a consumer thread's share of the 64 x 256 output accumulator takes 128
+  registers: there a producer warpgroup gives its registers to the two
+  consumer warpgroups (240 a thread, ``setmaxnreg``), so nothing spills;
 - ``"cuda_core"``: ``csrc/flash_attention.cu``, float32 products on the
   CUDA cores, for everything else (float32, other head_dims up to 256,
   views TMA cannot read), with P in float32.
@@ -44,7 +50,7 @@ NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 ROUTES = ("tensor_core", "cuda_core")
-TENSOR_CORE_HEAD_DIMS = (64, 128)
+TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None):
@@ -94,7 +100,7 @@ def _check(q, k, v, window):
 
 def route(q, k, v) -> str:
     """Which kernel serves these tensors on CUDA: ``"tensor_core"`` for
-    bfloat16 at head_dim 64 or 128 with head_dim contiguous, every other
+    bfloat16 at head_dim 64, 128 or 256 with head_dim contiguous, every other
     stride of q, k and v a positive multiple of 8 elements and each
     ``data_ptr`` a multiple of 16 (what TMA reads), else ``"cuda_core"``."""
     if q.dtype != torch.bfloat16 or q.shape[3] not in TENSOR_CORE_HEAD_DIMS:
@@ -167,7 +173,8 @@ def cuda_core_smem_bytes(hd: int) -> int:
 
 def tensor_core_smem_bytes(hd: int) -> int:
     """The dynamic shared memory a block of the tensor-core kernel asks
-    for at head_dim ``hd`` (64 or 128); builds the kernel if needed."""
+    for at head_dim ``hd`` (one of ``TENSOR_CORE_HEAD_DIMS``); builds the
+    kernel if needed."""
     fn, _ = _entry("flash_attention_hopper",
                    "flash_attention_hopper_smem_bytes", (_INT,))
     return fn(hd)

@@ -4,7 +4,7 @@ Counterpart of ``repro/models/vision.py``. The ViT/SigLIP vision encoder
 and projector, and Whisper's mel and conv frontend, are not implemented,
 as in the reference: these helpers give the shapes of their outputs and
 draw them as ``0.02 * normal`` from a threefry key, bit for bit
-``jax.random.normal``'s words in bfloat16 and within a few ulps in float32
+``jax.random.normal``'s words in bfloat16 and in float32
 (``random.normal``). The gated cross-attention layers (kind ``"cross"``)
 read the patch embeddings directly; the encoder (``models/encdec.py``)
 reads the frames.

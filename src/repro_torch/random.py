@@ -13,8 +13,10 @@ exactly (``jax_threefry_partitionable=True``):
   evaluates ``uniform(key, shape)`` at any flat positions without drawing
   the rest, which is how the ``int8_sr`` send kernel makes its noise.
 
-``normal`` is ``jax.random.normal`` in float32 and bfloat16: a uniform draw
-on (nextafter(-1, 0), 1) through XLA's float32 ``erf_inv`` polynomial.
+``normal`` is ``jax.random.normal`` in float32 and bfloat16, bit for bit: a
+uniform draw on (nextafter(-1, 0), 1) through XLA's float32 ``erf_inv``
+polynomial, whose ``log1p`` and ``log`` are XLA's CPU code (``log1p_xla``,
+``log_xla``), not PyTorch's.
 
 PyTorch has only partial ``uint32`` arithmetic, so the words live in
 ``int64`` tensors holding values in ``[0, 2**32)``: every add is masked
@@ -170,6 +172,96 @@ def permutation(k, n: int) -> torch.Tensor:
     return x
 
 
+# XLA's float32 log on the CPU (``llvm.log.f32`` lowered to Eigen's
+# ``plog_float``, the Cephes polynomial): the coefficients p0 .. p8 of its
+# polynomial in the reduced argument, and ln 2 split as q2 + q1
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+_SQRT_HALF = 0.707106781186547524
+# XLA's float32 log1p for |x| < sqrt(2) - 1: the Cephes rational P(x)/Q(x),
+# coefficients highest first
+_LOG1P_P = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+            6.5787325942061044846969, 2.9911919328553073277375e1,
+            6.0949667980987787057556e1, 5.7112963590585538103336e1,
+            2.0039553499201281259648e1)
+_LOG1P_Q = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+            2.2176239823732856465394e2, 3.0909872225312059774938e2,
+            2.1642788614495947685003e2, 6.0118660497603843919306e1)
+_LOG1P_SMALL = math.sqrt(2) - 1
+
+
+def _f32(v, like):
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def _xla_edges(x, finite):
+    """XLA's log at the edges of its domain around ``finite``: -inf at
+    zero, +inf at +inf, and the all-ones NaN word below zero and at NaN."""
+    nan = torch.tensor(-1, dtype=torch.int32, device=x.device).view(
+        torch.float32)
+    out = torch.where((x < 0) | torch.isnan(x), nan, finite)
+    out = torch.where(x == 0, -math.inf, out)
+    return torch.where(x == math.inf, math.inf, out)
+
+
+def log_xla(x) -> torch.Tensor:
+    """XLA's float32 ``log`` as its CPU backend computes it, bit for bit
+    (``tools/check_xla_log.py`` holds it to ``jax.jit(jnp.log)`` on every
+    float32 word from +0 to +inf; tests/test_torch_random.py on samples):
+    Eigen's ``plog_float``. The argument (subnormals read as zero, as XLA's
+    arithmetic reads them) is split as 2^e m with m in [sqrt(1/2),
+    sqrt(2)); the polynomial in t = m - 1 runs as three two-step Horner
+    chains joined by t^3, every multiply-add fused as LLVM contracts them;
+    then ``fma(y, t^3, q1 e)``, ``fma(-0.5, t^2, t)``, their sum, and
+    ``fma(q2, e, .)``. ``torch.log`` is another approximation (about 7 %
+    of the results there differ by an ulp)."""
+    from repro_torch.core.faults import _fma, _ftz  # faults imports this
+
+    x = _ftz(x.to(torch.float32))
+    m = torch.clamp(x, min=float(torch.finfo(torch.float32).tiny))
+    bits = m.view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)
+    low = m < _f32(_SQRT_HALF, x)
+    e = e - low.to(torch.float32)
+    t = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    t2 = t * t
+    t3 = t2 * t
+
+    def chain(i):
+        c = [_f32(v, x) for v in _LOG_P[i:i + 3]]
+        return _fma(_fma(c[0], t, c[1]), t, c[2])
+    y = _fma(chain(0), t3, chain(3))
+    y = _fma(y, t3, chain(6))
+    y = _fma(y, t3, _f32(_LOG_Q1, x) * e)
+    r = _fma(_f32(-0.5, x), t2, t) + y
+    r = _fma(_f32(_LOG_Q2, x), e, r)
+    return _xla_edges(x, r)
+
+
+def log1p_xla(x) -> torch.Tensor:
+    """XLA's float32 ``log1p`` as its CPU backend computes it, bit for bit
+    (``tools/check_xla_log.py`` holds it to ``jax.jit(jnp.log1p)`` on every
+    float32 word from -0 to -1 and from +0 to +inf; tests/test_torch_random.py
+    on samples). For |x| < sqrt(2) - 1
+    the Cephes rational: P(x) and Q(x) by Horner steps as fused
+    multiply-adds, then ``x + fma(-0.5, x^2, (x x^2) (P / Q))``; elsewhere
+    ``log_xla(1 + x)``. Subnormal arguments read as zero."""
+    from repro_torch.core.faults import _fma, _ftz  # faults imports this
+
+    x = _ftz(x.to(torch.float32))
+    x2 = x * x
+    p, q = _f32(_LOG1P_P[0], x), _f32(_LOG1P_Q[0], x)
+    for cp, cq in zip(_LOG1P_P[1:], _LOG1P_Q[1:]):
+        p = _fma(p, x, _f32(cp, x))
+        q = _fma(q, x, _f32(cq, x))
+    small = x + _fma(_f32(-0.5, x), x2, (x * x2) * (p / q))
+    return torch.where(x.abs() < _f32(_LOG1P_SMALL, x), small,
+                       log_xla(1.0 + x))
+
+
 # XLA's float32 erf_inv (Giles' polynomial): the coefficients of p(w), highest
 # first, for w = -log1p(-x^2) < 5 (evaluated at w - 2.5) and >= 5 (at
 # sqrt(w) - 3)
@@ -182,18 +274,18 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
 
 
 def erf_inv(x) -> torch.Tensor:
-    """XLA's float32 ``erf_inv`` of float32 ``x`` on [-1, 1]: Giles'
-    polynomial in ``w = -log1p(-x^2)``, the Horner steps as fused
-    multiply-adds (as XLA's CPU code contracts them), +-inf at +-1.
-    ``torch.erfinv`` is another approximation. ``log1p`` is PyTorch's,
-    not XLA's, which moves about 9 % of the ``w`` by an ulp or two and so
-    about 1 % of the results by up to 3 ulps (tests/test_torch_random.py
-    states the measured share)."""
-    from repro_torch.core.faults import _fma     # faults imports this module
+    """XLA's float32 ``erf_inv`` of float32 ``x`` on [-1, 1], bit for bit:
+    Giles' polynomial in ``w = -log1p_xla(-x^2)``, the Horner steps as
+    fused multiply-adds (as XLA's CPU code contracts them), +-inf at +-1.
+    ``torch.erfinv`` is another approximation; ``torch.log1p`` is not
+    XLA's (it moved about 1 % of the results by up to 3 ulps), and
+    ``torch.sqrt`` on the CPU is not correctly rounded (``faults._sqrt``
+    is; it moved 1 to 4 results in 200,000, all at w >= 5)."""
+    from repro_torch.core.faults import _fma, _sqrt  # faults imports this
 
-    w = -torch.log1p(-(x * x))
+    w = -log1p_xla(-(x * x))
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, _sqrt(w) - 3.0)
 
     def coef(i):
         return torch.where(lt, torch.tensor(_ERFINV_LT5[i], device=x.device),

@@ -8,7 +8,7 @@ the error-feedback codecs included), the voted-predict kernel on both its
 routes (bitwise, launch counts by route), the population Pegasos and merge
 kernels and each one's two layouts (launch counts by layout), the
 flash-attention kernel on both its routes (tensor cores for
-TMA-readable bf16 at head_dim 64/128, CUDA cores for the rest), and the
+TMA-readable bf16 at head_dim 64/128/256, CUDA cores for the rest), and the
 sharded engine against the reference engine on the f32 and the quantized
 wires and under Byzantine faults, with and without a serving hook, and
 armed with telemetry (its streams equal to the reference engine's); the
@@ -484,16 +484,33 @@ def test_flash_tensor_core_route_matches_plain_version(cuda, hd, group, s):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_hd256_mqa_matches_plain_version(cuda, dtype, window, s):
     """head_dim 256 over one kv head (recurrentgemma's local attention),
-    causal: the CUDA-core route (its count up by one), within
+    causal: bfloat16 on the tensor-core route (64-key tiles), float32 on
+    the CUDA-core route, each call's route count up by one, within
     ``compare_flash``'s tolerance."""
     from repro_torch.kernels import flash_attention as fa
     dt = getattr(torch, dtype)
+    want = "tensor_core" if dt == torch.bfloat16 else "cuda_core"
     q, k, v = smoke.flash_inputs(s + 256, 2 if s < 2048 else 1, s, 16, 1,
                                  256, dt, cuda)
     routes = dict(fa.flash_attention.route_launches)
-    smoke.compare_flash(q, k, v, True, window, "cuda_core")
+    smoke.compare_flash(q, k, v, True, window, want)
     assert fa.flash_attention.route_launches == dict(
-        routes, cuda_core=routes["cuda_core"] + 1)
+        routes, **{want: routes[want] + 1})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["strided", "unaligned"])
+def test_flash_hd256_views_tma_cannot_read_take_cuda_cores(cuda, layout):
+    """bf16 at head_dim 256 that TMA can read, as (B, heads, S, hd) views,
+    takes the tensor cores; unaligned views stay on the CUDA cores."""
+    from repro_torch.kernels import flash_attention as fa
+    want = "tensor_core" if layout == "strided" else "cuda_core"
+    q, k, v = smoke.flash_inputs(7, 1, 300, 16, 1, 256, torch.bfloat16,
+                                 cuda, **{layout: True})
+    routes = dict(fa.flash_attention.route_launches)
+    smoke.compare_flash(q, k, v, True, 64, want)
+    assert fa.flash_attention.route_launches == dict(
+        routes, **{want: routes[want] + 1})
 
 
 @pytest.mark.cuda

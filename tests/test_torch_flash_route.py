@@ -7,7 +7,8 @@ alone; here it is called on CPU tensors of every kind it sorts.
 
 The tensor-core kernel rounds P to bf16 before P V, which the TPU kernel
 and the CUDA-core kernel do not. ``emulate_tensor_core`` repeats its
-arithmetic on the CPU (query and key tiles of 128, the band of key tiles,
+arithmetic on the CPU (query tiles of 128, key tiles of 128 or, at head_dim
+256, of 64, the band of key tiles,
 an online softmax in float32 in base 2 with P rounded to bf16, float32
 accumulation) and is held, on bf16 inputs from numpy, to the JAX Pallas
 kernel in interpret mode (where its zero padding is hidden, as in
@@ -29,6 +30,7 @@ from repro_torch.kernels import flash_attention as fa
 
 BF16_TOL = dict(rtol=2.0 ** -7, atol=3e-2)
 TILE = 128
+KEY_TILE = {64: 128, 128: 128, 256: 64}   # keys a K/V tile, by head_dim
 
 
 def emulate_tensor_core(q, k, v, *, causal=True, window=None):
@@ -40,6 +42,7 @@ def emulate_tensor_core(q, k, v, *, causal=True, window=None):
     kf, vf = (a.float().permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
               for a in (k, v))
     c = (1.0 / math.sqrt(hd)) * math.log2(math.e)
+    bk = KEY_TILE[hd]
     out = torch.zeros(b, h, s, hd)
     for q0 in range(0, s, TILE):
         rows = torch.arange(q0, min(q0 + TILE, s))
@@ -51,9 +54,9 @@ def emulate_tensor_core(q, k, v, *, causal=True, window=None):
         m = torch.full((b, h, len(rows)), -math.inf)
         l = torch.zeros(b, h, len(rows))
         o = torch.zeros(b, h, len(rows), hd)
-        for k0 in range(k_lo // TILE * TILE, k_hi, TILE):
+        for k0 in range(k_lo // bk * bk, k_hi, bk):
             # the kernel's tile also holds zero keys past S, masked
-            keys = torch.arange(k0, min(k0 + TILE, s))
+            keys = torch.arange(k0, min(k0 + bk, s))
             sc = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)
             diff = rows[:, None] - keys[None, :]
             mask = torch.ones_like(diff, dtype=torch.bool)
@@ -132,7 +135,7 @@ def hd_strided(b, s, heads, hd, dtype=torch.bfloat16):
     return torch.zeros(b, s, hd, heads, dtype=dtype).transpose(2, 3)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", fa.TENSOR_CORE_HEAD_DIMS)
 @pytest.mark.parametrize("make", [contiguous, heads_first])
 @pytest.mark.parametrize("h,kv", [(4, 4), (4, 2), (16, 2)])
 def test_route_takes_tensor_cores_for_tma_readable_bf16(hd, make, h, kv):
@@ -142,22 +145,23 @@ def test_route_takes_tensor_cores_for_tma_readable_bf16(hd, make, h, kv):
 
 @pytest.mark.parametrize("dtype,hd", [(torch.float32, 64),
                                       (torch.float32, 128),
+                                      (torch.float32, 256),
                                       (torch.bfloat16, 48),
-                                      (torch.bfloat16, 256),
                                       (torch.bfloat16, 32)])
 def test_route_keeps_cuda_cores_for_other_dtypes_and_head_dims(dtype, hd):
     q, k, v = (contiguous(2, 37, heads, hd, dtype) for heads in (4, 2, 2))
     assert fa.route(q, k, v) == "cuda_core"
 
 
+@pytest.mark.parametrize("hd", [128, 256])
 @pytest.mark.parametrize("make", [unaligned, odd_row_stride, broadcast_batch,
                                   hd_strided])
 @pytest.mark.parametrize("which", [0, 1, 2])
-def test_route_keeps_cuda_cores_for_views_tma_cannot_read(make, which):
+def test_route_keeps_cuda_cores_for_views_tma_cannot_read(make, which, hd):
     """One of q, k, v unaligned, with an S stride no multiple of 8, a zero
     stride, or head_dim not contiguous."""
-    qkv = [contiguous(2, 40, heads, 128) for heads in (4, 2, 2)]
-    qkv[which] = make(2, 40, qkv[which].shape[2], 128)
+    qkv = [contiguous(2, 40, heads, hd) for heads in (4, 2, 2)]
+    qkv[which] = make(2, 40, qkv[which].shape[2], hd)
     assert fa.route(*qkv) == "cuda_core"
 
 
@@ -177,7 +181,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 # ---------------------------------------------------------------------------
 
 # (B, S, H, KV, hd, causal, window): ragged S (1, 37, 300), a window, and
-# H/KV 1, 2 and 8
+# H/KV 1, 2 and 8; at hd 256 (64-key tiles) one kv head, as recurrentgemma
 CASES = [
     (1, 128, 2, 2, 64, True, None),
     (2, 37, 4, 2, 128, True, None),
@@ -189,6 +193,9 @@ CASES = [
     (1, 300, 8, 1, 64, False, 64),
     (2, 1, 8, 1, 128, True, None),
     (1, 300, 2, 2, 128, False, None),
+    (1, 300, 4, 1, 256, True, 96),
+    (2, 37, 2, 1, 256, True, None),
+    (1, 256, 2, 1, 256, False, None),
 ]
 
 

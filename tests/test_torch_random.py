@@ -126,32 +126,78 @@ def test_draw_chunk_tables_match(sampler, n, drop, delay_max):
     assert np.array_equal(arr.numpy(), np.asarray(want_arr))
 
 
-def ulps(got: np.ndarray, want: np.ndarray) -> np.ndarray:
-    """float32 distance in units in the last place (ordered bit patterns)."""
-    def ordered(a):
-        i = a.view(np.int32).astype(np.int64)
-        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
-    return np.abs(ordered(got) - ordered(want))
-
-
-# random.normal in float32: PyTorch's log1p is not XLA's, which moves about
-# 1 % of the draws. Measured over these seeds and 200,000 draws each:
-# 99.04-99.06 % bit for bit, none more than 3 ulps apart.
-NORMAL_F32_SHARE, NORMAL_F32_ULPS = 0.985, 3
+def f32_bits(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-def test_normal_f32_within_three_ulps(seed):
+def test_normal_f32_bitwise(seed):
+    """Every float32 draw equals jax's, the tails too (|x| > 3 is where
+    w >= 5 takes erf_inv's second polynomial, through the square root)."""
     shape = (64, 3125)
     want = np.asarray(jax.random.normal(jax.random.key(seed), shape))
-    got = random.normal(pt_key(seed), shape)
+    got = random.normal(pt_key(seed), shape, torch.float32)
     assert got.dtype == torch.float32 and tuple(got.shape) == shape
-    gap = ulps(got.numpy(), want)
-    assert gap.max() <= NORMAL_F32_ULPS
-    assert (gap == 0).mean() >= NORMAL_F32_SHARE
-    # the tails too: |x| > 3 is where w >= 5 takes the second polynomial
-    tail = np.abs(want) > 3
-    assert tail.any() and gap[tail].max() <= NORMAL_F32_ULPS
+    assert np.array_equal(f32_bits(got), want.view(np.uint32))
+    assert (np.abs(want) > 3).any()
+
+
+def _around(v: float, n: int = 3) -> list:
+    """float32 ``v`` and its ``n`` neighbours on each side."""
+    c = np.float32(v)
+    out, lo, hi = [c], c, c
+    for _ in range(n):
+        lo = np.nextafter(lo, np.float32(-np.inf))
+        hi = np.nextafter(hi, np.float32(np.inf))
+        out += [lo, hi]
+    return out
+
+
+_EDGE = float(np.float32(np.sqrt(2) - 1))
+_TINY = float(np.finfo(np.float32).tiny)
+_SUB = [5e-45, 1e-40, _TINY / 2, float(np.nextafter(np.float32(_TINY),
+                                                    np.float32(0)))]
+LOG1P_CASES = {
+    "small_branch_edge": _around(_EDGE) + _around(-_EDGE),
+    "minus_one": _around(-1.0) + [-2.0, -np.inf],
+    "zeros": [0.0, -0.0],
+    "subnormals": _SUB + [-v for v in _SUB],
+    "tiny_normals": _around(_TINY) + _around(-_TINY) + [1e-20, -1e-20],
+    "erf_inv_domain": list(-np.random.default_rng(0).uniform(
+        -1, 1, 4096).astype(np.float32) ** 2),
+    "both_branches": list(np.random.default_rng(1).uniform(
+        -1, 3, 4096).astype(np.float32)),
+    "large_and_special": [1.0, 7.5, 1e10, 3e38, np.inf, np.nan],
+}
+LOG_CASES = {
+    "erf_inv_domain": list(np.random.default_rng(2).uniform(
+        0, 0.586, 4096).astype(np.float32)),
+    "reduction_edge": _around(np.sqrt(0.5)) + _around(np.sqrt(2)) +
+    _around(1.0) + _around(0.5) + _around(0.586),
+    "zeros_and_negatives": [0.0, -0.0, -1.0, -_TINY, -np.inf, np.nan],
+    "subnormals": _SUB,
+    "tiny_normals": _around(_TINY) + [1e-30, 1e-10],
+    "wide": list(np.exp(np.random.default_rng(3).uniform(
+        -87, 88, 4096)).astype(np.float32)),
+    "large_and_special": [3.4e38, float(np.finfo(np.float32).max), np.inf],
+}
+
+
+@pytest.mark.parametrize("name,inputs", [
+    pytest.param(name, inputs, id=f"{name}-{case}")
+    for name, cases in (("log1p", LOG1P_CASES), ("log", LOG_CASES))
+    for case, inputs in cases.items()])
+def test_xla_log_functions_equal_jit_bitwise(name, inputs):
+    """``log1p_xla`` and ``log_xla`` are XLA's float32 functions on the CPU
+    bit for bit, NaN words included: on both of log1p's branches, at its
+    edge +-(sqrt(2) - 1) and at -1, at +-0 and at subnormals (which XLA's
+    arithmetic reads as zero), and where log's reduction switches."""
+    x = np.asarray(inputs, dtype=np.float32)
+    want = np.asarray(jax.jit(getattr(jnp, name))(x))
+    got = getattr(random, f"{name}_xla")(torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    assert np.array_equal(f32_bits(got), want.view(np.uint32)), (
+        x[f32_bits(got) != want.view(np.uint32)])
 
 
 @pytest.mark.parametrize("seed", SEEDS)
