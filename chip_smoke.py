@@ -186,7 +186,33 @@ and ``nvcc``. The phases, each of which raises on failure:
    ``LM_PATH_LOGIT_TOL``, the share of equal greedy tokens) and #8 on the
    last self-attention layer's q, k, v beside its bound, its plain
    version and ``scaled_dot_product_attention``. Each run's prefill and
-   decode times and tokens/s and peak memory.
+   decode times and tokens/s and peak memory;
+12. llama3-405b served and the new families trained: (a) llama3-405b at
+   its published widths (d_model 16 384, 128 q over 8 kv heads of 128,
+   untied 128 256 vocab) with the depth cut to 4 of 126 layers (3 if the
+   peak passes ``BIG_PEAK_LIMIT``), bf16, through ``family_run``:
+   ``DecodeServer(batch=2, max_len=4096)``, a 2048-token prompt, 4
+   launches of #8 all on ``tensor_core`` at GQA 16:1, 16 greedy steps,
+   against its ``attn_impl="xla"`` run (prefill logits within
+   ``LM_PATH_LOGIT_TOL``, the share of equal greedy tokens), #8 on the
+   last layer's q, k, v beside its bound, its plain version and
+   ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``; the
+   prefill's model FLOPs (``launch/roofline.py``, 2 N D: the embedding
+   counted and the head over every token) over its wall and
+   ``PEAK_FLOPS_BF16``, and the same prefill's matmul FLOPs counted on
+   ``meta`` tensors against them and over the wall and the peak (the
+   tensor cores' utilization); (b) mamba2-780m whole (f32, AdamW), recurrentgemma-9b at
+   one period (3 layers) and mixtral-8x22b at 1 layer (bf16,
+   SGD-momentum) trained by ``launch.train.train`` at their published
+   widths: gossip over 2 peers, mu, the int8 exchange (kernel #2 once a
+   leaf a merge, counted from 0 at each run's start), 3 steps of batch
+   4 x 256: each step's split (fwd+bwd, optimizer, merge), the peak, the
+   first loss against ln(vocab), then #2 held bit for bit to its plain
+   version on every distinct (rows, d) shape of the run's final
+   parameters stacked for the peers; (c) each of the moe, ssm and hybrid
+   families reduced, 5 gossip steps (``make_gossip_train_step`` as
+   ``train()`` builds it, int8 exchange) on the card and on the CPU from
+   the CPU's seeded weights, losses within ``REDUCED_TRAIN_RTOL``.
 
 Prints one JSON line of per-kernel results (with phase 3's armed seconds
 by span under ``"phase3_spans"``), the ``nvidia-smi`` name and power
@@ -328,7 +354,11 @@ ENCDEC_RUNS = (
 # GQA beside its cross layers, all on the tensor cores
 FAMILY_ROWS = {"mixtral-8x22b": "windowed_gqa",
                "recurrentgemma-9b": "hd256_mqa",
-               "llama-3.2-vision-11b": "vlm"}
+               "llama-3.2-vision-11b": "vlm",
+               "llama3-405b": "gqa16"}
+# the runs whose library time is scaled_dot_product_attention's own causal
+# path (is_causal=True, enable_gqa=True) rather than the band as a mask
+CAUSAL_SDPA = ("llama3-405b",)
 # the other route of #8 forced on a run's captured q, k, v and timed in the
 # same call: hd 256 bf16 ran on the CUDA cores before its tensor-core tiles
 FAMILY_FORCED_ROUTES = {"recurrentgemma-9b": "cuda_core"}
@@ -2818,11 +2848,13 @@ def leaf_rows(leaf):
     return leaf.reshape(-1, d).float().contiguous()
 
 
-def time_exchange_kernel(name: str, leaves, card: str) -> dict:
+def time_exchange_kernel(name: str, leaves, card: str,
+                         phase: str = "9") -> dict:
     """The send kernel of codec ``name`` on every leaf's rows of one
-    exchange (CUDA events, one timing for each distinct (rows, d) shape,
-    counted once a leaf of that shape), beside the plain version and the
-    bound over all leaves; the widest leaf of each width printed."""
+    exchange, held bit for bit to the plain version once for each
+    distinct (rows, d) shape and timed there (CUDA events, counted once a
+    leaf of that shape), beside the plain version and the bound over all
+    leaves; the widest leaf of each width printed under ``phase``."""
     import torch
     from repro_torch.kernels import gossip_cycle as gc
     shapes = {}
@@ -2853,14 +2885,15 @@ def time_exchange_kernel(name: str, leaves, card: str) -> dict:
         del w
     bound_ms, bound_by = bound(nbytes, ops)
     for d, r in sorted(widths.items()):
-        print(f"[9] {card}: quantize_send {name} N={r['rows']} d={d} "
+        print(f"[{phase}] {card}: quantize_send {name} N={r['rows']} d={d} "
               f"({r['route']}): {r['ms']:.4f} ms/launch vs bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}); plain "
               f"{r['plain_ms']:.4f} ms; bitwise equal to the plain version")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, bytes=nbytes, widths={str(d): r for d, r
                                                          in widths.items()},
-                routes=sorted({r["route"] for r in widths.values()}))
+                routes=sorted({r["route"] for r in widths.values()}),
+                shapes=len(shapes))
 
 
 def phase9(card: str, results: dict, dev) -> list:
@@ -3035,7 +3068,7 @@ def family_kernel_row(card: str, arch: str, captured: dict, route: str,
     """Kernel #8 on a run's own last-attention-layer q, k, v: against its
     plain version, timed, beside its bound and
     ``scaled_dot_product_attention`` with the band as a boolean mask
-    (timed only), and the route ``FAMILY_FORCED_ROUTES`` names for
+    (its own causal path for ``CAUSAL_SDPA``; timed only), and the route ``FAMILY_FORCED_ROUTES`` names for
     ``arch``, if any, forced through ``_launch`` on the same q, k, v,
     against the plain version and timed. Returns the row's measured
     numbers."""
@@ -3049,10 +3082,16 @@ def family_kernel_row(card: str, arch: str, captured: dict, route: str,
         q, k, v, causal=causal, window=window), reps=10)
     plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
         q, k, v, causal=causal, window=window), reps=3, warmup=1)
-    mask = band_mask(q.shape[1], window, q.device)
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=3, warmup=1)
+    if arch in CAUSAL_SDPA and causal and window is None:
+        lib = "scaled_dot_product_attention(is_causal=True)"
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+    else:
+        lib = "scaled_dot_product_attention with the band as a mask"
+        mask = band_mask(q.shape[1], window, q.device)
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=3, warmup=1)
     b_ms, by, nbytes, flops = flash_bound(q, k.shape[2], causal, window)
     forced = {}
     other = FAMILY_FORCED_ROUTES.get(arch)
@@ -3072,8 +3111,7 @@ def family_kernel_row(card: str, arch: str, captured: dict, route: str,
           f"{str(q.dtype)[6:]} causal={causal} window={window}: {ms:.4f} "
           f"ms/launch vs bound {b_ms:.4f} ms ({by}, {flops} operations, "
           f"{nbytes} B); plain version {plain_ms:.4f} ms; "
-          f"scaled_dot_product_attention with the band as a mask "
-          f"{lib_ms:.4f} ms; max abs err vs plain {err:.3e}"
+          f"{lib} {lib_ms:.4f} ms; max abs err vs plain {err:.3e}"
           + (f"; the {other} route forced on the same q, k, v "
              f"{forced['ms']:.4f} ms/launch, max abs err vs plain "
              f"{forced['max_abs_err']:.3e}" if forced else ""))
@@ -3302,6 +3340,309 @@ def phase11(card: str, results: dict, dev) -> list:
     out["seconds"] = time.perf_counter() - t_start
     print(f"[11] {card}: phase 11 took {out['seconds']:.1f} s")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 12: llama3-405b served; the moe, ssm and hybrid families trained
+# ---------------------------------------------------------------------------
+
+# (a): llama3-405b at its published widths in FAMILY_RUNS' form, the depth
+# cut to 4 of 126 layers (3 if the peak passes BIG_PEAK_LIMIT): #8 at GQA
+# 16:1 (128 q over 8 kv heads of 128) on the tensor cores
+BIG_RUN = ("llama3-405b", 4, 2, 4096, 2048, 16, "tensor_core")
+BIG_LAYERS = (4, 3)
+BIG_PEAK_LIMIT = 70e9
+# (b): the new families trained by gossip at their published widths, the
+# depth cut: (arch, layers, optimizer); 2 peers, mu, the int8 exchange
+# (kernel #2 on every leaf), batch 4 x 256, 3 steps
+TRAIN_FAMILY_RUNS = (("mamba2-780m", 48, "adamw"),
+                     ("recurrentgemma-9b", 3, "sgdm"),
+                     ("mixtral-8x22b", 1, "sgdm"))
+TRAIN_FAMILY_PEERS, TRAIN_FAMILY_EXCHANGE = 2, "int8"
+TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_STEPS = 4, 256, 3
+# (c): each family's reduced gossip steps on the card and on the CPU from
+# the CPU's seeded weights, losses within REDUCED_TRAIN_RTOL
+REDUCED_TRAIN_ARCHS = ("mixtral-8x22b", "llama4-scout-17b-a16e",
+                       "mamba2-780m", "recurrentgemma-9b")
+REDUCED_TRAIN_STEPS, REDUCED_TRAIN_RTOL = 5, 1e-4
+
+
+def big_serve(card: str, dev, out: dict):
+    """(a): ``family_run`` of ``BIG_RUN`` (the depth cut further while the
+    peak passes ``BIG_PEAK_LIMIT``), then the prefill's model FLOPs
+    (``launch/roofline.model_flops_for``: 2 N D, N counting the embedding
+    table, a gather, and the untied head over all tokens where the
+    prefill applies it at the last) over its wall and ``PEAK_FLOPS_BF16``,
+    and the same prefill counted on ``meta`` tensors (``roofline.count``
+    on ``attn_impl="xla"``) against the model FLOPs and over the wall and
+    the peak: the tensor cores' utilization (its scores counted in full,
+    where #8 skips the causal half: about 1 % more at this shape).
+    Returns (the run, its numbers)."""
+    from repro_torch.config import InputShape, get_config
+    from repro_torch.launch import roofline, specs
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    from repro_torch.models import transformer as T
+    arch, _, batch, max_len, prompt, _, _ = BIG_RUN
+    for layers in BIG_LAYERS:
+        run = (arch, layers) + BIG_RUN[2:]
+        res = family_run(card, dev, run, phase=12)
+        if res["peak_bytes"] <= BIG_PEAK_LIMIT:
+            break
+        print(f"[12] {card}: {arch} peak {res['peak_bytes']} B passes "
+              f"{BIG_PEAK_LIMIT:g} at {layers} layers; the depth is cut "
+              "further")
+    else:
+        raise AssertionError(f"phase 12: {arch} peak {res['peak_bytes']} B "
+                             f"at {layers} layers")
+    cfg = get_config(arch).replace(num_layers=layers)
+    shape = InputShape("prefill", prompt, batch, "prefill")
+    model_flops = roofline.model_flops_for(cfg, shape)
+    mfu = model_flops / res["prefill_s"] / PEAK_FLOPS_BF16
+    xla = cfg.replace(attn_impl="xla")
+    t0 = time.perf_counter()
+    flops, nbytes, logits = roofline.count(
+        lambda p, t: T.prefill(p, xla, t, max_len)[0],
+        T.abstract_params(xla), specs.input_specs(xla, shape)["tokens"])
+    count_s = time.perf_counter() - t0
+    if logits.device.type != "meta" or flops <= 0:
+        raise AssertionError(f"phase 12: meta count {flops} on "
+                             f"{logits.device}")
+    meta_util = flops / res["prefill_s"] / PEAK_FLOPS_BF16
+    print(f"[12] {card}: {arch} prefill model FLOPs (launch/roofline.py "
+          f"model_flops_for, 2 N D at {cfg.active_param_count()} "
+          f"parameters) {model_flops:.4e} over {res['prefill_s']:.4f} s = "
+          f"{model_flops / res['prefill_s']:.4e} FLOP/s, "
+          f"{mfu:.4f} of PEAK_FLOPS_BF16 ({PEAK_FLOPS_BF16:g})")
+    print(f"[12] {card}: {arch} the same prefill counted on meta tensors "
+          f"(attn_impl=xla, {count_s:.2f} s, nothing allocated): "
+          f"{flops:.4e} matmul FLOPs, {nbytes:.4e} operand and result bytes "
+          f"unfused; counted / model FLOPs {flops / model_flops:.4f}")
+    print(f"[12] {card}: {arch} prefill matmul FLOPs counted on meta "
+          f"tensors over the wall {flops / res['prefill_s']:.4e} FLOP/s = "
+          f"{meta_util:.4f} of PEAK_FLOPS_BF16: the tensor cores' "
+          f"utilization (the 2 N D figure above counts the embedding, a "
+          f"gather, and the head over every token)")
+    res.update(model_flops=model_flops, mfu=mfu, meta_flops=flops,
+               meta_bytes=nbytes, meta_over_model=flops / model_flops,
+               meta_utilization=meta_util)
+    out[arch] = res
+    return run, res
+
+
+def train_family(card: str, dev, arch: str, layers: int,
+                 optimizer: str) -> dict:
+    """(b): ``launch.train.train`` of ``arch`` at its published widths
+    with ``layers`` layers, gossip over ``TRAIN_FAMILY_PEERS`` peers (mu,
+    the ``TRAIN_FAMILY_EXCHANGE`` exchange): each step's split (fwd+bwd,
+    optimizer, merge; the host synchronizes around each part, through
+    wrappers on the trainer's step and optimizer and on
+    ``gossip_merge``), the peak, the first loss against ln(vocab), and
+    kernel #2's launches (counted from 0 at the run's start, one a leaf a
+    merge); then #2 held bit for bit to its plain version on the leaves
+    of the run's final parameters stacked for the peers (every distinct
+    (rows, d) shape, ``time_exchange_kernel``)."""
+    import math
+
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.core import gossip_optimizer as go
+    from repro_torch.kernels import gossip_cycle as gc
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import Optimizer
+    from repro_torch.utils.tree import tree_leaves
+
+    split, steps = {}, []
+
+    def timed(bucket, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            split[bucket] += time.perf_counter() - t0
+            return r
+        return run
+
+    real_step, real_opt = train_mod.make_gossip_train_step, \
+        train_mod.make_optimizer
+    real_merge = go.gossip_merge
+
+    def make_step(*a, **kw):
+        step_fn = real_step(*a, **kw)
+
+        def step(*sa, **skw):
+            split.update(merge=0.0, optimizer=0.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = step_fn(*sa, **skw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps.append(dict(step_s=wall, fwd_bwd_s=wall - split["merge"]
+                              - split["optimizer"], merge_s=split["merge"],
+                              optimizer_s=split["optimizer"]))
+            return r
+        return step
+
+    def make_opt(*a, **kw):
+        o = real_opt(*a, **kw)
+        return Optimizer(o.init, timed("optimizer", o.update), o.name)
+
+    cfg = train_mod.make_example_config(arch, False, layers=layers)
+    leaves = len(tree_leaves(T.abstract_params(cfg)))
+    counts = gc.quantize_send.launches
+    counts.update(dict.fromkeys(counts, 0))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train_mod.make_gossip_train_step, train_mod.make_optimizer = (make_step,
+                                                                  make_opt)
+    go.gossip_merge = timed("merge", real_merge)
+    t0 = time.perf_counter()
+    try:
+        final, hist = train_mod.train(
+            arch, reduced=False, layers=layers, steps=TRAIN_FAMILY_STEPS,
+            batch=TRAIN_FAMILY_BATCH, seq_len=TRAIN_FAMILY_SEQ,
+            dist="gossip", n_peers=TRAIN_FAMILY_PEERS, merge="mu",
+            optimizer=optimizer, exchange_dtype=TRAIN_FAMILY_EXCHANGE,
+            log_every=1, device=dev)
+    finally:
+        train_mod.make_gossip_train_step, train_mod.make_optimizer = (
+            real_step, real_opt)
+        go.gossip_merge = real_merge
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(counts)
+    want = dict.fromkeys(counts, 0)
+    want["affine8"] = leaves * TRAIN_FAMILY_STEPS
+    if launches != want:
+        raise AssertionError(f"phase 12 {arch}: send launches {launches}, "
+                             f"expected {want} ({leaves} leaves a merge)")
+    losses = [l_ for _, l_, _ in hist]
+    if len(losses) != TRAIN_FAMILY_STEPS or not all(
+            math.isfinite(l_) for l_ in losses + [d_ for *_, d_ in hist]):
+        raise AssertionError(f"phase 12 {arch}: history {hist}")
+    ln_v = math.log(cfg.vocab_size)
+    print(f"[12] {card}: {arch} trained at d_model {cfg.d_model}, "
+          f"{layers} of {get_config(arch).num_layers} layers "
+          f"(pattern {'/'.join(cfg.layer_pattern)}), {cfg.param_count()} "
+          f"parameters a peer in {str(cfg.param_dtype)[6:]}, "
+          f"{TRAIN_FAMILY_PEERS} peers, "
+          f"{optimizer}, mu, exchange {TRAIN_FAMILY_EXCHANGE}, batch "
+          f"{TRAIN_FAMILY_BATCH} x {TRAIN_FAMILY_SEQ}: losses "
+          f"{[round(l_, 4) for l_ in losses]} (first against ln(vocab) "
+          f"{ln_v:.4f}: {losses[0] - ln_v:+.4f}), peer disagreement "
+          f"{hist[-1][2]:.3e}; {wall:.2f} s with set-up; peak {peak} B "
+          f"({peak / 1e9:.2f} GB); kernel #2 launches {launches['affine8']} "
+          f"({leaves} leaves x {TRAIN_FAMILY_STEPS} merges)")
+    for i, row in enumerate(steps):
+        print(f"[12] {card}: {arch} step {i + 1}: {row['step_s']:.4f} s = "
+              f"fwd+bwd {row['fwd_bwd_s']:.4f} + optimizer "
+              f"{row['optimizer_s']:.4f} + merge {row['merge_s']:.4f} s")
+    stacked = tree_leaves(go.stack_for_peers(final, TRAIN_FAMILY_PEERS))
+    del final
+    exchange = time_exchange_kernel(TRAIN_FAMILY_EXCHANGE, stacked, card,
+                                    phase="12")
+    del stacked
+    print(f"[12] {card}: {arch} kernel #2 ({TRAIN_FAMILY_EXCHANGE}) bit for "
+          f"bit equal to quantize_send_plain on all {exchange['shapes']} "
+          f"distinct (rows, d) shapes of the {leaves} leaves (the final "
+          f"parameters stacked for {TRAIN_FAMILY_PEERS} peers; routes "
+          f"{'/'.join(exchange['routes'])}): {exchange['ms']:.4f} ms of "
+          f"kernel time an exchange vs bound {exchange['bound_ms']:.4f} ms "
+          f"({exchange['bound_by']}); plain {exchange['plain_ms']:.4f} ms")
+    return dict(layers=layers, optimizer=optimizer,
+                params_a_peer=cfg.param_count(), history=hist, steps=steps,
+                wall_s=wall, peak_bytes=peak, first_loss_minus_ln_vocab=(
+                    losses[0] - ln_v), send_launches=launches, leaves=leaves,
+                exchange=exchange)
+
+
+def reduced_train_on_card_and_cpu(card: str, dev, arch: str) -> float:
+    """(c): ``REDUCED_TRAIN_STEPS`` gossip steps of the reduced ``arch``
+    through ``make_gossip_train_step`` as ``launch.train.train`` builds it
+    (2 peers, mu, the int8 exchange, AdamW on its warm-up cosine) on the
+    card and on the CPU, both from the CPU's seeded weights and the same
+    batches: every step's loss within ``REDUCED_TRAIN_RTOL``. Returns the
+    largest relative difference."""
+    import math
+
+    import torch
+    from repro_torch.config import GossipConfig
+    from repro_torch.core import gossip_optimizer as go
+    from repro_torch.data.lm_data import SyntheticLMDataset
+    from repro_torch.launch.train import make_example_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.utils.tree import tree_map
+
+    cfg = make_example_config(arch, True).replace(attn_impl="chunked")
+    peers, batch, seq, steps = 2, 4, 64, REDUCED_TRAIN_STEPS
+    base = T.init_params(cfg, device="cpu", seed=0)
+    ds = SyntheticLMDataset(cfg.vocab_size, seq, batch, seed=0)
+    batches = [next(ds) for _ in range(steps)]
+    gcfg = GossipConfig(schedule="hypercube", merge="mu",
+                        exchange_dtype=TRAIN_FAMILY_EXCHANGE)
+
+    def loss_fn(p, b):
+        return T.lm_loss(p, cfg, b["tokens"], b["labels"])
+
+    hists = []
+    for device in (dev, "cpu"):
+        opt = make_optimizer("adamw", warmup_cosine(
+            1e-3, min(20, steps // 5 + 1), steps))
+        sp = go.stack_for_peers(
+            tree_map(lambda p: p.detach().to(device), base), peers)
+        state = go.GossipState(sp, opt.init(sp), torch.zeros(
+            (), dtype=torch.int32, device=device))
+        step_fn = go.make_gossip_train_step(loss_fn, opt, peers, gcfg)
+        losses = []
+        for s, raw in enumerate(batches):
+            b = {k: torch.as_tensor(v, device=device).reshape(
+                peers, batch // peers, seq) for k, v in raw.items()}
+            perm, _ = go.perms_for_step(gcfg, s, peers)
+            state, loss, _ = step_fn(state, b, perm)
+            losses.append(float(loss))
+        hists.append(losses)
+    card_l, cpu_l = hists
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    if (len(card_l) != REDUCED_TRAIN_STEPS
+            or not all(math.isfinite(a) for a in card_l)
+            or not rel <= REDUCED_TRAIN_RTOL):
+        raise AssertionError(f"phase 12: reduced {arch} losses on "
+                             f"the card {card_l} and the CPU {cpu_l}")
+    print(f"[12] {card}: reduced {arch} {REDUCED_TRAIN_STEPS} gossip steps "
+          f"(int8 exchange) on the card and the CPU from the same weights "
+          f"and batches: losses {[round(a, 6) for a in card_l]}, largest "
+          f"relative difference {rel:.3e} (bar {REDUCED_TRAIN_RTOL:g})")
+    return rel
+
+
+def phase12(card: str, results: dict, dev) -> list:
+    """(a) llama3-405b served at its published widths with the depth cut,
+    against its plain-attention run, #8 on its last layer's q, k, v beside
+    ``scaled_dot_product_attention(is_causal=True)``, its model-FLOPs
+    utilization and its ``meta`` count; (b) mamba2-780m, recurrentgemma-9b
+    and mixtral-8x22b trained by gossip at their published widths, the
+    depth cut (``TRAIN_FAMILY_RUNS``), #2 held to its plain version on
+    each run's leaves; (c) each family's reduced gossip steps on the card
+    against the CPU. Returns kernel #8's row of the
+    ``kernels`` line."""
+    import torch
+    t_start = time.perf_counter()
+    out = results["phase12"] = {"train": {}, "reduced_train": {}}
+    run, res = big_serve(card, dev, out)
+    rows = [family_line_row(run, res)]
+    torch.cuda.empty_cache()
+    for arch, layers, optimizer in TRAIN_FAMILY_RUNS:
+        out["train"][arch] = train_family(card, dev, arch, layers, optimizer)
+        torch.cuda.empty_cache()
+    for arch in REDUCED_TRAIN_ARCHS:
+        out["reduced_train"][arch] = reduced_train_on_card_and_cpu(card, dev,
+                                                                   arch)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"[12] {card}: phase 12 took {out['seconds']:.1f} s")
+    return rows
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4085,9 +4426,14 @@ def main() -> int:
     # ---- 11. the audio and vlm families ---------------------------------
     phase(11)
     kernels.extend(phase11(card, results, dev))
+    torch.cuda.empty_cache()
+
+    # ---- 12. llama3-405b served; the new families trained ---------------
+    phase(12)
+    kernels.extend(phase12(card, results, dev))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - start
-    print(f"[11] {card}: the whole run took {results['total_s']:.1f} s")
+    print(f"[12] {card}: the whole run took {results['total_s']:.1f} s")
     if opts.out:
         out = Path(opts.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -5,7 +5,10 @@ imported here: its package loads JAX), with ``torch`` dtypes in place of
 ``jnp`` ones. ``AttentionConfig``, ``MoEConfig``, ``SSMConfig``,
 ``RGLRUConfig``, ``EncoderConfig`` (whisper's encoder tower),
 ``CrossAttnConfig`` (the vlm's gated cross layers) and ``ModelConfig``
-drive the port's models. ``MoEConfig.sharding`` and ``combine`` are the
+drive the port's models; ``InputShape`` and ``INPUT_SHAPES`` are the
+four workload shapes, and ``MeshConfig``, ``TrainConfig``, ``ServeConfig``
+and ``RunConfig`` the run settings, field for field the reference's.
+``MoEConfig.sharding`` and ``combine`` are the
 reference's mesh settings; on one device only the gather combine runs,
 as in the reference.
 
@@ -23,7 +26,7 @@ to ``"flash"``. ``GossipConfig`` is the gossip optimizer's
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
 import torch
@@ -142,6 +145,55 @@ class ModelConfig:
         from repro_torch.models.transformer import model_spec
         return spec_param_count(model_spec(self))
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only the top-k experts
+        count). The reference's arithmetic, its override of the MoE layer
+        count included: every layer counts as a MoE layer."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        m = self.moe
+        # per-expert FFN parameters (3 matrices for swiglu, 2 for gelu)
+        nmat = 3 if self.act == "swiglu" else 2
+        per_expert = nmat * self.d_model * m.d_ff_expert
+        n_moe_layers = self.num_layers
+        inactive = (m.num_experts - m.top_k) * per_expert * n_moe_layers
+        return total - inactive
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # 'train' | 'prefill' | 'decode'
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The reference's device mesh (data x model, times pods). The port
+    runs on one device; the mesh waits for ROADMAP queue 1 item 11."""
+
+    data: int = 16
+    model: int = 16
+    pods: int = 1
+
+    @property
+    def multi_pod(self) -> bool:
+        return self.pods > 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model * self.pods
+
 
 @dataclass(frozen=True)
 class GossipConfig:
@@ -155,3 +207,38 @@ class GossipConfig:
     # wire codec of the exchanged model ("" = the parameter dtype; "bf16"
     # halves the wire, averaging still in f32)
     exchange_dtype: str = ""
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    seq_len: int = 1024
+    global_batch: int = 32
+    steps: int = 100
+    learning_rate: float = 3e-4
+    warmup_steps: int = 20
+    weight_decay: float = 0.1
+    optimizer: str = "adamw"       # adamw | sgdm | pegasos
+    grad_clip: float = 1.0
+    seed: int = 0
+    log_every: int = 10
+    eval_every: int = 0
+    checkpoint_every: int = 0
+    checkpoint_dir: str = ""
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    max_seq_len: int = 4096
+    batch_size: int = 8
+    prefill_len: int = 512
+    decode_steps: int = 64
+    window: Optional[int] = None   # windowed KV cache (ring buffer) if set
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+    gossip: GossipConfig = field(default_factory=GossipConfig)

@@ -1,10 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution and reduced variants.
 
-Counterpart of ``repro/config/registry.py``. The port registers the dense
-(``repro_torch/configs/qwen3_*``), moe (mixtral-8x22b, llama4-scout), ssm
-(mamba2-780m), hybrid (recurrentgemma-9b), vlm (llama-3.2-vision-11b) and
-audio (whisper-medium) configs; an architecture the reference has and the
-port does not yet raises an error that says so.
+Counterpart of ``repro/config/registry.py``. The port registers every
+architecture the reference does: the dense (``repro_torch/configs/qwen3_*``,
+llama3-405b), moe (mixtral-8x22b, llama4-scout), ssm (mamba2-780m),
+hybrid (recurrentgemma-9b), vlm (llama-3.2-vision-11b) and audio
+(whisper-medium) configs.
 """
 from __future__ import annotations
 
@@ -16,9 +16,6 @@ import torch
 from repro_torch.config.base import ModelConfig
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
-# the reference's architectures that wait for sharding (ROADMAP queue 1
-# item 11), which the port does not have yet
-NOT_PORTED = ("llama3-405b",)
 
 
 def register_config(arch_id: str):
@@ -35,10 +32,6 @@ def _ensure_loaded() -> None:
 
 def get_config(arch_id: str) -> ModelConfig:
     _ensure_loaded()
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to repro_torch yet (ROADMAP.md, "
-            f"queue 1 item 11); ported: {sorted(_REGISTRY)}")
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]()

@@ -270,7 +270,8 @@ def lm_cache_from_arrays(cfg: cfg_base.ModelConfig, tree: Mapping, device):
 def lm_params_to_reference(cfg: cfg_base.ModelConfig, params, lead: int = 0):
     """The port's parameters (a ``Params`` or a tree in its layout, each
     leaf with ``lead`` leading axes, such as the gossip optimizer's peer
-    axis) in the reference's layout, as detached tensors on their device:
+    axis; or ``{"blocks": cache}``, a decode cache) in the reference's
+    layout, as detached tensors on their device (``meta`` ones too):
     the layers of pattern position j stacked into ``blocks/l{j}`` on a
     layer axis after the leading ones, the remainder layers under
     ``tail/t{j}``, the encoder's layers stacked into ``encoder/blocks``."""

@@ -182,3 +182,8 @@ def make_update(learner: str, *, lam: float = 1e-4, eta: float = 0.01,
     if learner == "logistic":
         return lambda m, x, y: logistic_update(m, x, y, eta, lam)
     raise ValueError(f"unknown learner {learner!r}")
+
+
+def predict(w, x):
+    """PREDICT (Algorithm 4): sign of the inner product."""
+    return torch.sign(torch.sum(w * x, dim=-1))

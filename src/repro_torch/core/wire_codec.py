@@ -352,3 +352,42 @@ def deterministic_codec(codec: WireCodec) -> WireCodec:
     if not codec.stochastic:
         return codec
     return WIRE_CODECS[codec.name.replace("_sr", "")]
+
+
+# ---------------------------------------------------------------------------
+# the reference's wire-name helpers (its pre-registry API)
+# ---------------------------------------------------------------------------
+
+
+def resolve_wire_dtype(name) -> Optional[torch.dtype]:
+    """Wire-dtype name -> payload storage dtype, or None for full precision
+    (``None``/``""``/``"f32"``). Packed sub-4-bit codecs store several
+    codes per uint8 element: per-coefficient accounting goes through
+    ``get_codec(name).payload_bytes(d)``, not this dtype's itemsize."""
+    if not name or name == "f32":
+        return None
+    return get_codec(name).payload_dtype
+
+
+def is_quantized_wire(name) -> bool:
+    """True when the codec carries a per-message scale (int8 and below)."""
+    return bool(name) and get_codec(name).quantized
+
+
+def is_stochastic_wire(name) -> bool:
+    """True when the wire codec rounds stochastically (needs a key)."""
+    return bool(name) and get_codec(name).stochastic
+
+
+def wire_itemsize(name) -> int:
+    """Bytes per payload storage element for a wire-dtype name (1 for
+    every sub-byte codec: a uint8 element packs ``group`` codes)."""
+    dt = resolve_wire_dtype(name)
+    return 4 if dt is None else dt.itemsize
+
+
+def wire_overhead_bytes(name) -> int:
+    """Per-message metadata bytes beyond the coefficients: f16 scale and
+    zero-point for the affine int8 codecs, f16 scale for the packed
+    symmetric codecs, nothing for float casts."""
+    return get_codec(name).overhead_bytes if name else 0

@@ -9,7 +9,8 @@ flash kernel #8 on the card); ``fused_prefill=False`` feeds the prompt
 through ``decode_step`` token by token. The cache stays on the parameters'
 device and is updated in place. A serve ``window`` makes the attention
 layers' caches rings of that many slots; the recurrent states are O(1)
-and take no window. Serves every registered config: dense, moe
+and take no window. Serves every registered config: dense (the qwen3
+configs, llama3-405b), moe
 (mixtral-8x22b, llama4-scout-17b-a16e), ssm (mamba2-780m), hybrid
 (recurrentgemma-9b), vlm (llama-3.2-vision-11b) and audio
 (whisper-medium). A vlm or audio server draws its stub source from
@@ -25,6 +26,8 @@ on the CPU; ``--layers`` cuts the depth at full width):
       --batch 4 --prompt-len 32 --decode-steps 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
       --layers 4 --batch 2 --prompt-len 512 --max-len 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-405b \
+      --layers 4 --batch 2 --prompt-len 2048 --max-len 4096
 """
 from __future__ import annotations
 

@@ -20,6 +20,11 @@ Usage (on the card by default; ``--device cpu`` runs on the CPU):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
       --reduced --steps 200 --dist gossip --peers 4
+
+  # a published config at its widths, the depth cut, int8 exchange
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x22b \
+      --full --layers 1 --steps 3 --dist gossip --peers 2 --optimizer sgdm \
+      --exchange int8
 """
 from __future__ import annotations
 
@@ -49,10 +54,14 @@ from repro_torch.utils.tree import tree_map
 
 def make_example_config(arch: str, reduced: bool, *, d_model: int = 0,
                         layers: int = 0):
+    """The reduced config (d_model 256, 2 layers, vocab 2048 unless told),
+    or the published one with its depth cut to ``layers`` where given."""
     cfg = get_config(arch)
     if reduced:
         cfg = reduced_config(cfg, d_model=d_model or 256, layers=layers or 2,
                              vocab=2048)
+    elif layers:
+        cfg = cfg.replace(num_layers=layers)
     return cfg
 
 
@@ -62,14 +71,17 @@ def train(arch: str = "qwen3-1.7b", *, reduced: bool = True, steps: int = 100,
           schedule: str = "hypercube", optimizer: str = "adamw",
           seed: int = 0, log_every: int = 10, ckpt_dir: Optional[str] = None,
           ckpt_every: int = 0, d_model: int = 0, layers: int = 0,
-          device=None):
+          exchange_dtype: str = "", device=None):
     """Train ``steps`` steps; returns ``(final_params, history)``: the
     final parameters (the peers' float32 mean under gossip) as a tree in
     the port's layout, and ``(step, loss, peer_disagreement)`` at every
     ``log_every`` steps and the last (disagreement 0.0 under all-reduce).
     ``device``: the CUDA card when None (raises without one); ``"cpu"``
     runs on the CPU. The weights are drawn from a generator seeded with
-    ``seed`` on that device."""
+    ``seed`` on that device. ``layers`` cuts a published config's depth
+    (``reduced=False``); ``exchange_dtype`` is the gossip exchange's wire
+    codec (``GossipConfig.exchange_dtype``: "" sends the parameters as
+    they are)."""
     device = resolve_device(device)
     cfg = make_example_config(arch, reduced, d_model=d_model, layers=layers)
     cfg = cfg.replace(attn_impl="chunked")
@@ -112,7 +124,8 @@ def train(arch: str = "qwen3-1.7b", *, reduced: bool = True, steps: int = 100,
         if batch % n_peers:
             raise ValueError(f"batch {batch} does not split over {n_peers} "
                              "peers")
-        gcfg = GossipConfig(schedule=schedule, merge=merge)
+        gcfg = GossipConfig(schedule=schedule, merge=merge,
+                            exchange_dtype=exchange_dtype)
         sp = stack_for_peers(params, n_peers)
         del params
         state = GossipState(sp, opt.init(sp),
@@ -169,6 +182,9 @@ def main():
     p.add_argument("--merge", default="mu", choices=["mu", "um", "rw"])
     p.add_argument("--schedule", default="hypercube")
     p.add_argument("--optimizer", default="adamw")
+    p.add_argument("--exchange", default="",
+                   help="the gossip exchange's wire codec (bf16, int8, "
+                        "int4, ...); the parameters as they are if empty")
     p.add_argument("--d-model", type=int, default=0)
     p.add_argument("--layers", type=int, default=0)
     p.add_argument("--ckpt-dir", default=None)
@@ -181,7 +197,8 @@ def main():
           seq_len=a.seq_len, lr=a.lr, dist=a.dist, n_peers=a.peers,
           merge=a.merge, schedule=a.schedule, optimizer=a.optimizer,
           seed=a.seed, ckpt_dir=a.ckpt_dir, ckpt_every=a.ckpt_every,
-          d_model=a.d_model, layers=a.layers, device=a.device)
+          d_model=a.d_model, layers=a.layers, exchange_dtype=a.exchange,
+          device=a.device)
 
 
 if __name__ == "__main__":

@@ -25,7 +25,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import AttentionConfig
-from repro_torch.models.layers import P, rmsnorm, rmsnorm_spec, wcast
+from repro_torch.models.layers import (P, meta, rmsnorm, rmsnorm_spec, wcast,
+                                       zeros_of)
 
 NEG_INF = -1e30
 
@@ -91,6 +92,18 @@ def _project_qkv(params, a: AttentionConfig, x, kv_source=None):
     return q, k, v
 
 
+def make_mask(a: AttentionConfig, q_pos, k_pos):
+    """Boolean attention mask from query/key position vectors: q_pos (Sq,),
+    k_pos (Sk,) -> (1, 1, Sq, Sk). Causal and/or windowed."""
+    diff = q_pos[:, None] - k_pos[None, :]
+    mask = torch.ones_like(diff, dtype=torch.bool)
+    if a.causal:
+        mask &= diff >= 0
+    if a.sliding_window is not None:
+        mask &= diff < a.sliding_window
+    return mask[None, None]
+
+
 def _inv_sqrt(hd: int) -> float:
     """1/sqrt(hd) as the reference computes it, in f32."""
     return float(1.0 / torch.sqrt(torch.tensor(float(hd))))
@@ -105,13 +118,7 @@ def _grouped_sdpa(q, k, v, a: AttentionConfig, q_pos, k_pos, compute_dtype):
     qg = q.reshape(b, sq, kv, h // kv, hd)
     logits = torch.einsum("bqgrk,bsgk->bgrqs", qg.float(),
                           k.float()) * _inv_sqrt(hd)
-    diff = q_pos[:, None] - k_pos[None, :]
-    mask = torch.ones_like(diff, dtype=torch.bool)
-    if a.causal:
-        mask &= diff >= 0
-    if a.sliding_window is not None:
-        mask &= diff < a.sliding_window
-    logits = torch.where(mask, logits, NEG_INF)
+    logits = torch.where(make_mask(a, q_pos, k_pos)[0, 0], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrqs,bsgk->bqgrk", probs.to(compute_dtype),
                        v.to(compute_dtype))
@@ -236,12 +243,17 @@ def attention(params, a: AttentionConfig, x, *, positions=None,
 # ---------------------------------------------------------------------------
 
 
+def kv_cache_spec(batch: int, length: int, a: AttentionConfig, dtype):
+    """One layer's KV cache as ``meta`` tensors: {"k", "v"} of
+    (B, L, KV, hd)."""
+    shape = (batch, length, a.num_kv_heads, a.head_dim)
+    return {"k": meta(shape, dtype), "v": meta(shape, dtype)}
+
+
 def init_kv_cache(batch: int, length: int, a: AttentionConfig, dtype,
                   device=None):
     """One layer's KV cache: {"k", "v"} of (B, L, KV, hd) zeros."""
-    shape = (batch, length, a.num_kv_heads, a.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return zeros_of(kv_cache_spec(batch, length, a, dtype), device)
 
 
 def decode_attention(params, a: AttentionConfig, x, cache, index: int, *,

@@ -51,6 +51,22 @@ def spec_param_count(spec) -> int:
     return sum(math.prod(p.shape) for _, p in _flatten_spec(spec))
 
 
+def meta(shape, dtype) -> torch.Tensor:
+    """A shape-only stand-in: a tensor on the ``meta`` device (no storage),
+    the reference's ``jax.ShapeDtypeStruct``."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def zeros_of(spec, device):
+    """Zeros on ``device`` in the shapes and dtypes of a tree of ``meta``
+    tensors (dicts and lists)."""
+    if isinstance(spec, list):
+        return [zeros_of(s, device) for s in spec]
+    if isinstance(spec, dict):
+        return {name: zeros_of(s, device) for name, s in spec.items()}
+    return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+
+
 class Params(nn.Module):
     """A subtree of parameters: children by the spec's names, read as
     ``params[name]``. A list in the spec becomes an ``nn.ModuleList``."""
@@ -81,6 +97,13 @@ def build_params(spec, leaf: Callable[[Tuple, P], torch.Tensor], prefix=()):
         else:
             node.add_module(name, build_params(s, leaf, path))
     return node
+
+
+def abstract_params(spec) -> Params:
+    """The spec's ``Params`` with every leaf on ``meta``: parameters of any
+    size without an allocation, which the model's functions take as they
+    take real ones."""
+    return build_params(spec, lambda _, p: meta(p.shape, p.dtype))
 
 
 def init_leaf(p: P, generator: torch.Generator, device) -> torch.Tensor:

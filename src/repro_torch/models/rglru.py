@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import RGLRUConfig
-from repro_torch.models.layers import P, causal_conv, softplus
+from repro_torch.models.layers import (P, causal_conv, meta, softplus,
+                                       zeros_of)
 
 
 def rglru_dims(d_model: int, r: RGLRUConfig):
@@ -100,15 +101,19 @@ def rglru_forward(params, r: RGLRUConfig, d_model: int, x, *,
     return out
 
 
+def rglru_state_spec(batch: int, d_model: int, r: RGLRUConfig,
+                     dtype) -> Dict[str, torch.Tensor]:
+    """The decode state as ``meta`` tensors: ``h`` (B, width) float32 and
+    ``conv`` (B, d_conv - 1, width) in ``dtype``."""
+    width, _ = rglru_dims(d_model, r)
+    return {"h": meta((batch, width), torch.float32),
+            "conv": meta((batch, r.d_conv - 1, width), dtype)}
+
+
 def init_rglru_state(batch: int, d_model: int, r: RGLRUConfig, dtype,
                      device=None) -> Dict[str, torch.Tensor]:
-    """The zero decode state: ``h`` (B, width) float32 and ``conv``
-    (B, d_conv - 1, width) in ``dtype``."""
-    width, _ = rglru_dims(d_model, r)
-    return {"h": torch.zeros((batch, width), dtype=torch.float32,
-                             device=device),
-            "conv": torch.zeros((batch, r.d_conv - 1, width), dtype=dtype,
-                                device=device)}
+    """The zero decode state (:func:`rglru_state_spec`) on ``device``."""
+    return zeros_of(rglru_state_spec(batch, d_model, r, dtype), device)
 
 
 def rglru_step(params, r: RGLRUConfig, d_model: int, x, state, *,

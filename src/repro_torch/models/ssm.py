@@ -22,8 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import SSMConfig
-from repro_torch.models.layers import (P, causal_conv, rmsnorm,
-                                       rmsnorm_spec, softplus)
+from repro_torch.models.layers import (P, causal_conv, meta, rmsnorm,
+                                       rmsnorm_spec, softplus, zeros_of)
 
 
 def ssm_dims(d_model: int, s: SSMConfig):
@@ -154,15 +154,19 @@ def ssm_forward(params, s: SSMConfig, d_model: int, x, *,
     return out
 
 
+def ssm_state_spec(batch: int, d_model: int, s: SSMConfig,
+                   dtype) -> Dict[str, torch.Tensor]:
+    """The decode state as ``meta`` tensors: ``ssm`` (B, H, P, N) float32
+    and ``conv`` (B, d_conv - 1, conv_dim) in ``dtype``."""
+    _, h, conv_dim = ssm_dims(d_model, s)
+    return {"ssm": meta((batch, h, s.head_dim, s.d_state), torch.float32),
+            "conv": meta((batch, s.d_conv - 1, conv_dim), dtype)}
+
+
 def init_ssm_state(batch: int, d_model: int, s: SSMConfig, dtype,
                    device=None) -> Dict[str, torch.Tensor]:
-    """The zero decode state: ``ssm`` (B, H, P, N) float32 and ``conv``
-    (B, d_conv - 1, conv_dim) in ``dtype``."""
-    _, h, conv_dim = ssm_dims(d_model, s)
-    return {"ssm": torch.zeros((batch, h, s.head_dim, s.d_state),
-                               dtype=torch.float32, device=device),
-            "conv": torch.zeros((batch, s.d_conv - 1, conv_dim), dtype=dtype,
-                                device=device)}
+    """The zero decode state (:func:`ssm_state_spec`) on ``device``."""
+    return zeros_of(ssm_state_spec(batch, d_model, s, dtype), device)
 
 
 def ssm_step(params, s: SSMConfig, d_model: int, x, state, *,

@@ -155,6 +155,14 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return L.init_params(model_spec(cfg), generator, device)
 
 
+def abstract_params(cfg: ModelConfig):
+    """The parameters as ``meta`` tensors (``layers.abstract_params``):
+    the reference's ``abstract_params``, in the port's layout (``blocks``
+    a list of the layers in order; ``convert.lm_params_to_reference``
+    stacks it into the reference's)."""
+    return L.abstract_params(model_spec(cfg))
+
+
 # ---------------------------------------------------------------------------
 # forward and fused prefill
 # ---------------------------------------------------------------------------
@@ -411,43 +419,49 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
 # ---------------------------------------------------------------------------
 
 
-def _layer_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
-                 window: Optional[int], device):
-    """One layer's zero decode-cache entry (the reference's
-    ``_layer_cache_spec``)."""
+def _layer_cache_spec(cfg: ModelConfig, kind: str, batch: int, length: int,
+                      window: Optional[int]):
+    """One layer's decode-cache entry as ``meta`` tensors (the
+    reference's ``_layer_cache_spec``)."""
     cd = cfg.compute_dtype
     if kind in ("cross", "selfcross"):
         a = cfg.attention
         src = (cfg.cross_attn if kind == "cross" else cfg.encoder).source_len
-        entry = {name: torch.zeros((batch, src, a.num_kv_heads, a.head_dim),
-                                   dtype=cd, device=device)
+        entry = {name: L.meta((batch, src, a.num_kv_heads, a.head_dim), cd)
                  for name in ("ck", "cv")}
         if kind == "cross":
             return entry
-        return {**attn_mod.init_kv_cache(
-            batch, _cache_len(cfg, kind, length, window), a, cd, device),
-            **entry}
+        return {**attn_mod.kv_cache_spec(
+            batch, _cache_len(cfg, kind, length, window), a, cd), **entry}
     if kind in ATTENTION_KINDS:
-        return attn_mod.init_kv_cache(batch,
+        return attn_mod.kv_cache_spec(batch,
                                       _cache_len(cfg, kind, length, window),
-                                      _attn_cfg(cfg, kind), cd, device)
+                                      _attn_cfg(cfg, kind), cd)
     if kind == "ssm":
-        return ssm_mod.init_ssm_state(batch, cfg.d_model, cfg.ssm, cd, device)
-    return rglru_mod.init_rglru_state(batch, cfg.d_model, cfg.rglru, cd,
-                                      device)
+        return ssm_mod.ssm_state_spec(batch, cfg.d_model, cfg.ssm, cd)
+    return rglru_mod.rglru_state_spec(batch, cfg.d_model, cfg.rglru, cd)
+
+
+def cache_spec(cfg: ModelConfig, batch: int, length: int,
+               window: Optional[int] = None) -> List[Dict[str, torch.Tensor]]:
+    """The decode cache as ``meta`` tensors, in the port's layout: a list
+    of per-layer dicts (``{"k", "v"}`` of (B, slots, KV, hd) in the
+    compute dtype for attention, ``{"ssm", "conv"}`` for an ssm layer and
+    ``{"h", "conv"}`` for an rglru layer (float32 states, the conv windows
+    in the compute dtype), ``{"ck", "cv"}`` of (B, source_len, KV, hd) for
+    a cross layer, all four for a selfcross layer). The reference's
+    ``cache_spec`` stacks the same entries by pattern position
+    (``convert.lm_params_to_reference(cfg, {"blocks": cache})``)."""
+    return [_layer_cache_spec(cfg, kind, batch, length, window)
+            for kind in cfg.layer_kinds()]
 
 
 def init_cache(cfg: ModelConfig, batch: int, length: int,
                window: Optional[int] = None, device=None):
-    """The zero decode cache on ``device`` (the CUDA card unless told
-    otherwise): a layer's entry is ``{"k", "v"}`` of (B, slots, KV, hd) in
-    the compute dtype for attention, ``{"ssm", "conv"}`` for an ssm layer
-    and ``{"h", "conv"}`` for an rglru layer (float32 states, the conv
-    windows in the compute dtype), ``{"ck", "cv"}`` of (B, source_len,
-    KV, hd) for a cross layer, all four for a selfcross layer."""
-    device = resolve_device(device)
-    return [_layer_cache(cfg, kind, batch, length, window, device)
-            for kind in cfg.layer_kinds()]
+    """The zero decode cache (:func:`cache_spec`) on ``device`` (the CUDA
+    card unless told otherwise)."""
+    return L.zeros_of(cache_spec(cfg, batch, length, window),
+                      resolve_device(device))
 
 
 def _cross_attend(lp, a, cfg: ModelConfig, h, ck, cv):

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch import random
 from repro_torch.config.base import ModelConfig
+from repro_torch.models.layers import meta
 
 
 def patch_embedding_shape(cfg: ModelConfig, batch: int) -> Tuple[int, ...]:
@@ -34,6 +35,16 @@ def frame_embedding_shape(cfg: ModelConfig, batch: int) -> Tuple[int, ...]:
         raise ValueError(f"{cfg.name} has no encoder")
     return (batch, cfg.encoder.source_len,
             cfg.encoder.d_model or cfg.d_model)
+
+
+def patch_embedding_spec(cfg: ModelConfig, batch: int) -> torch.Tensor:
+    """The stubbed vision encoder's output as a ``meta`` tensor."""
+    return meta(patch_embedding_shape(cfg, batch), cfg.compute_dtype)
+
+
+def frame_embedding_spec(cfg: ModelConfig, batch: int) -> torch.Tensor:
+    """The stubbed audio frontend's output as a ``meta`` tensor."""
+    return meta(frame_embedding_shape(cfg, batch), cfg.compute_dtype)
 
 
 def _dummy(key, shape, dtype):

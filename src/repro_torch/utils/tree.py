@@ -11,7 +11,7 @@ operations on linear models: the gossip ``merge`` (Algorithm 3) is
 """
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, List, Tuple
 
 import torch
 from torch import nn
@@ -38,6 +38,18 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     if kids is None:
         return [tree]
     return [leaf for child in kids[2] for leaf in tree_leaves(child)]
+
+
+def tree_leaves_with_path(tree) -> List[Tuple[Tuple, torch.Tensor]]:
+    """``(path, leaf)`` pairs in ``tree_leaves``' order, the path the tuple
+    of dict keys and sequence indices from the root: the reference's
+    ``jax.tree.leaves_with_path`` with each ``DictKey``/``SequenceKey``
+    as its plain key or index."""
+    kids = _children(tree)
+    if kids is None:
+        return [((), tree)]
+    return [((k,) + path, leaf) for k, child in zip(kids[1], kids[2])
+            for path, leaf in tree_leaves_with_path(child)]
 
 
 def tree_map(fn: Callable, tree, *rest):

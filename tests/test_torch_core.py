@@ -4,6 +4,7 @@ Inputs are made with numpy from a seed and go through both packages;
 integer results must be equal, floats within ``atol=1e-6`` (the packages
 sum in different orders)."""
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -23,11 +24,14 @@ from repro_torch import convert, random
 from repro_torch.configs import gossip_linear as pcfg
 from repro_torch.core import cache as pcache
 from repro_torch.core import learners as plearn
-from repro_torch.core import merge as pmerge
 from repro_torch.core import peer_sampling as ppeers
 from repro_torch.core import simulation as psim
 from repro_torch.data import synthetic as pdata
 from repro_torch.utils.metrics import cosine_similarity as pcosine
+
+# the module, not the function: repro_torch.core re-exports the
+# reference's names, where ``merge`` is the merge function
+pmerge = importlib.import_module("repro_torch.core.merge")
 
 ATOL = 1e-6
 

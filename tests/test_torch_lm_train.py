@@ -5,8 +5,9 @@ steps on a reduced LM (``launch/train.py``: tests/test_torch_train_launch.py).
 Configs: qwen3-1.7b reduced to d_model 64, 2 layers, vocab 256, S = 32,
 with ``attn_chunk`` 8 and ``xent_chunk`` 16 below S and a sliding window
 of 12 where stated, so several query chunks, the window's key span
-(24 of 32 keys) and several loss chunks run; weights moved from JAX by
-``convert.lm_params_from_arrays`` / ``gossip_state_from_arrays``.
+(24 of 32 keys) and several loss chunks run; the port's seeded weights
+moved to JAX by ``convert.lm_params_to_arrays``, a JAX gossip state back
+by ``gossip_state_from_arrays``.
 
 Tolerances, measured on these inputs and stated per test:
 - float32 compute: the loss within rtol 1e-6 (measured equal), every
@@ -63,6 +64,17 @@ def reduced(window=None, compute=jnp.float32, **kw):
     return jcfg, cfg.replace(attn_impl="chunked")
 
 
+def pinned(jcfg, cfg, seed):
+    """The port's parameters from a generator seeded with ``seed`` on the
+    CPU, and the JAX package's copy of them (the reference's own
+    ``init_params`` seeds its leaves with Python's per-process string
+    hash, so its weights change from run to run)."""
+    params = T.init_params(cfg, device="cpu", seed=seed)
+    return (jax.tree.map(jnp.asarray, convert.lm_params_to_arrays(cfg,
+                                                                 params)),
+            params)
+
+
 def tokens(seed, shape):
     t = np.random.default_rng(seed).integers(0, 256, shape + (33,))
     return t[..., :-1].astype(np.int32), t[..., 1:].astype(np.int32)
@@ -96,8 +108,8 @@ def close_trees(got, want, frac, what, flips=None):
 @pytest.mark.parametrize("chunk", [8, 32])
 def test_chunked_attention_matches_the_reference(window, chunk):
     jcfg, cfg = reduced(window=window)
-    jp = jax.tree.map(lambda a: a[0], JT.init_params(jax.random.key(1),
-                                                     jcfg)["blocks"]["l0"])
+    jp = jax.tree.map(lambda a: a[0],
+                      pinned(jcfg, cfg, 1)[0]["blocks"]["l0"])
     p = tree_map(lambda a: torch.from_numpy(np.asarray(a).copy()),
                  jp["attn"])
     x = np.random.default_rng(2).standard_normal((2, 32, 64),
@@ -141,13 +153,11 @@ def test_chunked_attention_needs_a_multiple_of_the_chunk():
 def test_lm_loss_and_gradient_match_jax_value_and_grad(window, compute,
                                                        loss_tol, grad_frac):
     jcfg, cfg = reduced(window=window, compute=compute)
-    jp = JT.init_params(jax.random.key(0), jcfg)
+    jp, params = pinned(jcfg, cfg, 0)
     tok, lab = tokens(1, (2,))
     (jl, jm), jg = jax.value_and_grad(
         lambda p: JT.lm_loss(p, jcfg, jnp.asarray(tok), jnp.asarray(lab)),
         has_aux=True)(jp)
-    params = convert.lm_params_from_arrays(cfg, jax.tree.map(np.asarray, jp),
-                                           "cpu")
     tree = tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss, metrics = T.lm_loss(tree, cfg, torch.from_numpy(tok),
                               torch.from_numpy(lab))
@@ -189,7 +199,7 @@ def test_gossip_lm_steps_match_the_reference(merge, optimizer, exchange):
     cfg = cfg.replace(attn_chunk=16)
     jo = jmake_optimizer(optimizer, jwarmup_cosine(3e-3, 2, 10))
     to = make_optimizer(optimizer, warmup_cosine(3e-3, 2, 10))
-    sp = jgo.stack_for_peers(JT.init_params(jax.random.key(0), jcfg), PEERS)
+    sp = jgo.stack_for_peers(pinned(jcfg, cfg, 0)[0], PEERS)
     js = jgo.GossipState(sp, jo.init(sp), jnp.zeros((), jnp.int32))
     a = jax.tree.map(np.asarray, js)
     ts = convert.gossip_state_from_arrays(a.params, a.opt_state, a.step,
@@ -225,9 +235,8 @@ def test_allreduce_lm_steps_match_the_reference():
     jcfg, cfg = reduced()
     jo = jmake_optimizer("adamw", jwarmup_cosine(3e-3, 2, 10))
     to = make_optimizer("adamw", warmup_cosine(3e-3, 2, 10))
-    jp = JT.init_params(jax.random.key(3), jcfg)
-    tp = tree_map(lambda p: p.detach(), convert.lm_params_from_arrays(
-        cfg, jax.tree.map(np.asarray, jp), "cpu"))
+    jp, tp = pinned(jcfg, cfg, 3)
+    tp = tree_map(lambda p: p.detach(), tp)
     js, ts = jo.init(jp), to.init(tp)
     jfn = jax.jit(jgo.make_allreduce_train_step(
         lambda p, b: JT.lm_loss(p, jcfg, b["tokens"], b["labels"]), jo))

@@ -1,7 +1,8 @@
 """The port's MoE FFN (``repro_torch/models/moe.py``) against the JAX
 package's ``repro/models/moe.py`` on the CPU.
 
-Seeded numpy inputs and JAX-initialised weights go through ``moe_ffn`` of
+Seeded numpy inputs and seeded weights (the port's, moved to JAX) go
+through ``moe_ffn`` of
 both packages at reduced widths: swiglu and gelu experts, top-1 and top-2
 routing, one and two dispatch groups, a capacity that drops assignments,
 and exactly tied router probabilities (zero router weights), where the
@@ -21,10 +22,10 @@ import pytest
 import torch
 
 from repro.config.base import MoEConfig as JMoEConfig
-from repro.models import layers as jlayers
 from repro.models import moe as jmoe
+from repro_torch import convert
 from repro_torch.config.base import MoEConfig
-from repro_torch.models import moe
+from repro_torch.models import layers, moe
 
 RTOL, ATOL = 1e-5, 1e-6
 D_MODEL = 48
@@ -47,12 +48,22 @@ def close(got, want):
                                rtol=RTOL, atol=ATOL * scale)
 
 
-def weights(m: JMoEConfig, act: str, seed: int, zero_router=False):
-    jp = jlayers.init_params(jax.random.key(seed),
-                             jmoe.moe_spec(D_MODEL, m, act))
+def weights(m: JMoEConfig, act: str, seed: int, zero_router=False,
+            dtype=torch.float32):
+    """The port's ``moe_spec`` drawn by its ``init_params`` from a
+    generator seeded with ``seed``, and the JAX package's copy (the
+    reference's own ``init_params`` seeds its leaves with Python's
+    per-process string hash, so its weights change from run to run)."""
+    spec = moe.moe_spec(D_MODEL, MoEConfig(**dataclasses.asdict(m)), act,
+                        dtype)
+    p = layers.init_params(spec, torch.Generator().manual_seed(seed), "cpu")
+    tp = {k: v.detach() for k, v in p.named_parameters()}
     if zero_router:
-        jp["router"] = jnp.zeros_like(jp["router"])
-    return jp, {k: torch.tensor(np.asarray(v)) for k, v in jp.items()}
+        tp["router"] = torch.zeros_like(tp["router"])
+    jp = {k: jnp.asarray(convert._np(v).view(jnp.bfloat16)
+                         if v.dtype == torch.bfloat16 else convert._np(v))
+          for k, v in tp.items()}
+    return jp, tp
 
 
 def reference_route(jp, m: JMoEConfig, x):
@@ -146,11 +157,8 @@ def test_moe_ffn_bf16_matches_reference_routing():
     """bf16 activations and weights (the full configs' dtypes): the same
     experts and slots as the reference, outputs within bf16 rounding."""
     m = JMoEConfig(num_experts=4, top_k=2, d_ff_expert=64)
-    jp = jlayers.init_params(jax.random.key(3),
-                             jmoe.moe_spec(D_MODEL, m, "swiglu",
-                                           jnp.bfloat16))
-    from repro_torch import convert
-    tp = {k: convert._tensor(np.asarray(v), "cpu") for k, v in jp.items()}
+    jp, tp = weights(m, "swiglu", 3, dtype=torch.bfloat16)
+    assert jp["w_up"].dtype == jnp.bfloat16
     x = np.random.default_rng(3).standard_normal((2, 24, D_MODEL),
                                                  dtype=np.float32)
     jx = jnp.asarray(x, jnp.bfloat16)

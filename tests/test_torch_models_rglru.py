@@ -20,12 +20,12 @@ import pytest
 import torch
 
 from repro.config.base import RGLRUConfig as JRGLRUConfig
-from repro.models import layers as jlayers
 from repro.models import rglru as jrglru
 from repro_torch import convert
 from repro_torch.config.base import RGLRUConfig
 from repro_torch.models import layers
 from repro_torch.models import rglru
+from repro_torch.utils.tree import tree_map
 
 RTOL, ATOL = 1e-4, 1e-5
 D_MODEL = 64
@@ -55,8 +55,11 @@ def port_cfg():
 
 
 def block(seed=0):
-    jp = jlayers.init_params(jax.random.key(seed),
-                             jrglru.rglru_spec(D_MODEL, CFG))
+    # the port's leaves from a seeded generator (the reference's own
+    # init_params seeds by Python's per-process string hash)
+    p = layers.init_params(rglru.rglru_spec(D_MODEL, port_cfg()),
+                           torch.Generator().manual_seed(seed), "cpu")
+    jp = jax.tree.map(jnp.asarray, tree_map(convert._np, p))
     rng = np.random.default_rng(seed)
     for name in ("b_a", "b_i", "conv_b"):
         jp[name] = jnp.asarray(0.5 * rng.standard_normal(jp[name].shape),

@@ -1,7 +1,8 @@
 """The LM serving path of the port against the JAX package, on the CPU.
 
-Reduced ``qwen3-1.7b`` (GQA 2:1) and ``qwen3-8b`` (GQA 4:1) configs, the
-JAX weights carried across by ``convert.lm_params_from_arrays``: the
+Reduced ``qwen3-1.7b`` (GQA 2:1), ``qwen3-8b`` (GQA 4:1) and
+``llama3-405b`` (GQA 16:1, no qk-norm) configs, the port's seeded weights
+carried to the JAX package by ``convert.lm_params_to_arrays``: the
 configs field by field, the layers (``rmsnorm``, ``mlp``, ``apply_rope``,
 ``attention`` on the plain and the flash path, ``decode_attention`` plain
 and on a ring), the fused ``prefill`` with every cache entry, and the
@@ -39,8 +40,9 @@ from repro_torch.launch.serve import DecodeServer
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models import transformer as T
+from repro_torch.utils.tree import tree_map
 
-ARCHS = ["qwen3-1.7b", "qwen3-8b"]
+ARCHS = ["qwen3-1.7b", "qwen3-8b", "llama3-405b"]
 RTOL, ATOL = 1e-4, 1e-5
 
 
@@ -52,14 +54,16 @@ def close(got, want):
 
 
 def jax_and_port(arch, vocab=512, impl="pallas"):
-    """The reduced JAX config with ``impl``, its port, JAX params from
-    key(0) and the port's copy of them on the CPU."""
+    """The reduced JAX config with ``impl``, its port, the port's params
+    from a generator seeded with 0 on the CPU, and the JAX package's copy
+    of them (moved by ``convert.lm_params_to_arrays``: the reference's own
+    ``init_params`` seeds its leaves with Python's per-process string
+    hash, so its weights change from run to run)."""
     jcfg = jreduced_config(jget_config(arch), vocab=vocab).replace(
         attn_impl=impl)
     cfg = convert.model_config_from_dict(dataclasses.asdict(jcfg))
-    jp = JT.init_params(jax.random.key(0), jcfg)
-    params = convert.lm_params_from_arrays(
-        cfg, jax.tree.map(np.asarray, jp), "cpu")
+    params = T.init_params(cfg, device="cpu", seed=0)
+    jp = jax.tree.map(jnp.asarray, convert.lm_params_to_arrays(cfg, params))
     return jcfg, cfg, jp, params
 
 
@@ -76,7 +80,8 @@ def ref_asdict(jcfg):
     return d
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen3-4b", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen3-4b", "qwen3-8b",
+                                  "llama3-405b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_configs_match_reference_field_by_field(arch, reduced):
     jcfg, cfg = jget_config(arch), get_config(arch)
@@ -102,12 +107,15 @@ def test_config_conversion():
 
 
 def test_registry_names_what_is_not_ported():
-    assert list_configs() == ["llama-3.2-vision-11b", "llama4-scout-17b-a16e",
-                              "mamba2-780m", "mixtral-8x22b", "qwen3-1.7b",
-                              "qwen3-4b", "qwen3-8b", "recurrentgemma-9b",
+    assert list_configs() == ["llama-3.2-vision-11b", "llama3-405b",
+                              "llama4-scout-17b-a16e", "mamba2-780m",
+                              "mixtral-8x22b", "qwen3-1.7b", "qwen3-4b",
+                              "qwen3-8b", "recurrentgemma-9b",
                               "whisper-medium"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("llama3-405b")
+    # the last architecture to be refused is served now
+    want = convert.model_config_from_dict(dataclasses.asdict(
+        jget_config("llama3-405b")))
+    assert get_config("llama3-405b") == want.replace(attn_impl="flash")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     # the audio family, the last to be refused, now has a spec
@@ -158,14 +166,15 @@ def test_entry_points_need_a_card_unless_told_otherwise():
 def test_norms_and_mlp_match_reference(act):
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 5, 32), dtype=np.float32)
-    jspec = {"n": jlayers.rmsnorm_spec(32), "ln": jlayers.layernorm_spec(32),
-             "m": jlayers.mlp_spec(32, 48, act)}
-    jp = jlayers.init_params(jax.random.key(1), jspec)
+    spec = {"n": layers.rmsnorm_spec(32), "ln": layers.layernorm_spec(32),
+            "m": layers.mlp_spec(32, 48, act)}
+    # the port's leaves from a seeded generator (the reference's own
+    # init_params seeds by Python's per-process string hash)
+    jp = jax.tree.map(jnp.asarray, tree_map(convert._np, layers.init_params(
+        spec, torch.Generator().manual_seed(1), "cpu")))
     jp["n"]["scale"] = jnp.asarray(rng.standard_normal(32), jnp.float32)
     jp["ln"]["bias"] = jnp.asarray(rng.standard_normal(32), jnp.float32)
     tree = jax.tree.map(np.asarray, jp)
-    spec = {"n": layers.rmsnorm_spec(32), "ln": layers.layernorm_spec(32),
-            "m": layers.mlp_spec(32, 48, act)}
     p = layers.build_params(
         spec, lambda path, _: torch.tensor(tree[path[0]][path[1]]))
     xt = torch.from_numpy(x)

@@ -21,12 +21,12 @@ import pytest
 import torch
 
 from repro.config.base import SSMConfig as JSSMConfig
-from repro.models import layers as jlayers
 from repro.models import ssm as jssm
 from repro_torch import convert
 from repro_torch.config.base import SSMConfig
 from repro_torch.models import layers
 from repro_torch.models import ssm
+from repro_torch.utils.tree import tree_map
 
 RTOL, ATOL = 1e-4, 1e-5
 D_MODEL = 64
@@ -56,10 +56,13 @@ def port_cfg(s=CFG):
 
 
 def block(seed=0, s=CFG):
-    """JAX block parameters with the float32 leaves drawn, and the port's
+    """Block parameters from the port's ``init_params`` on a seeded
+    generator (the reference's own seeds by Python's per-process string
+    hash) with the float32 leaves drawn, as JAX arrays, and the port's
     copy."""
-    jp = jlayers.init_params(jax.random.key(seed),
-                             jssm.ssm_spec(D_MODEL, s))
+    p = layers.init_params(ssm.ssm_spec(D_MODEL, port_cfg(s)),
+                           torch.Generator().manual_seed(seed), "cpu")
+    jp = jax.tree.map(jnp.asarray, tree_map(convert._np, p))
     rng = np.random.default_rng(seed)
     h = jp["A_log"].shape[0]
     jp["A_log"] = jnp.asarray(rng.uniform(-1.0, 1.0, h), jnp.float32)
