@@ -212,7 +212,29 @@ and ``nvcc``. The phases, each of which raises on failure:
    parameters stacked for the peers; (c) each of the moe, ssm and hybrid
    families reduced, 5 gossip steps (``make_gossip_train_step`` as
    ``train()`` builds it, int8 exchange) on the card and on the CPU from
-   the CPU's seeded weights, losses within ``REDUCED_TRAIN_RTOL``.
+   the CPU's seeded weights, losses within ``REDUCED_TRAIN_RTOL``;
+13. the protocol across ranks: ``MESH_RANKS`` = 2 processes share the
+   card over a gloo group (``launch.mesh.run_ranks``; NCCL refuses two
+   ranks on one device, so the exchange stages through host memory and
+   the phase measures what it costs, not how the protocol scales). (a)
+   The node mesh: phase 3's path on the f32 wire and on int8_sr, 500,000
+   nodes a rank, every count set to 0 in each rank just before its run
+   and read just after: #1 launched 20 times on each rank (all
+   ``grouped``) and #2 20 times on int8_sr, with the block's global rows;
+   each rank's economy, curves, fault counters and EF norm, and every
+   node's final lanes (``final_state``, hashed), bit for bit the
+   one-process run (rerun here with ``final_state=True`` and itself equal
+   to phase 3's and 4's); each rank's wall, the exchange's all-to-all
+   bytes and seconds (``sharding.compat.STATS``), the eval's gathers, the
+   router's seconds against a broadcast of its winners from rank 0, and
+   #1 and #2 on rank 0's last launch (a shard of 500,000 rows) beside
+   their plain versions and bounds; (b) the peer mesh: qwen3-1.7b's widths
+   at 2 layers (f32), 2 peers as 2 ranks, batch 2 x 128, 3 gossip steps
+   of mu on the int8 exchange (#2 on every leaf on each rank) and 1 of
+   rw, SGD without a clip, against the stacked 2-peer step in each rank's
+   process: losses within ``PEER_LOSS_RTOL``, each leaf bit for bit (a
+   leaf that differs fails the phase, its max abs difference printed); (c) ``linear_gossip_mesh_step``, 10 cycles (mu
+   with drops, um, rw), bit for bit the one-process cycles.
 
 Prints one JSON line of per-kernel results (with phase 3's armed seconds
 by span under ``"phase3_spans"``), the ``nvidia-smi`` name and power
@@ -3644,6 +3666,497 @@ def phase12(card: str, results: dict, dev) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the protocol across ranks, two processes sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2              # one card: NCCL refuses two ranks on a device,
+MESH_WIRES = (None, "int8_sr")   # so the ranks share cuda:0 over gloo
+PEER_LAYERS, PEER_BATCH, PEER_SEQ, PEER_MU_STEPS = 2, 2, 128, 3
+PEER_LOSS_RTOL = 1e-6       # the peers' mean loss: a psum against a mean
+LINEAR_CYCLES, LINEAR_D, LINEAR_RECORDS = 10, 10, 8
+
+
+def state_digest(state: dict) -> dict:
+    """sha256 of each final lane's bytes (a lane of N rows on the host)."""
+    import hashlib
+
+    import torch
+    return {k: hashlib.sha256(memoryview(
+        v.contiguous().view(-1).view(torch.uint8).numpy())).hexdigest()
+        for k, v in state.items()}
+
+
+def mesh_node_run(rank: int, cfg, X, y, n: int, cycles: int, threefry,
+                  mesh) -> dict:
+    """One main-path run of this rank over the node mesh, counts set to 0
+    just before it and read just after; rank 0 also times #1 (and #2 on
+    a quantized wire) on its last launch's inputs, a shard of N/W rows."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import sharded_engine as se
+    from repro_torch.core.simulation import run_simulation
+    from repro_torch.kernels import gossip_cycle as gc
+    from repro_torch.sharding import compat
+
+    recv, send = gc.fused_receive_apply, gc.quantize_send
+    got_recv, got_send = {}, {}
+    calls = dict(recv=0, send=0)
+    clone = lambda v: v.clone() if isinstance(v, torch.Tensor) else v
+
+    def capture_recv(*a, **kw):
+        calls["recv"] += 1
+        if calls["recv"] == cycles:
+            got_recv.update({k: v.clone() for k, v in zip(ORDER, a)})
+            got_recv.update({k: kw[k].clone() for k in META
+                             if kw.get(k) is not None})
+            got_recv["wire"] = kw.get("wire")
+            got_recv["defense"] = kw.get("defense", "none")
+        return recv(*a, **kw)
+
+    def capture_send(w, name, key=None, ef=None, rows=None):
+        calls["send"] += 1
+        if calls["send"] == cycles:
+            got_send.update(w=w.clone(), name=name, key=clone(key),
+                            ef=clone(ef), rows=clone(rows))
+        return send(w, name, key=key, ef=ef, rows=rows)
+
+    routed = dict(s=0.0, bytes=0, plan_s=0.0)
+    route_chunk, chunk_tables = (se._HostRouter.route_chunk,
+                                 se.NodeShard.chunk_tables)
+
+    def timed_route(router, *a, **kw):
+        t0 = time.perf_counter()
+        out = route_chunk(router, *a, **kw)
+        routed["s"] += time.perf_counter() - t0
+        routed["bytes"] += sum(a_.nbytes for a_ in out[0])
+        return out
+
+    def timed_tables(shard, *a, **kw):
+        t0 = time.perf_counter()
+        out = chunk_tables(shard, *a, **kw)
+        routed["plan_s"] += time.perf_counter() - t0
+        return out
+
+    gc.fused_receive_apply, gc.quantize_send = capture_recv, capture_send
+    se._HostRouter.route_chunk = timed_route
+    se.NodeShard.chunk_tables = timed_tables
+    try:
+        recv.launches = 0
+        for counts in (recv.route_launches, send.launches,
+                       send.route_launches):
+            counts.update(dict.fromkeys(counts, 0))
+        compat.reset_stats()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_simulation(cfg, X[:n], y[:n], X[n:], y[n:],
+                             engine="sharded", cycles=cycles, eval_every=10,
+                             seed=0, k_rounds=4, device="cuda", mesh=mesh,
+                             final_state=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, routes = recv.launches, dict(recv.route_launches)
+        sends, send_routes = dict(send.launches), dict(send.route_launches)
+        stats, seconds = compat.STATS, dict(compat.SECONDS)
+    finally:
+        gc.fused_receive_apply, gc.quantize_send = recv, send
+        se._HostRouter.route_chunk = route_chunk
+        se.NodeShard.chunk_tables = chunk_tables
+    # the other way to share the tables: rank 0 routes alone and
+    # broadcasts the winners; time that broadcast of this run's bytes
+    win = torch.zeros(routed["bytes"], dtype=torch.uint8)
+    dist.barrier()
+    t0 = time.perf_counter()
+    dist.broadcast(win, src=0)
+    bcast_s = time.perf_counter() - t0
+    out = dict(outcome=run_outcome(res), wall_s=wall, launches=launches,
+               routes=routes, sends=sends, send_routes=send_routes,
+               per_op=dict(stats.per_op), count=dict(stats.count),
+               wire_bytes=stats.wire_bytes, seconds=seconds,
+               route_s=routed["s"], win_bytes=routed["bytes"],
+               plan_s=routed["plan_s"], bcast_s=bcast_s,
+               compaction=res.compaction,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    if rank == 0:
+        out["digest"] = state_digest(res.final_state)
+        out["receive"] = time_receive(got_recv, cfg.variant, cfg.lam,
+                                      X.shape[1])
+        out["receive_rows"] = got_recv["x"].shape[0]
+        if got_send:
+            out["send"] = time_send_rows(got_send, threefry)
+    del res, got_recv, got_send
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_peer_lm(rank: int, world: int, dev, mesh) -> dict:
+    """qwen3-1.7b's widths at ``PEER_LAYERS`` layers (f32), one peer a
+    rank: PEER_MU_STEPS gossip steps of mu on the int8 exchange (#2 on
+    every leaf of this rank's peer) and one of rw, SGD without a clip;
+    then the stacked step of all the peers in this process from the same
+    weights and batches, and this rank's peer held to its row of it."""
+    import torch
+    from repro_torch.config import GossipConfig, get_config
+    from repro_torch.core import gossip_optimizer as go
+    from repro_torch.data.lm_data import SyntheticLMDataset
+    from repro_torch.kernels import gossip_cycle as gc
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = get_config("qwen3-1.7b").replace(num_layers=PEER_LAYERS,
+                                           attn_impl="chunked")
+    ds = SyntheticLMDataset(cfg.vocab_size, PEER_SEQ, PEER_BATCH, seed=0)
+    cfgs = ([GossipConfig(merge="mu", exchange_dtype="int8")] * PEER_MU_STEPS
+            + [GossipConfig(merge="rw")])
+    batches = [{k: torch.as_tensor(v, device=dev).reshape(
+        world, PEER_BATCH // world, PEER_SEQ) for k, v in next(ds).items()}
+        for _ in cfgs]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    base = tree_map(lambda p: p.detach(), T.init_params(cfg, gen, dev))
+    opt = make_optimizer("sgd", constant(1e-2), grad_clip=0)
+
+    def loss_fn(p, b):
+        return T.lm_loss(p, cfg, b["tokens"], b["labels"])
+
+    merge_fn, merge_s = go.gossip_merge, []
+
+    def timed_merge(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = merge_fn(*a, **kw)
+        torch.cuda.synchronize()
+        merge_s[-1] += time.perf_counter() - t0
+        return out
+
+    def run(stacked: bool):
+        params = (go.stack_for_peers(base, world) if stacked
+                  else tree_map(lambda p: p.clone(), base))
+        state = go.GossipState(params, opt.init(params), torch.zeros(
+            (), dtype=torch.int32, device=dev))
+        losses, walls = [], []
+        merge_s.clear()
+        for s, gcfg in enumerate(cfgs):
+            kw = {} if stacked else dict(mesh=mesh, peer_axes=("data",))
+            fn = go.make_gossip_train_step(loss_fn, opt, world, gcfg, **kw)
+            perm, _ = go.perms_for_step(gcfg, s, world)
+            batch = (batches[s] if stacked else
+                     {k: v[rank] for k, v in batches[s].items()})
+            merge_s.append(0.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss, _ = fn(state, batch, perm)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        return state.params, losses, walls, list(merge_s)
+
+    # one forward and backward first, so that neither run's first step
+    # carries the process's warm-up
+    go._value_and_grad(loss_fn, base, {k: v[rank]
+                                       for k, v in batches[0].items()})
+    sent = gc.quantize_send.launches
+    sent.update(dict.fromkeys(sent, 0))
+    go.gossip_merge = timed_merge
+    try:
+        mine, losses, walls, merges = run(stacked=False)
+        launches = dict(sent)
+        stacked, one_losses, one_walls, one_merges = run(stacked=True)
+    finally:
+        go.gossip_merge = merge_fn
+    leaves = len(tree_leaves(base))
+    equal, max_diff = 0, 0.0
+    for a, b in zip(tree_leaves(mine), tree_leaves(stacked)):
+        b = b[rank]
+        if torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+            equal += 1
+        else:
+            max_diff = max(max_diff, float((a - b).abs().max()))
+    return dict(losses=losses, walls=walls, one_losses=one_losses,
+                one_walls=one_walls, merges=merges, one_merges=one_merges,
+                launches=launches, leaves=leaves,
+                equal_leaves=equal, max_diff=max_diff,
+                params=cfg.param_count(),
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def mesh_linear(rank: int, world: int, dev, mesh) -> dict:
+    """``linear_gossip_mesh_step`` for LINEAR_CYCLES cycles on the
+    hypercube (mu with a drop mask, um, rw), and the same cycles of every
+    peer in this process; this rank's models against its own."""
+    import numpy as np
+    import torch
+    from repro_torch.core import gossip_optimizer as go
+    from repro_torch.core import peer_sampling as ps
+    from repro_torch.core.learners import LinearModel, pegasos_update
+    rng = np.random.default_rng(5)
+    X = torch.as_tensor(rng.standard_normal(
+        (world, LINEAR_RECORDS, LINEAR_D)).astype(np.float32), device=dev)
+    y = torch.as_tensor(np.sign(rng.standard_normal(
+        (world, LINEAR_RECORDS))).astype(np.float32), device=dev)
+    drops = rng.random((LINEAR_CYCLES, world)) < 0.3
+    out = {}
+    for variant, drop in (("mu", True), ("um", False), ("rw", False)):
+        w = torch.zeros(LINEAR_D, device=dev)
+        t = torch.zeros((), dtype=torch.int32, device=dev)
+        ws = [torch.zeros(LINEAR_D, device=dev) for _ in range(world)]
+        ts = [torch.zeros((), dtype=torch.int32, device=dev)
+              for _ in range(world)]
+
+        def step(i, w_, t_):
+            m = pegasos_update(LinearModel(w_, t_),
+                               X[i][t_ % LINEAR_RECORDS],
+                               y[i][t_ % LINEAR_RECORDS], 0.1)
+            return m.w, m.t
+
+        def merge(ws, ts, c):
+            partner = ps.hypercube_partner(c, world)
+            src = {int(partner[s]): s for s in range(world)}
+            nw, nt = [], []
+            for i in range(world):
+                keep = drop and drops[c, i]
+                w_in = ws[i] if keep else ws[src[i]]
+                t_in = ts[i] if keep else ts[src[i]]
+                nw.append((ws[i] + w_in) / 2.0)
+                nt.append(torch.maximum(ts[i], t_in))
+            return nw, nt
+
+        same = True
+        for c in range(LINEAR_CYCLES):
+            partner = ps.hypercube_partner(c, world)
+            pairs = [(s, int(partner[s])) for s in range(world)]
+            w, t = go.linear_gossip_mesh_step(
+                w, t, X[rank], y[rank], pairs, lam=0.1, variant=variant,
+                axis="data", mesh=mesh,
+                drop_mask=bool(drops[c, rank]) if drop else None)
+            if variant == "um":
+                ws, ts = map(list, zip(*(step(i, ws[i], ts[i])
+                                         for i in range(world))))
+                ws, ts = merge(ws, ts, c)
+            else:
+                if variant == "mu":
+                    ws, ts = merge(ws, ts, c)
+                ws, ts = map(list, zip(*(step(i, ws[i], ts[i])
+                                         for i in range(world))))
+            same &= (torch.equal(w, ws[rank]) and int(t) == int(ts[rank]))
+        out[variant] = dict(bitwise=same, w=w.cpu().tolist(), t=int(t))
+    return out
+
+
+def phase13_rank(rank: int, world: int, cfg_fields: dict, n: int,
+                 cycles: int, threefry: dict) -> dict:
+    """Phase 13 in one rank: (a) the node mesh's main path on each of
+    ``MESH_WIRES``, (b) the peer mesh's LM step, (c) the linear cycle."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.gossip_linear import GossipLinearConfig
+    from repro_torch.data.synthetic import make_linear_dataset
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    nodes = make_mesh((world,), ("nodes",), "cuda")
+    peers = make_mesh((world,), ("data",), "cuda")
+    rng = np.random.default_rng(0)
+    X, y = make_linear_dataset(rng, n + 1000, 10, noise=0.07,
+                               separation=2.5)
+    cfg = GossipLinearConfig(**cfg_fields)
+    out = {"device": str(dev), "setup_s": time.perf_counter() - t0}
+    out["node"] = {str(w): mesh_node_run(
+        rank, dataclasses.replace(cfg, wire_dtype=w), X, y, n, cycles,
+        threefry, nodes) for w in MESH_WIRES}
+    del X, y
+    t1 = time.perf_counter()
+    out["peer"] = mesh_peer_lm(rank, world, dev, peers)
+    torch.cuda.empty_cache()
+    out["peer"]["seconds"] = time.perf_counter() - t1
+    out["linear"] = mesh_linear(rank, world, dev, peers)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase13(card: str, results: dict, dev, cfg3, X, y, n: int, cycles: int,
+            outcomes: dict, threefry: dict) -> list:
+    """The protocol across ranks: ``MESH_RANKS`` processes share the card
+    over a gloo group (``launch.mesh.run_ranks``). (a) The node mesh:
+    phase 3's main path (and phase 4's int8_sr) with N/W nodes a rank:
+    each rank's economy, curves and every node's final lanes bit for bit
+    the one-process run's (rerun here with ``final_state=True``, itself
+    equal to phase 3's and 4's), #1 (and #2) launched on every rank, #1
+    and #2 timed on rank 0's shard, the exchange's bytes and seconds, the
+    host router's seconds against a broadcast of its winners. (b) The
+    peer mesh: qwen3-1.7b's widths at 2 layers, one peer a rank, against
+    the stacked step. (c) ``linear_gossip_mesh_step`` against one
+    process. Two processes on one card measure what the exchange costs,
+    not how the protocol scales. Returns the ``kernels`` line's rows."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.simulation import run_simulation
+    from repro_torch.launch.mesh import run_ranks
+    t_start = time.perf_counter()
+    out = results["phase13"] = {"node": {}}
+    one = {}
+    for wire in MESH_WIRES:
+        cfg = dataclasses.replace(cfg3, wire_dtype=wire)
+        res = run_simulation(cfg, X[:n], y[:n], X[n:], y[n:],
+                             engine="sharded", cycles=cycles, eval_every=10,
+                             seed=0, k_rounds=4, device="cuda",
+                             final_state=True)
+        if run_outcome(res) != outcomes[wire]:
+            raise AssertionError(f"phase 13: the one-process {wire} rerun "
+                                 "differs from phase 3's / 4's run")
+        one[wire] = (run_outcome(res), state_digest(res.final_state))
+        del res
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(phase13_rank, MESH_RANKS, dataclasses.asdict(cfg3), n,
+                      cycles, threefry, device_type="cuda", timeout_s=600.0,
+                      pg_timeout_s=300.0)
+    spawn_s = time.perf_counter() - t0
+    print(f"[13] {card}: {MESH_RANKS} ranks on {ranks[0]['device']} over "
+          f"gloo: {spawn_s:.1f} s from spawn to join, set-up "
+          f"{max(r['setup_s'] for r in ranks):.1f} s a rank")
+    for wire in MESH_WIRES:
+        want, digest = one[wire]
+        runs = [r["node"][str(wire)] for r in ranks]
+        for rank, r in enumerate(runs):
+            if r["outcome"] != want:
+                raise AssertionError(f"phase 13 {wire}: rank {rank}'s run "
+                                     f"differs: {r['outcome'][:9]} vs "
+                                     f"{want[:9]}")
+            if r["launches"] != cycles or r["routes"]["grouped"] != cycles:
+                raise AssertionError(f"phase 13 {wire}: rank {rank} "
+                                     f"launched #1 {r['launches']} times "
+                                     f"({r['routes']})")
+            if wire and r["sends"]["affine8"] != cycles:
+                raise AssertionError(f"phase 13 {wire}: rank {rank} "
+                                     f"launched #2 {r['sends']}")
+            if r["compaction"]["shards"] != MESH_RANKS:
+                raise AssertionError(f"phase 13: {r['compaction']}")
+        if runs[0]["digest"] != digest:
+            bad = [k for k in digest if runs[0]["digest"][k] != digest[k]]
+            raise AssertionError(f"phase 13 {wire}: final lanes {bad} "
+                                 "differ from the one-process run's")
+        r0 = runs[0]
+        a2a = r0["per_op"].get("all-to-all", 0)
+        walls = ", ".join(f"{r['wall_s']:.3f}" for r in runs)
+        print(f"[13] {card}: node mesh, {wire or 'f32'}, N={n} over "
+              f"{MESH_RANKS} ranks ({n // MESH_RANKS} nodes a rank): "
+              "economy, curves, fault counters, EF norm and every node's "
+              f"final lanes bit for bit the one-process run's; walls {walls}"
+              " s; #1 "
+              f"launches by rank {[r['launches'] for r in runs]} (all "
+              f"grouped), #2 {[r['sends'] for r in runs]} by route "
+              f"{[r['send_routes'] for r in runs]}")
+        print(f"[13] {card}: {wire or 'f32'} exchange on rank 0: "
+              f"{r0['count'].get('all-to-all', 0)} all-to-alls, {a2a} B "
+              f"sent, {r0['seconds'].get('all-to-all', 0.0):.3f} s (the "
+              "host staging through pinned memory included); eval and "
+              f"final gathers {r0['per_op'].get('all-gather', 0)} B in "
+              f"{r0['seconds'].get('all-gather', 0.0):.3f} s; screen sums "
+              f"{r0['seconds'].get('all-reduce', 0.0):.4f} s; the "
+              f"exchange plan and the rank's tables {r0['plan_s']:.3f} s; "
+              f"the router {r0['route_s']:.3f} s a rank against "
+              f"{r0['bcast_s']:.4f} s to broadcast its {r0['win_bytes']} B "
+              "of winners from rank 0; peak "
+              f"{r0['peak_bytes'] / 2**30:.2f} GiB a rank")
+        rec = r0["receive"]
+        print(f"[13] {card}: fused_receive_apply on rank 0's last launch "
+              f"({r0['receive_rows']} rows, {wire or 'f32'}): "
+              f"{receive_line(rec)}")
+        if "send" in r0:
+            ts = r0["send"]
+            print(f"[13] {card}: quantize_send {wire} with the shard's "
+                  f"global rows ({ts['rows']} rows): {ts['ms']:.4f} "
+                  f"ms/launch ({ts['route']}) vs bound {ts['bound_ms']:.4f}"
+                  f" ms ({ts['bound_by']}, {ts['bytes']} B); plain "
+                  f"{ts['plain_ms']:.4f} ms; bitwise the plain version")
+        out["node"][str(wire)] = dict(
+            walls_s=[r["wall_s"] for r in runs],
+            launches=[r["launches"] for r in runs],
+            sends=[r["sends"] for r in runs], a2a_bytes=a2a,
+            a2a_count=r0["count"].get("all-to-all", 0),
+            a2a_s=r0["seconds"].get("all-to-all", 0.0),
+            gather_bytes=r0["per_op"].get("all-gather", 0),
+            gather_s=r0["seconds"].get("all-gather", 0.0),
+            wire_bytes=r0["wire_bytes"], route_s=r0["route_s"],
+            plan_s=r0["plan_s"],
+            win_bytes=r0["win_bytes"], bcast_s=r0["bcast_s"],
+            peak_bytes=r0["peak_bytes"], receive=rec,
+            send=r0.get("send"))
+    peer = [r["peer"] for r in ranks]
+    for rank, p in enumerate(peer):
+        want = p["leaves"] * PEER_MU_STEPS
+        if p["launches"]["affine8"] != want:
+            raise AssertionError(f"phase 13 (b): rank {rank} launched #2 "
+                                 f"{p['launches']}, expected {want}")
+        for a, b in zip(p["losses"], p["one_losses"]):
+            if not abs(a - b) <= PEER_LOSS_RTOL * abs(b):
+                raise AssertionError(f"phase 13 (b): rank {rank} losses "
+                                     f"{p['losses']} vs the stacked "
+                                     f"{p['one_losses']}")
+    p0 = peer[0]
+    for rank, p in enumerate(peer):
+        if p["equal_leaves"] != p["leaves"]:
+            raise AssertionError(
+                f"phase 13 (b): rank {rank}'s params are bit for bit the "
+                f"stacked step's row on {p['equal_leaves']} of "
+                f"{p['leaves']} leaves only, max abs diff "
+                f"{p['max_diff']:.3e}")
+    verdict = "bit for bit the stacked step's row on every leaf"
+    print(f"[13] {card}: peer mesh, qwen3-1.7b widths at {PEER_LAYERS} "
+          f"layers ({p0['params'] / 1e6:.1f} M parameters a peer, f32), "
+          f"{MESH_RANKS} peers as ranks, batch {PEER_BATCH} x {PEER_SEQ}, "
+          f"{PEER_MU_STEPS} mu steps (int8) and 1 rw: losses "
+          f"{p0['losses']} (stacked {p0['one_losses']}); params {verdict}; "
+          f"#2 launches by rank {[p['launches']['affine8'] for p in peer]}"
+          f" ({p0['leaves']} leaves x {PEER_MU_STEPS}); step walls "
+          f"{[round(w, 3) for w in p0['walls']]} s, of which the merge "
+          f"{[round(w, 3) for w in p0['merges']]} s (stacked "
+          f"{[round(w, 3) for w in p0['one_walls']]} s, merge "
+          f"{[round(w, 3) for w in p0['one_merges']]} s); peak "
+          f"{p0['peak_bytes'] / 2**30:.2f} GiB a rank")
+    for variant in ("mu", "um", "rw"):
+        if not all(r["linear"][variant]["bitwise"] for r in ranks):
+            raise AssertionError(f"phase 13 (c): linear_gossip_mesh_step "
+                                 f"{variant} differs from one process")
+    print(f"[13] {card}: linear_gossip_mesh_step, {MESH_RANKS} ranks, "
+          f"{LINEAR_CYCLES} cycles (mu with drops, um, rw): bit for bit the "
+          "one-process cycles on every rank")
+    out.update(peer=peer, spawn_s=spawn_s,
+               rank_seconds=[r["seconds"] for r in ranks])
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"[13] {card}: phase 13 took {out['seconds']:.1f} s")
+    f32, sr = out["node"]["None"], out["node"]["int8_sr"]
+    rows = [dict(
+        name="fused_receive_apply[mesh]", route="cuda",
+        source="src/repro_torch/kernels/csrc/gossip_cycle.cu",
+        replaces="src/repro/kernels/gossip_cycle.py:272",
+        launches=f32["launches"][0] + sr["launches"][0],
+        launches_by_rank=[a + b for a, b in zip(f32["launches"],
+                                                sr["launches"])],
+        max_abs_err=f32["receive"]["err"], ms=f32["receive"]["ms"],
+        plain_ms=f32["receive"]["plain_ms"],
+        bound_ms=f32["receive"]["bound_ms"],
+        bound_by=f32["receive"]["bound_by"], library_ms=None,
+        receive_route=f32["receive"]["route"])]
+    ts = sr["send"]
+    rows.append(dict(
+        name="quantize_send_affine8[mesh]", route="cuda",
+        source="src/repro_torch/kernels/csrc/quantize_send.cu",
+        replaces="src/repro/kernels/gossip_cycle.py:422",
+        launches=sr["sends"][0]["affine8"],
+        launches_by_rank=[s_["affine8"] for s_ in sr["sends"]],
+        max_abs_err=0.0, ms=ts["ms"], plain_ms=ts["plain_ms"],
+        bound_ms=ts["bound_ms"], bound_by=ts["bound_by"], library_ms=None,
+        send_route=ts["route"]))
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -4063,6 +4576,7 @@ def main() -> int:
         bound_bytes=t3["bytes"], route_launches=routes,
         strided_ms=t3["strided_ms"])
     f32_res = res
+    outcomes = {None: run_outcome(res)}     # phase 13's one-process runs
     del captured
 
     # where the time goes: the same run again under the profiler
@@ -4150,6 +4664,7 @@ def main() -> int:
                                  f"route {send_routes}, expected all "
                                  f"{cycles} tiled")
         rate = n3 * cycles / wall
+        outcomes[wire] = run_outcome(res)
         print(f"[4] {card}: {wire} N={n3} d=10 extreme MU K=4 C=10 "
               f"{cycles} cycles: launches receive {launches} (by route "
               f"{routes}), send "
@@ -4431,9 +4946,15 @@ def main() -> int:
     # ---- 12. llama3-405b served; the new families trained ---------------
     phase(12)
     kernels.extend(phase12(card, results, dev))
+    torch.cuda.empty_cache()
+
+    # ---- 13. the protocol across ranks ------------------------------------
+    phase(13)
+    kernels.extend(phase13(card, results, dev, cfg3, X, y, n3, cycles,
+                           outcomes, threefry))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - start
-    print(f"[12] {card}: the whole run took {results['total_s']:.1f} s")
+    print(f"[13] {card}: the whole run took {results['total_s']:.1f} s")
     if opts.out:
         out = Path(opts.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -179,8 +179,9 @@ INPUT_SHAPES = {
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The reference's device mesh (data x model, times pods). The port
-    runs on one device; the mesh waits for ROADMAP queue 1 item 11."""
+    """The reference's device mesh (data x model, times pods). The port's
+    meshes are ``DeviceMesh``es of ranks (``launch.mesh.make_mesh``); the
+    production mesh waits for its dry run (ROADMAP.md queue 1)."""
 
     data: int = 16
     model: int = 16

@@ -1,7 +1,7 @@
 """The paper's protocol and the gossip optimizer; the reference's
 ``repro/core/__init__.py`` names, in its ``__all__`` order.
-``linear_gossip_mesh_step`` raises: it waits for the mesh (ROADMAP queue 1
-item 11).
+``linear_gossip_mesh_step`` runs a cycle with peers = ranks of a
+``torch.distributed`` group.
 
 The engines' and the ensembles' names resolve on first use (a module
 ``__getattr__``): the kernels import ``core.faults`` and

@@ -26,9 +26,15 @@ is encoded where it lives, then the codes and scales travel to the partner:
 encoding is row-local, so this gives the bits of the reference's encode of
 the gathered partner rows.
 
-The mesh path (``mesh=``, ``peer_axes=``, ``spmd_axis=``: the exchange as
-a collective permute between devices) and ``linear_gossip_mesh_step`` wait
-for ROADMAP queue 1 item 11 and raise.
+The peer mesh (``mesh=`` a ``DeviceMesh``, ``peer_axes=``): the peers are
+ranks, one peer a rank, and each rank holds its own peer's parameters,
+optimizer state and batch, with no peer dim (``sharding.compat``: the
+body runs once per rank). The exchange is a collective permute over the
+peer axes (one or two, flattened in the order given, as JAX flattens a
+tuple of axis names): on a quantized exchange a rank encodes its own rows
+with the send kernels, permutes the codes with their scale (and
+zero-point), and decodes what arrives. ``linear_gossip_mesh_step`` is the
+paper's cycle with peers = ranks.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ from repro_torch.config.base import GossipConfig
 from repro_torch.core.peer_sampling import partner_schedule
 from repro_torch.core.wire_codec import deterministic_codec, get_codec
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.sharding import compat
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -48,13 +55,6 @@ class GossipState(NamedTuple):
     params: dict            # per-peer stacked params (peers, ...)
     opt_state: dict         # per-peer stacked optimizer state
     step: torch.Tensor      # () int32
-
-
-def _mesh_not_ported(what: str):
-    return NotImplementedError(
-        f"{what}: the gossip optimizer's mesh path is not ported yet "
-        "(ROADMAP.md, queue 1 item 11); the port runs the peers stacked on "
-        "one device")
 
 
 def _resolve_exchange(exchange_dtype):
@@ -95,27 +95,66 @@ def unstack_mean(params):
     return tree_map(lambda p: torch.mean(p.float(), dim=0), params)
 
 
+def _encode_rows(p, codec, d: int):
+    """Leaf ``p``'s rows of width ``d`` encoded by the send kernel (its
+    plain version on the CPU): ``[payload, scale, zp or None]``."""
+    from repro_torch.kernels.gossip_cycle import quantize_send
+
+    rows = p.reshape(-1, d).to(torch.float32).contiguous()
+    enc = quantize_send(rows, codec.name)
+    return [enc[0], enc[1], enc[2] if codec.has_zp else None]
+
+
 def _exchange(p, perm_t, codec):
     """The partner's rows of leaf ``p`` as they arrive through ``codec``,
     float32: every row over the last axis (a trailing axis of one for a
     rank-1 leaf, so no scale is shared across peers) encoded where it
     lives, codes and scales gathered by peer, then decoded."""
-    from repro_torch.kernels.gossip_cycle import quantize_send
-
     d = p.shape[-1] if p.ndim >= 2 else 1
     n = p.shape[0]
-    rows = p.reshape(-1, d).to(torch.float32).contiguous()
-    enc = quantize_send(rows, codec.name)
-    del rows
-    payload, scale = enc[0], enc[1]
-    zp = enc[2] if codec.has_zp else None
 
     def take(a):
         return a.reshape((n, -1) + tuple(a.shape[1:]))[perm_t].reshape(
             a.shape)
-    out = codec.decode(take(payload), take(scale),
-                       None if zp is None else take(zp), d)
-    return out.reshape(p.shape)
+    payload, scale, zp = (None if a is None else take(a)
+                          for a in _encode_rows(p, codec, d))
+    return codec.decode(payload, scale, zp, d).reshape(p.shape)
+
+
+def _peer_axis(mesh, peer_axes, n_perm: int):
+    """The :class:`compat.Axis` of the peer axes when the exchange runs
+    between ranks, or None where the reference falls back to the stacked
+    take (no mesh or no peer axes, a peer axis of size 1, or one whose
+    size is not the permutation's length)."""
+    if mesh is None or not peer_axes:
+        return None
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    psz = int(np.prod([sizes[a] for a in peer_axes]))
+    if psz == 1 or psz != n_perm:
+        return None
+    return compat.mesh_axis(mesh, tuple(peer_axes))
+
+
+def _merge_on_ranks(params, pairs, axis, codec, cast_dtype):
+    """The merge of a rank's own peer (no peer dim) with the partner
+    whose rows arrive over ``axis``."""
+    def avg(x):
+        if codec is not None:
+            # encode this rank's rows, permute the codes with their scale
+            # (and zero-point), decode on arrival; a scalar leaf gains a
+            # trailing axis of one, as the stacked path's rank-1 leaf does
+            d = x.shape[-1] if x.ndim >= 1 else 1
+            parts = [None if a is None else compat.ppermute(a, pairs, axis)
+                     for a in _encode_rows(x, codec, d)]
+            xin = codec.decode(*parts, d).reshape(x.shape)
+        elif cast_dtype is None or x.dtype == cast_dtype:
+            xin = compat.ppermute(x, pairs, axis)
+        else:
+            # a float cast travels as its bits
+            xin = compat.ppermute(x.to(cast_dtype), pairs, axis)
+        return ((x.to(torch.float32) + xin.to(torch.float32)) / 2.0).to(
+            x.dtype)
+    return tree_map(avg, params)
 
 
 @torch.no_grad()
@@ -131,12 +170,21 @@ def gossip_merge(params, perm, *, mesh=None, peer_axes: Tuple[str, ...] = (),
     tensors; one launch a leaf) before the float32 average; the ``_ef``
     codecs quantize one-shot (error feedback is a sender's state in the
     protocol engines, not in this stateless merge), and ``int8_sr`` rounds
-    to nearest. ``mesh`` and ``peer_axes`` (the exchange between devices)
-    raise: ROADMAP queue 1 item 11."""
-    if mesh is not None or peer_axes:
-        raise _mesh_not_ported("gossip_merge(mesh=, peer_axes=)")
+    to nearest.
+
+    With ``mesh`` and ``peer_axes`` whose size is ``len(perm)`` (> 1), the
+    peers are ranks: ``params`` is this rank's peer, with no peer dim, and
+    the partner's rows arrive by a collective permute over the peer axes
+    (the quantized codes encoded where they live, with their scale and
+    zero-point). Otherwise (the reference's fallback: a peer axis of size
+    1 or of another size than ``perm``) ``params`` is the whole stack on
+    every rank and the merge is the stacked take."""
     perm = np.asarray(perm)
     codec, cast_dtype = _resolve_exchange(exchange_dtype)
+    axis = _peer_axis(mesh, peer_axes, len(perm))
+    if axis is not None:
+        pairs = [(s, int(perm[s])) for s in range(len(perm))]
+        return _merge_on_ranks(params, pairs, axis, codec, cast_dtype)
     perm_on = {}                  # the permutation on each leaf's device
 
     def avg_take(p):
@@ -197,41 +245,62 @@ def make_gossip_train_step(loss_fn: Callable, opt: Optimizer, n_peers: int,
     merge, or None), from :func:`perms_for_step`. It returns the new state,
     the loss averaged over the peers and each metric stacked by peer. The
     optimizer updates in place, so the step may write into the state it is
-    given: use only the state it returns. ``spmd_axis``, ``mesh`` and
-    ``peer_axes`` raise: ROADMAP queue 1 item 11."""
-    if spmd_axis or mesh is not None or peer_axes:
-        raise _mesh_not_ported("make_gossip_train_step(spmd_axis=, mesh=, "
-                               "peer_axes=)")
-    exchange = cfg.exchange_dtype or None
+    given: use only the state it returns.
 
-    def local_update(params, opt_state, batch, step):
-        grads = tree_map(torch.empty_like, params)
-        gleaves = tree_leaves(grads)
-        losses, metrics = [], []
-        for i in range(n_peers):
-            loss, m, g = _value_and_grad(
-                loss_fn, tree_map(lambda p: p[i], params),
-                tree_map(lambda x: x[i], batch))
-            with torch.no_grad():
-                for dst, src in zip(gleaves, g):
-                    dst[i].copy_(src)
-            del g
-            losses.append(loss)
-            metrics.append(m)
-        new_params, new_opt = opt.update(grads, opt_state, params, step)
-        metrics = tree_map(lambda *xs: torch.stack(xs), *metrics)
-        return new_params, new_opt, torch.stack(losses).mean(), metrics
+    With ``mesh`` and ``peer_axes`` (or ``spmd_axis``, the one peer axis,
+    as in the reference) of ``n_peers`` ranks (> 1), the peers are ranks:
+    the state and the batch are this rank's peer's, with no peer dim, the
+    merges permute over the peer axes (:func:`gossip_merge`), the
+    global-norm clip sums every peer's squares (a ``psum`` before the
+    scale, as the stacked step's norm spans the peers), the loss is the
+    peers' mean and the metrics are this rank's."""
+    peer_axes = tuple(peer_axes) or ((spmd_axis,) if spmd_axis and mesh
+                                     is not None else ())
+    axis = _peer_axis(mesh, peer_axes, n_peers)
+    merge_kw = dict(exchange_dtype=cfg.exchange_dtype or None)
+
+    if axis is not None:                # one peer a rank
+        merge_kw.update(mesh=mesh, peer_axes=peer_axes)
+        reduce_sq = lambda sq: compat.psum(sq, axis)  # noqa: E731
+
+        def local_update(params, opt_state, batch, step):
+            loss, metrics, g = _value_and_grad(loss_fn, params, batch)
+            it = iter(g)
+            grads = tree_map(lambda p: next(it), params)
+            new_params, new_opt = opt.update(grads, opt_state, params, step,
+                                             reduce_sq=reduce_sq)
+            return (new_params, new_opt, compat.psum(loss, axis) / n_peers,
+                    metrics)
+    else:                               # the peers stacked
+
+        def local_update(params, opt_state, batch, step):
+            grads = tree_map(torch.empty_like, params)
+            gleaves = tree_leaves(grads)
+            losses, metrics = [], []
+            for i in range(n_peers):
+                loss, m, g = _value_and_grad(
+                    loss_fn, tree_map(lambda p: p[i], params),
+                    tree_map(lambda x: x[i], batch))
+                with torch.no_grad():
+                    for dst, src in zip(gleaves, g):
+                        dst[i].copy_(src)
+                del g
+                losses.append(loss)
+                metrics.append(m)
+            new_params, new_opt = opt.update(grads, opt_state, params, step)
+            metrics = tree_map(lambda *xs: torch.stack(xs), *metrics)
+            return new_params, new_opt, torch.stack(losses).mean(), metrics
 
     def train_step(state: GossipState, batch, perm, pod_perm=None):
         params, opt_state = state.params, state.opt_state
         if cfg.merge == "mu":
-            params = gossip_merge(params, perm, exchange_dtype=exchange)
+            params = gossip_merge(params, perm, **merge_kw)
         params, opt_state, loss, metrics = local_update(
             params, opt_state, batch, state.step)
         if cfg.merge == "um":
-            params = gossip_merge(params, perm, exchange_dtype=exchange)
+            params = gossip_merge(params, perm, **merge_kw)
         if pod_perm is not None:
-            params = gossip_merge(params, pod_perm, exchange_dtype=exchange)
+            params = gossip_merge(params, pod_perm, **merge_kw)
         return GossipState(params, opt_state, state.step + 1), loss, metrics
 
     return train_step
@@ -268,7 +337,44 @@ def perms_for_step(cfg: GossipConfig, step: int, n_peers: int,
     return perm, pod_perm
 
 
-def linear_gossip_mesh_step(*args, **kwargs):
-    """One gossip cycle with peers = devices (the reference's
-    ``shard_map`` runtime for the paper's linear models): not ported yet."""
-    raise _mesh_not_ported("linear_gossip_mesh_step")
+@torch.no_grad()
+def linear_gossip_mesh_step(w, t, X_local, y_local, perm, *, lam: float,
+                            variant: str, axis: str = "data",
+                            drop_mask=None, mesh=None):
+    """One gossip cycle with peers = ranks (the reference's ``shard_map``
+    runtime for the paper's linear models), run by every rank of the peer
+    axis on its own peer.
+
+    w: (d,) this rank's model, t: () int32 counter, ``(X_local,
+    y_local)``: this peer's data (the fully distributed limit is one
+    record). ``perm``: the ``(src, dst)`` pairs of the permute over
+    ``mesh``'s axis ``axis`` (over the whole process group when ``mesh``
+    is None). ``drop_mask`` (this rank's bool) drops the arriving message,
+    the paper's message-drop failure. MU merges then takes a Pegasos step
+    on record ``t mod len(X_local)``, UM steps then merges, RW only steps.
+    Returns the new ``(w, t)``."""
+    from repro_torch.core.learners import LinearModel, pegasos_update
+
+    ax = compat.mesh_axis(mesh, (axis,) if mesh is not None else ())
+
+    def merge_with_partner(w, t):
+        w_in = compat.ppermute(w, perm, ax)
+        t_in = compat.ppermute(t, perm, ax)
+        if drop_mask is not None:
+            keep = torch.as_tensor(drop_mask, device=w.device)
+            w_in = torch.where(keep, w, w_in)
+            t_in = torch.where(keep, t, t_in)
+        return (w + w_in) / 2.0, torch.maximum(t, t_in)
+
+    def update(w, t):
+        i = t % X_local.shape[0]
+        m = pegasos_update(LinearModel(w, t), X_local[i], y_local[i], lam)
+        return m.w, m.t
+
+    if variant == "mu":
+        w, t = update(*merge_with_partner(w, t))
+    elif variant == "um":
+        w, t = merge_with_partner(*update(w, t))
+    else:  # rw
+        w, t = update(w, t)
+    return w, t

@@ -1,9 +1,10 @@
 """Mega-population gossip engine (``run_simulation(engine="sharded")``).
 
-Counterpart of ``repro/core/sharded_engine.py`` on one device, with its
-three packings, on every wire codec, learner and fault model, with the
-defense screens and a ``serve_hook`` at every eval point. The protocol is
-split the way a router splits a network:
+Counterpart of ``repro/core/sharded_engine.py``, on one device or over a
+node mesh of ranks (``mesh=``, :class:`NodeShard`), with its three
+packings, on every wire codec, learner and fault model, with the defense
+screens and a ``serve_hook`` at every eval point. The protocol is split
+the way a router splits a network:
 
 * **control plane on the host**: which message reaches which node in which
   round depends only on the threefry draws, the churn matrix and the
@@ -50,8 +51,9 @@ apply sums over its padded width, as the reference's does.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -71,6 +73,7 @@ from repro_torch.core.simulation import (SimResult, _eval, byzantine_tensor,
 from repro_torch.core.telemetry import maybe_span
 from repro_torch.core.wire_codec import WireCodec, get_codec
 from repro_torch.kernels import gossip_cycle
+from repro_torch.sharding import compat
 from repro_torch.utils.device import resolve_device
 
 
@@ -204,17 +207,37 @@ class _HostRouter:
 _EMPTY_I32 = np.empty(0, np.int32)
 
 
-def shard_list_width(lists) -> int:
-    """Smallest width that fits every per-cycle index list: the longest
-    list (one shard; the reference's node-mesh split waits for the mesh)."""
-    return max((r.size for r in lists), default=0)
+def shard_list_width(lists, n: int, shards: int) -> int:
+    """Smallest per-shard width that fits every per-cycle index list: the
+    longest list on one shard; under a node mesh of ``shards`` ranks
+    (shard s owns nodes ``[s·n/S, (s+1)·n/S)``) the largest count of one
+    shard's nodes in a list."""
+    if shards == 1:
+        return max((r.size for r in lists), default=0)
+    bounds = np.arange(1, shards) * (n // shards)
+    w = 0
+    for r in lists:
+        if r.size:
+            w = max(w, int(np.max(np.diff(np.searchsorted(
+                r, np.concatenate([[0], bounds, [n]]))))))
+    return w
 
 
-def _pack_index_lists(lists, width: int):
-    """(T,) ascending index lists -> (T, width) int32, -1 padded."""
-    ridx = np.full((len(lists), width), -1, np.int32)
+def _pack_index_lists(lists, n: int, width: int, shards: int):
+    """(T,) ascending index lists -> (T, shards·width) int32, -1 padded;
+    shard s's ids in columns ``[s·width, (s+1)·width)``, so each rank's
+    slice holds only its own nodes."""
+    ridx = np.full((len(lists), shards * width), -1, np.int32)
+    if shards == 1:
+        for t, r in enumerate(lists):
+            ridx[t, :r.size] = r
+        return ridx
+    bounds = np.arange(1, shards) * (n // shards)
     for t, r in enumerate(lists):
-        ridx[t, :r.size] = r
+        cuts = np.searchsorted(r, np.concatenate([[0], bounds, [n]]))
+        for s in range(shards):
+            seg = r[cuts[s]:cuts[s + 1]]
+            ridx[t, s * width:s * width + seg.size] = seg
     return ridx
 
 
@@ -228,45 +251,186 @@ def dense_table(win, T: int, K: int, n: int) -> np.ndarray:
     return src_slot
 
 
-def _packed_columns(lists, t_w, dst_w):
+def _packed_columns(lists, t_w, dst_w, n: int, width: int, shards: int):
     """Packed-table column of each winner: the position of ``dst_w[i]``
-    inside its cycle's index list. ``t_w`` ascends, and every dst is in
-    its cycle's list (winner rounds nest)."""
+    inside its cycle's (shard-grouped) index list. ``t_w`` ascends, and
+    every dst is in its cycle's list (winner rounds nest)."""
     cols = np.empty(t_w.size, np.int64)
     bounds = np.searchsorted(t_w, np.arange(len(lists) + 1))
+    shard_size = n // shards
     for t, r in enumerate(lists):
         lo, hi = bounds[t], bounds[t + 1]
-        if hi > lo:
-            cols[lo:hi] = np.searchsorted(r, dst_w[lo:hi])
+        if hi == lo:
+            continue
+        d = dst_w[lo:hi]
+        pos = np.searchsorted(r, d)
+        if shards == 1:
+            cols[lo:hi] = pos
+        else:
+            s = d // shard_size
+            cuts = np.searchsorted(r, np.arange(shards) * shard_size)
+            cols[lo:hi] = s * width + (pos - cuts[s])
     return cols
 
 
-def pack_compact_rounds(win, multi, T: int, K: int, n: int, width: int):
+def pack_compact_rounds(win, multi, T: int, K: int, n: int, width: int,
+                        shards: int = 1):
     """The ``compact`` tables: ``src0`` (T, n) the round-1 slots (dense),
-    ``ridx`` (T, M) the round-2 receivers' node ids, -1 padded, and
-    ``rslot`` (T, K-1, M) their rounds 2..K's slots, -1 = none."""
+    ``ridx`` (T, S·M) the round-2 receivers' node ids, -1 padded and
+    grouped by shard, and ``rslot`` (T, K-1, S·M) their rounds 2..K's
+    slots, -1 = none."""
     t_w, r_w, dst_w, slot_w = win
     m0 = r_w == 0
     src0 = np.full((T, n), -1, np.int32)
     src0[t_w[m0], dst_w[m0]] = slot_w[m0]
-    ridx = _pack_index_lists(multi, width)
-    rslot = np.full((T, K - 1, width), -1, np.int32)
+    ridx = _pack_index_lists(multi, n, width, shards)
+    rslot = np.full((T, K - 1, ridx.shape[1]), -1, np.int32)
     mk = ~m0
-    cols = _packed_columns(multi, t_w[mk], dst_w[mk])
+    cols = _packed_columns(multi, t_w[mk], dst_w[mk], n, width, shards)
     rslot[t_w[mk], r_w[mk] - 1, cols] = slot_w[mk]
     return src0, ridx, rslot
 
 
-def pack_compact_all(win, recv, T: int, K: int, width: int):
-    """The ``compact_all`` tables: ``ridx`` (T, M) the round-1 receivers'
-    node ids, -1 padded, and ``rslot`` (T, K, M) their K rounds' slots,
-    -1 = none."""
+def pack_compact_all(win, recv, T: int, K: int, n: int, width: int,
+                     shards: int = 1):
+    """The ``compact_all`` tables: ``ridx`` (T, S·M) the round-1
+    receivers' node ids, -1 padded and grouped by shard, and ``rslot``
+    (T, K, S·M) their K rounds' slots, -1 = none."""
     t_w, r_w, dst_w, slot_w = win
-    ridx = _pack_index_lists(recv, width)
-    rslot = np.full((T, K, width), -1, np.int32)
-    cols = _packed_columns(recv, t_w, dst_w)
+    ridx = _pack_index_lists(recv, n, width, shards)
+    rslot = np.full((T, K, ridx.shape[1]), -1, np.int32)
+    cols = _packed_columns(recv, t_w, dst_w, n, width, shards)
     rslot[t_w, r_w, cols] = slot_w
     return ridx, rslot
+
+
+# ---------------------------------------------------------------------------
+# the node mesh
+# ---------------------------------------------------------------------------
+
+
+REMOTE = -2       # a routing-table entry whose payload arrives from a peer
+
+
+class NodeShard:
+    """This rank's block of the node axis, ``[lo, hi)`` of n nodes over the
+    axis's W ranks, and the per-chunk plan of its payload exchange.
+
+    A slot id ``row·n + sender`` names a payload in the (D, n, P) buffer,
+    whose rows each rank holds for its own senders only. A receiver's
+    winning slot may lie on another rank: each cycle, before the receives,
+    every rank sends each other rank the payload rows (with their counter,
+    scale and zero-point) that the other's receivers read this cycle,
+    and nothing else: one all-to-all whose split sizes every rank knows,
+    since every rank routes the whole population. Within a (sender rank,
+    receiver rank) block the rows travel in ascending slot id.
+
+    :meth:`plan` lists, from a chunk's winner tuple, the local buffer rows
+    this rank sends and the counts it sends and receives a cycle;
+    :meth:`localize` rewrites one of this rank's routing tables: its own
+    slots become local flat buffer rows ``row·(n/W) + sender - lo``, the
+    others :data:`REMOTE`, with the table position and the received row
+    that fills each of them."""
+
+    def __init__(self, axis, n: int, delay_max: int):
+        self.axis = axis
+        self.shards, self.index = axis.size, axis.index
+        self.n, self.D = n, delay_max
+        self.nl = n // self.shards
+        self.lo, self.hi = self.index * self.nl, (self.index + 1) * self.nl
+
+    def plan(self, win, T: int) -> dict:
+        """From a chunk's winners: the local buffer rows this rank sends
+        (``send_idx``, by cycle, then destination rank, then slot id), the
+        (T, W) counts it sends and receives, and the sorted keys (cycle,
+        sender rank, slot) of the rows it receives, with each cycle's
+        first key (``start``)."""
+        t_w, _, dst_w, slot_w = win
+        W, n, nl, me = self.shards, self.n, self.nl, self.index
+        to = dst_w // nl
+        owner = (slot_w % n) // nl
+        remote = to != owner
+        out = remote & (owner == me)
+        t_o, to_o, slot_o = t_w[out], to[out], slot_w[out]
+        order = np.lexsort((slot_o, to_o, t_o))
+        slot_o = slot_o[order].astype(np.int64)
+        send_idx = (slot_o // n) * nl + slot_o % n - self.lo
+        send = np.bincount(t_o.astype(np.int64) * W + to_o,
+                           minlength=T * W).reshape(T, W)
+        inn = remote & (to == me)
+        t_i, own_i = t_w[inn].astype(np.int64), owner[inn].astype(np.int64)
+        keys = np.sort(t_i * (W * self.D * n) + own_i * (self.D * n)
+                       + slot_w[inn])
+        recv = np.bincount(t_i * W + own_i, minlength=T * W).reshape(T, W)
+        start = np.concatenate([[0], np.cumsum(recv.sum(axis=1))])
+        return dict(send_idx=send_idx, send=send, recv=recv, keys=keys,
+                    start=start)
+
+    def localize(self, tab, plan):
+        """``tab`` (T, ...) of global slot ids (-1 none) -> the same table
+        with this rank's rows and :data:`REMOTE` entries, and the remote
+        entries' positions (flat within a cycle's table) and received
+        rows, as (T,)-long lists of int64 arrays."""
+        W, n, nl, me, D = self.shards, self.n, self.nl, self.index, self.D
+        T = tab.shape[0]
+        flat = tab.reshape(T, -1).astype(np.int64)
+        out = np.full(flat.shape, -1, np.int64)
+        has = flat >= 0
+        owner = np.where(has, (flat % n) // nl, -1)
+        own = has & (owner == me)
+        v = flat[own]
+        out[own] = (v // n) * nl + v % n - self.lo
+        rem = has & ~own
+        out[rem] = REMOTE
+        tt, pos = np.nonzero(rem)
+        key = tt * (W * D * n) + owner[tt, pos] * (D * n) + flat[tt, pos]
+        row = np.searchsorted(plan["keys"], key) - plan["start"][tt]
+        cuts = np.searchsorted(tt, np.arange(1, T))
+        return (out.astype(np.int32).reshape(tab.shape),
+                np.split(pos, cuts), np.split(row, cuts))
+
+    def own_winners(self, win):
+        """The winners that this rank's nodes receive, at their row ids."""
+        t_w, r_w, dst_w, slot_w = win
+        m = (dst_w >= self.lo) & (dst_w < self.hi)
+        return t_w[m], r_w[m], dst_w[m] - self.lo, slot_w[m]
+
+    def chunk_tables(self, mode: str, tables, win, T: int):
+        """This rank's tables of a chunk: the dense table of its own nodes
+        (:meth:`own_winners`), or its columns of the shard-grouped packed
+        tables, their node ids made row ids and every slot table
+        localized. Returns ``(tables, counts, plan, remotes)``: ``counts``
+        the real lengths of its packed lists (the driver's ``counts``),
+        ``remotes`` each slot table's (positions, rows)."""
+        plan = self.plan(win, T)
+        real = lambda a: (a >= 0).sum(axis=1)  # noqa: E731
+        if mode == "dense":
+            src, pos, row = self.localize(tables[0], plan)
+            return (src,), None, plan, [(pos, row)]
+        if mode == "compact":
+            src0, ridx, rslot = tables
+            w = ridx.shape[1] // self.shards
+            ridx = self.rows(self.columns(ridx, w))
+            src0, p0, r0 = self.localize(src0[:, self.lo:self.hi], plan)
+            rslot, p1, r1 = self.localize(self.columns(rslot, w), plan)
+            return ((src0, ridx, rslot), (real(ridx),), plan,
+                    [(p0, r0), (p1, r1)])
+        ridx, rslot, sidx = tables
+        w, ws = ridx.shape[1] // self.shards, sidx.shape[1] // self.shards
+        ridx = self.rows(self.columns(ridx, w))
+        sidx = self.rows(self.columns(sidx, ws))
+        rslot, pos, row = self.localize(self.columns(rslot, w), plan)
+        return ((ridx, rslot, sidx), (real(ridx), real(sidx)), plan,
+                [(pos, row)])
+
+    def rows(self, ids):
+        """Global node ids (-1 padding kept) -> this rank's row ids."""
+        return np.where(ids >= 0, ids - self.lo, -1).astype(np.int32)
+
+    def columns(self, packed, width: int):
+        """This rank's columns of a shard-grouped packed table."""
+        lo = self.index * width
+        return packed[..., lo:lo + width]
 
 
 # ---------------------------------------------------------------------------
@@ -374,11 +538,17 @@ class _Plane:
     the codec, the fault, the learner's step and the receive's options."""
 
     def __init__(self, carry: Carry, *, variant, lam, learner, eta, wire,
-                 fault_model, byz, defense):
+                 fault_model, byz, defense, shard: Optional[NodeShard] = None):
         self.codec = get_codec(wire)
         self.fault = faults.get_fault(fault_model)
         D, n, P = carry.buf_w.shape
-        self.n = n
+        # the population's size and this block's first node: a node mesh's
+        # rank holds rows [lo, lo + n) of it, and draws the SR noise and
+        # the faults at those global rows
+        self.n_total = n if shard is None else shard.n
+        self.lo = 0 if shard is None else shard.lo
+        self.rows_all = (None if shard is None else torch.arange(
+            shard.lo, shard.hi, device=carry.buf_w.device))
         self.flat_w = carry.buf_w.view(D * n, P)
         self.flat_t = carry.buf_t.view(D * n)
         self.flat_sc = carry.buf_scale.view(-1)
@@ -390,15 +560,19 @@ class _Plane:
         self.update = (None if learner == "pegasos" else
                        make_update(learner, lam=lam, eta=eta, fused=True))
 
-    def receive(self, carry: Carry, src, Xc, yc, ridx=None, real: int = 0):
+    def receive(self, carry: Carry, src, Xc, yc, ridx=None, real: int = 0,
+                remote=None):
         """Apply the rounds of the (K', W) slot table ``src`` (-1 = no
         receive): to all N nodes, or with ``ridx`` (W,) to those node ids
         (-1 = padding, gathered as node 0 with no valid round), whose
-        first ``real`` rows are scattered back. Returns the (N or W,)
-        gated and clipped counts."""
+        first ``real`` rows are scattered back. Under a node mesh,
+        ``remote`` = ``(pos, row, got)`` fills the :data:`REMOTE` entries
+        (flat positions ``pos`` of ``src``) with the rows ``row`` of the
+        payload lanes ``got`` that arrived from the other ranks. Returns
+        the (N or W,) gated and clipped counts."""
         codec, c = self.codec, carry.cache
         idx = torch.clamp_min(src, 0).long()
-        valid = src >= 0
+        valid = src != -1
         if ridx is None:
             state = [carry.last_w, carry.last_t, c.w, c.t, c.ptr, c.count]
             fresh = [carry.fresh_w, carry.fresh_t]
@@ -410,14 +584,20 @@ class _Plane:
                                      c.ptr, c.count)]
             fresh = [carry.fresh_w[gi], carry.fresh_t[gi]]
             Xs, ys = Xc[gi], yc[gi]
-        msc = self.flat_sc[idx] if codec.has_scale else None
-        mzp = self.flat_zp[idx] if codec.has_zp else None
+        msgs = [self.flat_w[idx], self.flat_t[idx],
+                self.flat_sc[idx] if codec.has_scale else None,
+                self.flat_zp[idx] if codec.has_zp else None]
+        if remote is not None and remote[0].numel():
+            pos, row, got = remote
+            for m, g in zip(msgs, got):
+                if m is not None:
+                    m.view((-1,) + tuple(m.shape[2:]))[pos] = g[row]
+        mw, mt, msc, mzp = msgs
         if self.update is None:
             out = gossip_cycle.fused_receive_apply(
-                *state, self.flat_w[idx], self.flat_t[idx],
-                valid.to(torch.int32), Xs, ys, msg_scale=msc, msg_zp=mzp,
-                wire=codec.name, variant=self.variant, lam=self.lam,
-                defense=self.defense)
+                *state, mw, mt, valid.to(torch.int32), Xs, ys,
+                msg_scale=msc, msg_zp=mzp, wire=codec.name,
+                variant=self.variant, lam=self.lam, defense=self.defense)
             gated, clipped = out[6], out[7]
             # the freshest model: slot ptr - 1 of the updated ring
             C = c.w.shape[1]
@@ -425,10 +605,10 @@ class _Plane:
             at = torch.arange(slot.shape[0], device=slot.device)
             fresh = [state[2][at, slot], state[3][at, slot]]
         else:
-            msg_w = codec.decode(self.flat_w[idx], msc, mzp, c.w.shape[2])
+            msg_w = codec.decode(mw, msc, mzp, c.w.shape[2])
             lw, lt, fw, ft, c2, gated, clipped = _vector_apply(
                 state[0], state[1], fresh[0], fresh[1],
-                ModelCache(*state[2:]), msg_w, self.flat_t[idx], valid, Xs,
+                ModelCache(*state[2:]), msg_w, mt, valid, Xs,
                 ys, variant=self.variant, update=self.update,
                 defense=self.defense)
             state = [lw, lt, *c2]
@@ -452,15 +632,17 @@ class _Plane:
         (encoded for a quantized codec, corrupted on the Byzantine rows),
         or with ``sidx`` (the cycle's sender ids) only the senders' slots,
         their SR noise, fault draws and EF rows taken at their positions
-        in the dense draw (``rows=``)."""
+        in the dense draw (``rows=``; a node mesh's rank draws at its
+        block's global rows)."""
         codec, fault, c = self.codec, self.fault, carry.cache
         row = carry.clock % carry.buf_w.shape[0]
         if sidx is None:
-            gi, byz = None, self.byz
+            gi, rows, byz = None, self.rows_all, self.byz
             send_w, send_t = carry.fresh_w, carry.fresh_t
             ef = carry.ef
         else:
             gi = sidx.long()
+            rows = gi + self.lo
             byz = None if self.byz is None else self.byz[gi]
             send_w, send_t = carry.fresh_w[gi], carry.fresh_t[gi]
             ef = carry.ef[gi] if codec.ef else carry.ef
@@ -471,13 +653,13 @@ class _Plane:
                                                       c.ptr[gi], c.count[gi])
                 old_w, old_t = cache_mod.cache_oldest(sub)
             send_w, send_t = faults.corrupt_model(
-                fault, byz, fk[t], send_w, send_t, old_w, old_t, rows=gi,
-                n_total=self.n)
+                fault, byz, fk[t], send_w, send_t, old_w, old_t, rows=rows,
+                n_total=self.n_total)
         sc = zp = None
         if codec.quantized:
             out = gossip_cycle.quantize_send(
                 send_w, codec.name, key=kr[t] if codec.stochastic else None,
-                ef=ef if codec.ef else None, rows=gi)
+                ef=ef if codec.ef else None, rows=rows)
             payload, sc = out[0], out[1]
             if codec.has_zp:
                 zp = out[2]
@@ -491,8 +673,8 @@ class _Plane:
             payload = send_w.to(codec.payload_dtype)
         if fault is not None and fault.kind == "wire":
             payload = faults.bitflip_payload(
-                byz, fk[t], payload.to(codec.payload_dtype), rows=gi,
-                n_total=self.n)
+                byz, fk[t], payload.to(codec.payload_dtype), rows=rows,
+                n_total=self.n_total)
         at = slice(None) if gi is None else gi
         carry.buf_w[row, at] = payload
         carry.buf_t[row, at] = send_t
@@ -502,11 +684,51 @@ class _Plane:
             carry.buf_zp[row, at] = zp
 
 
+class ChunkExchange:
+    """A chunk's payload exchange on the device (:class:`NodeShard`): the
+    local buffer rows this rank sends each cycle, the counts, and for
+    each slot table the positions and received rows of its
+    :data:`REMOTE` entries."""
+
+    def __init__(self, shard: NodeShard, plan: dict, remotes, device):
+        self.axis = shard.axis
+        self.send, self.recv = plan["send"], plan["recv"]
+        self.cuts = np.concatenate([[0], np.cumsum(self.send.sum(axis=1))])
+        self.send_idx = torch.as_tensor(plan["send_idx"], device=device)
+        # per table, its (T,) position and row arrays, each concatenated
+        # over the cycles with the host's offsets
+        self.tables = []
+        for pos, row in remotes:
+            off = np.concatenate([[0], np.cumsum([p.size for p in pos])])
+            self.tables.append((
+                torch.as_tensor(np.concatenate(pos), device=device),
+                torch.as_tensor(np.concatenate(row), device=device), off))
+
+    def received(self, plane: "_Plane", t: int):
+        """Cycle t's exchange: this rank's rows out, the other ranks' rows
+        in, as the payload lanes ``[w, t, scale or None, zp or None]``."""
+        idx = self.send_idx[self.cuts[t]:self.cuts[t + 1]]
+        codec = plane.codec
+        lanes = [plane.flat_w, plane.flat_t,
+                 plane.flat_sc if codec.has_scale else None,
+                 plane.flat_zp if codec.has_zp else None]
+        got = iter(compat.exchange_rows(
+            [a[idx] for a in lanes if a is not None], self.send[t],
+            self.recv[t], self.axis))
+        return [None if a is None else next(got) for a in lanes]
+
+    def remote(self, k: int, t: int, got):
+        pos, row, off = self.tables[k]
+        return pos[off[t]:off[t + 1]], row[off[t]:off[t + 1]], got
+
+
 def run_chunk(carry: Carry, mode: str, tables, X, y, *, variant: str,
               lam: float, learner: str = "pegasos", eta: float = 0.01,
               wire=None, keys=None, send_mask=None, counts=None,
               fault_model=None, byz=None, defense: str = "none",
-              per_cycle: bool = False):
+              per_cycle: bool = False,
+              exchange: Optional[ChunkExchange] = None,
+              shard: Optional[NodeShard] = None):
     """Run the chunk's cycles under packing ``mode``, in place — the
     reference's ``dense_body``, ``compact_body`` or ``compact_all_body``
     under ``lax.scan``. ``tables`` are the packing's device tables:
@@ -532,10 +754,14 @@ def run_chunk(carry: Carry, mode: str, tables, X, y, *, variant: str,
     ``fold_in(keys, FAULT_FOLD)``; ``defense`` is the receive's screen.
     Returns ``(carry, screen)``: ``screen`` is the (2,) int64 device
     tensor of the chunk's gated and clipped totals, or with ``per_cycle``
-    (armed telemetry) the (T, 2) tensor of each cycle's."""
+    (armed telemetry) the (T, 2) tensor of each cycle's.
+
+    Under a node mesh the carry, ``X``/``y``, ``byz`` and the tables are
+    this rank's block (``shard``), and ``exchange`` brings each cycle's
+    payloads from the other ranks before the receives."""
     plane = _Plane(carry, variant=variant, lam=lam, learner=learner,
                    eta=eta, wire=wire, fault_model=fault_model, byz=byz,
-                   defense=defense)
+                   defense=defense, shard=shard)
     kr = recv_keys(keys) if plane.codec.stochastic else None
     fk = faults.fault_key(keys) if plane.fault is not None else None
     T = tables[0].shape[0]
@@ -547,17 +773,23 @@ def run_chunk(carry: Carry, mode: str, tables, X, y, *, variant: str,
             Xc, yc = X[:, rec, :].contiguous(), y[:, rec].contiguous()
         else:
             Xc, yc = X, y
+        got = exchange.received(plane, t) if exchange is not None else None
+
+        def remote(k):
+            return None if got is None else exchange.remote(k, t, got)
         if mode == "dense":
-            rounds = [plane.receive(carry, tables[0][t], Xc, yc)]
+            rounds = [plane.receive(carry, tables[0][t], Xc, yc,
+                                    remote=remote(0))]
         elif mode == "compact":
             src0, ridx, rslot = tables
-            rounds = [plane.receive(carry, src0[t][None], Xc, yc),
+            rounds = [plane.receive(carry, src0[t][None], Xc, yc,
+                                    remote=remote(0)),
                       plane.receive(carry, rslot[t], Xc, yc, ridx[t],
-                                    int(counts[0][t]))]
+                                    int(counts[0][t]), remote=remote(1))]
         else:
             ridx, rslot, _ = tables
             rounds = [plane.receive(carry, rslot[t], Xc, yc, ridx[t],
-                                    int(counts[0][t]))]
+                                    int(counts[0][t]), remote=remote(0))]
         if defense != "none":
             got = torch.stack([sum(g.sum() for g, _ in rounds),
                                sum(c.sum() for _, c in rounds)])
@@ -587,21 +819,120 @@ _MIN_WIDTH = 8
 
 
 def choose_packing(k_rounds: int, n: int, multi_sizes, recv_sizes, wm: int,
-                   w1: int, senders_width):
+                   w1: int, senders_width, shards: int = 1):
     """The reference's per-chunk packing choice: per-cycle work estimates
-    in node rows, dense = K N + N, compact = N + (K + 1) W_multi + N,
-    compact_all = (K + 4) W_recv + 5 W_send, over the sticky widths; a
-    packing whose subset exceeds N/2 somewhere in the chunk is out.
-    ``senders_width()`` gives W_send, asked only when compact_all is in
-    the running. Returns ``(mode, ws)``, ws the senders' width if asked."""
+    in node rows, dense = K N + N, compact = N + (K + 1) S W_multi + N,
+    compact_all = (K + 4) S W_recv + 5 S W_send, over the sticky per-shard
+    widths of S node shards; a packing whose subset exceeds N/2 somewhere
+    in the chunk is out. ``senders_width()`` gives W_send, asked only when
+    compact_all is in the running. Returns ``(mode, ws)``, ws the senders'
+    width if asked."""
     cand = {"dense": k_rounds * n + n}
     ws = None
     if k_rounds > 1 and int(multi_sizes.max(initial=0)) <= n // 2:
-        cand["compact"] = n + (k_rounds + 1) * wm + n
+        cand["compact"] = n + (k_rounds + 1) * shards * wm + n
     if int(recv_sizes.max(initial=0)) <= n // 2:
         ws = senders_width()
-        cand["compact_all"] = (k_rounds + 4) * w1 + 5 * ws
+        cand["compact_all"] = (k_rounds + 4) * shards * w1 + 5 * shards * ws
     return min(cand, key=cand.get), ws
+
+
+# the distinct signatures the process's chunks and draws ran
+# (retrace_counts), the chunks' by configuration label
+_CHUNK_LABELS: Dict[tuple, str] = {}
+_CHUNK_SIGS: Dict[str, set] = {}
+_DRAW_SIGS: set = set()
+
+
+def retrace_counts() -> Dict[str, int]:
+    """The counterpart of the reference's compile-cache counts, under its
+    names. The port runs eagerly and has no trace cache; it counts the
+    distinct signatures that this process's chunks executed (the packing
+    mode, T, the packed widths, the carry's and the codec's shapes) per
+    configuration label, the reference's ``index:variant/learner/mode/
+    wire`` with its fault, defense and telemetry suffixes, and the
+    distinct draw signatures (T, N and the draw's settings). A run whose
+    packed widths never go sticky shows up here as in the reference."""
+    counts = {"sharded_engine._draw_chunk": len(_DRAW_SIGS)}
+    for label, sigs in _CHUNK_SIGS.items():
+        counts[f"sharded_engine.chunk_fn[{label}]"] = len(sigs)
+    return counts
+
+
+def _chunk_signatures(cfg: GossipLinearConfig, D: int, mode: str,
+                      armed: bool, shards: int) -> set:
+    """The signature set of one chunk configuration, made on first use."""
+    key = (cfg.variant, cfg.learner, cfg.lam, cfg.eta, D, mode,
+           cfg.wire_dtype, cfg.fault_model, cfg.defense, armed, shards)
+    if key not in _CHUNK_LABELS:
+        label = (f"{len(_CHUNK_SIGS)}:{cfg.variant}/{cfg.learner}/{mode}/"
+                 f"{cfg.wire_dtype or 'f32'}"
+                 + (f"/fault:{cfg.fault_model}" if cfg.fault_model else "")
+                 + (f"/def:{cfg.defense}" if cfg.defense != "none" else "")
+                 + ("/telem" if armed else ""))
+        _CHUNK_LABELS[key] = label
+        _CHUNK_SIGS[label] = set()
+    return _CHUNK_SIGS[_CHUNK_LABELS[key]]
+
+
+def _node_shard(mesh, node_axis: Optional[str], n: int, delay_max: int,
+                hooked: bool) -> Optional[NodeShard]:
+    """This rank's :class:`NodeShard` of ``mesh``'s node axis (default:
+    its first), or None on an axis of size 1 (the one-device path).
+    ``hooked``: a ``serve_hook`` or ``telemetry`` was given."""
+    if mesh is None:
+        return None
+    axis = node_axis or mesh.mesh_dim_names[0]
+    size = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))[axis]
+    if size == 1:
+        return None
+    if n % size != 0:
+        raise ValueError(
+            f"sharded engine needs N divisible by the '{axis}' mesh "
+            f"axis ({n} % {size} != 0)")
+    if hooked:
+        raise NotImplementedError(
+            "serve_hook= and telemetry= under a node mesh wait for the "
+            "mesh's second slice (ROADMAP.md queue 1)")
+    return NodeShard(compat.mesh_axis(mesh, (axis,)), n, delay_max)
+
+
+def _final_state(carry: Carry, shard: Optional[NodeShard]) -> dict:
+    """Every node's final lanes on the host (the EF residual where the
+    codec keeps one), gathered from every rank under a node mesh."""
+    c = carry.cache
+    lanes = dict(last_w=carry.last_w, last_t=carry.last_t,
+                 fresh_w=carry.fresh_w, fresh_t=carry.fresh_t, cache_w=c.w,
+                 cache_t=c.t, ptr=c.ptr, count=c.count)
+    if carry.ef.numel():
+        lanes["ef"] = carry.ef
+    if shard is not None:
+        vals = compat.gather_rows(list(lanes.values()),
+                                  [shard.nl] * shard.shards, shard.axis)
+        lanes = dict(zip(lanes, vals))
+    return {k: v.cpu() for k, v in lanes.items()}
+
+
+class _MeshEval:
+    """The eval under a node mesh: the eval nodes' cache rows gathered
+    from their ranks to every rank, in ``eval_idx``'s order, and
+    evaluated as one device evaluates them, so the curves are exact."""
+
+    def __init__(self, shard: NodeShard, eval_idx: np.ndarray, device):
+        self.shard = shard
+        owner = eval_idx // shard.nl
+        by_rank = np.argsort(owner, kind="stable")
+        self.counts = np.bincount(owner, minlength=shard.shards)
+        mine = eval_idx[owner == shard.index] - shard.lo
+        self.mine = torch.as_tensor(mine, device=device)
+        self.order = torch.as_tensor(np.argsort(by_rank), device=device)
+        self.at = torch.arange(eval_idx.size, device=device)
+
+    def __call__(self, cache: ModelCache, X_test, y_test):
+        rows = [a[self.mine] for a in cache]
+        got = compat.gather_rows(rows, self.counts, self.shard.axis)
+        sub = ModelCache(*(g[self.order] for g in got))
+        return _eval(sub, self.at, X_test, y_test)
 
 
 def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
@@ -611,9 +942,12 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
                            device=None, use_kernel: Optional[bool] = None,
                            compact_rounds: Optional[bool] = None,
                            compact_mode: Optional[str] = None, mesh=None,
+                           node_axis: Optional[str] = None,
                            use_send_kernel: Optional[bool] = None,
-                           serve_hook=None, telemetry=None) -> SimResult:
-    """Run the protocol with the mega-population engine on one device.
+                           serve_hook=None, telemetry=None,
+                           final_state: bool = False) -> SimResult:
+    """Run the protocol with the mega-population engine, on one device or
+    over a node mesh.
 
     The receive step of Pegasos is the fused kernel on CUDA and its plain
     version on the CPU; ``use_kernel=True`` asserts the kernel (raises on
@@ -633,8 +967,27 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     ("dense", "compact" or "compact_all") forces one packing on every
     chunk. ``SimResult.compaction`` reports the packings taken, the round-1
     and round-2 receivers' occupancy and the packed widths, as the
-    reference does. ``mesh`` (node sharding over devices) is not ported
-    yet and raises (ROADMAP.md queue 1 item 11).
+    reference does.
+
+    ``mesh`` (a ``DeviceMesh``, ``launch.mesh.make_mesh``) splits the nodes
+    over its ``node_axis`` (default: its first axis) of W ranks; N must be
+    divisible by W, and an axis of size 1 runs the one-device path. Every
+    rank calls this function with the same global data and gets the whole
+    :class:`SimResult`. Every rank draws and routes the whole population
+    (the draws do not depend on the payloads, so the tables are equal on
+    every rank) and keeps the nodes ``[s·N/W, (s+1)·N/W)`` of its index s:
+    their models, cache, buffer rows, scale, zero-point and EF lanes. It
+    runs the receive (kernel #1) and the send (kernel #2 with the block's
+    global rows, so ``int8_sr`` draws the one-device noise; #3/#4) on its
+    block, under every packing (the reference's per-shard packed tables);
+    each cycle one all-to-all brings the payloads its receivers read from
+    the other ranks (:class:`NodeShard`). The eval gathers the eval nodes'
+    rows, and the screen's counts and the EF norm are reduced over the
+    ranks, so the result is the one-device run's bit for bit, but where a
+    screen's sum order depends on the row count (5 <= d <= 8,
+    ``faults.screen_split``): a rank sums over its N/W rows, as the
+    reference's ``shard_map`` body does. ``serve_hook`` and ``telemetry``
+    under a mesh raise (ROADMAP.md queue 1: the mesh's second slice).
 
     ``serve_hook(cycle, snapshot)`` is called at every eval point with
     ``serving.snapshot_from_carry(carry)``, a copy of the live cache, before
@@ -652,7 +1005,10 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     ``dense_table``, ``table_upload``, ``chunk_dispatch``, ``eval``,
     ``snapshot`` and ``collect_results``. An armed run adds no
     synchronisation and no kernel launch of #1 to #5, and is bit for bit
-    the unarmed run."""
+    the unarmed run.
+
+    ``final_state=True`` sets ``SimResult.final_state``: every node's
+    final lanes on the host (gathered from every rank under a mesh)."""
     dev = resolve_device(device)
     codec = get_codec(cfg.wire_dtype)
     if use_send_kernel and not codec.quantized:
@@ -665,9 +1021,6 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
             raise ValueError(
                 f"{opt}={val} on {dev}: each step is its CUDA kernel on "
                 "CUDA tensors and its plain version on CPU tensors")
-    if mesh is not None:
-        raise NotImplementedError("mesh=: node sharding over several devices "
-                                  "is ROADMAP.md queue 1 item 11")
     if compact_rounds is None:
         compact_rounds = dev.type != "cuda" or cfg.learner != "pegasos"
     if compact_mode is not None:
@@ -678,18 +1031,27 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
                              "(there are no rounds >= 2 to compact)")
         compact_rounds = compact_mode != "dense"
     check_slice(cfg)
+    n, d = X.shape[0], X.shape[-1]
+    D = max(cfg.delay_max_cycles, 1)
+    shard = _node_shard(mesh, node_axis, n, D, serve_hook is not None
+                        or telemetry is not None)
+    shards = 1 if shard is None else shard.shards
     tel = telemetry
     armed = tel is not None
 
     with maybe_span(tel, "setup", track="host"):
-        n, d = X.shape[0], X.shape[-1]
-        D = max(cfg.delay_max_cycles, 1)
         online_mat, eval_idx, X, y, X_test, y_test = sim_setup(
             cfg, X, y, X_test, y_test, cycles=cycles, seed=seed,
             eval_nodes=eval_nodes, device=dev)
-        carry = init_carry(n, d, cfg.cache_size, D, dev, codec)
         byz = byzantine_tensor(cfg, seed, n, dev)
         byz_np = None if byz is None else byz.cpu().numpy()
+        evaluate = functools.partial(_eval, eval_idx=eval_idx)
+        if shard is not None:
+            block = slice(shard.lo, shard.hi)
+            X, y = X[block].contiguous(), y[block].contiguous()
+            byz = None if byz is None else byz[block].contiguous()
+            evaluate = _MeshEval(shard, eval_idx.cpu().numpy(), dev)
+        carry = init_carry(n // shards, d, cfg.cache_size, D, dev, codec)
         res = SimResult([], [], [], [], 0, cfg)
         res.buf_payload_bytes = payload_buffer_bytes(D, n, d, cfg.wire_dtype)
         pts = eval_points(cycles, eval_every)
@@ -719,17 +1081,21 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
         mask ``arrival >= 0`` kept on the device: the reference's
         ``send_ok``, without uploading it again."""
         lo, hi = bounds[i]
+        _DRAW_SIGS.add((hi - lo, n, cfg.drop_prob, D, sampler))
         with maybe_span(tel, "draw_enqueue", track="control", chunk=i):
             dsts, arrivals = _draw_chunk(
                 keys[lo:hi], torch.as_tensor(online_mat[lo:hi], device=dev),
                 lo, n=n, drop=cfg.drop_prob, delay_max=D, sampler=sampler)
             mask = arrivals >= 0 if codec.ef else None
+            if mask is not None and shard is not None:
+                mask = mask[:, shard.lo:shard.hi].contiguous()
         with maybe_span(tel, "draw_readback", track="device", chunk=i):
             return dsts.cpu().numpy(), arrivals.cpu().numpy(), mask
 
     def pack(i, win, multi, recv, stats, arrivals):
         """Chunk i's packing (the reference's choice, or ``compact_mode``)
-        and its host tables, with each cycle's real lengths."""
+        and its host tables, with each cycle's real lengths (the tables
+        grouped by node shard under a mesh)."""
         T, K = len(recv), k_rounds
         senders = []
 
@@ -739,22 +1105,24 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
                                 .astype(np.int32) for t in range(T)])
             return senders[0]
 
-        send_width = lambda: bucket("send", shard_list_width(sender_lists()))
-        wm = bucket("compact", shard_list_width(multi))
-        w1 = bucket("compact_all", shard_list_width(recv))
+        send_width = lambda: bucket("send", shard_list_width(  # noqa: E731
+            sender_lists(), n, shards))
+        wm = bucket("compact", shard_list_width(multi, n, shards))
+        w1 = bucket("compact_all", shard_list_width(recv, n, shards))
         mode, ws = choose_packing(K, n, stats["multi_sizes"],
-                                  stats["recv_sizes"], wm, w1, send_width)
+                                  stats["recv_sizes"], wm, w1, send_width,
+                                  shards)
         mode = compact_mode or mode
         if mode == "compact":
             widths["compact"] = wm
-            return mode, pack_compact_rounds(win, multi, T, K, n, wm), (
-                stats["multi_sizes"],)
+            return mode, pack_compact_rounds(win, multi, T, K, n, wm,
+                                             shards), (stats["multi_sizes"],)
         if mode == "compact_all":
             widths["compact_all"] = w1
             widths["send"] = ws = ws or send_width()
             lists = sender_lists()
-            return mode, (*pack_compact_all(win, recv, T, K, w1),
-                          _pack_index_lists(lists, ws)), (
+            return mode, (*pack_compact_all(win, recv, T, K, n, w1, shards),
+                          _pack_index_lists(lists, n, ws, shards)), (
                 stats["recv_sizes"],
                 np.array([r.size for r in lists], np.int64))
         return mode, None, None
@@ -787,7 +1155,14 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
                                             arrivals)
         if mode == "dense":
             with maybe_span(tel, "dense_table", track="control", chunk=i):
-                tables = (dense_table(win, hi - lo, k_rounds, n),)
+                tables = ((dense_table(win, hi - lo, k_rounds, n),)
+                          if shard is None else
+                          (dense_table(shard.own_winners(win), hi - lo,
+                                       k_rounds, shard.nl),))
+        exchange = None
+        if shard is not None:
+            tables, counts, plan, remotes = shard.chunk_tables(
+                mode, tables, win, hi - lo)
         tables = [torch.from_numpy(a) for a in tables]
         if dev.type == "cuda":
             # pinned + non_blocking: the upload queues behind the device's
@@ -795,7 +1170,9 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
             with maybe_span(tel, "table_upload", track="control", chunk=i):
                 tables = [a.pin_memory().to(dev, non_blocking=True)
                           for a in tables]
-        return mode, tables, counts, stats, mask
+        if shard is not None:
+            exchange = ChunkExchange(shard, plan, remotes, dev)
+        return mode, tables, counts, stats, mask, exchange
 
     # Draws run one chunk ahead. Chunk i+1's tables are read back before
     # chunk i is enqueued, so the read waits only for chunk i-1, which ran
@@ -806,9 +1183,13 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     evals, screens, ef_rms = [], [], []
     pending = route(0, draw(0))
     for i, p in enumerate(pts):
-        mode, tables, counts, stats, mask = pending
+        mode, tables, counts, stats, mask, exchange = pending
         drawn = draw(i + 1) if i + 1 < len(pts) else None
         lo, hi = bounds[i]
+        _chunk_signatures(cfg, D, mode, armed, shards).add((
+            tuple(tuple(a.shape) for a in tables), tuple(X.shape),
+            tuple(carry.buf_w.shape), str(carry.buf_w.dtype),
+            tuple(carry.cache.w.shape), hi - lo))
         with maybe_span(tel, "chunk_dispatch", track="device", chunk=i,
                         mode=mode, cycles=hi - lo):
             _, screen = run_chunk(
@@ -816,10 +1197,11 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
                 lam=cfg.lam, learner=cfg.learner, eta=cfg.eta,
                 wire=codec.name, keys=keys[lo:hi], send_mask=mask,
                 counts=counts, fault_model=cfg.fault_model, byz=byz,
-                defense=cfg.defense, per_cycle=armed)
+                defense=cfg.defense, per_cycle=armed, exchange=exchange,
+                shard=shard)
         screens.append(screen)
         with maybe_span(tel, "eval", track="eval", cycle=p):
-            evals.append(_eval(carry.cache, eval_idx, X_test, y_test))
+            evals.append(evaluate(carry.cache, X_test=X_test, y_test=y_test))
         if armed:
             # queued before chunk i+1 updates the carry; read at the end
             ef_rms.append(ef_residual_rms(carry.ef))
@@ -851,6 +1233,9 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
                 multi_nodes=stats["multi_sizes"],
                 online_nodes=online_mat[lo:hi].sum(axis=1),
                 corrupted=stats["corrupted_cycles"])
+    if shard is not None:
+        # the screen's counts of every rank's block
+        screens = list(compat.psum(torch.stack(screens), shard.axis))
     with maybe_span(tel, "collect_results", track="device", chunks=len(pts)):
         for err_f, err_v, sim in evals:
             res.err_fresh.append(float(err_f))
@@ -878,9 +1263,18 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
         round1_occupancy_max=float(r1.max()),
         multi_occupancy_mean=float(mr.mean()),
         multi_occupancy_max=float(mr.max()),
-        packed_widths=dict(widths), shards=1)
+        packed_widths=dict(widths), shards=shards)
     res.wire_bytes_total = res.sent_total * msg_bytes
-    res.ef_residual_norm = ef_residual_norm(carry.ef)
+    if shard is None:
+        res.ef_residual_norm = ef_residual_norm(carry.ef)
+    elif carry.ef.numel():
+        # each node's squared norm, gathered in node order: the one-device
+        # mean over the same N values
+        sq = torch.sum(carry.ef.to(torch.float32) ** 2, dim=-1)
+        (sq,) = compat.gather_rows([sq], [shard.nl] * shards, shard.axis)
+        res.ef_residual_norm = float(torch.sqrt(torch.mean(sq)))
+    if final_state:
+        res.final_state = _final_state(carry, shard)
     if armed:
         tel.annotations.setdefault("runs", []).append(dict(
             engine="sharded", n_nodes=n, cycles=cycles,

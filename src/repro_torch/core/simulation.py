@@ -364,6 +364,9 @@ class SimResult:
     # Byzantine sends, and messages the defense rejected and rescaled
     fault_stats: Dict[str, int] = field(default_factory=lambda: {
         "corrupted": 0, "gated": 0, "clipped": 0})
+    # every node's final lanes on the host, where the sharded engine was
+    # asked for them (``final_state=True``)
+    final_state: Optional[Dict[str, torch.Tensor]] = None
 
 
 def ef_residual_rms(ef) -> Optional[torch.Tensor]:
@@ -467,7 +470,9 @@ def run_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     ``engine="reference"`` runs this module's Python-driven cycle loop;
     ``engine="sharded"`` runs ``repro_torch.core.sharded_engine`` (host
     router + the fused receive kernel on CUDA), forwarding its extra
-    keyword arguments. Returns a :class:`SimResult`.
+    keyword arguments (``mesh=`` and ``node_axis=`` split the nodes over
+    the ranks of a ``DeviceMesh`` axis; every rank calls this function
+    with the same data). Returns a :class:`SimResult`.
 
     ``serve_hook``: optional ``hook(cycle, snapshot)``, called at every
     eval point after the eval with a :class:`repro_torch.core.serving.

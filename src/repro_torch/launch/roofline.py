@@ -21,8 +21,9 @@ which carry shapes and dtypes and allocate nothing:
   nothing were fused, so this is an upper bound of the traffic, not XLA's
   count after fusion;
 - collective bytes: 0 on one device. ``parse_collectives`` reads XLA's
-  HLO text, which a PyTorch program never produces; the port's own
-  collectives are counted with the mesh (ROADMAP queue 1 item 11).
+  HLO text, which a PyTorch program never produces; the port counts its
+  own collectives as they are issued (``sharding.compat.STATS``, a
+  :class:`CollectiveStats`, by the reference's algorithm-aware rules).
 
 A model runs on ``meta`` only where no kernel needs a device:
 ``attn_impl="xla"`` (full attention) or ``"banded"`` (windowed), as the

@@ -11,7 +11,8 @@ per-layer dicts, which ``decode_step`` takes);
 the reference's.
 
 ``shardings_for``, the batch specs and the ``build_*_step`` builders need
-a mesh and wait for ROADMAP queue 1 item 11.
+the LM's logical-axis sharding on a ``DeviceMesh`` and wait for the
+mesh's second slice (ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 

@@ -18,7 +18,9 @@ Two differences of form, none of value:
   element-wise, so the slices give the bits of the whole-leaf update.
 
 The global-norm clip spans the whole tree it is given: in the gossip step
-that is every peer's gradients together, as in the reference.
+that is every peer's gradients together, as in the reference. On a peer
+mesh each rank holds one peer's, and ``update``'s ``reduce_sq`` sums the
+squares over the peers before the root.
 """
 from __future__ import annotations
 
@@ -45,20 +47,24 @@ def _slices(*tensors) -> Iterator[Tuple[torch.Tensor, ...]]:
         yield tuple(f[lo:lo + CHUNK] for f in flat)
 
 
-def _global_norm(tree) -> torch.Tensor:
+def _global_norm(tree, reduce_sq=None) -> torch.Tensor:
     total = 0
     for x in tree_leaves(tree):
         total = total + sum(torch.sum(torch.square(c.float()))
                             for (c,) in _slices(x))
-    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    total = torch.as_tensor(total, dtype=torch.float32)
+    if reduce_sq is not None:
+        total = reduce_sq(total)
+    return torch.sqrt(total)
 
 
-def _clip_scale(grads, max_norm: float):
+def _clip_scale(grads, max_norm: float, reduce_sq=None):
     """``min(1, max_norm / max(|g|, 1e-9))`` as a 0-d float32 tensor, or
-    None when clipping is off."""
+    None when clipping is off. ``reduce_sq`` sums the squares of every
+    peer's gradients when each rank holds one peer's (the peer mesh)."""
     if max_norm <= 0:
         return None
-    g = torch.clamp(_global_norm(grads), min=1e-9)
+    g = torch.clamp(_global_norm(grads, reduce_sq), min=1e-9)
     # a true division: ``number / tensor`` multiplies by the reciprocal
     return torch.clamp(torch.div(torch.full_like(g, max_norm), g), max=1.0)
 
@@ -81,8 +87,8 @@ def sgd(lr_schedule, grad_clip: float = 0.0) -> Optimizer:
         return {}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
-        scale = _clip_scale(grads, grad_clip)
+    def update(grads, state, params, step, reduce_sq=None):
+        scale = _clip_scale(grads, grad_clip, reduce_sq)
         lr = lr_schedule(step)
         for p, g in zip(tree_leaves(params), tree_leaves(grads)):
             for pc, gc in _slices(p, g):
@@ -98,8 +104,8 @@ def sgd_momentum(lr_schedule, momentum: float = 0.9, grad_clip: float = 0.0,
         return {"m": _zeros(params, momentum_dtype)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
-        scale = _clip_scale(grads, grad_clip)
+    def update(grads, state, params, step, reduce_sq=None):
+        scale = _clip_scale(grads, grad_clip, reduce_sq)
         lr = lr_schedule(step)
         for p, g, m in zip(tree_leaves(params), tree_leaves(grads),
                            tree_leaves(state["m"])):
@@ -118,8 +124,8 @@ def adamw(lr_schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 "v": _zeros(params, torch.float32)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
-        scale = _clip_scale(grads, grad_clip)
+    def update(grads, state, params, step, reduce_sq=None):
+        scale = _clip_scale(grads, grad_clip, reduce_sq)
         lr = lr_schedule(step)
         if isinstance(step, torch.Tensor):
             t = step.to(torch.float32) + 1.0

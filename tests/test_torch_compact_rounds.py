@@ -76,12 +76,12 @@ def test_router_lists_and_packings_equal_the_reference(case):
                               jse.dense_table(jw, T, K, n))
         for lists in (precv, pmulti, [np.flatnonzero(arr[t] >= 0)
                                       .astype(np.int32) for t in range(T)]):
-            w = pse.shard_list_width(lists)
+            w = pse.shard_list_width(lists, n, 1)
             assert w == jse.shard_list_width(lists, n, 1)
-            assert np.array_equal(pse._pack_index_lists(lists, w + 2),
+            assert np.array_equal(pse._pack_index_lists(lists, n, w + 2, 1),
                                   jse._pack_index_lists(lists, n, w + 2, 1))
         w1 = max(jse.shard_list_width(jrecv, n, 1), 1) + 1
-        for a, b in zip(pse.pack_compact_all(pw, precv, T, K, w1),
+        for a, b in zip(pse.pack_compact_all(pw, precv, T, K, n, w1),
                         jse.pack_compact_all(jw, jrecv, T, K, n, w1, 1)):
             assert np.array_equal(a, b)
         if K > 1:
@@ -92,7 +92,7 @@ def test_router_lists_and_packings_equal_the_reference(case):
                 assert np.array_equal(a, b)
         t_w, dst_w = pw[0], pw[2]
         assert np.array_equal(
-            pse._packed_columns(precv, t_w, dst_w),
+            pse._packed_columns(precv, t_w, dst_w, n, w1, 1),
             jse._packed_columns(jrecv, t_w, dst_w, n, w1, 1))
 
 
@@ -111,7 +111,7 @@ def test_compact_all_tables_encode_the_dense_table():
     t_w, r_w, dst_w = (a.astype(np.int32) for a in np.nonzero(src >= 0))
     win = (t_w, r_w, dst_w, src[t_w, r_w, dst_w])
     width = max(r.size for r in recv) + 3
-    ridx, rslot = pse.pack_compact_all(win, recv, T, K, width)
+    ridx, rslot = pse.pack_compact_all(win, recv, T, K, n, width)
     for t in range(T):
         r = recv[t]
         assert np.array_equal(ridx[t, :r.size], r)

@@ -243,15 +243,29 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
                        device="cpu", use_kernel=True)
 
 
-@pytest.mark.parametrize("opt", [
-    dict(run=dict(engine="sharded", mesh=object())),
-])
-def test_unported_options_raise_naming_the_roadmap(opt):
-    cfg = GossipLinearConfig(**small_cfg(n_nodes=32, **opt.get("cfg", {})))
-    X, y, Xt, yt = toy(n=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+class _TwoRankMesh:
+    """What the engine reads of a mesh before it asks for a process
+    group: a ``nodes`` axis of two ranks."""
+    mesh_dim_names = ("nodes",)
+    mesh = torch.arange(2)
+
+
+@pytest.mark.parametrize("n,kw,err,match", [
+    (33, {}, ValueError,
+     r"needs N divisible by the 'nodes' mesh axis \(33 % 2 != 0\)"),
+    (32, dict(serve_hook=lambda c, s: None), NotImplementedError,
+     "ROADMAP.md"),
+    (32, dict(telemetry="armed"), NotImplementedError, "ROADMAP.md"),
+], ids=["indivisible", "serve_hook", "telemetry"])
+def test_node_mesh_errors(n, kw, err, match):
+    """N not divisible by the node axis, and the serving and telemetry
+    hooks under a node mesh (the mesh's second slice), raise before any
+    collective."""
+    cfg = GossipLinearConfig(**small_cfg(n_nodes=n))
+    X, y, Xt, yt = toy(n=n)
+    with pytest.raises(err, match=match):
         run_simulation(cfg, X, y, Xt, yt, cycles=2, device="cpu",
-                       **opt.get("run", {}))
+                       engine="sharded", mesh=_TwoRankMesh, **kw)
 
 
 def test_reference_engine_runs_every_learner():

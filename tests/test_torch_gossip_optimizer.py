@@ -280,21 +280,46 @@ def test_pod_merge_runs_in_the_step():
                                torch.tensor([1.0, 2.0, 1.0, 2.0]))
 
 
-def test_mesh_path_raises_naming_item_11():
-    cfg = GossipConfig()
-    opt = make_optimizer("sgd", constant(0.1))
-    tree = {"w": torch.zeros(2, 3)}
-    for call in (lambda: go.gossip_merge(tree, (1, 0), mesh=object()),
-                 lambda: go.gossip_merge(tree, (1, 0), peer_axes=("data",)),
-                 lambda: go.make_gossip_train_step(quad_loss_t, opt, 2, cfg,
-                                                   spmd_axis="data"),
-                 lambda: go.make_gossip_train_step(quad_loss_t, opt, 2, cfg,
-                                                   mesh=object()),
-                 lambda: go.linear_gossip_mesh_step(None, None, None, None,
-                                                    None, lam=0.1,
-                                                    variant="mu")):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            call()
+class _OnePeerMesh:
+    """What the merge reads of a mesh: a ``data`` axis of one rank and a
+    ``model`` axis of two."""
+    mesh_dim_names = ("data", "model")
+    mesh = torch.arange(2).reshape(1, 2)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mesh=_OnePeerMesh, peer_axes=("data",)),
+    dict(mesh=_OnePeerMesh, peer_axes=("model",)),
+    dict(mesh=_OnePeerMesh), dict(peer_axes=("data",))],
+    ids=["size1", "size-not-perm", "no-axes", "no-mesh"])
+def test_mesh_merge_falls_back_to_the_stacked_take(kw):
+    """The reference's fallback: no mesh or no peer axis, a peer axis of
+    size 1, or one whose size is not the permutation's, merges the whole
+    stack on every rank (the stacked take), and the train step steps the
+    stack."""
+    tree = jax.tree.map(to_torch, stacked_tree(3))
+    perm = PERM_CASES["hypercube"]
+    want = go.gossip_merge(tree, perm, exchange_dtype="int8")
+    got = go.gossip_merge(tree, perm, exchange_dtype="int8", **kw)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        np.testing.assert_array_equal(bits(a), bits(b))
+    opt = make_optimizer("sgd", constant(0.0), grad_clip=0)
+    fn = go.make_gossip_train_step(quad_loss_t, opt, 4, GossipConfig(),
+                                   **kw)
+    params = {"w": torch.arange(4.0)[:, None].repeat(1, 12),
+              "b": torch.zeros(4)}
+    state = go.GossipState(params, {}, torch.zeros((), dtype=torch.int32))
+    state, _, _ = fn(state, {"x": torch.ones((4, 2, 12)),
+                             "y": torch.zeros(4, 2)}, np.array([1, 0, 3, 2]))
+    torch.testing.assert_close(state.params["w"][:, 0],
+                               torch.tensor([0.5, 0.5, 2.5, 2.5]))
+
+
+def test_production_mesh_names_the_roadmap():
+    from repro_torch.launch.mesh import make_production_mesh
+    for multi_pod in (False, True):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            make_production_mesh(multi_pod=multi_pod)
 
 
 def test_allreduce_step_matches_the_reference():

@@ -44,7 +44,7 @@ import repro_torch.core as core
 from repro_torch import convert
 from repro_torch.config import INPUT_SHAPES, base, get_config, reduced_config
 from repro_torch.configs import ARCH_IDS
-from repro_torch.core import learners
+from repro_torch.core import gossip_optimizer, learners
 from repro_torch.core import wire_codec as wc
 from repro_torch.launch import mesh, roofline, specs
 from repro_torch.models import attention as attn
@@ -133,8 +133,9 @@ def test_exports_match_reference():
     assert callable(core.merge) and core.merge.__name__ == "merge"
     assert core.run_sharded_simulation.__module__ == \
         "repro_torch.core.sharded_engine"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        core.linear_gossip_mesh_step()
+    # the peer mesh's cycle, no longer a raise
+    assert core.linear_gossip_mesh_step is \
+        gossip_optimizer.linear_gossip_mesh_step
     assert ARCH_IDS == JARCH_IDS
 
 
