@@ -234,7 +234,26 @@ and ``nvcc``. The phases, each of which raises on failure:
    rw, SGD without a clip, against the stacked 2-peer step in each rank's
    process: losses within ``PEER_LOSS_RTOL``, each leaf bit for bit (a
    leaf that differs fails the phase, its max abs difference printed); (c) ``linear_gossip_mesh_step``, 10 cycles (mu
-   with drops, um, rw), bit for bit the one-process cycles.
+   with drops, um, rw), bit for bit the one-process cycles;
+14. the LM across ranks (``launch/specs.py``'s step builders on DTensor,
+   the ranks sharing the card over gloo, DTensor's collectives staged
+   through pinned host memory), each rank against a one-process run of
+   the same seeded weights in its own process: (a) qwen3-1.7b whole
+   (bf16), tensor parallel on a (1, 2) ``("data", "model")`` mesh, the
+   fused prefill of 4 x 2048 tokens through ``build_prefill_step`` and 16
+   greedy steps through ``build_decode_step(profile="context")``: the
+   prefill logits within ``LM_PATH_LOGIT_TOL``, 28 launches of #8 a rank
+   on its 8 query and 4 kv heads (timed on rank 0's last, beside its
+   plain version, its bound and SDPA), the share of equal greedy tokens,
+   each rank's prefill wall, decode ms/step, collectives and peak; (b)
+   mixtral-8x22b at 1 of 56 layers, 2 x 4608 tokens on (2, 2), G = 2 and
+   the reduce combine on every rank, the expert choices pinned to the
+   one-process run's, logits within ``LM_PATH_LOGIT_TOL``; (c) qwen3-1.7b
+   at 2 layers, one ``build_train_step`` step at step 50: all-reduce
+   (AdamW, FSDP on (2, 1)) and gossip (mu, int8, SGD on (2, 2); #2 once a
+   leaf on each rank's local rows, held bit for bit to its plain version
+   and timed on rank 0), within ``TRAIN_LOSS_RTOL`` and
+   ``TRAIN_PARAM_FRAC`` of the one-process steps.
 
 Prints one JSON line of per-kernel results (with phase 3's armed seconds
 by span under ``"phase3_spans"``), the ``nvidia-smi`` name and power
@@ -380,7 +399,7 @@ FAMILY_ROWS = {"mixtral-8x22b": "windowed_gqa",
                "llama3-405b": "gqa16"}
 # the runs whose library time is scaled_dot_product_attention's own causal
 # path (is_causal=True, enable_gqa=True) rather than the band as a mask
-CAUSAL_SDPA = ("llama3-405b",)
+CAUSAL_SDPA = ("llama3-405b", "qwen3-1.7b[tp]")
 # the other route of #8 forced on a run's captured q, k, v and timed in the
 # same call: hd 256 bf16 ran on the CUDA cores before its tensor-core tiles
 FAMILY_FORCED_ROUTES = {"recurrentgemma-9b": "cuda_core"}
@@ -4157,6 +4176,493 @@ def phase13(card: str, results: dict, dev, cfg3, X, y, n: int, cycles: int,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the LM across ranks (launch/specs.py's step builders)
+# ---------------------------------------------------------------------------
+
+TP_ARCH = "qwen3-1.7b"          # (a): served whole, tensor parallel
+TP_MESH = (1, 2)
+TP_BATCH, TP_PROMPT, TP_MAX_LEN, TP_STEPS = 4, 2048, 4096, 16
+MOE_ARCH, MOE_LAYERS = "mixtral-8x22b", 1       # (b): 1 of its 56 layers
+MOE_MESH, MOE_BATCH, MOE_SEQ = (2, 2), 2, 4608
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 2, 2, 128  # (c)
+TRAIN_STEP = 50     # past half of build_train_step's 100 warmup steps
+TP_SEED = 14
+# (c)'s bars, measured: bf16 weights and activations, the sums over the
+# ranks' shards in another order than one process's
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_PARAM_FRAC = 2.0 ** -7    # of a leaf's largest value: two bf16 steps
+
+
+def _record_flash():
+    """Wrap kernel #8's entry (``kernels/ops.py``) to keep the last call's
+    local q, k, v and arguments; returns (the record, an undo)."""
+    from repro_torch.kernels import ops as kops
+    real, seen = kops.flash_attention, {}
+
+    def wrapper(q, k, v, **kw):
+        seen.update(q=q, k=k, v=v, kw=kw)
+        return real(q, k, v, **kw)
+    kops.flash_attention = wrapper
+    return seen, lambda: setattr(kops, "flash_attention", real)
+
+
+def _flash_counts():
+    from repro_torch.kernels import flash_attention as fa
+    return dict(fa.flash_attention.route_launches)
+
+
+def _reset_flash():
+    from repro_torch.kernels import flash_attention as fa
+    counts = fa.flash_attention.route_launches
+    counts.update(dict.fromkeys(counts, 0))
+
+
+def _stats():
+    from repro_torch.sharding import compat
+    return dict(count=dict(compat.STATS.count),
+                bytes=dict(compat.STATS.per_op),
+                wire=compat.STATS.wire_bytes,
+                seconds={k: round(v, 4) for k, v in compat.SECONDS.items()})
+
+
+def _sync_wall(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def tp_serve(rank: int, card: str, mesh) -> dict:
+    """(a): qwen3-1.7b whole (28 layers, bf16) on the (1, 2) mesh: the
+    one-process fused prefill of 4 x 2048 tokens and TP_STEPS greedy steps
+    first, then ``build_prefill_step(cache_len=)`` and
+    ``build_decode_step(profile="context")`` on the weights of the same
+    seed placed by the rules; kernel #8 counted on the sharded prefill
+    and, on rank 0, timed on its last local q, k, v."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.config import InputShape, get_config
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import compat
+    from repro_torch.sharding.rules import distribute_params
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config(TP_ARCH)
+    params = T.init_params(cfg, device=dev, seed=TP_SEED)
+    g = torch.Generator(device=dev)
+    g.manual_seed(TP_SEED + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (TP_BATCH, TP_PROMPT),
+                            generator=g, device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        (one, cache), one_prefill_s = _sync_wall(
+            lambda: T.prefill(params, cfg, prompts, TP_MAX_LEN))
+        one_logits = one.float().cpu()
+        tok = torch.argmax(one, -1).to(torch.int32)
+        one_toks = [tok.cpu()]
+        t0 = time.perf_counter()
+        for i in range(TP_STEPS - 1):
+            lg, cache = T.decode_step(params, cfg, tok, cache, TP_PROMPT + i)
+            tok = torch.argmax(lg, -1).to(torch.int32)
+            one_toks.append(tok.cpu())
+        torch.cuda.synchronize()
+        one_decode_s = time.perf_counter() - t0
+    del cache, one, lg
+    pshape = InputShape("tp", TP_PROMPT, TP_BATCH, "prefill")
+    dshape = InputShape("tp", TP_MAX_LEN, TP_BATCH, "decode")
+    pfn, _, ppl = specs.build_prefill_step(cfg, pshape, mesh,
+                                           cache_len=TP_MAX_LEN,
+                                           decode_profile="context")
+    dfn, _, dpl = specs.build_decode_step(cfg, dshape, mesh,
+                                          profile="context")
+    dp = distribute_params(params, mesh, ppl[0])
+    del params
+    torch.cuda.empty_cache()
+    batch = distribute_params({"tokens": prompts}, mesh, ppl[1])
+    torch.cuda.reset_peak_memory_stats()
+    seen, undo = _record_flash()
+    _reset_flash()
+    compat.reset_stats()
+    try:
+        with torch.no_grad():
+            (logits, cache), prefill_s = _sync_wall(lambda: pfn(dp, batch))
+    finally:
+        undo()
+    launches = _flash_counts()
+    prefill_stats = _stats()
+    logits_pl = [str(p) for p in logits.placements]
+    full = logits.full_tensor().float().cpu()
+    tok = torch.argmax(full, -1).to(torch.int32).to(dev)
+    toks = [tok.cpu()]
+    compat.reset_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(TP_STEPS - 1):
+            dtok = distribute_params({"t": tok}, mesh, {"t": dpl[1]})["t"]
+            lg, cache = dfn(dp, dtok, cache, TP_PROMPT + i)
+            tok = torch.argmax(lg.full_tensor(), -1).to(torch.int32)
+            toks.append(tok.cpu())
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_stats = _stats()
+    peak = torch.cuda.max_memory_allocated()
+    same = float(torch.mean((torch.stack(toks) == torch.stack(one_toks))
+                            .float()))
+    out = dict(
+        err=float((full - one_logits).abs().max()),
+        top=float(one_logits.abs().max()), same_tokens=same,
+        first_same=float(torch.mean((toks[0] == one_toks[0]).float())),
+        prefill_s=prefill_s, decode_ms=decode_s * 1e3 / (TP_STEPS - 1),
+        one_prefill_s=one_prefill_s,
+        one_decode_ms=one_decode_s * 1e3 / (TP_STEPS - 1),
+        launches=launches, prefill_stats=prefill_stats,
+        decode_stats=decode_stats, peak_bytes=peak, logits_pl=logits_pl,
+        wq_pl=[str(p) for p in dp["blocks"][0]["attn"]["wq"].placements],
+        cache_pl=[str(p) for p in cache[0]["k"].placements],
+        local_q=list(seen["q"].shape), local_k=list(seen["k"].shape))
+    del dp, cache, batch, logits
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        out["row"] = family_kernel_row(card, f"{TP_ARCH}[tp]", seen,
+                                       "tensor_core", phase=14)
+    del seen
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_moe(rank: int, card: str, mesh) -> dict:
+    """(b): mixtral-8x22b at 1 of its 56 layers on the (2, 2) mesh, G = 2
+    dispatch groups over 'data' and the reduce combine
+    (``specs._with_dispatch_groups``): the one-process forward first (the
+    gather combine; its expert choices recorded), then
+    ``build_prefill_step`` on the same seed's weights placed by the rules,
+    each rank's groups pinned to the one-process choices (bf16 near-ties
+    would flip some)."""
+    import torch
+    from repro_torch.config import InputShape, get_config
+    from repro_torch.launch import specs
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import compat
+    from repro_torch.sharding.rules import distribute_params
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shape = InputShape("moe", MOE_SEQ, MOE_BATCH, "prefill")
+    cfg = specs._with_dispatch_groups(
+        get_config(MOE_ARCH).replace(num_layers=MOE_LAYERS), shape, mesh)
+    params = T.init_params(cfg, device=dev, seed=TP_SEED)
+    g = torch.Generator(device=dev)
+    g.manual_seed(TP_SEED + 2)
+    prompts = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ),
+                            generator=g, device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        ((one, _), choices), one_s = _sync_wall(lambda: routed(
+            lambda: T.forward(params, cfg, prompts, last_only=True),
+            MOE_LAYERS))
+    one = one.float().cpu()
+    fn, _, pl = specs.build_prefill_step(cfg, shape, mesh)
+    dp = distribute_params(params, mesh, pl[0])
+    del params
+    torch.cuda.empty_cache()
+    batch = distribute_params({"tokens": prompts}, mesh, pl[1])
+    data = compat.mesh_axis(mesh, ("data",)).index
+    per = cfg.moe.dispatch_groups // mesh.mesh.shape[0]
+    pin = [c[data * per:(data + 1) * per] for c in choices]
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(moe.COMBINE_COUNTS)
+    seen, undo = _record_flash()
+    _reset_flash()
+    compat.reset_stats()
+    try:
+        with torch.no_grad():
+            (logits, _), wall = _sync_wall(lambda: routed(
+                lambda: fn(dp, batch), MOE_LAYERS, pin=pin))
+    finally:
+        undo()
+    full = logits.full_tensor().float().cpu()
+    return dict(
+        err=float((full - one).abs().max()), top=float(one.abs().max()),
+        wall_s=wall, one_s=one_s, launches=_flash_counts(),
+        combine={k: moe.COMBINE_COUNTS[k] - before[k] for k in before},
+        stats=_stats(), peak_bytes=torch.cuda.max_memory_allocated(),
+        groups=cfg.moe.dispatch_groups, combine_cfg=cfg.moe.combine,
+        w_up_pl=[str(p) for p in dp["blocks"][0]["ffn"]["w_up"].placements],
+        local_q=list(seen["q"].shape), local_k=list(seen["k"].shape),
+        window=seen["kw"]["window"])
+
+
+def _leaf_gap(got, want) -> tuple:
+    """(largest |got - want| over the leaf's largest |want|, the share of
+    elements that differ)."""
+    g, w = got.float(), want.float()
+    top = float(w.abs().max())
+    diff = (g - w).abs()
+    return float(diff.max()) / max(top, 1e-30), float((diff > 0).float()
+                                                        .mean())
+
+
+def tp_train(rank: int, world: int, card: str, mesh, gossip: bool) -> dict:
+    """(c): qwen3-1.7b at TRAIN_LAYERS layers (bf16), one
+    ``build_train_step`` step at step TRAIN_STEP: all-reduce (AdamW) on
+    the (2, 1) mesh, FSDP over 'data', against the one-process
+    ``make_allreduce_train_step``; or gossip (mu, int8, SGD) on the (2, 2)
+    mesh, the peers the 'data' ranks, each tensor parallel over 'model',
+    against the stacked step of both peers, kernel #2 encoding each
+    rank's local rows (counted, and on rank 0 held bit for bit to its
+    plain version and timed on them)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.config import GossipConfig, InputShape, get_config
+    from repro_torch.core import gossip_optimizer as go
+    from repro_torch.kernels import gossip_cycle as gc
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import zeros_of
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.sharding import compat
+    from repro_torch.sharding.rules import distribute_params
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config(TP_ARCH).replace(num_layers=TRAIN_LAYERS,
+                                      attn_impl="chunked")
+    shape = InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    optimizer = "sgd" if gossip else "adamw"
+    opt = make_optimizer(optimizer, warmup_cosine(3e-4, 100, 10_000))
+    g = torch.Generator(device=dev)
+    g.manual_seed(TP_SEED + 3)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                         generator=g, device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    step0 = torch.tensor(TRAIN_STEP, dtype=torch.int32, device=dev)
+    loss_fn = specs.make_loss_fn(cfg)
+    if gossip:
+        peers = mesh.mesh.shape[0]
+        me = compat.mesh_axis(mesh, ("data",)).index
+        gcfg = GossipConfig(merge="mu", exchange_dtype="int8")
+        each = [tree_map(lambda p: p.detach(), T.init_params(
+            cfg, device=dev, seed=TP_SEED + 10 + p)) for p in range(peers)]
+        stacked = tree_map(lambda *xs: torch.stack(xs), *each)
+        perm, _ = go.perms_for_step(gcfg, 0, peers)
+        one_fn = go.make_gossip_train_step(loss_fn, opt, peers, gcfg)
+        sbatch = {k: v.reshape(peers, TRAIN_BATCH // peers, -1)
+                  for k, v in batch.items()}
+        st, one_loss, _ = one_fn(go.GossipState(stacked, opt.init(stacked),
+                                                step0), sbatch, perm)
+        want = tree_map(lambda a: a[me], st.params)
+        del st, stacked
+        fn, args, pl = specs.build_train_step(cfg, shape, mesh,
+                                              optimizer=optimizer,
+                                              gossip=gcfg, n_peers=peers)
+        on = specs.peer_mesh(mesh)
+        params = each[me]
+        mine = {k: v[me] for k, v in sbatch.items()}
+        del each
+    else:
+        params = tree_map(lambda p: p.detach(), T.init_params(
+            cfg, device=dev, seed=TP_SEED + 10))
+        want = tree_map(lambda p: p.clone(), params)
+        one_state = opt.init(want)
+        want, _, one_loss, _ = go.make_allreduce_train_step(loss_fn, opt)(
+            want, one_state, batch, step0)
+        del one_state
+        fn, args, pl = specs.build_train_step(cfg, shape, mesh,
+                                              optimizer=optimizer)
+        on = mesh
+        mine = batch
+    dp = distribute_params(params, on, pl[0])
+    dopt = distribute_params(zeros_of(args[1], dev), on, pl[1])
+    dbatch = distribute_params(mine, on, pl[3])
+    dstep = distribute_params({"s": step0}, on, {"s": pl[2]})["s"]
+    del params
+    torch.cuda.empty_cache()
+    sent = gc.quantize_send.launches
+    sent.update(dict.fromkeys(sent, 0))
+    real_send, rows = gc.quantize_send, []
+
+    def keep_rows(w, name, *a, **kw):
+        rows.append(w)
+        return real_send(w, name, *a, **kw)
+    gc.quantize_send = keep_rows
+    keep_rows.launches = real_send.launches
+    compat.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        (new_p, _, new_step, loss), wall = _sync_wall(
+            lambda: fn(dp, dopt, dstep, dbatch))
+    finally:
+        gc.quantize_send = real_send
+    launches = dict(sent)
+    stats = _stats()
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                 else loss)
+    gaps = [_leaf_gap(a.full_tensor(), b) for a, b in
+            zip(tree_leaves(new_p), tree_leaves(want))]
+    out = dict(loss=loss, one_loss=float(one_loss), wall_s=wall,
+               step=int(new_step), launches=launches, stats=stats,
+               peak_bytes=peak, leaves=len(gaps),
+               max_gap=max(a for a, _ in gaps),
+               differ=max(b for _, b in gaps),
+               w_up_pl=[str(p) for p in
+                        dp["blocks"][0]["ffn"]["w_up"].placements],
+               routes=sorted({gc.send_route(
+                   r.shape[-1], "int8", gc.send_aligned(r)) for r in rows}))
+    del dp, dopt, new_p, want
+    torch.cuda.empty_cache()
+    if gossip:
+        dist.barrier()
+        if rank == 0:
+            out["send"] = time_exchange_kernel("int8", rows, card,
+                                               phase="14")
+        dist.barrier()
+    return out
+
+
+def phase14_rank(rank: int, world: int, card: str) -> dict:
+    """Phase 14 in one rank: on 2 ranks (a) and the all-reduce step of
+    (c); on 4 ranks (b) and the gossip step of (c)."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    out = {"device": str(torch.device("cuda", torch.cuda.current_device()))}
+    if world == 2:
+        out["serve"] = tp_serve(rank, card, make_mesh(TP_MESH,
+                                                      ("data", "model")))
+        out["train"] = tp_train(rank, world, card,
+                                make_mesh((2, 1), ("data", "model")), False)
+    else:
+        out["moe"] = tp_moe(rank, card, make_mesh(MOE_MESH,
+                                                  ("data", "model")))
+        torch.cuda.empty_cache()
+        out["train"] = tp_train(rank, world, card,
+                                make_mesh((2, 2), ("data", "model")), True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase14(card: str, results: dict) -> list:
+    """The LM across ranks (``launch/specs.py``): ranks share the card
+    over gloo (``launch.mesh.run_ranks``; DTensor's collectives staged
+    through host memory, ``sharding.compat.stage_functional_collectives``),
+    each held to a one-process run of the same seeded weights in its own
+    process. (a) qwen3-1.7b whole, tensor parallel over 2 ranks: the
+    prefill logits within ``LM_PATH_LOGIT_TOL``, 28 launches of #8 a rank
+    on its 8 query and 4 kv heads; (b) mixtral-8x22b's reduce combine on
+    4 ranks; (c) a sharded train step, all-reduce and gossip. Two or four
+    processes on one card measure what the layout costs, not how it
+    scales. Returns the ``kernels`` line's rows."""
+    from repro_torch.launch.mesh import run_ranks
+    t_start = time.perf_counter()
+    out = results["phase14"] = {}
+    two = run_ranks(phase14_rank, 2, card, device_type="cuda",
+                    timeout_s=400.0, pg_timeout_s=300.0)
+    four = run_ranks(phase14_rank, 4, card, device_type="cuda",
+                     timeout_s=400.0, pg_timeout_s=300.0)
+    serve = [r["serve"] for r in two]
+    for rank, s in enumerate(serve):
+        if s["launches"] != {"tensor_core": 28, "cuda_core": 0}:
+            raise AssertionError(f"phase 14 (a): rank {rank} launched #8 "
+                                 f"{s['launches']}")
+        if s["local_q"] != [TP_BATCH, TP_PROMPT, 8, 128] \
+                or s["local_k"] != [TP_BATCH, TP_PROMPT, 4, 128]:
+            raise AssertionError(f"phase 14 (a): rank {rank}'s #8 took q "
+                                 f"{s['local_q']}, k {s['local_k']}")
+        if not s["err"] <= LM_PATH_LOGIT_TOL:
+            raise AssertionError(f"phase 14 (a): rank {rank}'s prefill "
+                                 f"logits off by {s['err']}")
+        print(f"[14] {card}: (a) {TP_ARCH} whole ({TP_BATCH} x {TP_PROMPT} "
+              f"prompt, bf16), TP over {TP_MESH} (data, model), rank "
+              f"{rank}: prefill logits within {s['err']:.4f} of the one-"
+              f"process run (largest |logit| {s['top']:.3f}, tolerance "
+              f"{LM_PATH_LOGIT_TOL}); greedy tokens equal {s['same_tokens']:.4f}"
+              f" over {TP_STEPS} steps (first {s['first_same']:.2f}); "
+              f"prefill {s['prefill_s'] * 1e3:.1f} ms (one process "
+              f"{s['one_prefill_s'] * 1e3:.1f} ms), decode "
+              f"{s['decode_ms']:.2f} ms/step (one process "
+              f"{s['one_decode_ms']:.2f}); #8 {s['launches']} on q "
+              f"{s['local_q']} k {s['local_k']}; wq {s['wq_pl']}, logits "
+              f"{s['logits_pl']}, cache {s['cache_pl']}; peak "
+              f"{s['peak_bytes'] / 2**30:.2f} GiB")
+        print(f"[14] {card}: (a) rank {rank} collectives: prefill "
+              f"{s['prefill_stats']}; decode {s['decode_stats']}")
+    moe_runs = [r["moe"] for r in four]
+    for rank, m in enumerate(moe_runs):
+        if m["combine"] != {"reduce": MOE_LAYERS, "gather": 0}:
+            raise AssertionError(f"phase 14 (b): rank {rank} took "
+                                 f"{m['combine']}, not the reduce combine")
+        if m["launches"]["tensor_core"] != MOE_LAYERS:
+            raise AssertionError(f"phase 14 (b): rank {rank} launched #8 "
+                                 f"{m['launches']}")
+        if not m["err"] <= LM_PATH_LOGIT_TOL:
+            raise AssertionError(f"phase 14 (b): rank {rank}'s logits off "
+                                 f"by {m['err']}")
+        print(f"[14] {card}: (b) {MOE_ARCH} at {MOE_LAYERS} of 56 layers, "
+              f"{MOE_BATCH} x {MOE_SEQ} tokens, {MOE_MESH} (data, model), G "
+              f"= {m['groups']}, rank {rank}: combine {m['combine']}; "
+              f"logits within {m['err']:.4f} of the one-process gather "
+              f"combine (largest |logit| {m['top']:.3f}), expert choices "
+              f"pinned; prefill {m['wall_s'] * 1e3:.1f} ms (one process "
+              f"{m['one_s'] * 1e3:.1f} ms); #8 {m['launches']} on q "
+              f"{m['local_q']} k {m['local_k']} window {m['window']}; w_up "
+              f"{m['w_up_pl']}; collectives {m['stats']}; peak "
+              f"{m['peak_bytes'] / 2**30:.2f} GiB")
+    for label, runs in (("all-reduce (AdamW), (2, 1)",
+                         [r["train"] for r in two]),
+                        ("gossip (mu, int8, SGD), (2, 2)",
+                         [r["train"] for r in four])):
+        for rank, t in enumerate(runs):
+            ok_loss = abs(t["loss"] - t["one_loss"]) <= \
+                TRAIN_LOSS_RTOL * abs(t["one_loss"])
+            if not ok_loss or not t["max_gap"] <= TRAIN_PARAM_FRAC \
+                    or t["step"] != TRAIN_STEP + 1:
+                raise AssertionError(
+                    f"phase 14 (c) {label}: rank {rank} loss {t['loss']} vs "
+                    f"{t['one_loss']}, largest leaf gap {t['max_gap']:.3e}, "
+                    f"step {t['step']}")
+            print(f"[14] {card}: (c) {TP_ARCH} at {TRAIN_LAYERS} layers, "
+                  f"{label}, rank {rank}: loss {t['loss']:.6f} (one process "
+                  f"{t['one_loss']:.6f}); every leaf within "
+                  f"{t['max_gap']:.3e} of its largest value (bar "
+                  f"{TRAIN_PARAM_FRAC:.3e}), at most {t['differ']:.4f} of a "
+                  f"leaf's elements differ; step {t['wall_s'] * 1e3:.1f} ms;"
+                  f" w_up {t['w_up_pl']}; #2 {t['launches']} "
+                  f"({t['routes']}); collectives {t['stats']}; peak "
+                  f"{t['peak_bytes'] / 2**30:.2f} GiB")
+    gossip = [r["train"] for r in four]
+    for rank, t in enumerate(gossip):
+        if t["launches"].get("affine8", 0) != t["leaves"]:
+            raise AssertionError(f"phase 14 (c): rank {rank} launched #2 "
+                                 f"{t['launches']}, not once a leaf "
+                                 f"({t['leaves']})")
+    out.update(serve=serve, moe=moe_runs, train=[r["train"] for r in two],
+               gossip=gossip, rank_seconds=[r["seconds"] for r in two + four])
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"[14] {card}: phase 14 took {out['seconds']:.1f} s")
+    row = serve[0]["row"]
+    send = gossip[0]["send"]
+    return [dict(
+        name="flash_attention[tensor_core:tp]", route="cuda",
+        source=FLASH_SOURCES["tensor_core"], replaces=FLASH_REPLACES,
+        launches=serve[0]["launches"]["tensor_core"],
+        launches_by_rank=[s["launches"]["tensor_core"] for s in serve],
+        max_abs_err=row["max_abs_err"], ms=row["ms"],
+        plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"],
+        shape=row["shape"], kv_heads=row["kv_heads"]), dict(
+        name="quantize_send_affine8[tp]", route="cuda",
+        source="src/repro_torch/kernels/csrc/quantize_send.cu",
+        replaces="src/repro/kernels/gossip_cycle.py:422",
+        launches=gossip[0]["launches"]["affine8"],
+        launches_by_rank=[t["launches"]["affine8"] for t in gossip],
+        max_abs_err=0.0, ms=send["ms"], plain_ms=send["plain_ms"],
+        bound_ms=send["bound_ms"], bound_by=send["bound_by"],
+        library_ms=None, send_route=send["routes"])]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -4952,9 +5458,14 @@ def main() -> int:
     phase(13)
     kernels.extend(phase13(card, results, dev, cfg3, X, y, n3, cycles,
                            outcomes, threefry))
+    torch.cuda.empty_cache()
+
+    # ---- 14. the LM across ranks -------------------------------------------
+    phase(14)
+    kernels.extend(phase14(card, results))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - start
-    print(f"[13] {card}: the whole run took {results['total_s']:.1f} s")
+    print(f"[14] {card}: the whole run took {results['total_s']:.1f} s")
     if opts.out:
         out = Path(opts.out)
         out.parent.mkdir(parents=True, exist_ok=True)

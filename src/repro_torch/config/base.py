@@ -10,7 +10,8 @@ four workload shapes, and ``MeshConfig``, ``TrainConfig``, ``ServeConfig``
 and ``RunConfig`` the run settings, field for field the reference's.
 ``MoEConfig.sharding`` and ``combine`` are the
 reference's mesh settings; on one device only the gather combine runs,
-as in the reference.
+as in the reference, and under a mesh ``models/moe.py``'s per-rank body
+takes the reduce combine where the reference's rule does.
 
 One meaning differs: ``attn_impl``'s default is ``"flash"``, the flash
 kernel (#8, ``kernels/flash_attention.py``): on CUDA tensors it runs the
@@ -181,7 +182,8 @@ INPUT_SHAPES = {
 class MeshConfig:
     """The reference's device mesh (data x model, times pods). The port's
     meshes are ``DeviceMesh``es of ranks (``launch.mesh.make_mesh``); the
-    production mesh waits for its dry run (ROADMAP.md queue 1)."""
+    production mesh is one over a fake process group
+    (``launch.mesh.make_production_mesh``)."""
 
     data: int = 16
     model: int = 16

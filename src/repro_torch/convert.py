@@ -321,6 +321,72 @@ def _lm_tree(cfg: cfg_base.ModelConfig, tree: Mapping, device, lead: int):
     return build(model_spec(cfg), ())
 
 
+def lm_axes_to_reference(cfg: cfg_base.ModelConfig, axes):
+    """The port's logical-axes tree (``transformer.param_axes``) in the
+    reference's layout (``lm_params_to_reference``'s): the layers of
+    pattern position j under ``blocks/l{j}``, each leaf with the 'layers'
+    axis in front (``layers.stack_spec``), the remainder layers under
+    ``tail/t{j}``, the encoder's layers stacked into ``encoder/blocks``."""
+    from repro_torch.sharding.rules import map_leaves
+
+    def stack(*xs):
+        if any(x != xs[0] for x in xs):
+            raise ValueError(f"stacked layers differ in axes: {xs}")
+        return ("layers",) + tuple(xs[0])
+
+    def stacked(layers):
+        return map_leaves(stack, layers[0], *layers[1:])
+
+    out = {k: v for k, v in axes.items() if k != "blocks"}
+    if "encoder" in axes:
+        out["encoder"] = dict(axes["encoder"],
+                              blocks=stacked(axes["encoder"]["blocks"]))
+    layers = axes["blocks"]
+    period = len(cfg.layer_pattern)
+    nb = cfg.num_layers // period
+    if nb > 0:
+        out["blocks"] = {f"l{j}": stacked(layers[j:nb * period:period])
+                         for j in range(period)}
+    if nb * period < cfg.num_layers:
+        out["tail"] = {f"t{j}": layer for j, layer
+                       in enumerate(layers[nb * period:])}
+    return out
+
+
+def lm_tree_from_reference(cfg: cfg_base.ModelConfig, tree: Mapping,
+                           unstack):
+    """A tree in the reference's parameter layout, of any leaves (arrays,
+    partition specs), in the port's: layer i's leaf is ``unstack(leaf,
+    i // period)`` of ``blocks/l{i % period}`` (or ``unstack(leaf, i)`` of
+    ``encoder/blocks``), a ``tail`` layer's its own."""
+    from repro_torch.models.layers import P
+    from repro_torch.models.transformer import model_spec
+    period = len(cfg.layer_pattern)
+    nb = cfg.num_layers // period
+
+    def leaf(path):
+        index = None
+        if path[:2] == ("encoder", "blocks"):
+            path, index = ("encoder", "blocks") + path[3:], path[2]
+        elif path[0] == "blocks":
+            i, rest = path[1], path[2:]
+            if i < nb * period:
+                path, index = ("blocks", f"l{i % period}") + rest, i // period
+            else:
+                path = ("tail", f"t{i - nb * period}") + rest
+        node = tree
+        for name in path:
+            node = node[name]
+        return node if index is None else unstack(node, index)
+
+    def build(spec, prefix):
+        if isinstance(spec, list):
+            return [build(s, prefix + (i,)) for i, s in enumerate(spec)]
+        return {name: leaf(prefix + (name,)) if isinstance(s, P)
+                else build(s, prefix + (name,)) for name, s in spec.items()}
+    return build(model_spec(cfg), ())
+
+
 def gossip_state_from_arrays(params, opt_state, step, device,
                              cfg: cfg_base.ModelConfig = None):
     """The reference's ``GossipState`` (its peer-stacked params, its

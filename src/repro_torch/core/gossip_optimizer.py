@@ -135,9 +135,48 @@ def _peer_axis(mesh, peer_axes, n_perm: int):
     return compat.mesh_axis(mesh, tuple(peer_axes))
 
 
+def _whole_rows(x):
+    """A DTensor leaf resharded so that its local shard holds whole rows
+    of its last axis (which the codecs encode a row at a time): a shard
+    of the last axis moves to the first where the first divides, else it
+    is gathered. Returns (the leaf, its placements before)."""
+    from torch.distributed.tensor import Replicate, Shard
+    before = list(x.placements)
+    last = x.ndim - 1
+    mesh = x.device_mesh
+    want = list(before)
+    for m, p in enumerate(before):
+        if p.is_partial():
+            want[m] = Replicate()
+        if not p.is_shard(last):
+            continue
+        lead_free = last > 0 and not any(q.is_shard(0) for q in want)
+        want[m] = (Shard(0) if lead_free and x.shape[0] % mesh.size(m) == 0
+                   else Replicate())
+    if want != before:
+        x = x.redistribute(mesh, want)
+    return x, before
+
+
 def _merge_on_ranks(params, pairs, axis, codec, cast_dtype):
     """The merge of a rank's own peer (no peer dim) with the partner
-    whose rows arrive over ``axis``."""
+    whose rows arrive over ``axis``. A DTensor leaf (a peer held
+    tensor-parallel over the ranks of a peer's other mesh axes) is merged
+    shard by shard: the partner of the same model shard sends its local
+    rows, each whole (:func:`_whole_rows`), so a quantized row is encoded
+    with the scale of the whole row, as on one device."""
+    from repro_torch.sharding.act import from_block, is_dtensor
+
+    def avg_leaf(x):
+        if not is_dtensor(x):
+            return avg(x)
+        rows, before = _whole_rows(x)
+        out = from_block(avg(rows.to_local()), rows.device_mesh,
+                         rows.placements, rows.shape)
+        if list(out.placements) != before:
+            out = out.redistribute(out.device_mesh, before)
+        return out
+
     def avg(x):
         if codec is not None:
             # encode this rank's rows, permute the codes with their scale
@@ -154,7 +193,7 @@ def _merge_on_ranks(params, pairs, axis, codec, cast_dtype):
             xin = compat.ppermute(x.to(cast_dtype), pairs, axis)
         return ((x.to(torch.float32) + xin.to(torch.float32)) / 2.0).to(
             x.dtype)
-    return tree_map(avg, params)
+    return tree_map(avg_leaf, params)
 
 
 @torch.no_grad()
@@ -233,6 +272,12 @@ def _value_and_grad(loss_fn, params, batch):
     return loss.detach(), metrics, grads
 
 
+def _plain(x):
+    """A DTensor's whole value as a plain tensor; a tensor as it is."""
+    from repro_torch.sharding.act import is_dtensor
+    return x.full_tensor() if is_dtensor(x) else x
+
+
 def make_gossip_train_step(loss_fn: Callable, opt: Optimizer, n_peers: int,
                            cfg: GossipConfig, *,
                            spmd_axis: Optional[str] = None, mesh=None,
@@ -261,7 +306,7 @@ def make_gossip_train_step(loss_fn: Callable, opt: Optimizer, n_peers: int,
 
     if axis is not None:                # one peer a rank
         merge_kw.update(mesh=mesh, peer_axes=peer_axes)
-        reduce_sq = lambda sq: compat.psum(sq, axis)  # noqa: E731
+        reduce_sq = lambda sq: compat.psum(_plain(sq), axis)  # noqa: E731
 
         def local_update(params, opt_state, batch, step):
             loss, metrics, g = _value_and_grad(loss_fn, params, batch)
@@ -269,8 +314,8 @@ def make_gossip_train_step(loss_fn: Callable, opt: Optimizer, n_peers: int,
             grads = tree_map(lambda p: next(it), params)
             new_params, new_opt = opt.update(grads, opt_state, params, step,
                                              reduce_sq=reduce_sq)
-            return (new_params, new_opt, compat.psum(loss, axis) / n_peers,
-                    metrics)
+            return (new_params, new_opt,
+                    compat.psum(_plain(loss), axis) / n_peers, metrics)
     else:                               # the peers stacked
 
         def local_update(params, opt_state, batch, step):

@@ -19,6 +19,7 @@ port, these run on the CUDA card unless the caller passes
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import tempfile
@@ -53,12 +54,56 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
                             mesh_dim_names=tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16 x 16 (x 2 pods) mesh: waits for its dry run on a
-    fake process group (ROADMAP.md queue 1 item 11, second half)."""
-    raise NotImplementedError(
-        "make_production_mesh: the 256/512-rank mesh waits for its dry run "
-        "on a fake process group (ROADMAP.md queue 1 item 11, second half)")
+def start_fake_group(world_size: int) -> None:
+    """Start this process's default process group as a fake one of
+    ``world_size`` ranks, this process rank 0 (PyTorch's ``FakeStore``
+    and ``"fake"`` backend: collectives return without moving data, so
+    only ``meta`` tensors may go on it). The dry run's stand-in for a pod
+    of cards; end it with :func:`end_fake_group`."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already started in this "
+                           "process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
+def end_fake_group() -> None:
+    """End the fake group of :func:`start_fake_group` (and every mesh and
+    subgroup on it); nothing in the process sees it afterwards."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def fake_group(world_size: int):
+    """:func:`start_fake_group` for the body of a ``with``, ended on the
+    way out whatever happens in it."""
+    start_fake_group(world_size)
+    try:
+        yield
+    finally:
+        end_fake_group()
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The reference's 16 x 16 ``("data", "model")`` mesh, or 2 x 16 x 16
+    ``("pod", "data", "model")`` with ``multi_pod``, over the fake group
+    of 256 or 512 ranks that :func:`start_fake_group` started in this
+    process: shapes and placements at production size, for ``meta``
+    tensors only."""
+    import torch.distributed as dist
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = 512 if multi_pod else 256
+    if not dist.is_initialized() or dist.get_backend() != "fake" \
+            or dist.get_world_size() != world:
+        raise RuntimeError(f"make_production_mesh needs the fake group of "
+                           f"{world} ranks: start_fake_group({world})")
+    return make_mesh(shape, axes, device_type)
 
 
 def make_smoke_mesh(device_type: str = "cuda"):
@@ -90,7 +135,9 @@ def init_rank(rank: int, world_size: int, init_method: str, *,
     so that concurrent runs never race for a TCP port); ``timeout_s``
     bounds every collective, so a rank that dies makes the others raise
     instead of hanging. On CUDA a rank takes card ``rank % device_count``
-    (all ranks share card 0 on a one-card machine)."""
+    (all ranks share card 0 on a one-card machine), and on ``gloo`` its
+    DTensor collectives are staged through host memory
+    (``sharding.compat.stage_functional_collectives``)."""
     import torch.distributed as dist
     _check_device_type(device_type)
     backend = rank_backend(world_size, device_type)
@@ -99,6 +146,9 @@ def init_rank(rank: int, world_size: int, init_method: str, *,
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size,
                             timeout=timedelta(seconds=timeout_s))
+    if backend == "gloo" and device_type == "cuda":
+        from repro_torch.sharding import compat
+        compat.stage_functional_collectives()
     return backend
 
 

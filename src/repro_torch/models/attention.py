@@ -27,6 +27,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config.base import AttentionConfig
 from repro_torch.models.layers import (P, meta, rmsnorm, rmsnorm_spec, wcast,
                                        zeros_of)
+from repro_torch.sharding import act
+from repro_torch.sharding.act import write_into
 
 NEG_INF = -1e30
 
@@ -61,12 +63,16 @@ def apply_rope(x, positions, theta: float):
 def attention_spec(d_model: int, a: AttentionConfig,
                    dtype=torch.float32) -> Dict:
     s = {
-        "wq": P((d_model, a.num_heads, a.head_dim), init="fan_in", dtype=dtype),
-        "wk": P((d_model, a.num_kv_heads, a.head_dim), init="fan_in",
+        "wq": P((d_model, a.num_heads, a.head_dim),
+                ("embed", "heads", "head_dim"), init="fan_in", dtype=dtype),
+        "wk": P((d_model, a.num_kv_heads, a.head_dim),
+                ("embed", "kv_heads", "head_dim"), init="fan_in",
                 dtype=dtype),
-        "wv": P((d_model, a.num_kv_heads, a.head_dim), init="fan_in",
+        "wv": P((d_model, a.num_kv_heads, a.head_dim),
+                ("embed", "kv_heads", "head_dim"), init="fan_in",
                 dtype=dtype),
-        "wo": P((a.num_heads, a.head_dim, d_model), init="fan_in", dtype=dtype),
+        "wo": P((a.num_heads, a.head_dim, d_model),
+                ("heads", "head_dim", "embed"), init="fan_in", dtype=dtype),
     }
     if a.qk_norm:
         s["q_norm"] = rmsnorm_spec(a.head_dim, dtype)
@@ -112,7 +118,10 @@ def _inv_sqrt(hd: int) -> float:
 def _grouped_sdpa(q, k, v, a: AttentionConfig, q_pos, k_pos, compute_dtype):
     """Grouped-query attention without repeating K/V: q (B, Sq, H, hd),
     k/v (B, Sk, KV, hd), q_pos (Sq,), k_pos (Sk,). Logits and softmax in
-    f32; the probabilities are cast to the compute dtype before P V."""
+    f32; the probabilities are cast to the compute dtype before P V. On
+    DTensors, :func:`_sdpa_on_ranks`."""
+    if act.is_dtensor(q):
+        return _sdpa_on_ranks(q, k, v, a, q_pos, k_pos, compute_dtype)
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, sq, kv, h // kv, hd)
@@ -184,6 +193,98 @@ def _banded_sdpa(q, k, v, a: AttentionConfig, positions, compute_dtype,
     return torch.cat(out, dim=1)
 
 
+def _local_qkv(q, k, v, keep_length: bool = False):
+    """Each rank's shards of DTensors q, k, v for a per-rank attention
+    body (the reference's ``shard_map`` around an attention call): q in
+    ``act.shard_heads``' layout (batch over the batch axes, heads over
+    model, under an activation context), and the kv heads its query heads
+    read under GQA (q head h reads kv head h // (H / KV)): its own shard
+    of k/v where the kv heads split as the query heads do, else the slice
+    it needs of the replicated k/v (8 kv heads on a 16-way model axis).
+    With ``keep_length`` a shard of k/v's length dim stays where q is
+    replicated (the context-parallel decode cache). Returns (q, k, v
+    local, q's placements, k's)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    ql, qp = act.local_block(act.shard_heads(q), keep=(0, 2))
+    h, kv = q.shape[2], k.shape[2]
+    rep = h // kv
+    (_, _, hl, _), (_, _, h0, _) = act.local_offset(q.shape, mesh, qp)
+    aligned = hl % rep == 0
+    held = act.is_dtensor(k)
+    kp = []
+    for m, p in enumerate(qp):
+        if p.is_shard(2) and aligned:
+            kp.append(Shard(2))
+        elif p.is_shard(0):
+            kp.append(Shard(0))
+        elif keep_length and held and not p.is_shard(2) \
+                and k.placements[m].is_shard(1):
+            kp.append(Shard(1))
+        else:
+            kp.append(Replicate())
+    kl, vl = ((t.redistribute(mesh, kp) if list(t.placements) != kp else t)
+              .to_local() if held else t for t in (k, v))
+    if not aligned:
+        if rep % hl:
+            raise ValueError(f"{hl} local query heads of {h} straddle the "
+                             f"kv heads ({rep} query heads a kv head)")
+        kl = kl[:, :, h0 // rep:h0 // rep + 1]
+        vl = vl[:, :, h0 // rep:h0 // rep + 1]
+    return ql, kl, vl, qp, kp
+
+
+def _sdpa_on_ranks(q, k, v, a: AttentionConfig, q_pos, k_pos,
+                   compute_dtype):
+    """The grouped attention on each rank's shards (:func:`_local_qkv`).
+    Where the keys' length is sharded (the context-parallel decode cache)
+    each rank takes its slots' logits, the logits of a row are gathered
+    over the length shards for the softmax (B x KV x rep x Sq x S floats:
+    a decode step's is small), and each rank's P V over its slots is
+    summed over them (``sharding.compat``). The output keeps q's
+    placements."""
+    from repro_torch.sharding import compat
+    mesh = q.device_mesh
+    ql, kl, vl, qp, kp = _local_qkv(q, k, v, keep_length=True)
+    names = mesh.mesh_dim_names
+    length = tuple(names[m] for m, p in enumerate(kp) if p.is_shard(1))
+    (_, s_l, _, _), (_, off, _, _) = act.local_offset(k.shape, mesh, kp)
+    b, sq, hl, hd = ql.shape
+    kvl = kl.shape[2]
+    qg = ql.reshape(b, sq, kvl, hl // kvl, hd)
+    logits = torch.einsum("bqgrk,bsgk->bgrqs", qg.float(),
+                          kl.float()) * _inv_sqrt(hd)
+    mask = make_mask(a, q_pos, k_pos[off:off + s_l])[0, 0]
+    logits = torch.where(mask, logits, NEG_INF)
+    if length:
+        axis = compat.mesh_axis(mesh, length)
+        rows = logits.movedim(-1, 0).contiguous()
+        full = compat.gather_rows([rows], [s_l] * axis.size, axis)[0]
+        probs = torch.softmax(full.movedim(0, -1), dim=-1)
+        probs = probs[..., off:off + s_l]
+    else:
+        probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgrqs,bsgk->bqgrk", probs.to(compute_dtype),
+                       vl.to(compute_dtype))
+    if length:
+        out = compat.psum(out.float(), axis).to(out.dtype)
+    return act.from_block(out.reshape(b, sq, hl, hd), mesh, qp, q.shape)
+
+
+def _flash(q, k, v, a: AttentionConfig):
+    """Kernel #8 (``kernels/ops.py::flash_attention``); on DTensors a
+    per-rank body on each rank's batch rows and heads
+    (:func:`_local_qkv`), its output at q's placements."""
+    from repro_torch.kernels import ops as kops
+    if not act.is_dtensor(q):
+        return kops.flash_attention(q, k, v, causal=a.causal,
+                                    window=a.sliding_window)
+    ql, kl, vl, qp, _ = _local_qkv(q, k, v)
+    out = kops.flash_attention(ql, kl, vl, causal=a.causal,
+                               window=a.sliding_window)
+    return act.from_block(out, q.device_mesh, qp, q.shape)
+
+
 def cross_sdpa(q, k, v, a: AttentionConfig, q_pos, compute_dtype):
     """Cross-attention over a whole source: the grouped attention with no
     causal mask and no window, the source at positions 0 .. S_src - 1."""
@@ -218,9 +319,7 @@ def attention(params, a: AttentionConfig, x, *, positions=None,
     if kv_source is not None:
         out = cross_sdpa(q, k, v, a, positions[0], compute_dtype)
     elif impl == "flash":
-        from repro_torch.kernels import ops as kops
-        out = kops.flash_attention(q, k, v, causal=a.causal,
-                                   window=a.sliding_window)
+        out = _flash(q, k, v, a)
     elif impl == "xla":
         out = _grouped_sdpa(q, k, v, a, positions[0], positions[0],
                             compute_dtype)
@@ -281,8 +380,9 @@ def decode_attention(params, a: AttentionConfig, x, cache, index: int, *,
     n_slots = cache["k"].shape[1]
     # the reference's dynamic_update_slice clamps a start past the end
     slot = index % n_slots if window is not None else min(index, n_slots - 1)
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    # into the shard that holds the slot when the cache is a DTensor
+    write_into(cache["k"], k_new[:, 0].to(cache["k"].dtype), slot)
+    write_into(cache["v"], v_new[:, 0].to(cache["v"].dtype), slot)
 
     # absolute key position of each slot (ring-buffer aware)
     slots = torch.arange(n_slots, dtype=torch.int64, device=x.device)

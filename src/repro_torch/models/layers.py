@@ -14,14 +14,22 @@ reproduced across processes; the port draws its leaves in spec order from
 one generator instead, and the tests carry the reference's weights across
 (``convert.lm_params_from_arrays``).
 
-The logical sharding axes of the reference's specs are left out: the port
-has no mesh yet (ROADMAP queue 1 item 11).
+Every ``P`` carries the reference's logical axis names (``axes``, one a
+dim): ``spec_axes`` gives the tree of them, which ``sharding/rules.py``
+resolves into a mesh's placements. The vocabulary is the reference's:
+'vocab', 'embed', 'embed_table' (the embedding's model dim, never FSDP),
+'ffn', 'heads', 'kv_heads', 'head_dim', 'expert', 'expert_ffn',
+'expert_router', 'state', 'conv', 'layers' (the reference's stacking
+axis: ``stack_spec``), or None. The port keeps its layers in a list, so
+its own specs carry no 'layers' dim; ``transformer.param_axes`` gives the
+reference's nesting.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Tuple
+import dataclasses
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,12 +38,18 @@ from torch import nn
 
 @dataclass(frozen=True)
 class P:
-    """Parameter spec: shape, initializer and dtype."""
+    """Parameter spec: shape, logical axes, initializer and dtype."""
 
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
     init: str = "normal"        # normal | zeros | ones | fan_in
     scale: float = 0.02
     dtype: Any = torch.float32
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             "differ in length")
 
 
 def _flatten_spec(spec, prefix=()):
@@ -45,6 +59,26 @@ def _flatten_spec(spec, prefix=()):
         path = prefix + (k,)
         out.extend([(path, v)] if isinstance(v, P) else _flatten_spec(v, path))
     return out
+
+
+def _map_spec(spec, fn):
+    """``fn`` of every leaf of a spec tree (dicts and lists), same nesting."""
+    if isinstance(spec, list):
+        return [_map_spec(s, fn) for s in spec]
+    return {k: fn(v) if isinstance(v, P) else _map_spec(v, fn)
+            for k, v in spec.items()}
+
+
+def spec_axes(spec):
+    """The logical-axes tree of a spec (same nesting as the params)."""
+    return _map_spec(spec, lambda p: p.axes)
+
+
+def stack_spec(spec, n: int):
+    """Prepend a 'layers' axis of length ``n`` to every leaf of a spec (the
+    reference's scan stacking)."""
+    return _map_spec(spec, lambda p: dataclasses.replace(
+        p, shape=(n,) + p.shape, axes=("layers",) + p.axes))
 
 
 def spec_param_count(spec) -> int:
@@ -134,7 +168,7 @@ def init_params(spec, generator: torch.Generator, device) -> Params:
 
 
 def rmsnorm_spec(d: int, dtype=torch.float32):
-    return {"scale": P((d,), init="ones", dtype=dtype)}
+    return {"scale": P((d,), ("embed",), init="ones", dtype=dtype)}
 
 
 def rmsnorm(params, x, eps: float = 1e-6):
@@ -146,8 +180,8 @@ def rmsnorm(params, x, eps: float = 1e-6):
 
 
 def layernorm_spec(d: int, dtype=torch.float32):
-    return {"scale": P((d,), init="ones", dtype=dtype),
-            "bias": P((d,), init="zeros", dtype=dtype)}
+    return {"scale": P((d,), ("embed",), init="ones", dtype=dtype),
+            "bias": P((d,), ("embed",), init="zeros", dtype=dtype)}
 
 
 def layernorm(params, x, eps: float = 1e-5):
@@ -161,13 +195,18 @@ def layernorm(params, x, eps: float = 1e-5):
 
 def mlp_spec(d_model: int, d_ff: int, act: str, dtype=torch.float32):
     if act == "swiglu":
-        return {"w_gate": P((d_model, d_ff), init="fan_in", dtype=dtype),
-                "w_up": P((d_model, d_ff), init="fan_in", dtype=dtype),
-                "w_down": P((d_ff, d_model), init="fan_in", dtype=dtype)}
-    return {"w_up": P((d_model, d_ff), init="fan_in", dtype=dtype),
-            "b_up": P((d_ff,), init="zeros", dtype=dtype),
-            "w_down": P((d_ff, d_model), init="fan_in", dtype=dtype),
-            "b_down": P((d_model,), init="zeros", dtype=dtype)}
+        return {"w_gate": P((d_model, d_ff), ("embed", "ffn"),
+                            init="fan_in", dtype=dtype),
+                "w_up": P((d_model, d_ff), ("embed", "ffn"), init="fan_in",
+                          dtype=dtype),
+                "w_down": P((d_ff, d_model), ("ffn", "embed"),
+                            init="fan_in", dtype=dtype)}
+    return {"w_up": P((d_model, d_ff), ("embed", "ffn"), init="fan_in",
+                      dtype=dtype),
+            "b_up": P((d_ff,), ("ffn",), init="zeros", dtype=dtype),
+            "w_down": P((d_ff, d_model), ("ffn", "embed"), init="fan_in",
+                        dtype=dtype),
+            "b_down": P((d_model,), ("embed",), init="zeros", dtype=dtype)}
 
 
 def wcast(w, x):
@@ -212,12 +251,27 @@ def causal_conv(params, x, conv_state=None):
 
 
 def embedding_spec(vocab: int, d_model: int, dtype=torch.float32):
-    return {"table": P((vocab, d_model), init="normal", scale=0.02,
+    # the model dim is never FSDP ('embed_table' maps to no mesh axis): the
+    # table is vocab-sharded over 'model' already, and a second sharding
+    # turns every lookup into a full-batch all-reduce (the reference's note)
+    return {"table": P((vocab, d_model), ("vocab", "embed_table"),
+                       init="normal", scale=0.02,
                        dtype=dtype)}
 
 
 def embed(params, tokens, compute_dtype):
-    return params["table"].to(compute_dtype)[tokens.long()]
+    """The table's rows at ``tokens``. On DTensors a vocab-sharded table
+    is looked up on each shard and the partial rows summed here (the
+    vocab-parallel embedding's all-reduce); under autograd, whose
+    backward DTensor lacks for that lookup, the table is gathered first
+    (its gradient reduce-scattered back)."""
+    from repro_torch.sharding.act import is_dtensor, resolve_partial
+    table = params["table"].to(compute_dtype)
+    if is_dtensor(table) and table.requires_grad:
+        from torch.distributed.tensor import Replicate
+        table = table.redistribute(table.device_mesh,
+                                   [Replicate()] * table.device_mesh.ndim)
+    return resolve_partial(F.embedding(tokens.long(), table))
 
 
 def unembed(params, x):
@@ -227,5 +281,6 @@ def unembed(params, x):
 
 def positional_embedding_spec(max_len: int, d_model: int, dtype=torch.float32):
     """Learned positions (whisper's decoder): a (max_len, d_model) table."""
-    return {"pos": P((max_len, d_model), init="normal", scale=0.02,
+    return {"pos": P((max_len, d_model), (None, "embed"), init="normal",
+                     scale=0.02,
                      dtype=dtype)}

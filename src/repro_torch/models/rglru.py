@@ -37,17 +37,24 @@ def rglru_spec(d_model: int, r: RGLRUConfig, dtype=torch.float32) -> Dict:
     width, heads = rglru_dims(d_model, r)
     hw = width // heads
     return {
-        "w_x": P((d_model, width), init="fan_in", dtype=dtype),
-        "w_y": P((d_model, width), init="fan_in", dtype=dtype),
-        "conv_w": P((r.d_conv, width), init="fan_in", dtype=dtype),
-        "conv_b": P((width,), init="zeros", dtype=dtype),
+        "w_x": P((d_model, width), ("embed", "ffn"), init="fan_in",
+                 dtype=dtype),
+        "w_y": P((d_model, width), ("embed", "ffn"), init="fan_in",
+                 dtype=dtype),
+        "conv_w": P((r.d_conv, width), ("conv", "ffn"), init="fan_in",
+                    dtype=dtype),
+        "conv_b": P((width,), ("ffn",), init="zeros", dtype=dtype),
         # block-diagonal gates (recurrence gate a, input gate i)
-        "w_a": P((heads, hw, hw), init="fan_in", dtype=dtype),
-        "b_a": P((heads, hw), init="zeros", dtype=dtype),
-        "w_i": P((heads, hw, hw), init="fan_in", dtype=dtype),
-        "b_i": P((heads, hw), init="zeros", dtype=dtype),
-        "lam": P((width,), init="normal", scale=0.5, dtype=torch.float32),
-        "w_out": P((width, d_model), init="fan_in", dtype=dtype),
+        "w_a": P((heads, hw, hw), ("heads", None, None), init="fan_in",
+                 dtype=dtype),
+        "b_a": P((heads, hw), ("heads", None), init="zeros", dtype=dtype),
+        "w_i": P((heads, hw, hw), ("heads", None, None), init="fan_in",
+                 dtype=dtype),
+        "b_i": P((heads, hw), ("heads", None), init="zeros", dtype=dtype),
+        "lam": P((width,), ("ffn",), init="normal", scale=0.5,
+                 dtype=torch.float32),
+        "w_out": P((width, d_model), ("ffn", "embed"), init="fan_in",
+                   dtype=dtype),
     }
 
 

@@ -37,14 +37,17 @@ def ssm_spec(d_model: int, s: SSMConfig, dtype=torch.float32) -> Dict:
     d_inner, h, conv_dim = ssm_dims(d_model, s)
     d_in_proj = 2 * d_inner + 2 * s.n_groups * s.d_state + h
     return {
-        "w_in": P((d_model, d_in_proj), init="fan_in", dtype=dtype),
-        "conv_w": P((s.d_conv, conv_dim), init="fan_in", dtype=dtype),
-        "conv_b": P((conv_dim,), init="zeros", dtype=dtype),
-        "A_log": P((h,), init="zeros", dtype=torch.float32),
-        "D": P((h,), init="ones", dtype=torch.float32),
-        "dt_bias": P((h,), init="zeros", dtype=torch.float32),
+        "w_in": P((d_model, d_in_proj), ("embed", "ffn"), init="fan_in",
+                  dtype=dtype),
+        "conv_w": P((s.d_conv, conv_dim), ("conv", "ffn"), init="fan_in",
+                    dtype=dtype),
+        "conv_b": P((conv_dim,), ("ffn",), init="zeros", dtype=dtype),
+        "A_log": P((h,), ("heads",), init="zeros", dtype=torch.float32),
+        "D": P((h,), ("heads",), init="ones", dtype=torch.float32),
+        "dt_bias": P((h,), ("heads",), init="zeros", dtype=torch.float32),
         "norm": rmsnorm_spec(d_inner, dtype),
-        "w_out": P((d_inner, d_model), init="fan_in", dtype=dtype),
+        "w_out": P((d_inner, d_model), ("ffn", "embed"), init="fan_in",
+                   dtype=dtype),
     }
 
 

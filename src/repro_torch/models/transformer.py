@@ -34,9 +34,16 @@ place. The forward also takes a plain tree of tensors in that layout
 (nested dicts, ``"blocks"`` a list), as the training step passes one
 peer's parameters with gradients on. ``scan_layers`` means nothing here;
 under ``remat`` each layer is recomputed in the backward pass when
-gradients are on (the reference's ``jax.checkpoint`` of its block), and
-the reference's ``shard_activations`` is the identity outside a mesh.
+gradients are on (the reference's ``jax.checkpoint`` of its block).
 :func:`lm_loss` is the training loss.
+
+Under a mesh (``launch/specs.py``'s step builders) the parameters and
+the inputs are DTensors, and the forward constrains the activations where
+the reference does (``sharding/act.py``): the embeddings and each
+pattern period's output batch-sharded, the logits vocab-sharded. A
+decode-cache write lands in the shard that holds its slot
+(``act.write_into``); the fused prefill places its K/V rows in a per-rank
+body.
 """
 from __future__ import annotations
 
@@ -54,6 +61,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import P
+from repro_torch.sharding import act
+from repro_torch.sharding.act import shard_activations, shard_logits
 from repro_torch.utils.device import resolve_device
 
 KINDS = ("attn", "local", "ssm", "rglru", "cross", "selfcross")
@@ -110,8 +119,8 @@ def layer_spec(cfg: ModelConfig, kind: str) -> Dict:
         s["cross_attn"] = attn_mod.attention_spec(
             cfg.d_model, cfg.attention, cfg.param_dtype)
         if cfg.cross_attn and cfg.cross_attn.gated:
-            s["gate_attn"] = P((), init="zeros", dtype=torch.float32)
-            s["gate_ffn"] = P((), init="zeros", dtype=torch.float32)
+            s["gate_attn"] = P((), (), init="zeros", dtype=torch.float32)
+            s["gate_ffn"] = P((), (), init="zeros", dtype=torch.float32)
     if kind == "selfcross":
         s["lnx"] = _norm_spec(cfg)
         s["cross_attn"] = attn_mod.attention_spec(
@@ -134,13 +143,20 @@ def model_spec(cfg: ModelConfig) -> Dict:
     }
     if not cfg.tie_embeddings:
         spec["lm_head"] = {"w": P((cfg.d_model, cfg.vocab_size),
-                                  init="fan_in", dtype=cfg.param_dtype)}
+                                  ("embed_table", "vocab"), init="fan_in",
+                                  dtype=cfg.param_dtype)}
     if cfg.max_target_positions:
         spec["pos_embed"] = L.positional_embedding_spec(
             cfg.max_target_positions, cfg.d_model, cfg.param_dtype)
     if cfg.encoder is not None:
         spec["encoder"] = encdec.encoder_spec(cfg)
     return spec
+
+
+def param_axes(cfg: ModelConfig):
+    """The logical-axes tree of the parameters, in the port's layout
+    (``convert.lm_axes_to_reference`` stacks it into the reference's)."""
+    return L.spec_axes(model_spec(cfg))
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -170,7 +186,15 @@ def abstract_params(cfg: ModelConfig):
 
 def _kv_to_cache(k, v, length: int, dtype):
     """Place prompt K/V rows into a (B, L, KV, hd) decode cache at the
-    ring slots ``pos % L`` (the identity when the prompt fits)."""
+    ring slots ``pos % L`` (the identity when the prompt fits). On
+    DTensors, a per-rank body on each rank's batch and heads."""
+    if act.is_dtensor(k):
+        kl, pl = act.local_block(k, keep=(0, 2))
+        vl = v.redistribute(v.device_mesh, pl).to_local()
+        ckl, cvl = _kv_to_cache(kl, vl, length, dtype)
+        shape = (k.shape[0], length) + tuple(k.shape[2:])
+        return (act.from_block(ckl, k.device_mesh, pl, shape),
+                act.from_block(cvl, k.device_mesh, pl, shape))
     p = k.shape[1]
     lo = max(0, p - length)
     slots = torch.arange(lo, p, device=k.device) % length
@@ -310,15 +334,26 @@ def forward_hidden(params, cfg: ModelConfig, tokens, *, encoder_out=None,
                                    encoder_out)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp, kind in zip(params["blocks"], cfg.layer_kinds()):
+    x = shard_activations(x)
+    for i, (lp, kind) in enumerate(zip(params["blocks"], cfg.layer_kinds())):
         if remat:
             x, aux = checkpoint(_remat_layer, lp, kind, cfg, x, positions,
                                 aux, encoder_out, use_reentrant=False)
         else:
             x, aux = _apply_layer(lp, kind, cfg, x, positions=positions,
                                   aux=aux, encoder_out=encoder_out)
+        x = _period_end(cfg, i, x)
     x = _apply_norm(cfg, params["final_norm"], x)
     return x, aux
+
+
+def _period_end(cfg: ModelConfig, i: int, x):
+    """``shard_activations`` after layer ``i`` where it ends a pattern
+    period (the reference's scanned block; not in the remainder)."""
+    period = len(cfg.layer_pattern)
+    if (i + 1) % period or i + 1 > cfg.num_layers // period * period:
+        return x
+    return shard_activations(x)
 
 
 def _remat_layer(lp, kind, cfg, x, positions, aux, encoder_out):
@@ -354,9 +389,16 @@ def lm_loss(params, cfg: ModelConfig, tokens, labels, *, encoder_out=None,
 def _xent_sum(x, w, labels):
     """Summed cross-entropy of one chunk: logsumexp minus the gold logit,
     the logits in float32."""
-    logits = x.float() @ w.float()
+    logits = shard_logits(x.float() @ w.float())
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    if act.is_dtensor(logits):
+        # vocab-sharded logits: each shard picks the labels it holds (the
+        # sum over the vocab of a one-hot product, exact), summed over the
+        # shards; DTensor's masked gather has no backward
+        hot = torch.nn.functional.one_hot(labels, logits.shape[-1])
+        gold = torch.sum(logits * hot.to(logits.dtype), dim=-1)
+    else:
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     return torch.sum(logz - gold)
 
 
@@ -374,7 +416,7 @@ def forward(params, cfg: ModelConfig, tokens, *, encoder_out=None,
                             positions=positions)
     if last_only:
         x = x[:, -1:]
-    logits = x.float() @ _head_matrix(params, cfg).float()
+    logits = shard_logits(x.float() @ _head_matrix(params, cfg).float())
     return (logits[:, 0] if last_only else logits), aux
 
 
@@ -404,11 +446,13 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
                                    encoder_out)
     cache: List[Dict[str, torch.Tensor]] = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp, kind in zip(params["blocks"], cfg.layer_kinds()):
+    x = shard_activations(x)
+    for i, (lp, kind) in enumerate(zip(params["blocks"], cfg.layer_kinds())):
         x, aux, entry = _apply_layer(lp, kind, cfg, x, positions=positions,
                                      aux=aux, encoder_out=encoder_out,
                                      cache_len=cache_len, window=window)
         cache.append(entry)
+        x = _period_end(cfg, i, x)
     x = _apply_norm(cfg, params["final_norm"], x[:, -1:])
     logits = x.float() @ _head_matrix(params, cfg).float()
     return logits[:, 0], cache
@@ -502,7 +546,7 @@ def _apply_layer_decode(lp, lc, kind: str, cfg: ModelConfig, x, index: int):
                                             cfg.d_model, h, lc,
                                             compute_dtype=cd)
         for name, t in new.items():
-            lc[name].copy_(t)
+            act.write_into(lc[name], t)
     x = x + mix.to(x.dtype)
     if "ffn" in lp:
         out, _ = _ffn(lp, cfg, _apply_norm(cfg, lp["ln2"], x))

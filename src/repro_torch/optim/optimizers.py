@@ -21,6 +21,12 @@ The global-norm clip spans the whole tree it is given: in the gossip step
 that is every peer's gradients together, as in the reference. On a peer
 mesh each rank holds one peer's, and ``update``'s ``reduce_sq`` sums the
 squares over the peers before the root.
+
+Under a mesh (``launch/specs.py``) the leaves are DTensors: the state is
+made at the parameters' placements, a gradient is resharded to its
+parameter's placements (the data-parallel all-reduce or reduce-scatter),
+and the element-wise update runs on each rank's local shards in place; a
+leaf's squares are summed over its shards for the clip.
 """
 from __future__ import annotations
 
@@ -40,16 +46,37 @@ class Optimizer(NamedTuple):
     name: str
 
 
+def _local(*tensors):
+    """The tensors as they are, or, when the first (a parameter) is a
+    DTensor, each one's local shard at the parameter's placements (a
+    gradient resharded to them first; the state is made at them)."""
+    from torch.distributed.tensor import DTensor
+    p = tensors[0]
+    if not isinstance(p, DTensor):
+        return tensors
+    out = []
+    for t in tensors:
+        if list(t.placements) != list(p.placements):
+            t = t.redistribute(p.device_mesh, p.placements)
+        out.append(t.to_local())
+    return tuple(out)
+
+
 def _slices(*tensors) -> Iterator[Tuple[torch.Tensor, ...]]:
-    """Matching flat slices of same-shaped contiguous tensors."""
-    flat = [t.view(-1) for t in tensors]
+    """Matching flat slices of same-shaped contiguous tensors (of the
+    local shards of DTensors)."""
+    flat = [t.view(-1) for t in _local(*tensors)]
     for lo in range(0, flat[0].numel(), CHUNK):
         yield tuple(f[lo:lo + CHUNK] for f in flat)
 
 
 def _global_norm(tree, reduce_sq=None) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
     total = 0
     for x in tree_leaves(tree):
+        if isinstance(x, DTensor):
+            total = total + torch.sum(torch.square(x.float())).full_tensor()
+            continue
         total = total + sum(torch.sum(torch.square(c.float()))
                             for (c,) in _slices(x))
     total = torch.as_tensor(total, dtype=torch.float32)
@@ -78,8 +105,13 @@ def _grad32(g, scale):
 
 
 def _zeros(params, dtype=None):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=dtype or p.dtype,
-                                          device=p.device), params)
+    from torch.distributed.tensor import DTensor
+
+    def zeros(p):
+        if isinstance(p, DTensor):
+            return torch.zeros_like(p, dtype=dtype or p.dtype)
+        return torch.zeros(p.shape, dtype=dtype or p.dtype, device=p.device)
+    return tree_map(zeros, params)
 
 
 def sgd(lr_schedule, grad_clip: float = 0.0) -> Optimizer:

@@ -250,6 +250,109 @@ def gather_rows(tensors: Sequence[torch.Tensor], counts: Sequence[int],
     return unpack_rows(out, tensors)
 
 
+def _group_size(group_name) -> int:
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return dist.get_world_size(_resolve_process_group(group_name))
+
+
+def _staged_call(op: str, name: str, inputs, args, wire_of):
+    """Run functional collective ``name`` on pinned host copies of the
+    CUDA ``inputs`` (the op's own CPU kernel), wait for it, copy the
+    results back, and count each input's bytes as ``op``."""
+    fn = getattr(torch.ops._c10d_functional, name)
+    dev = inputs[0].device
+    _sync(inputs[0])
+    t0 = time.perf_counter()
+    hosts = [_to_host(t) for t in inputs]
+    outs = fn(hosts if name.endswith("coalesced") else hosts[0], *args)
+    outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+    outs = [torch.ops._c10d_functional.wait_tensor(o).to(dev) for o in outs]
+    _sync(outs[0])
+    seconds = time.perf_counter() - t0
+    for t in inputs:
+        nbytes = t.numel() * t.element_size()
+        _record(op, nbytes, wire_of(nbytes), seconds / len(inputs))
+    return outs
+
+
+_STAGED_LIB = None
+
+
+def stage_functional_collectives() -> None:
+    """Route the functional collectives (``torch.ops._c10d_functional``,
+    which DTensor's redistributions and ``full_tensor`` issue) of CUDA
+    tensors through pinned host memory, as the collectives above are
+    routed on a ``gloo`` group: on an H100 with PyTorch 2.11 ``gloo`` ran
+    ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+    ``all_to_all_single``, ``all_reduce``, ``broadcast`` and ``scatter``
+    of CUDA tensors through ``torch.distributed``, but the first DTensor
+    redistribution of a CUDA tensor killed both ranks (SIGSEGV). A CUDA
+    implementation of each op is registered over the library's own; it
+    runs the op's CPU kernel on host copies. Each call is counted in
+    :data:`STATS` by the rules of the module docstring (a reduce-scatter
+    as the all-reduce's first half: (G-1)/G of its operand on the wire).
+    For the ranks of one process group that share a card (``gloo``);
+    once a process, kept until it exits."""
+    global _STAGED_LIB
+    if _STAGED_LIB is not None:
+        return
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+
+    def all_reduce(x, reduce_op, group_name):
+        g = _group_size(group_name)
+        return _staged_call("all-reduce", "all_reduce", [x],
+                            (reduce_op, group_name),
+                            lambda n: 2 * n * (g - 1) // max(g, 1))[0]
+
+    def all_reduce_(x, reduce_op, group_name):
+        return x.copy_(all_reduce(x, reduce_op, group_name))
+
+    def all_reduce_coalesced(xs, reduce_op, group_name):
+        g = _group_size(group_name)
+        return _staged_call("all-reduce", "all_reduce_coalesced", list(xs),
+                            (reduce_op, group_name),
+                            lambda n: 2 * n * (g - 1) // max(g, 1))
+
+    def all_gather_into_tensor(x, group_size, group_name):
+        return _staged_call("all-gather", "all_gather_into_tensor", [x],
+                            (group_size, group_name),
+                            lambda n: n * (group_size - 1))[0]
+
+    def all_gather_into_tensor_coalesced(xs, group_size, group_name):
+        return _staged_call("all-gather", "all_gather_into_tensor_coalesced",
+                            list(xs), (group_size, group_name),
+                            lambda n: n * (group_size - 1))
+
+    def reduce_scatter_tensor(x, reduce_op, group_size, group_name):
+        return _staged_call("reduce-scatter", "reduce_scatter_tensor", [x],
+                            (reduce_op, group_size, group_name),
+                            lambda n: n * (group_size - 1) // group_size)[0]
+
+    def reduce_scatter_tensor_coalesced(xs, reduce_op, group_size,
+                                        group_name):
+        return _staged_call("reduce-scatter",
+                            "reduce_scatter_tensor_coalesced", list(xs),
+                            (reduce_op, group_size, group_name),
+                            lambda n: n * (group_size - 1) // group_size)
+
+    def all_to_all_single(x, output_split_sizes, input_split_sizes,
+                          group_name):
+        return _staged_call("all-to-all", "all_to_all_single", [x],
+                            (output_split_sizes, input_split_sizes,
+                             group_name), lambda n: n)[0]
+
+    def broadcast(x, src, group_name):
+        return _staged_call("broadcast", "broadcast", [x], (src, group_name),
+                            lambda n: n)[0]
+
+    for fn in (all_reduce, all_reduce_, all_reduce_coalesced,
+               all_gather_into_tensor, all_gather_into_tensor_coalesced,
+               reduce_scatter_tensor, reduce_scatter_tensor_coalesced,
+               all_to_all_single, broadcast):
+        lib.impl(fn.__name__, fn, "CUDA")
+    _STAGED_LIB = lib
+
+
 def psum(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """``lax.psum``: the sum of every index's ``x``, on every rank (a new
     tensor)."""

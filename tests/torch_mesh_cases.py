@@ -2,8 +2,9 @@
 
 ``mesh_ranks`` runs in every rank of a spawned ``gloo`` group
 (``repro_torch.launch.mesh.run_ranks``), on the CPU: the node mesh's
-cases (``engine_ranks``) and the peer mesh's (``gossip_ranks``), one
-group a size for both files. It returns what the parent tests compare.
+cases (``engine_ranks``), the peer mesh's (``gossip_ranks``) and the LM's
+step builders on DTensors (``lm_ranks``), one group a size for the three
+files. It returns what the parent tests compare.
 The ranks also run the one-process counterparts (the one-device engine,
 a case a rank in turn; the stacked step on rank 0), so both sides of a
 bit-for-bit comparison run in processes with one thread. The groups of
@@ -32,9 +33,10 @@ from repro_torch.optim import constant, make_optimizer
 
 
 def mesh_ranks(rank, world):
-    """Both files' rank bodies in one group."""
+    """The three files' rank bodies in one group."""
     return {"engine": engine_ranks(rank, world),
-            "gossip": gossip_ranks(rank, world)}
+            "gossip": gossip_ranks(rank, world),
+            "lm": lm_ranks(rank, world)}
 
 
 def shared_ranks(tmp_path_factory, world: int):
@@ -294,6 +296,231 @@ def gossip_ranks(rank, world):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the LM on a mesh (launch/specs.py's step builders)
+# ---------------------------------------------------------------------------
+
+LM_BATCH, LM_PROMPT, LM_CACHE, LM_STEPS = 2, 32, 96, 3
+# the train cases' step counter: past half the builders' 100 warmup steps,
+# so the step's learning rate (1.5e-4) moves the weights
+LM_TRAIN_STEP = 50
+
+
+def lm_config(kind: str):
+    """The LM cases' configs: reduced qwen3-1.7b at widths whose matrices
+    pass the rules' 2^16 elements (d_model 256, 8 query heads of 64, d_ff
+    512, vocab 1024), with 4 kv heads ("dense") or 2 ("kv2": on a 4-way
+    model axis the rules replicate them while the query heads split);
+    "train" is "dense" on the chunked attention; "moe" is reduced
+    mixtral-8x22b (4 experts, top 2, d_ff_expert 256, 'tensor' sharding)
+    at d_model 128. All float32."""
+    import dataclasses
+    from repro_torch.config import get_config, reduced_config
+    if kind == "moe":
+        cfg = reduced_config(get_config("mixtral-8x22b"), d_model=128,
+                             layers=2, vocab=512)
+        return cfg.replace(attn_impl="xla")
+    cfg = reduced_config(get_config("qwen3-1.7b"), d_model=256, layers=2,
+                         vocab=1024)
+    kv = 2 if kind == "kv2" else 4
+    cfg = cfg.replace(attention=dataclasses.replace(
+        cfg.attention, num_heads=8, num_kv_heads=kv, head_dim=64))
+    if kind == "train":
+        return cfg.replace(attn_impl="chunked", attn_chunk=16, xent_chunk=16)
+    return cfg.replace(attn_impl="flash")
+
+
+def lm_tokens(seed, shape, vocab):
+    return np.random.default_rng(seed).integers(0, vocab, shape).astype(
+        np.int32)
+
+
+def _np_tree(tree):
+    """DTensors and tensors of a tree as numpy arrays (whole values)."""
+    from repro_torch.sharding.act import is_dtensor
+    from repro_torch.utils.tree import tree_map
+
+    def one(t):
+        t = t.full_tensor() if is_dtensor(t) else t
+        return t.detach().float().numpy().copy()
+    return tree_map(one, tree)
+
+
+def _placed(tree):
+    """The placements of a tree's DTensors, as strings, by leaf."""
+    from repro_torch.utils.tree import tree_leaves_with_path
+    return {"/".join(map(str, p)): [str(x) for x in t.placements]
+            for p, t in tree_leaves_with_path(tree)}
+
+
+def _flash_recorder():
+    """Wrap kernel #8's entry in ``models/attention.py``'s per-rank body
+    to record the local (q, k) shapes it gets; returns the list and an
+    undo."""
+    from repro_torch.kernels import ops as kops
+    real, seen = kops.flash_attention, []
+
+    def wrapper(q, k, v, **kw):
+        seen.append((tuple(q.shape), tuple(k.shape)))
+        return real(q, k, v, **kw)
+    kops.flash_attention = wrapper
+    return seen, lambda: setattr(kops, "flash_attention", real)
+
+
+def lm_serve_case(mesh, kind: str, profiles=("context", "batch")):
+    """The prefill step (logits), the fused prefill into each profile's
+    cache, LM_STEPS decode steps on it: logits, the final cache, the
+    placements of the weights, the cache and the logits, and kernel #8's
+    local shapes."""
+    import torch
+    from repro_torch.config import InputShape
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.rules import distribute_params
+    cfg = lm_config(kind)
+    params = T.init_params(cfg, device="cpu", seed=7)
+    toks = torch.from_numpy(lm_tokens(3, (LM_BATCH, LM_PROMPT),
+                                      cfg.vocab_size))
+    shape = InputShape("t", LM_PROMPT, LM_BATCH, "prefill")
+    seen, undo = _flash_recorder()
+    try:
+        fn, args, pl = specs.build_prefill_step(cfg, shape, mesh)
+        dp = distribute_params(params, mesh, pl[0])
+        batch = distribute_params({"tokens": toks}, mesh, pl[1])
+        logits = fn(dp, batch)
+        out = {"prefill": _np_tree(logits), "flash": list(seen),
+               "params_pl": _placed(dp), "logits_pl":
+               [str(x) for x in logits.placements], "decode": {}}
+        for profile in profiles:
+            dshape = InputShape("d", LM_CACHE, LM_BATCH, "decode")
+            dfn, dargs, dpl = specs.build_decode_step(cfg, dshape, mesh,
+                                                      profile=profile)
+            pfn, _, ppl = specs.build_prefill_step(
+                cfg, shape, mesh, cache_len=LM_CACHE,
+                decode_profile=profile)
+            first, cache = pfn(dp, batch)
+            steps = []
+            tok = torch.argmax(first.full_tensor(), -1).to(torch.int32)
+            for i in range(LM_STEPS):
+                dtok = distribute_params({"t": tok}, mesh, {"t": dpl[1]})
+                lg, cache = dfn(dp, dtok["t"], cache, LM_PROMPT + i)
+                steps.append(_np_tree(lg))
+                tok = torch.argmax(lg.full_tensor(), -1).to(torch.int32)
+            out["decode"][profile] = {
+                "first": _np_tree(first), "steps": steps,
+                "cache": _np_tree(cache), "cache_pl": _placed(cache)}
+    finally:
+        undo()
+    return out
+
+
+def lm_moe_case(mesh):
+    """``moe_ffn`` of the reduced MoE at 'tensor' sharding under the
+    mesh, G = 2 groups over 'data', with the reduce and the gather
+    combine: outputs, aux, the combine counts and the placements."""
+    import dataclasses
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.act import activation_sharding
+    cfg = lm_config("moe")
+    out = {}
+    for combine in ("reduce", "gather"):
+        m = dataclasses.replace(cfg.moe, dispatch_groups=2, combine=combine)
+        spec = moe.moe_spec(cfg.d_model, m, cfg.act)
+        params = L.init_params(spec, torch.Generator().manual_seed(5), "cpu")
+        ps = rules.params_pspecs(L.spec_axes(spec), params, mesh,
+                                 rules.default_rules(moe_sharding="tensor"))
+        dp = rules.distribute_params(params, mesh, ps)
+        x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+            (2, 16, cfg.d_model)).astype(np.float32))
+        dx = rules.distribute_params({"x": x}, mesh,
+                                     {"x": rules.PS("data")})["x"]
+        before = dict(moe.COMBINE_COUNTS)
+        with activation_sharding(mesh, ("data",)):
+            y, aux = moe.moe_ffn(dp, m, dx, cfg.act)
+        out[combine] = {
+            "y": _np_tree(y), "aux": _np_tree(aux),
+            "counts": {k: moe.COMBINE_COUNTS[k] - before[k]
+                       for k in before},
+            "params_pl": _placed(dp), "y_pl": [str(p) for p in y.placements]}
+    return out
+
+
+def lm_train_case(mesh, gossip: bool, optimizer: str = "adamw"):
+    """One ``build_train_step`` step (``optimizer``, at step
+    LM_TRAIN_STEP) of the "train" config: all-reduce on the mesh as placed
+    by the rules, or gossip (mu, int8) with a peer a ``data`` rank and
+    each peer's weights drawn from its own seed. Returns the loss, the new
+    params and the placements."""
+    import torch
+    from repro_torch.config import GossipConfig, InputShape
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import zeros_of
+    from repro_torch.sharding import compat
+    from repro_torch.sharding.rules import distribute_params
+    cfg = lm_config("train")
+    shape = InputShape("t", 32, 4, "train")
+    if gossip:
+        peers = mesh.mesh.shape[0]
+        me = compat.mesh_axis(mesh, ("data",)).index
+        fn, args, pl = specs.build_train_step(
+            cfg, shape, mesh, optimizer=optimizer,
+            gossip=GossipConfig(merge="mu", exchange_dtype="int8"),
+            n_peers=peers)
+        inner = specs.peer_mesh(mesh)
+        params = T.init_params(cfg, device="cpu", seed=20 + me)
+        toks = lm_tokens(30, (peers, 4 // peers, 33), cfg.vocab_size)[me]
+        on = inner
+    else:
+        fn, args, pl = specs.build_train_step(cfg, shape, mesh,
+                                              optimizer=optimizer)
+        params = T.init_params(cfg, device="cpu", seed=20)
+        toks = lm_tokens(30, (4, 33), cfg.vocab_size)
+        on = mesh
+    dp = distribute_params(params, on, pl[0])
+    dopt = distribute_params(zeros_of(args[1], "cpu"), on, pl[1])
+    batch = {"tokens": torch.from_numpy(toks[..., :-1].copy()),
+             "labels": torch.from_numpy(toks[..., 1:].copy())}
+    dbatch = distribute_params(batch, on, pl[3])
+    step = distribute_params({"s": torch.tensor(LM_TRAIN_STEP,
+                                                dtype=torch.int32)}, on,
+                             {"s": pl[2]})["s"]
+    placed = _placed(dp)
+    new_p, _, new_step, loss = fn(dp, dopt, step, dbatch)
+    return {"loss": float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                          else loss),
+            "params": _np_tree(new_p), "params_pl": placed,
+            "step": int(new_step.full_tensor() if hasattr(
+                new_step, "full_tensor") else new_step)}
+
+
+def lm_ranks(rank, world):
+    """The LM cases of a group: on 2 ranks tensor parallel (1, 2), the
+    decode cache's length over data (2, 1) and FSDP training (2, 1; AdamW
+    and SGD); on 4 ranks (2, 2) serving, the MoE combines and gossip
+    training (SGD), and (1, 4) with the kv heads replicated."""
+    torch.set_num_threads(1)
+    out = {}
+    if world == 2:
+        tp = make_mesh((1, 2), ("data", "model"), "cpu")
+        out["tp"] = lm_serve_case(tp, "dense")
+        dp = make_mesh((2, 1), ("data", "model"), "cpu")
+        out["length"] = lm_serve_case(dp, "dense", profiles=("context",))
+        out["train_allreduce"] = {opt: lm_train_case(dp, False, opt)
+                                  for opt in ("adamw", "sgd")}
+    else:
+        m22 = make_mesh((2, 2), ("data", "model"), "cpu")
+        out["tp2x2"] = lm_serve_case(m22, "dense")
+        out["moe"] = lm_moe_case(m22)
+        out["train_gossip"] = lm_train_case(m22, True, "sgd")
+        m14 = make_mesh((1, 4), ("data", "model"), "cpu")
+        out["kv2"] = lm_serve_case(m14, "kv2", profiles=("context",))
+    return out
+
+
 # the groups a test session starts, by size: the smoke mesh's one rank,
-# and both files' 2- and 4-rank groups
+# and the three files' 2- and 4-rank groups
 GROUPS = {1: smoke_rank, 2: mesh_ranks, 4: mesh_ranks}
