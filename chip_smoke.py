@@ -254,6 +254,25 @@ and ``nvcc``. The phases, each of which raises on failure:
    leaf on each rank's local rows, held bit for bit to its plain version
    and timed on rank 0), within ``TRAIN_LOSS_RTOL`` and
    ``TRAIN_PARAM_FRAC`` of the one-process steps.
+15. everything under a mesh (2 ranks sharing the card over gloo): (a)
+   phase 5's served population on a ``("nodes",)`` mesh, armed, a
+   ``GossipServer`` on each rank's shard (the cache never gathered):
+   every voted and fresh answer, the curves, the economy, the fault
+   counters and every stream bit for bit phase 5's armed one-process
+   run, #1 and #5 on each shard (timed on rank 0's), each rank's span
+   split; phase 4's int4_ef armed, its EF residual within
+   ``EF_MESH_RTOL`` of a one-process armed run (bit for bit said where
+   so), #3 timed on rank 0's shard; (b) mamba2-780m (4 of 48 layers),
+   recurrentgemma-9b (one period), whisper-medium (2 encoder and 2
+   decoder layers, 1500 frames, a 256-token prompt inside its 448
+   positions) and llama-3.2-vision-11b (one period, 1601 patches) at
+   their published widths (mamba2 computing in float32), tensor parallel
+   on (1, 2): a fused prefill of 2 x 1024 tokens (whisper 2 x 256) and 8
+   greedy steps each, prefill logits within
+   ``LM_PATH_LOGIT_TOL`` of the one-process run, #8 on the ranks' local
+   heads (hd 256 with the one kv head replicated; the vision model's
+   16 of 32 query and 4 of 8 kv heads) timed on rank 0's against its
+   bound and SDPA, the collectives and each rank's peak.
 
 Prints one JSON line of per-kernel results (with phase 3's armed seconds
 by span under ``"phase3_spans"``), the ``nvidia-smi`` name and power
@@ -895,28 +914,37 @@ def time_voted(snap, X_test, m: int, seed: int) -> dict:
     import numpy as np
     import torch
     from repro_torch.core import serving
-    from repro_torch.kernels import voted_predict as vp
     rng = np.random.default_rng(seed)
     dev = snap.w.device
     Xq = torch.from_numpy(X_test[rng.integers(0, len(X_test), m)]).to(dev)
     aq = torch.from_numpy(serving.assign_queries(
         m, snap.count.shape[0], seed=seed)).to(dev)
-    compare_voted(snap.w, snap.count, Xq, aq)
-    kernel = lambda: vp.voted_predict_batched(snap.w, snap.count, Xq, aq)
-    _, c, d = snap.w.shape
-    bound_ms, bound_by, nbytes = voted_bound(snap.count, aq, d)
+    return time_voted_on(snap.w, snap.count, Xq, aq)
+
+
+def time_voted_on(w, count, Xq, aq) -> dict:
+    """:func:`time_voted`'s checks and times on the given launch inputs:
+    the cache rows ``w`` and ``count``, the queries ``Xq`` and their rows
+    ``aq``."""
+    from repro_torch.core import serving
+    from repro_torch.kernels import voted_predict as vp
+    compare_voted(w, count, Xq, aq)
+    kernel = lambda: vp.voted_predict_batched(w, count, Xq, aq)
+    _, c, d = w.shape
+    bound_ms, bound_by, nbytes = voted_bound(count, aq, d)
     lanes = {n: graph_time_ms(lambda: vp._launch(
-        snap.w, snap.count, Xq, aq, route="grouped", lanes=n), reps=50)
+        w, count, Xq, aq, route="grouped", lanes=n), reps=50)
         for n in sorted({32, vp.grouped_lanes_all(c, d)})}
     return dict(
         route=vp.voted_route(d, c), ms=graph_time_ms(kernel, reps=50),
         grouped_lanes_ms=lanes,
         strided_ms=graph_time_ms(lambda: vp._launch(
-            snap.w, snap.count, Xq, aq, route="strided"), reps=50),
+            w, count, Xq, aq, route="strided"), reps=50),
         call_ms=cuda_time_ms(kernel, reps=50),
         plain_ms=graph_time_ms(lambda: serving.serve_voted(
-            snap.w, snap.count, Xq, aq), reps=20),
-        bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes)
+            w, count, Xq, aq), reps=20),
+        bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes,
+        queries=int(Xq.shape[0]))
 
 
 def bound(nbytes: float, ops: float):
@@ -1079,7 +1107,8 @@ def main_path(cfg, X, y, n: int, cycles: int, device, serve_hook=None,
     from repro_torch.kernels import voted_predict as vp
 
     recv, send = gc.fused_receive_apply, gc.quantize_send
-    got_recv, got_send = {}, {}
+    voted = vp.voted_predict_batched
+    got_recv, got_send, got_voted = {}, {}, {}
     clone = lambda v: v.clone() if isinstance(v, torch.Tensor) else v
 
     def capture_recv(*a, **kw):
@@ -3707,19 +3736,26 @@ def state_digest(state: dict) -> dict:
 
 
 def mesh_node_run(rank: int, cfg, X, y, n: int, cycles: int, threefry,
-                  mesh) -> dict:
-    """One main-path run of this rank over the node mesh, counts set to 0
-    just before it and read just after; rank 0 also times #1 (and #2 on
-    a quantized wire) on its last launch's inputs, a shard of N/W rows."""
+                  mesh, serve_hook=None, telemetry=None,
+                  final_state: bool = True) -> dict:
+    """One main-path run of this rank over the node mesh (with
+    ``serve_hook`` and ``telemetry`` where given), counts set to 0 just
+    before it and read just after; rank 0 also times #1 (and #2 on a
+    quantized wire, and #5 where the hook serves) on its last launch's
+    inputs, a shard of N/W rows, and digests every node's final lanes
+    (gathered) with ``final_state``."""
     import torch
     import torch.distributed as dist
+    from repro_torch.core import serving
     from repro_torch.core import sharded_engine as se
     from repro_torch.core.simulation import run_simulation
     from repro_torch.kernels import gossip_cycle as gc
+    from repro_torch.kernels import voted_predict as vp
     from repro_torch.sharding import compat
 
     recv, send = gc.fused_receive_apply, gc.quantize_send
-    got_recv, got_send = {}, {}
+    voted = vp.voted_predict_batched
+    got_recv, got_send, got_voted = {}, {}, {}
     calls = dict(recv=0, send=0)
     clone = lambda v: v.clone() if isinstance(v, torch.Tensor) else v
 
@@ -3740,6 +3776,11 @@ def mesh_node_run(rank: int, cfg, X, y, n: int, cycles: int, threefry,
                             ef=clone(ef), rows=clone(rows))
         return send(w, name, key=key, ef=ef, rows=rows)
 
+    def capture_voted(w, count, X, assign=None):
+        # the snapshot's lanes are the server's own copies, never written
+        got_voted.update(w=w, count=count, Xq=X.clone(), aq=assign.clone())
+        return voted(w, count, X, assign=assign)
+
     routed = dict(s=0.0, bytes=0, plan_s=0.0)
     route_chunk, chunk_tables = (se._HostRouter.route_chunk,
                                  se.NodeShard.chunk_tables)
@@ -3758,12 +3799,13 @@ def mesh_node_run(rank: int, cfg, X, y, n: int, cycles: int, threefry,
         return out
 
     gc.fused_receive_apply, gc.quantize_send = capture_recv, capture_send
+    serving.voted_predict_batched = capture_voted
     se._HostRouter.route_chunk = timed_route
     se.NodeShard.chunk_tables = timed_tables
     try:
-        recv.launches = 0
+        recv.launches = voted.launches = 0
         for counts in (recv.route_launches, send.launches,
-                       send.route_launches):
+                       send.route_launches, voted.route_launches):
             counts.update(dict.fromkeys(counts, 0))
         compat.reset_stats()
         dist.barrier()
@@ -3772,14 +3814,17 @@ def mesh_node_run(rank: int, cfg, X, y, n: int, cycles: int, threefry,
         res = run_simulation(cfg, X[:n], y[:n], X[n:], y[n:],
                              engine="sharded", cycles=cycles, eval_every=10,
                              seed=0, k_rounds=4, device="cuda", mesh=mesh,
-                             final_state=True)
+                             final_state=final_state, serve_hook=serve_hook,
+                             telemetry=telemetry)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, routes = recv.launches, dict(recv.route_launches)
         sends, send_routes = dict(send.launches), dict(send.route_launches)
+        voted_launches = (voted.launches, dict(voted.route_launches))
         stats, seconds = compat.STATS, dict(compat.SECONDS)
     finally:
         gc.fused_receive_apply, gc.quantize_send = recv, send
+        serving.voted_predict_batched = voted
         se._HostRouter.route_chunk = route_chunk
         se.NodeShard.chunk_tables = chunk_tables
     # the other way to share the tables: rank 0 routes alone and
@@ -3795,16 +3840,20 @@ def mesh_node_run(rank: int, cfg, X, y, n: int, cycles: int, threefry,
                wire_bytes=stats.wire_bytes, seconds=seconds,
                route_s=routed["s"], win_bytes=routed["bytes"],
                plan_s=routed["plan_s"], bcast_s=bcast_s,
-               compaction=res.compaction,
+               compaction=res.compaction, voted=voted_launches,
+               ef_residual_norm=res.ef_residual_norm,
                peak_bytes=torch.cuda.max_memory_allocated())
     if rank == 0:
-        out["digest"] = state_digest(res.final_state)
+        if final_state:
+            out["digest"] = state_digest(res.final_state)
         out["receive"] = time_receive(got_recv, cfg.variant, cfg.lam,
                                       X.shape[1])
         out["receive_rows"] = got_recv["x"].shape[0]
         if got_send:
             out["send"] = time_send_rows(got_send, threefry)
-    del res, got_recv, got_send
+        if got_voted:
+            out["voted_timing"] = time_voted_on(**got_voted)
+    del res, got_recv, got_send, got_voted
     torch.cuda.empty_cache()
     return out
 
@@ -4663,6 +4712,453 @@ def phase14(card: str, results: dict) -> list:
         library_ms=None, send_route=send["routes"])]
 
 
+# ---------------------------------------------------------------------------
+# phase 15: everything under a mesh: serving and telemetry on the node
+# mesh, the ssm, hybrid, audio and vlm families tensor parallel
+# ---------------------------------------------------------------------------
+
+SERVE_MESH_RANKS = 2
+# (b): each family at its published widths on a (1, 2) mesh, the depth cut
+# (printed): (arch, layers, encoder layers or None, batch, prompt, greedy
+# steps, kernel #8's route or None, the kernels line's row or None, the
+# compute dtype or None for the config's). whisper's prompt stays inside
+# its 448 learned positions (past them the reference's ring cache drops
+# keys its fused prefill saw). mamba2 runs twice: at 4 layers computing
+# in float32 beside its float32 weights (in bf16 its random-init logits
+# move 0.1998 between bf16 and f32 compute in one process, past
+# LM_PATH_LOGIT_TOL, so a 4-layer bf16 comparison of two layouts measures
+# rounding: 0.1454 over 2 ranks; f32: 2.8e-5), and at 1 layer in its
+# config's bf16, which runs the SSD body's bf16 casts (0.0102 over 2
+# ranks, the greedy tokens equal; measured on one H100)
+TP_FAMILY_MESH = (1, 2)
+TP_FAMILY_RUNS = (
+    ("mamba2-780m", 4, None, 2, 1024, 8, None, None, "float32"),
+    ("mamba2-780m", 1, None, 2, 1024, 8, None, None, None),
+    ("recurrentgemma-9b", 3, None, 2, 1024, 8, "tensor_core", "hd256_tp",
+     None),
+    ("whisper-medium", 2, 2, 2, 256, 8, None, None, None),
+    ("llama-3.2-vision-11b", 5, None, 2, 1024, 8, "tensor_core", "vlm_tp",
+     None),
+)
+TP_FAMILY_SEED = 15
+# (a): the int4_ef run's EF residual against the one-process run's: the
+# ranks gather every node's square and take the one-device mean, so bit
+# for bit is expected; the bar the run is held to
+EF_MESH_RTOL = 1e-6
+
+
+def tp_run_name(run) -> str:
+    """A ``TP_FAMILY_RUNS`` entry's name: the arch and its depth cut."""
+    return f"{run[0]}@{run[1]}"
+
+
+def served_mesh_run(rank: int, cfg, X, y, n: int, cycles: int, threefry,
+                    mesh, label: str) -> dict:
+    """(a): one armed main-path run over the node mesh with phase 5's
+    server (batches of 256, 2048 queries an eval point from its numpy
+    stream) on this rank's shard: the run's numbers, every answer, the
+    streams and this rank's span split; rank 0 checks and times #5 on
+    its last served launch's inputs (its own queries of a batch, on its
+    shard)."""
+    import numpy as np
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.launch.gossip_serve import GossipServer
+    tel = Telemetry(label=label)
+    server = GossipServer(batch_size=256, telemetry=tel)
+    hook, labels = feed_server(server, X[n:], y[n:], 2048)
+    out = mesh_node_run(rank, cfg, X, y, n, cycles, threefry, mesh,
+                        serve_hook=hook, telemetry=tel, final_state=False)
+    server.flush()
+    st = server.stats()
+    out.update(answers=server.answers(), fresh=server.answers_fresh(),
+               streams=dict(tel.streams), spans=span_split(tel),
+               span_ranks=sorted({sp.args.get("rank") for sp in tel.spans},
+                                 key=str),
+               report=tel.phase_report(), queries=st.queries,
+               batches=st.batches, queries_per_s=st.queries_per_sec,
+               p50_s=st.p50_latency_s, p99_s=st.p99_latency_s,
+               accuracy=float(np.mean(server.answers()
+                                      == np.concatenate(labels))),
+               shard=tuple(server.snapshot.shard[:5]),
+               shard_rows=server.snapshot.w.shape[0])
+    return out
+
+
+def tp_family(rank: int, card: str, mesh, run) -> dict:
+    """(b): one of ``TP_FAMILY_RUNS`` at full width: the one-process fused
+    prefill and greedy steps first, then ``build_prefill_step(cache_len=)``
+    and ``build_decode_step(profile="context")`` on the weights of the
+    same seed placed by the rules; #8 counted on the sharded prefill and,
+    on rank 0, timed on its last local q, k, v."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import random
+    from repro_torch.config import InputShape, get_config
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer as T
+    from repro_torch.models import vision as V
+    from repro_torch.sharding import compat
+    from repro_torch.sharding.rules import distribute_params
+    arch, layers, enc_layers, batch, prompt, steps, route, _, compute = run
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config(arch).replace(num_layers=layers)
+    if compute is not None:
+        cfg = cfg.replace(compute_dtype=getattr(torch, compute))
+    if enc_layers is not None:
+        cfg = cfg.replace(encoder=dataclasses.replace(
+            cfg.encoder, num_layers=enc_layers))
+    max_len = prompt + steps
+    params = T.init_params(cfg, device=dev, seed=TP_FAMILY_SEED)
+    set_gates(params)
+    g = torch.Generator(device=dev)
+    g.manual_seed(TP_FAMILY_SEED + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
+                            device=dev, dtype=torch.int32)
+    src = None
+    if cfg.family == "vlm":
+        src = V.dummy_patch_embeddings(random.key(0, dev), cfg, batch)
+    elif cfg.family == "audio":
+        src = V.dummy_frame_embeddings(random.key(0, dev), cfg, batch)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        (one, cache), one_prefill_s = _sync_wall(
+            lambda: T.prefill(params, cfg, prompts, max_len,
+                              encoder_out=src))
+        one_logits = one.float().cpu()
+        tok = torch.argmax(one, -1).to(torch.int32)
+        one_toks = [tok.cpu()]
+        t0 = time.perf_counter()
+        for i in range(steps - 1):
+            lg, cache = T.decode_step(params, cfg, tok, cache, prompt + i)
+            tok = torch.argmax(lg, -1).to(torch.int32)
+            one_toks.append(tok.cpu())
+        torch.cuda.synchronize()
+        one_decode_s = time.perf_counter() - t0
+    one_peak = torch.cuda.max_memory_allocated()
+    del cache, one
+    pshape = InputShape("tp", prompt, batch, "prefill")
+    dshape = InputShape("tp", max_len, batch, "decode")
+    pfn, _, ppl = specs.build_prefill_step(cfg, pshape, mesh,
+                                           cache_len=max_len,
+                                           decode_profile="context")
+    dfn, _, dpl = specs.build_decode_step(cfg, dshape, mesh,
+                                          profile="context")
+    dp = distribute_params(params, mesh, ppl[0])
+    del params
+    torch.cuda.empty_cache()
+    inputs = {"tokens": prompts}
+    if src is not None:
+        inputs["encoder_out"] = src
+    placed = distribute_params(inputs, mesh, ppl[1])
+    torch.cuda.reset_peak_memory_stats()
+    seen, undo = _record_flash()
+    _reset_flash()
+    compat.reset_stats()
+    try:
+        with torch.no_grad():
+            (logits, cache), prefill_s = _sync_wall(lambda: pfn(dp, placed))
+    finally:
+        undo()
+    launches = _flash_counts()
+    prefill_stats = _stats()
+    full = logits.full_tensor().float().cpu()
+    tok = torch.argmax(full, -1).to(torch.int32).to(dev)
+    toks = [tok.cpu()]
+    compat.reset_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(steps - 1):
+            dtok = distribute_params({"t": tok}, mesh, {"t": dpl[1]})["t"]
+            lg, cache = dfn(dp, dtok, cache, prompt + i)
+            tok = torch.argmax(lg.full_tensor(), -1).to(torch.int32)
+            toks.append(tok.cpu())
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_stats = _stats()
+    peak = torch.cuda.max_memory_allocated()
+    same = float(torch.mean((torch.stack(toks) == torch.stack(one_toks))
+                            .float()))
+    mixer = {"ssm": "ssm/w_in", "rglru": "rglru/w_x", "selfcross": "attn/wq",
+             "attn": "attn/wq"}[cfg.layer_kinds()[0]]
+    leaf = dp["blocks"][0]
+    for part in mixer.split("/"):
+        leaf = leaf[part]
+    state = cache[0].get("ssm", cache[0].get("h", cache[0].get("k")))
+    out = dict(
+        arch=arch, layers=layers, enc_layers=enc_layers,
+        compute=str(cfg.compute_dtype)[6:],
+        kinds=list(cfg.layer_kinds()), batch=batch, prompt=prompt,
+        steps=steps, params=cfg.param_count(),
+        finite=bool(torch.isfinite(full).all()),
+        err=float((full - one_logits).abs().max()),
+        top=float(one_logits.abs().max()), same_tokens=same,
+        prefill_s=prefill_s, decode_ms=decode_s * 1e3 / (steps - 1),
+        one_prefill_s=one_prefill_s,
+        one_decode_ms=one_decode_s * 1e3 / (steps - 1),
+        launches=launches, prefill_stats=prefill_stats,
+        decode_stats=decode_stats, peak_bytes=peak, one_peak_bytes=one_peak,
+        mixer=mixer, mixer_pl=[str(p) for p in leaf.placements],
+        mixer_split=leaf.placements[-1].is_shard(1),
+        state_pl=[str(p) for p in state.placements],
+        local_q=list(seen["q"].shape) if seen else None,
+        local_k=list(seen["k"].shape) if seen else None)
+    del dp, cache, placed, logits
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0 and seen:
+        out["row"] = family_kernel_row(card, f"{arch}[tp]", seen, route,
+                                       phase=15)
+    seen.clear()
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase15_rank(rank: int, world: int, card: str, cfg_fields: dict,
+                 ef_fields: dict, n: int, cycles: int,
+                 threefry: dict) -> dict:
+    """Phase 15 in one rank: (a) phase 5's served, armed run
+    (``cfg_fields``) and phase 4's int4_ef armed run (``ef_fields``) on a
+    ``("nodes",)`` mesh; (b) each family of ``TP_FAMILY_RUNS`` on a
+    ``TP_FAMILY_MESH`` (data, model) mesh."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.gossip_linear import GossipLinearConfig
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.data.synthetic import make_linear_dataset
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    nodes = make_mesh((world,), ("nodes",), "cuda")
+    rng = np.random.default_rng(0)
+    X, y = make_linear_dataset(rng, n + 1000, 10, noise=0.07,
+                               separation=2.5)
+    cfg = GossipLinearConfig(**cfg_fields)
+    out = {"device": str(torch.device("cuda", torch.cuda.current_device())),
+           "setup_s": time.perf_counter() - t0}
+    out["served"] = served_mesh_run(rank, cfg, X, y, n, cycles, threefry,
+                                    nodes, f"phase 15 rank {rank}")
+    tel = Telemetry()
+    ef = mesh_node_run(rank, GossipLinearConfig(**ef_fields), X, y, n,
+                       cycles, threefry, nodes, telemetry=tel,
+                       final_state=False)
+    ef["streams"] = dict(tel.streams)
+    out["ef"] = ef
+    del X, y
+    torch.cuda.empty_cache()
+    out["a_s"] = time.perf_counter() - t0
+    tp = make_mesh(TP_FAMILY_MESH, ("data", "model"), "cuda")
+    out["families"] = {}
+    for run in TP_FAMILY_RUNS:
+        t1 = time.perf_counter()
+        out["families"][tp_run_name(run)] = fam = tp_family(rank, card, tp,
+                                                             run)
+        fam["seconds"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase15(card: str, results: dict, cfg5, cfg3, X, y, n: int,
+            cycles: int, want5: dict, threefry: dict) -> list:
+    """Everything under a mesh: ``SERVE_MESH_RANKS`` processes share the
+    card over gloo (``launch.mesh.run_ranks``). (a) Phase 5's served
+    population on a ``("nodes",)`` mesh, armed: every voted and fresh
+    answer, the curves, the economy, the fault counters and every stream
+    bit for bit phase 5's one-process armed run, #1 and #5 on each rank's
+    shard (the cache never gathered); then phase 4's int4_ef armed, its
+    EF residual against a one-process armed run. (b) The ssm, hybrid,
+    audio and vlm families at their published widths, tensor parallel on
+    (1, 2), each rank against a one-process run of the same seed in its
+    own process: prefill logits within ``LM_PATH_LOGIT_TOL``, #8 on the
+    ranks' local heads. Returns the ``kernels`` line's rows."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core.simulation import run_simulation
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.launch.mesh import run_ranks
+    t_start = time.perf_counter()
+    out = results["phase15"] = {}
+    cfg_ef = dataclasses.replace(cfg3, wire_dtype="int4_ef")
+    tel = Telemetry()
+    res = run_simulation(cfg_ef, X[:n], y[:n], X[n:], y[n:],
+                         engine="sharded", cycles=cycles, eval_every=10,
+                         seed=0, k_rounds=4, device="cuda", telemetry=tel)
+    want_ef = dict(outcome=run_outcome(res),
+                   rms=list(tel.streams["ef_residual_rms"]),
+                   norm=res.ef_residual_norm, streams=dict(tel.streams))
+    del res
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(phase15_rank, SERVE_MESH_RANKS, card,
+                      dataclasses.asdict(cfg5), dataclasses.asdict(cfg_ef),
+                      n, cycles, threefry,
+                      device_type="cuda", timeout_s=600.0,
+                      pg_timeout_s=300.0)
+    spawn_s = time.perf_counter() - t0
+    print(f"[15] {card}: {SERVE_MESH_RANKS} ranks on {ranks[0]['device']} "
+          f"over gloo: {spawn_s:.1f} s from spawn to join, (a) "
+          f"{max(r['a_s'] for r in ranks):.1f} s a rank")
+    served = [r["served"] for r in ranks]
+    nl = n // SERVE_MESH_RANKS
+    for rank, s in enumerate(served):
+        bad = [what for what, ok in (
+            ("outcome", s["outcome"] == want5["outcome"]),
+            ("answers", np.array_equal(s["answers"], want5["answers"])),
+            ("fresh", np.array_equal(s["fresh"], want5["fresh"])),
+            ("streams", s["streams"] == want5["streams"]),
+            ("launches", s["launches"] == cycles
+             and s["routes"]["grouped"] == cycles),
+            ("voted", s["voted"][0] == want5["batches"] == s["batches"]),
+            ("shard", s["shard"] == (rank * nl, (rank + 1) * nl, rank,
+                                     SERVE_MESH_RANKS, n)
+             and s["shard_rows"] == nl),
+            ("spans", s["span_ranks"] == [rank])) if not ok]
+        if bad:
+            raise AssertionError(f"phase 15 (a): rank {rank}'s served run "
+                                 f"differs from phase 5's armed run in "
+                                 f"{bad}")
+        sp = s["spans"]
+        print(f"[15] {card}: (a) served N={n} over {SERVE_MESH_RANKS} ranks "
+              f"(sign_flip 10 % + norm_clip, armed), rank {rank}: curves, "
+              "economy, fault counters, every stream and all "
+              f"{len(s['answers'])} voted and fresh answers bit for bit "
+              f"phase 5's armed one-process run; #1 {s['launches']} "
+              f"({s['routes']}), #5 {s['voted'][0]} ({s['voted'][1]}) on "
+              f"its shard of {s['shard_rows']} rows; {s['queries']} queries "
+              f"in {s['batches']} batches: {s['queries_per_s']:.0f} "
+              f"queries/s, p50 {s['p50_s'] * 1e3:.4f} ms, p99 "
+              f"{s['p99_s'] * 1e3:.4f} ms a batch (the combine included); "
+              f"voted accuracy {s['accuracy']:.4f}; wall {s['wall_s']:.3f} "
+              f"s; peak {s['peak_bytes'] / 2**30:.2f} GiB")
+        print(f"[15] {card}: (a) rank {rank} span split: " + ", ".join(
+            f"{k} {v['s']:.3f} s ({v['share'] * 100:.1f} %, x{v['count']})"
+            for k, v in sp.items()))
+        print(f"[15] {card}: (a) rank {rank} collectives: "
+              f"{s['count']} ops, bytes {s['per_op']}, seconds "
+              f"{ {k: round(v, 4) for k, v in s['seconds'].items()} }")
+    efs = [r["ef"] for r in ranks]
+    for rank, e in enumerate(efs):
+        rms, norm = e["streams"]["ef_residual_rms"], e["ef_residual_norm"]
+        gap = max(abs(a - b) / max(abs(b), 1e-30)
+                  for a, b in zip(rms + [norm], want_ef["rms"]
+                                  + [want_ef["norm"]]))
+        same = rms == want_ef["rms"] and norm == want_ef["norm"]
+        rest = {k: v for k, v in e["streams"].items()
+                if k != "ef_residual_rms"}
+        want_rest = {k: v for k, v in want_ef["streams"].items()
+                     if k != "ef_residual_rms"}
+        if (not gap <= EF_MESH_RTOL or rest != want_rest
+                or e["outcome"][:-1] != want_ef["outcome"][:-1]
+                or e["sends"]["packed_ef"] != cycles):
+            raise AssertionError(f"phase 15 (a): rank {rank}'s int4_ef run: "
+                                 f"EF gap {gap:.3e}, #3 {e['sends']}")
+        print(f"[15] {card}: (a) int4_ef armed over {SERVE_MESH_RANKS} ranks,"
+              f" rank {rank}: ef_residual_rms {rms} and ef_residual_norm "
+              f"{norm} {'bit for bit' if same else f'within {gap:.3e} of'} "
+              f"the one-process run's (bar {EF_MESH_RTOL}); the other "
+              f"streams and the outcome equal; #3 {e['sends']}")
+    s0, e0 = served[0], efs[0]
+    rec, vt, ts = s0["receive"], s0["voted_timing"], e0["send"]
+    print(f"[15] {card}: (a) fused_receive_apply norm_clip on rank 0's last "
+          f"launch ({s0['receive_rows']} rows): {receive_line(rec)}")
+    print(f"[15] {card}: (a) voted_predict_batched on rank 0's last served "
+          f"launch (M={vt['queries']} of a batch of 256, on its shard of "
+          f"{s0['shard_rows']} rows): {vt['ms']:.4f} ms/launch "
+          f"({vt['route']}) in a CUDA graph vs bound {vt['bound_ms']:.6f} ms "
+          f"({vt['bound_by']}, {vt['bound_bytes']} B); {vt['call_ms']:.4f} "
+          f"ms per call; plain {vt['plain_ms']:.4f} ms; bitwise the plain "
+          "version")
+    print(f"[15] {card}: (a) quantize_send int4_ef on rank 0's shard "
+          f"({ts['rows']} rows): {ts['ms']:.4f} ms/launch ({ts['route']}) "
+          f"vs bound {ts['bound_ms']:.4f} ms ({ts['bound_by']}); plain "
+          f"{ts['plain_ms']:.4f} ms; bitwise the plain version")
+    fams = {}
+    rows = []
+    for run in TP_FAMILY_RUNS:
+        arch, layers, enc_layers, batch, prompt, steps, route, row, _ = run
+        per = [r["families"][tp_run_name(run)] for r in ranks]
+        fams[tp_run_name(run)] = per
+        for rank, f in enumerate(per):
+            print(f"[15] {card}: (b) {arch} at {layers} of "
+                  f"its layers ({'/'.join(f['kinds'])}"
+                  + (f", {enc_layers} encoder layers" if enc_layers else "")
+                  + f"; {f['params']} parameters, {f['compute']} compute), "
+                  f"{batch} x {prompt} prompt,"
+                  f" TP over {TP_FAMILY_MESH} (data, model), rank {rank}: "
+                  f"prefill logits within {f['err']:.4f} of the one-process "
+                  f"run (largest |logit| {f['top']:.3f}, tolerance "
+                  f"{LM_PATH_LOGIT_TOL}); greedy tokens equal "
+                  f"{f['same_tokens']:.4f} over {steps} steps; prefill "
+                  f"{f['prefill_s'] * 1e3:.1f} ms (one process "
+                  f"{f['one_prefill_s'] * 1e3:.1f} ms), decode "
+                  f"{f['decode_ms']:.2f} ms/step (one process "
+                  f"{f['one_decode_ms']:.2f}); #8 {f['launches']} on q "
+                  f"{f['local_q']} k {f['local_k']}; {f['mixer']} "
+                  f"{f['mixer_pl']}, layer 0's state {f['state_pl']}; peak "
+                  f"{f['peak_bytes'] / 2**30:.2f} GiB (one process "
+                  f"{f['one_peak_bytes'] / 2**30:.2f}); {f['seconds']:.1f} s")
+            print(f"[15] {card}: (b) {arch} rank {rank} collectives: prefill "
+                  f"{f['prefill_stats']}; decode {f['decode_stats']}")
+            n_attn = sum(k in ("attn", "local") for k in f["kinds"])
+            want = {"tensor_core": n_attn if route else 0, "cuda_core": 0}
+            if f["launches"] != want or not f["finite"] \
+                    or not f["err"] <= LM_PATH_LOGIT_TOL:
+                raise AssertionError(f"phase 15 (b) {arch}: rank {rank} "
+                                     f"launched #8 {f['launches']} "
+                                     f"(expected {want}), logits off by "
+                                     f"{f['err']}")
+            if not f["mixer_split"]:
+                raise AssertionError(f"phase 15 (b) {arch}: {f['mixer']} "
+                                     f"placed {f['mixer_pl']}")
+        if row is not None:
+            r0 = per[0]["row"]
+            rows.append(dict(
+                name=f"flash_attention[tensor_core:{row}]", route="cuda",
+                source=FLASH_SOURCES["tensor_core"], replaces=FLASH_REPLACES,
+                launches=per[0]["launches"]["tensor_core"],
+                launches_by_rank=[f["launches"]["tensor_core"] for f in per],
+                max_abs_err=r0["max_abs_err"], ms=r0["ms"],
+                plain_ms=r0["plain_ms"], bound_ms=r0["bound_ms"],
+                bound_by=r0["bound_by"], library_ms=r0["library_ms"],
+                shape=r0["shape"], kv_heads=r0["kv_heads"]))
+    out.update(
+        spawn_s=spawn_s, rank_seconds=[r["seconds"] for r in ranks],
+        served=[{k: v for k, v in s.items() if k not in (
+            "answers", "fresh", "report")} for s in served],
+        ef=[{k: v for k, v in e.items()} for e in efs], want_ef=want_ef,
+        families=fams)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"[15] {card}: phase 15 took {out['seconds']:.1f} s")
+    rows[:0] = [dict(
+        name="fused_receive_apply[mesh:norm_clip]", route="cuda",
+        source="src/repro_torch/kernels/csrc/gossip_cycle.cu",
+        replaces="src/repro/kernels/gossip_cycle.py:272",
+        launches=s0["launches"],
+        launches_by_rank=[s["launches"] for s in served],
+        max_abs_err=rec["err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
+        bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None,
+        receive_route=rec["route"]), dict(
+        name="quantize_send_packed_ef[mesh]", route="cuda",
+        source="src/repro_torch/kernels/csrc/quantize_send.cu",
+        replaces=SEND_ROWS["packed_ef"], launches=e0["sends"]["packed_ef"],
+        launches_by_rank=[e["sends"]["packed_ef"] for e in efs],
+        max_abs_err=0.0, ms=ts["ms"], plain_ms=ts["plain_ms"],
+        bound_ms=ts["bound_ms"], bound_by=ts["bound_by"], library_ms=None,
+        send_route=ts["route"]), dict(
+        name="voted_predict_batched[mesh]", route="cuda",
+        source="src/repro_torch/kernels/csrc/voted_predict.cu",
+        replaces="src/repro/kernels/voted_predict.py:73",
+        launches=s0["voted"][0],
+        launches_by_rank=[s["voted"][0] for s in served], max_abs_err=0.0,
+        ms=vt["ms"], plain_ms=vt["plain_ms"], bound_ms=vt["bound_ms"],
+        bound_by=vt["bound_by"], library_ms=None, voted_route=vt["route"])]
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -5247,10 +5743,10 @@ def main() -> int:
     take = serving.snapshot_from_carry
     clone_s = []
 
-    def timed_snapshot(carry):
+    def timed_snapshot(carry, shard=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        snap = take(carry)
+        snap = take(carry, shard)
         torch.cuda.synchronize()
         clone_s.append(time.perf_counter() - t0)
         return snap
@@ -5336,6 +5832,10 @@ def main() -> int:
                              f"({voted_by_route_a}), the unarmed {launches} "
                              f"({routes}) and {voted} ({voted_by_route})")
     check_armed(tel5, res_a, res, cycles, "phase 5")
+    # phase 15 holds the served population over ranks to this run
+    want5 = dict(outcome=run_outcome(res_a), answers=server_a.answers(),
+                 fresh=server_a.answers_fresh(), streams=dict(tel5.streams),
+                 batches=st_a.batches)
     if not (np.array_equal(server_a.answers(), server.answers())
             and np.array_equal(server_a.answers_fresh(),
                                server.answers_fresh())):
@@ -5463,9 +5963,15 @@ def main() -> int:
     # ---- 14. the LM across ranks -------------------------------------------
     phase(14)
     kernels.extend(phase14(card, results))
+    torch.cuda.empty_cache()
+
+    # ---- 15. everything under a mesh ---------------------------------------
+    phase(15)
+    kernels.extend(phase15(card, results, cfg5, cfg3, X, y, n3, cycles,
+                           want5, threefry))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - start
-    print(f"[14] {card}: the whole run took {results['total_s']:.1f} s")
+    print(f"[15] {card}: the whole run took {results['total_s']:.1f} s")
     if opts.out:
         out = Path(opts.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -45,7 +45,7 @@ from repro_torch.config import base as cfg_base
 from repro_torch.configs.gossip_linear import GossipLinearConfig
 from repro_torch.core.cache import ModelCache
 from repro_torch.core.learners import LinearModel
-from repro_torch.core.serving import QuerySnapshot
+from repro_torch.core.serving import STATE_FIELDS, QuerySnapshot
 from repro_torch.core.sharded_engine import Carry
 
 CARRY_FIELDS = ("last_w", "last_t", "fresh_w", "fresh_t", "cache_w",
@@ -116,10 +116,10 @@ def to_arrays(carry: Carry) -> tuple:
 
 def snapshot_from_arrays(arrays: Sequence, device) -> QuerySnapshot:
     """The reference's ``QuerySnapshot`` (its six fields as numpy arrays,
-    in ``QuerySnapshot._fields`` order) as the port's, on ``device``."""
-    if len(arrays) != len(QuerySnapshot._fields):
-        raise ValueError(f"expected {len(QuerySnapshot._fields)} snapshot "
-                         f"arrays ({', '.join(QuerySnapshot._fields)}), got "
+    in ``serving.STATE_FIELDS`` order) as the port's, on ``device``."""
+    if len(arrays) != len(STATE_FIELDS):
+        raise ValueError(f"expected {len(STATE_FIELDS)} snapshot "
+                         f"arrays ({', '.join(STATE_FIELDS)}), got "
                          f"{len(arrays)}")
     w, t, count, fresh_w, fresh_t, clock = (np.asarray(a) for a in arrays)
     f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)

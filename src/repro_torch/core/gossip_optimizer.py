@@ -266,10 +266,20 @@ def _value_and_grad(loss_fn, params, batch):
         loss, metrics = loss_fn(leaves_in, batch)
         flat = tree_leaves(leaves_in)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g
+    grads = [torch.zeros_like(x) if g is None else _like(g, x)
              for x, g in zip(flat, grads)]
     metrics = tree_map(lambda m: m.detach(), metrics)
     return loss.detach(), metrics, grads
+
+
+def _like(g, x):
+    """A DTensor gradient at its parameter's placements: a per-rank body
+    leaves the gradient of a leaf it took whole as each rank's ``Partial``
+    share (``sharding.act.body_input``), summed here once."""
+    from repro_torch.sharding.act import is_dtensor
+    if is_dtensor(g) and tuple(g.placements) != tuple(x.placements):
+        return g.redistribute(x.device_mesh, x.placements)
+    return g
 
 
 def _plain(x):

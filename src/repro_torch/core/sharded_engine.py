@@ -68,7 +68,8 @@ from repro_torch.core.merge import create_model
 from repro_torch.core.simulation import (SimResult, _eval, byzantine_tensor,
                                          check_slice, draw_sends,
                                          ef_residual_norm, ef_residual_rms,
-                                         eval_points, message_wire_bytes,
+                                         ef_squares, eval_points,
+                                         message_wire_bytes,
                                          payload_buffer_bytes, sim_setup)
 from repro_torch.core.telemetry import maybe_span
 from repro_torch.core.wire_codec import WireCodec, get_codec
@@ -875,11 +876,10 @@ def _chunk_signatures(cfg: GossipLinearConfig, D: int, mode: str,
     return _CHUNK_SIGS[_CHUNK_LABELS[key]]
 
 
-def _node_shard(mesh, node_axis: Optional[str], n: int, delay_max: int,
-                hooked: bool) -> Optional[NodeShard]:
+def _node_shard(mesh, node_axis: Optional[str], n: int,
+                delay_max: int) -> Optional[NodeShard]:
     """This rank's :class:`NodeShard` of ``mesh``'s node axis (default:
-    its first), or None on an axis of size 1 (the one-device path).
-    ``hooked``: a ``serve_hook`` or ``telemetry`` was given."""
+    its first), or None on an axis of size 1 (the one-device path)."""
     if mesh is None:
         return None
     axis = node_axis or mesh.mesh_dim_names[0]
@@ -890,11 +890,21 @@ def _node_shard(mesh, node_axis: Optional[str], n: int, delay_max: int,
         raise ValueError(
             f"sharded engine needs N divisible by the '{axis}' mesh "
             f"axis ({n} % {size} != 0)")
-    if hooked:
-        raise NotImplementedError(
-            "serve_hook= and telemetry= under a node mesh wait for the "
-            "mesh's second slice (ROADMAP.md queue 1)")
     return NodeShard(compat.mesh_axis(mesh, (axis,)), n, delay_max)
+
+
+def _gathered_rms(squares, shard: NodeShard) -> list:
+    """The EF residual's RMS at each eval point from every rank's
+    ``ef_squares``: one all-gather of the points' squares, and each
+    point's mean over the N nodes in node order, the one-device value
+    bit for bit."""
+    if not squares or squares[0] is None:
+        return squares
+    local = torch.stack(squares, dim=1)                 # (N/W, points)
+    (every,) = compat.gather_rows([local], [shard.nl] * shard.shards,
+                                  shard.axis)
+    return [torch.sqrt(torch.mean(every[:, j].contiguous()))
+            for j in range(every.shape[1])]
 
 
 def _final_state(carry: Carry, shard: Optional[NodeShard]) -> dict:
@@ -986,12 +996,14 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     ranks, so the result is the one-device run's bit for bit, but where a
     screen's sum order depends on the row count (5 <= d <= 8,
     ``faults.screen_split``): a rank sums over its N/W rows, as the
-    reference's ``shard_map`` body does. ``serve_hook`` and ``telemetry``
-    under a mesh raise (ROADMAP.md queue 1: the mesh's second slice).
+    reference's ``shard_map`` body does.
 
     ``serve_hook(cycle, snapshot)`` is called at every eval point with
     ``serving.snapshot_from_carry(carry)``, a copy of the live cache, before
-    the next chunk updates the carry in place.
+    the next chunk updates the carry in place. Under a node mesh each
+    rank's hook gets its shard's snapshot (``snapshot.shard`` places its
+    rows; ``serving.gather_snapshot`` makes the whole one where a hook asks
+    for it), and ``GossipServer`` serves on the shards.
 
     ``telemetry`` (a :class:`repro_torch.core.telemetry.Telemetry`), when
     armed, gets the reference's per-cycle streams, counted on the host from
@@ -1005,7 +1017,16 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     ``dense_table``, ``table_upload``, ``chunk_dispatch``, ``eval``,
     ``snapshot`` and ``collect_results``. An armed run adds no
     synchronisation and no kernel launch of #1 to #5, and is bit for bit
-    the unarmed run.
+    the unarmed run. Under a node mesh every rank gets the whole streams:
+    the host streams come from the router's tables, which every rank
+    holds whole; the screen's per-cycle counts are summed over the ranks
+    with the unarmed totals, once, after the last chunk; and each eval
+    point's per-node squares of the EF residual stay on the rank's device
+    until then, when one all-gather brings every node's and the RMS is
+    the one-device mean over the same N values. So an armed run adds no
+    collective a chunk. The spans are each rank's own, tagged with its
+    rank (``Telemetry.rank``); the per-cycle exchange runs inside
+    ``chunk_dispatch`` and has no span of its own (spans never nest).
 
     ``final_state=True`` sets ``SimResult.final_state``: every node's
     final lanes on the host (gathered from every rank under a mesh)."""
@@ -1033,11 +1054,12 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     check_slice(cfg)
     n, d = X.shape[0], X.shape[-1]
     D = max(cfg.delay_max_cycles, 1)
-    shard = _node_shard(mesh, node_axis, n, D, serve_hook is not None
-                        or telemetry is not None)
+    shard = _node_shard(mesh, node_axis, n, D)
     shards = 1 if shard is None else shard.shards
     tel = telemetry
     armed = tel is not None
+    if armed and shard is not None:
+        tel.rank = shard.axis.ranks[shard.index]
 
     with maybe_span(tel, "setup", track="host"):
         online_mat, eval_idx, X, y, X_test, y_test = sim_setup(
@@ -1204,10 +1226,12 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
             evals.append(evaluate(carry.cache, X_test=X_test, y_test=y_test))
         if armed:
             # queued before chunk i+1 updates the carry; read at the end
-            ef_rms.append(ef_residual_rms(carry.ef))
+            # (under a mesh each node's square, gathered there)
+            ef_rms.append(ef_residual_rms(carry.ef) if shard is None
+                          else ef_squares(carry.ef))
         if serve_hook is not None:
             with maybe_span(tel, "snapshot", track="serving", cycle=p):
-                serve_hook(p, serving.snapshot_from_carry(carry))
+                serve_hook(p, serving.snapshot_from_carry(carry, shard))
         if drawn is not None:
             pending = route(i + 1, drawn)   # overlaps the device's chunk i
         res.sent_total += stats["sent"]
@@ -1234,8 +1258,14 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
                 online_nodes=online_mat[lo:hi].sum(axis=1),
                 corrupted=stats["corrupted_cycles"])
     if shard is not None:
-        # the screen's counts of every rank's block
-        screens = list(compat.psum(torch.stack(screens), shard.axis))
+        # the screen's counts of every rank's block (each chunk's (2,)
+        # totals, or armed its (T, 2) cycles), in one sum
+        rows = [sc.reshape(-1, 2) for sc in screens]
+        summed = compat.psum(torch.cat(rows), shard.axis)
+        screens = [part.reshape(sc.shape) for part, sc in zip(
+            summed.split([r.shape[0] for r in rows]), screens)]
+        if armed:
+            ef_rms = _gathered_rms(ef_rms, shard)
     with maybe_span(tel, "collect_results", track="device", chunks=len(pts)):
         for err_f, err_v, sim in evals:
             res.err_fresh.append(float(err_f))
@@ -1268,11 +1298,8 @@ def run_sharded_simulation(cfg: GossipLinearConfig, X, y, X_test, y_test, *,
     if shard is None:
         res.ef_residual_norm = ef_residual_norm(carry.ef)
     elif carry.ef.numel():
-        # each node's squared norm, gathered in node order: the one-device
-        # mean over the same N values
-        sq = torch.sum(carry.ef.to(torch.float32) ** 2, dim=-1)
-        (sq,) = compat.gather_rows([sq], [shard.nl] * shards, shard.axis)
-        res.ef_residual_norm = float(torch.sqrt(torch.mean(sq)))
+        res.ef_residual_norm = float(_gathered_rms([ef_squares(carry.ef)],
+                                                   shard)[0])
     if final_state:
         res.final_state = _final_state(carry, shard)
     if armed:

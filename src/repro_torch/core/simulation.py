@@ -369,14 +369,20 @@ class SimResult:
     final_state: Optional[Dict[str, torch.Tensor]] = None
 
 
+def ef_squares(ef) -> Optional[torch.Tensor]:
+    """Each node's squared L2 norm of the EF residual lane (queued, not
+    waited for); None for the empty lane of a codec without EF state."""
+    if ef.numel() == 0:
+        return None
+    return torch.sum(ef.to(torch.float32) ** 2, dim=-1)
+
+
 def ef_residual_rms(ef) -> Optional[torch.Tensor]:
     """Root-mean-square per-node L2 norm of the EF residual lane, as a
     0-dim tensor on its device (queued, not waited for); None for the
     empty lane of a codec without EF state."""
-    if ef.numel() == 0:
-        return None
-    return torch.sqrt(torch.mean(torch.sum(ef.to(torch.float32) ** 2,
-                                           dim=-1)))
+    sq = ef_squares(ef)
+    return None if sq is None else torch.sqrt(torch.mean(sq))
 
 
 def ef_residual_norm(ef) -> float:

@@ -366,10 +366,17 @@ class Telemetry:
     One Telemetry may be armed across several sequential runs: spans
     share one wall-clock origin and stream segments concatenate in run
     order (each run's ``in_flight`` balance restarts from zero at its own
-    first cycle)."""
+    first cycle).
+
+    Under a node mesh each rank arms its own Telemetry; the sharded
+    engine sets ``rank`` (the process's global rank), which tags every
+    later span (``args["rank"]``), the report's header and the trace's
+    host process name, so each rank's split of its host time reads on
+    its own."""
 
     def __init__(self, label: str = ""):
         self.label = label
+        self.rank: Optional[int] = None
         self.streams: Dict[str, List] = {n: [] for n in METRIC_STREAMS}
         self.spans: List[Span] = []
         self.histograms: Dict[str, LatencyHistogram] = {}
@@ -404,6 +411,8 @@ class Telemetry:
         if track not in TRACKS:
             raise ValueError(f"unknown span track {track!r} "
                              f"(expected one of {TRACKS})")
+        if self.rank is not None:
+            args = {"rank": self.rank, **args}
         return _SpanCtx(self, name, track, args)
 
     def histogram(self, name: str) -> LatencyHistogram:
@@ -432,7 +441,8 @@ class Telemetry:
         "compiles" counts kernel libraries built or loaded
         (:func:`compile_cache_sizes`)."""
         wall = self.wall_seconds()
-        lines = [f"telemetry: {len(self.spans)} spans, "
+        who = "" if self.rank is None else f" rank {self.rank}"
+        lines = [f"telemetry{who}: {len(self.spans)} spans, "
                  f"{self.compile_total()} kernel builds and loads, "
                  f"{wall:.3f}s spanned wall clock"]
         counts: Dict[str, int] = {}
@@ -471,7 +481,9 @@ class Telemetry:
         alone."""
         events: List[dict] = [
             {"ph": "M", "pid": 0, "tid": 0, "name": "process_name",
-             "args": {"name": f"gossip host{' ' + self.label if self.label else ''}"}},
+             "args": {"name": "gossip host"
+                      + (f" {self.label}" if self.label else "")
+                      + ("" if self.rank is None else f" rank {self.rank}")}},
             {"ph": "M", "pid": 1, "tid": 0, "name": "process_name",
              "args": {"name": "protocol streams (1 cycle = 1 us)"}},
         ]

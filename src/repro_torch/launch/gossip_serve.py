@@ -20,6 +20,14 @@ queries/s and the p50/p90/p99/p999 batch latency from it. Pass
 ``serve_batch_latency`` and to record the snapshot adoptions and the
 batches as ``snapshot_adopt`` and ``serve_batch`` spans on the "serving"
 track.
+
+Under a node mesh every rank runs a server of its own, fed its shard's
+snapshot by the engine (``QuerySnapshot.shard``) and the same
+submissions: the assignment draws from the global N, each rank answers
+the queries its nodes own and one sum over the ranks combines the voted
+and the fresh answers (``serving.serve_on_shards``), inside the latency
+window. The cache is never gathered. ``answers()``, ``answers_fresh()``
+and the counts of ``stats()`` are the one-device server's on every rank.
 """
 from __future__ import annotations
 
@@ -135,23 +143,28 @@ class GossipServer:
                               np.float32)])
 
         snap = self.snapshot
-        n_nodes = snap.count.shape[0]
         assign = serving.assign_queries(
-            self.batch_size, n_nodes, policy=self.policy, seed=self.seed,
+            self.batch_size, snap.n_nodes, policy=self.policy, seed=self.seed,
             offset=self._served)
         self._served += k
         dev = snap.w.device
         xt = torch.from_numpy(xb).to(dev)
-        at = torch.from_numpy(assign).to(dev)
+        at = torch.from_numpy(assign).to(dev) if snap.shard is None else None
         _sync(xt)
 
         t0 = time.perf_counter()
-        preds = serving.serve_voted_kernel(snap.w, snap.count, xt, at)
+        if at is not None:      # the reference's window: the voted answer
+            preds = serving.serve_voted_kernel(snap.w, snap.count, xt, at)
+            fresh = None
+        else:                   # a shard: both answers and their sum
+            preds, fresh = serving.serve_on_shards(snap, xt, assign)
         _sync(preds)
         dt = time.perf_counter() - t0
         self.hist.record(dt)
 
-        fresh = serving.serve_fresh(snap.fresh_w, xt, at).cpu().numpy()[:k]
+        if fresh is None:
+            fresh = serving.serve_fresh(snap.fresh_w, xt, at)
+        fresh = fresh.cpu().numpy()[:k]
         self.batches.append(ServedBatch(
             cycle=self.snapshot_cycle, size=k, latency_s=dt,
             query_ids=ids, assign=assign[:k],

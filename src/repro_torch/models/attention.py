@@ -223,8 +223,9 @@ def _local_qkv(q, k, v, keep_length: bool = False):
             kp.append(Shard(1))
         else:
             kp.append(Replicate())
-    kl, vl = ((t.redistribute(mesh, kp) if list(t.placements) != kp else t)
-              .to_local() if held else t for t in (k, v))
+    # under autograd a replicated k/v feeds each rank's own query heads:
+    # its gradient is the ranks' sum (act.body_input)
+    kl, vl = (act.body_input(t, kp, qp) if held else t for t in (k, v))
     if not aligned:
         if rep % hl:
             raise ValueError(f"{hl} local query heads of {h} straddle the "

@@ -171,10 +171,17 @@ def rmsnorm_spec(d: int, dtype=torch.float32):
     return {"scale": P((d,), ("embed",), init="ones", dtype=dtype)}
 
 
-def rmsnorm(params, x, eps: float = 1e-6):
+def rmsnorm(params, x, eps: float = 1e-6, sum_over=None, width=None):
+    """RMS norm over the last dim; with ``sum_over``, ``x`` holds a block
+    of a norm over ``width`` channels (a per-rank body's share of a split
+    width) and ``sum_over`` sums the block's squares over the ranks that
+    hold the others."""
     dt = x.dtype
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if sum_over is None:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        var = sum_over(torch.sum(xf * xf, dim=-1, keepdim=True)) / width
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(dt)
 

@@ -11,6 +11,16 @@ launches a layer). Its products associate in another order than the
 reference's scan, so the two agree within rounding, not bit for bit.
 Decode is the one-step recurrence. The recurrence runs in float32, the
 matmuls in the compute dtype; ``jax.nn.gelu`` is the tanh approximation.
+
+On DTensors (a step on a mesh) the block runs as a per-rank body on this
+rank's heads (``sharding/act.py``): the two input projections' products
+are taken with their width sharded over ``model`` (a head's channels are
+a contiguous block of the width), and the conv, the block-diagonal gates
+and the scan run on the local channels, with ``conv_w``, ``conv_b``,
+``lam``, ``w_a``/``w_i`` and ``b_a``/``b_i`` resharded to the same heads
+whether the rules shard them or keep them whole; the output projection
+takes the channels' rows, and the decode state is the channels' ``h``
+and conv window.
 """
 from __future__ import annotations
 
@@ -89,11 +99,63 @@ def linear_scan(a, b):
     return b
 
 
+def _on_ranks(params, r: RGLRUConfig, d_model: int, x, state,
+              compute_dtype, return_state: bool):
+    """:func:`rglru_forward` (``state`` None) or :func:`rglru_step` on
+    DTensors: a per-rank body on this rank's heads (the module note)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.sharding import act
+    mesh = x.device_mesh
+    width, heads = rglru_dims(d_model, r)
+    bsz, seq, _ = x.shape
+    w, _ = act.model_share(x, heads)
+    hl = heads // w
+    pl_out = act.body_placements(x, 2, w > 1)
+    pl_h = act.body_placements(x, 1, w > 1)
+
+    def chans(t, dim):      # a parameter at this rank's heads along dim
+        pl = [Shard(dim) if w > 1 and o.is_shard() and o.dim == 2
+              else Replicate() for o in pl_out]
+        return act.body_input(t, pl, pl_out)
+
+    y_branch = F.gelu(act.body_input(x @ params["w_y"].to(x.dtype), pl_out,
+                                     pl_out).float(), approximate="tanh")
+    xw = act.body_input(x @ params["w_x"].to(x.dtype), pl_out, pl_out)
+    conv = {"conv_w": chans(params["conv_w"], 1),
+            "conv_b": chans(params["conv_b"], 0)}
+    prev = (None if state is None else
+            act.body_input(state["conv"], pl_out, pl_out))
+    xb, window = causal_conv(conv, xw, prev)
+    local = {"w_a": chans(params["w_a"], 0), "b_a": chans(params["b_a"], 0),
+             "w_i": chans(params["w_i"], 0), "b_i": chans(params["b_i"], 0),
+             "lam": chans(params["lam"], 0)}
+    log_a, gated = _gates(local, r, xb, width // w, hl)
+    if state is None:
+        h = linear_scan(torch.exp(log_a), gated)
+    else:
+        h = (torch.exp(log_a[:, 0]) * act.body_input(state["h"], pl_h, pl_out)
+             + gated[:, 0])[:, None]
+    out = act.from_block((h * y_branch).to(compute_dtype), mesh, pl_out,
+                         (bsz, seq, width))
+    out = out @ params["w_out"].to(out.dtype)
+    if state is None and not return_state:
+        return out
+    return out, {"h": act.from_block(h[:, -1].clone(), mesh, pl_h,
+                                     (bsz, width)),
+                 "conv": act.from_block(window.to(compute_dtype), mesh,
+                                        pl_out, (bsz, r.d_conv - 1, width))}
+
+
 def rglru_forward(params, r: RGLRUConfig, d_model: int, x, *,
                   compute_dtype=torch.bfloat16, return_state: bool = False):
     """The full-sequence block: x (B, S, d_model) -> the same shape; with
     ``return_state`` also the decode state {"h", "conv"} after the last
-    position (the fused prefill)."""
+    position (the fused prefill). On DTensors a per-rank body on this
+    rank's heads (the module note)."""
+    from repro_torch.sharding.act import is_dtensor
+    if is_dtensor(x):
+        return _on_ranks(params, r, d_model, x, None, compute_dtype,
+                         return_state)
     width, heads = rglru_dims(d_model, r)
     y_branch = F.gelu((x @ params["w_y"].to(x.dtype)).float(),
                       approximate="tanh")
@@ -126,7 +188,11 @@ def init_rglru_state(batch: int, d_model: int, r: RGLRUConfig, dtype,
 def rglru_step(params, r: RGLRUConfig, d_model: int, x, state, *,
                compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict]:
     """One token: x (B, 1, d_model). Returns the output and the new state
-    (new tensors)."""
+    (new tensors). On DTensors a per-rank body on this rank's heads (the
+    module note)."""
+    from repro_torch.sharding.act import is_dtensor
+    if is_dtensor(x):
+        return _on_ranks(params, r, d_model, x, state, compute_dtype, True)
     width, heads = rglru_dims(d_model, r)
     y_branch = F.gelu((x @ params["w_y"].to(x.dtype)).float(),
                       approximate="tanh")

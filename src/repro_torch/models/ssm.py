@@ -13,6 +13,19 @@ float32, as the reference keeps them.
 
 ``jax.nn.softplus`` is ``logaddexp(x, 0)`` (``layers.softplus``);
 ``F.softplus`` switches to x above 20.
+
+On DTensors (a step on a mesh) the block runs as a per-rank body on this
+rank's heads (``sharding/act.py``): the input projection ``w_in`` is one
+concatenated ``[z | xBC | dt]`` matrix whose columns the rules shard
+over ``model`` with boundaries inside its segments, so its product is
+gathered whole over ``model`` first (B x S x 2·d_inner + 2·G·N + H
+values a layer) and each rank slices its heads' z, x and dt columns and
+the whole B and C; the depthwise conv, the SSD scan and the gated norm
+(its sum of squares summed over ``model``) run on the local heads, and
+the output projection takes the heads' rows. The small leaves (``A_log``,
+``D``, ``dt_bias``, the conv and the norm), whole or sharded, are
+gathered and sliced to the rank's heads and channels. The decode state
+keeps the heads' SSD state and the whole raw conv window.
 """
 from __future__ import annotations
 
@@ -127,27 +140,129 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     return (y_diag + y_off).reshape(b, s, h, p), final
 
 
-def ssm_forward(params, s: SSMConfig, d_model: int, x, *,
-                compute_dtype=torch.bfloat16, return_state: bool = False):
-    """The full-sequence block: x (B, S, d_model) -> the same shape; with
-    ``return_state`` also the decode state {"ssm", "conv"} after the last
-    position (the fused prefill)."""
+def _heads(s: SSMConfig, p, xs, z, dt, B, C, ssm_state, compute_dtype):
+    """The mixer after the conv on a block of heads, shared by one device
+    (all heads) and a rank's body (its heads): the SSD scan over the
+    sequence (``ssm_state`` None) or the one-token recurrence from
+    ``ssm_state`` (b, hl, P, N), then the D skip and the gate. xs
+    (b, S, hl, P); z (b, S, hl·P); dt (b, S, hl) before the softplus; B, C
+    (b, S, g, N) with g dividing hl; ``p`` holds the heads' ``dt_bias``,
+    ``A_log`` and ``D``. Returns (y (b, S, hl·P) before the norm, the
+    final state)."""
+    b, seq, hl, hp = xs.shape
+    dt = softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    if ssm_state is None:
+        y, final = ssd_chunked(xs, dt, A, B, C, s.chunk_size)
+        y = y + p["D"][None, None, :, None].to(y.dtype) * xs
+    else:
+        rep = hl // B.shape[2]
+        Bm = B[:, 0].repeat_interleave(rep, dim=1)               # (b, hl, N)
+        Cm = C[:, 0].repeat_interleave(rep, dim=1)
+        dA = torch.exp(dt[:, 0] * A[None, :])
+        xf = xs[:, 0].float() * dt[:, 0, :, None]                # (b, hl, P)
+        final = (ssm_state * dA[..., None, None]
+                 + xf[..., :, None] * Bm.float()[:, :, None, :])
+        y = torch.einsum("bhpn,bhn->bhp", final, Cm.float())
+        y = (y + p["D"][None, :, None] * xs[:, 0].float()).to(compute_dtype)
+    y = y.reshape(b, seq, hl * hp)
+    return y * F.silu(z.float()).to(y.dtype), final
+
+
+def _on_ranks(params, s: SSMConfig, d_model: int, x, state,
+              compute_dtype, return_state: bool):
+    """:func:`ssm_forward` (``state`` None) or :func:`ssm_step` on
+    DTensors: a per-rank body on this rank's heads (the module note)."""
+    from torch.distributed.tensor import Replicate
+    from repro_torch.sharding import act
+    mesh = x.device_mesh
+    d_inner, h, conv_dim = ssm_dims(d_model, s)
+    g, n, p = s.n_groups, s.d_state, s.head_dim
+    gn = g * n
+    bsz, seq, _ = x.shape
+    w, me = act.model_share(x, h)
+    hl = h // w
+    h0, c0 = me * hl, me * hl * p
+    pl_all = act.body_placements(x)
+    pl_out = act.body_placements(x, 2, w > 1)
+    pl_head = act.body_placements(x, 1, w > 1)
+    rep = [Replicate()] * mesh.ndim
+
+    def whole(t):
+        return act.body_input(t, rep, pl_out)
+
+    zx = act.body_input(x @ params["w_in"].to(x.dtype), pl_all, pl_out)
+    z = zx[..., c0:c0 + hl * p]
+    raw = zx[..., d_inner:d_inner + conv_dim]
+    dt = zx[..., d_inner + conv_dim + h0:d_inner + conv_dim + h0 + hl]
+    cols = torch.cat([torch.arange(c0, c0 + hl * p),
+                      torch.arange(d_inner, conv_dim)]).to(x.device)
+    conv_w, conv_b = whole(params["conv_w"]), whole(params["conv_b"])
+    k = conv_w.shape[0]
+    prev = (torch.zeros((raw.shape[0], k - 1, conv_dim), dtype=raw.dtype,
+                        device=raw.device) if state is None else
+            act.body_input(state["conv"], pl_all, pl_out).to(raw.dtype))
+    xbc, _ = _conv({"conv_w": conv_w[:, cols], "conv_b": conv_b[cols]},
+                   raw[..., cols], prev[..., cols])
+    window = torch.cat([prev, raw], dim=1)[:, -(k - 1):].clone()
+    bl = xbc.shape[0]
+    xs = xbc[..., :hl * p].reshape(bl, seq, hl, p)
+
+    def per_head(t):                   # (bl, seq, g, n) -> this rank's heads
+        return t.reshape(bl, seq, g, n).repeat_interleave(
+            h // g, dim=2)[:, :, h0:h0 + hl]
+    heads = {k_: whole(params[k_])[h0:h0 + hl]
+             for k_ in ("dt_bias", "A_log", "D")}
+    y, final = _heads(
+        s, heads, xs, z, dt, per_head(xbc[..., hl * p:hl * p + gn]),
+        per_head(xbc[..., hl * p + gn:]),
+        None if state is None else act.body_input(state["ssm"], pl_head,
+                                                  pl_out),
+        compute_dtype)
+    # the gated norm over all d_inner channels: the squares summed over
+    # the ranks' heads
+    scale = {"scale": whole(params["norm"]["scale"])[c0:c0 + hl * p]}
+    y = rmsnorm(scale, y, width=d_inner, sum_over=None if w == 1 else
+                lambda ss: act.body_sum(ss, mesh))
+    y = act.from_block(y, mesh, pl_out, (bsz, seq, d_inner))
+    out = y @ params["w_out"].to(y.dtype)
+    if state is None and not return_state:
+        return out
+    new = {"ssm": act.from_block(final.float(), mesh, pl_head,
+                                 (bsz, h, p, n)),
+           "conv": act.from_block(window.to(compute_dtype), mesh, pl_all,
+                                  (bsz, k - 1, conv_dim))}
+    return out, new
+
+
+def _parts(params, s: SSMConfig, d_model: int, x, conv_state=None):
+    """One device's front: the projection, its split and the conv.
+    Returns (xs (B, S, H, P), z, dt, B, C (B, S, G, N), the conv's new
+    window)."""
     d_inner, h, _ = ssm_dims(d_model, s)
     bsz, seq, _ = x.shape
     gn = s.n_groups * s.d_state
-    z, xbc_raw, dt = _split_proj(params, s, d_model, x)
-    xbc, conv_state = _conv(params, xbc_raw)
+    z, xbc, dt = _split_proj(params, s, d_model, x)
+    xbc, window = _conv(params, xbc, conv_state)
     xs = xbc[..., :d_inner].reshape(bsz, seq, h, s.head_dim)
     Bm = xbc[..., d_inner:d_inner + gn].reshape(bsz, seq, s.n_groups,
                                                 s.d_state)
     Cm = xbc[..., d_inner + gn:].reshape(bsz, seq, s.n_groups, s.d_state)
-    dt = softplus(dt.float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])
+    return xs, z, dt, Bm, Cm, window
 
-    y, final = ssd_chunked(xs, dt, A, Bm, Cm, s.chunk_size)
-    y = y + params["D"][None, None, :, None].to(y.dtype) * xs
-    y = y.reshape(bsz, seq, d_inner)
-    y = y * F.silu(z.float()).to(y.dtype)
+
+def ssm_forward(params, s: SSMConfig, d_model: int, x, *,
+                compute_dtype=torch.bfloat16, return_state: bool = False):
+    """The full-sequence block: x (B, S, d_model) -> the same shape; with
+    ``return_state`` also the decode state {"ssm", "conv"} after the last
+    position (the fused prefill). On DTensors a per-rank body on this
+    rank's heads (the module note)."""
+    from repro_torch.sharding.act import is_dtensor
+    if is_dtensor(x):
+        return _on_ranks(params, s, d_model, x, None, compute_dtype,
+                         return_state)
+    xs, z, dt, Bm, Cm, conv_state = _parts(params, s, d_model, x)
+    y, final = _heads(s, params, xs, z, dt, Bm, Cm, None, compute_dtype)
     y = rmsnorm(params["norm"], y)
     out = y @ params["w_out"].to(y.dtype)
     if return_state:
@@ -175,29 +290,15 @@ def init_ssm_state(batch: int, d_model: int, s: SSMConfig, dtype,
 def ssm_step(params, s: SSMConfig, d_model: int, x, state, *,
              compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict]:
     """One token: x (B, 1, d_model). Returns the output and the new state
-    (new tensors; the caller decides where they live)."""
-    d_inner, h, _ = ssm_dims(d_model, s)
-    bsz = x.shape[0]
-    gn = s.n_groups * s.d_state
-    z, xbc, dt = _split_proj(params, s, d_model, x)
-    xbc, conv_state = _conv(params, xbc, conv_state=state["conv"])
-    xs = xbc[..., :d_inner].reshape(bsz, h, s.head_dim)
-    rep = h // s.n_groups
-    Bm = xbc[:, 0, d_inner:d_inner + gn].reshape(
-        bsz, s.n_groups, s.d_state).repeat_interleave(rep, dim=1)
-    Cm = xbc[:, 0, d_inner + gn:].reshape(
-        bsz, s.n_groups, s.d_state).repeat_interleave(rep, dim=1)
-    dt = softplus(dt[:, 0].float() + params["dt_bias"])          # (B, H)
-    A = -torch.exp(params["A_log"])
-
-    dA = torch.exp(dt * A[None, :])
-    xf = xs.float() * dt[..., None]                               # (B, H, P)
-    new_ssm = (state["ssm"] * dA[..., None, None]
-               + xf[..., :, None] * Bm.float()[:, :, None, :])
-    y = torch.einsum("bhpn,bhn->bhp", new_ssm, Cm.float())
-    y = y + params["D"][None, :, None] * xs.float()
-    y = y.reshape(bsz, 1, d_inner).to(compute_dtype)
-    y = y * F.silu(z.float()).to(y.dtype)
+    (new tensors; the caller decides where they live). On DTensors a
+    per-rank body on this rank's heads (the module note)."""
+    from repro_torch.sharding.act import is_dtensor
+    if is_dtensor(x):
+        return _on_ranks(params, s, d_model, x, state, compute_dtype, True)
+    xs, z, dt, Bm, Cm, conv_state = _parts(params, s, d_model, x,
+                                           state["conv"])
+    y, new_ssm = _heads(s, params, xs, z, dt, Bm, Cm, state["ssm"],
+                        compute_dtype)
     y = rmsnorm(params["norm"], y)
     return y @ params["w_out"].to(y.dtype), {"ssm": new_ssm,
                                              "conv": conv_state}

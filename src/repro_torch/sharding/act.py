@@ -21,6 +21,14 @@ stay sharded, :func:`from_block` makes a body's result a DTensor again,
 and :func:`write_into` writes a value into a DTensor's shards in place
 (slicing a sharded dim of a DTensor and writing into the slice writes
 into a temporary, and is lost without an error).
+
+The recurrent mixers (``models/ssm.py``, ``models/rglru.py``) run their
+scans, convolutions and gates in such a body on the heads and channels
+of this rank's share of the model axis (:func:`model_share`), with
+:func:`body_placements` and :func:`body_input` taking the local inputs:
+their gradients come back through ``to_local``/``from_local``, summed
+over the ranks where a whole copy fed different work, and a norm over
+the split width sums its partial squares with :func:`body_sum`.
 """
 from __future__ import annotations
 
@@ -207,6 +215,79 @@ def from_block(local: torch.Tensor, mesh, pl, shape):
     stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False,
                               shape=shape, stride=stride)
+
+
+def model_share(x, n: int) -> Tuple[int, int]:
+    """(W, index): how a per-rank body over DTensor ``x``'s mesh splits
+    ``n`` heads (or channel blocks): over the W ranks of the model axis,
+    this rank taking block ``index``, where W divides n; else (1, 0),
+    every rank taking all n."""
+    mesh = x.device_mesh
+    name = _CTX.model_axis if _CTX is not None else "model"
+    names = tuple(mesh.mesh_dim_names)
+    if name not in names:
+        return 1, 0
+    m = names.index(name)
+    w = mesh.mesh.shape[m]
+    if w == 1 or n % w:
+        return 1, 0
+    return w, mesh.get_local_rank(m)
+
+
+def body_placements(x, dim: Optional[int] = None, split: bool = True):
+    """The placements of a per-rank body's tensors over DTensor ``x``'s
+    mesh: ``x``'s batch shard (dim 0 sharded over a mesh dim) kept, the
+    model axis over ``dim`` when ``split`` (else replicated), every other
+    mesh dim replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    name = _CTX.model_axis if _CTX is not None else "model"
+    out = []
+    for axis, p in zip(x.device_mesh.mesh_dim_names, x.placements):
+        if axis == name and split and dim is not None:
+            out.append(Shard(dim))
+        elif axis != name and p.is_shard(0):
+            out.append(Shard(0))
+        else:
+            out.append(Replicate())
+    return out
+
+
+def body_input(t, pl, out_pl):
+    """DTensor ``t``'s local tensor at placements ``pl``, for a per-rank
+    body whose outputs sit at ``out_pl``. Its gradient is each rank's
+    share where the ranks of a mesh dim do different work on a whole
+    copy of ``t`` (``t`` replicated there while the outputs shard): a
+    ``Partial`` sum, reduced into ``t``'s own layout on the way back."""
+    from torch.distributed.tensor import Partial
+    if list(t.placements) != list(pl):
+        t = t.redistribute(t.device_mesh, pl)
+    grad = [p if p.is_shard() else (Partial() if o.is_shard() else p)
+            for p, o in zip(pl, out_pl)]
+    return t.to_local(grad_placements=grad)
+
+
+class _ModelSum(torch.autograd.Function):
+    """The sum over an axis's ranks, and the same sum of the gradients on
+    the way back (each rank's output feeds its own work)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        from repro_torch.sharding import compat
+        ctx.axis = axis
+        return compat.psum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.sharding import compat
+        return compat.psum(g.contiguous(), ctx.axis), None
+
+
+def body_sum(x, mesh):
+    """A per-rank body's partial sums, summed over the model axis of
+    ``mesh`` (``sharding.compat.psum``), differentiable."""
+    from repro_torch.sharding import compat
+    name = _CTX.model_axis if _CTX is not None else "model"
+    return _ModelSum.apply(x, compat.mesh_axis(mesh, (name,)))
 
 
 def write_into(dst, src, index=None, dim: int = 1):

@@ -253,14 +253,15 @@ class _TwoRankMesh:
 @pytest.mark.parametrize("n,kw,err,match", [
     (33, {}, ValueError,
      r"needs N divisible by the 'nodes' mesh axis \(33 % 2 != 0\)"),
-    (32, dict(serve_hook=lambda c, s: None), NotImplementedError,
-     "ROADMAP.md"),
-    (32, dict(telemetry="armed"), NotImplementedError, "ROADMAP.md"),
+    (33, dict(serve_hook=lambda c, s: None), ValueError,
+     r"needs N divisible by the 'nodes' mesh axis \(33 % 2 != 0\)"),
+    (33, dict(telemetry="armed"), ValueError,
+     r"needs N divisible by the 'nodes' mesh axis \(33 % 2 != 0\)"),
 ], ids=["indivisible", "serve_hook", "telemetry"])
 def test_node_mesh_errors(n, kw, err, match):
-    """N not divisible by the node axis, and the serving and telemetry
-    hooks under a node mesh (the mesh's second slice), raise before any
-    collective."""
+    """N not divisible by the node axis raises before any collective,
+    with the serving and telemetry hooks too (which run under a node
+    mesh: ``test_torch_mesh_serving.py``)."""
     cfg = GossipLinearConfig(**small_cfg(n_nodes=n))
     X, y, Xt, yt = toy(n=n)
     with pytest.raises(err, match=match):

@@ -15,8 +15,8 @@ on the row count a rank sums.
 Against the JAX sharded engine on one device: the economy and the fault
 counters exact, the curves within ``test_torch_engine.py``'s 0.02 (the
 port's one-device bar; XLA fuses the step, the port runs it op by op).
-The per-shard packers equal JAX's at 2 and 4 shards; the errors are
-pinned."""
+The per-shard packers equal JAX's at 2 and 4 shards; the error is
+pinned, and the hooks run under the mesh."""
 import functools
 
 import numpy as np
@@ -30,8 +30,8 @@ from repro_torch.configs.gossip_linear import GossipLinearConfig
 from repro_torch.core import sharded_engine as pse
 from repro_torch.core.simulation import run_simulation
 from repro_torch.launch import mesh as pmesh
-from torch_mesh_cases import (ENGINE_CASES, RUN, engine_config, shared_ranks,
-                              toy)
+from torch_mesh_cases import (ENGINE_CASES, RUN, N, engine_config,
+                              shared_ranks, toy)
 
 CURVE_TOL = 0.02        # tests/test_torch_engine.py's bar, unchanged
 WORLDS = [2, 4]
@@ -125,6 +125,10 @@ def test_an_axis_of_size_one_runs_the_one_device_path(ranks):
 
 
 def test_mesh_errors_are_pinned(ranks):
+    """N not divisible by the node axis raises; ``serve_hook`` and
+    ``telemetry`` under a node mesh run (their results are held to the
+    one-device run in ``test_torch_mesh_serving.py``): the hook gets this
+    rank's shard at the one eval point, the streams every cycle."""
     world, out = ranks
     for rank in range(world):
         err = out[rank]["errors"]
@@ -132,10 +136,15 @@ def test_mesh_errors_are_pinned(ranks):
         assert kind == "ValueError"
         assert msg == ("sharded engine needs N divisible by the 'nodes' "
                        f"mesh axis ({129} % {world} != 0)")
-        for name in ("serve_hook", "telemetry"):
-            kind, msg = err[name]
-            assert kind == "NotImplementedError" and "ROADMAP.md" in msg
-            assert "item 11" not in msg
+        assert err["serve_hook"] is None and err["telemetry"] is None
+        hooked = out[rank]["hooked"]
+        nl = N // world
+        ((cycle, shape, place),) = hooked["serve_hook"]
+        assert cycle == 2 and shape[0] == nl
+        assert place == (rank * nl, (rank + 1) * nl, rank, world, N)
+        assert hooked["telemetry"]["sent"] == 2
+        assert hooked["telemetry"]["ef_residual_rms"] == 1
+        assert hooked["rank"] == rank
 
 
 @pytest.mark.parametrize("shards", [2, 4])

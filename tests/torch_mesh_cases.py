@@ -2,9 +2,12 @@
 
 ``mesh_ranks`` runs in every rank of a spawned ``gloo`` group
 (``repro_torch.launch.mesh.run_ranks``), on the CPU: the node mesh's
-cases (``engine_ranks``), the peer mesh's (``gossip_ranks``) and the LM's
-step builders on DTensors (``lm_ranks``), one group a size for the three
-files. It returns what the parent tests compare.
+cases (``engine_ranks``), serving and telemetry on it
+(``serving_ranks``), the peer mesh's (``gossip_ranks``) and the LM's
+step builders on DTensors (``lm_ranks``), one group a size for those
+files; ``family_ranks`` runs the ssm, hybrid, audio and vlm families'
+step builders in groups of their own beside them. Each returns what the
+parent tests compare.
 The ranks also run the one-process counterparts (the one-device engine,
 a case a rank in turn; the stacked step on rank 0), so both sides of a
 bit-for-bit comparison run in processes with one thread. The groups of
@@ -33,38 +36,39 @@ from repro_torch.optim import constant, make_optimizer
 
 
 def mesh_ranks(rank, world):
-    """The three files' rank bodies in one group."""
+    """The four files' rank bodies in one group."""
     return {"engine": engine_ranks(rank, world),
+            "serving": serving_ranks(rank, world),
             "gossip": gossip_ranks(rank, world),
             "lm": lm_ranks(rank, world)}
 
 
-def shared_ranks(tmp_path_factory, world: int):
-    """The results of the ``world``-rank group of ``GROUPS``, once a test
-    session: the first xdist worker to ask starts every group at once
-    (each with a 240 s limit and 60 s a collective) and keeps their
-    results, or the error of a group that failed, for the others."""
+def shared_ranks(tmp_path_factory, group):
+    """The results of group ``group`` of ``GROUPS``, once a test session:
+    the first xdist worker to ask starts every group at once (each with
+    a 240 s limit and 60 s a collective) and keeps their results, or the
+    error of a group that failed, for the others."""
     root = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
         root = root.parent
-    path = root / f"mesh_groups_{world}.pkl"
+    path = root / f"mesh_groups_{group}.pkl"
     with FileLock(str(root / "mesh_groups.lock")):
         if not path.is_file():
             with ThreadPoolExecutor(len(GROUPS)) as pool:
-                runs = {w: pool.submit(run_ranks, fn, w, device_type="cpu",
+                runs = {g: pool.submit(run_ranks, fn, w, device_type="cpu",
                                        timeout_s=240.0, pg_timeout_s=60.0)
-                        for w, fn in GROUPS.items()}
-                for w, run in runs.items():
+                        for g, (w, fn) in GROUPS.items()}
+                for g, run in runs.items():
                     try:
                         kept = ("ok", run.result())
                     except Exception as e:      # each test that reads it
                         kept = ("error", f"{type(e).__name__}: {e}")
-                    with open(root / f"mesh_groups_{w}.pkl", "wb") as f:
+                    with open(root / f"mesh_groups_{g}.pkl", "wb") as f:
                         pickle.dump(kept, f)
     with open(path, "rb") as f:
         status, out = pickle.load(f)
     if status != "ok":
-        raise RuntimeError(f"the {world}-rank group failed: {out}")
+        raise RuntimeError(f"the group {group!r} failed: {out}")
     return out
 
 
@@ -124,6 +128,7 @@ def engine_ranks(rank, world):
                     run_simulation(cfg, X, y, Xt, yt, **kw)
                     if rank == 0 else None)
     out["errors"] = errors = {}
+    seen, tel = [], Telemetry()
     for name, call in (
             ("indivisible", lambda: run_simulation(
                 GossipLinearConfig(**engine_config(n=N + 1)),
@@ -131,15 +136,94 @@ def engine_ranks(rank, world):
                 cycles=2)),
             ("serve_hook", lambda: run_simulation(
                 cfg, X, y, Xt, yt, mesh=mesh, engine="sharded",
-                device="cpu", cycles=2, serve_hook=lambda c, s: None)),
+                device="cpu", cycles=2, serve_hook=lambda c, s: seen.append(
+                    (c, tuple(s.w.shape), s.shard[:5])))),
             ("telemetry", lambda: run_simulation(
                 cfg, X, y, Xt, yt, mesh=mesh, engine="sharded",
-                device="cpu", cycles=2, telemetry=Telemetry()))):
+                device="cpu", cycles=2, telemetry=tel))):
         try:
             call()
             errors[name] = None
         except Exception as e:          # the parent pins type and message
             errors[name] = (type(e).__name__, str(e))
+    # what the two hooked runs saw: the hook's calls (cycle, the shard's
+    # cache shape and its place) and the armed streams' lengths
+    out["hooked"] = {"serve_hook": seen, "telemetry": {
+        k: len(v) for k, v in tel.streams.items()}, "rank": tel.rank}
+    return out
+
+
+# serving and telemetry on the node mesh: f32 with sign_flip + norm_clip,
+# int8_sr and int4_ef, each armed with two servers (uniform and
+# round_robin, batches of SERVE_BATCH, SERVE_QUERIES queries an eval
+# point: a padded tail batch is flushed after the run)
+SERVE_CASES = (dict(mode=None, wire=None, fault=True),
+               dict(mode=None, wire="int8_sr"),
+               dict(mode=None, wire="int4_ef"))
+SERVE_BATCH, SERVE_QUERIES = 16, 20
+POLICIES = ("uniform", "round_robin")
+
+
+def _serve_run(cfg, data, mesh=None, node_axis=None, armed=True):
+    """One armed (or plain) run with the servers hooked in: the result,
+    the streams, every eval point's whole snapshot (gathered under a
+    node mesh), each server's answers, batches and stats, the spans'
+    rank tags and the snapshot's place."""
+    from repro_torch.core import serving
+    from repro_torch.launch.gossip_serve import GossipServer
+    X, y, Xt, yt = data
+    tel = Telemetry() if armed else None
+    servers = {p: GossipServer(batch_size=SERVE_BATCH, policy=p, seed=3,
+                               telemetry=tel if p == "uniform" else None)
+               for p in POLICIES}
+    snaps, places = {}, []
+
+    def hook(cycle, snap):
+        places.append(None if snap.shard is None else snap.shard[:5])
+        whole = serving.gather_snapshot(snap)
+        snaps[cycle] = [a.numpy().copy() if torch.is_tensor(a) else a
+                        for a in whole[:6]]
+        for srv in servers.values():
+            srv.serve_hook(cycle, snap)
+            srv.submit(Xt[:SERVE_QUERIES])
+
+    res = run_simulation(cfg, X, y, Xt, yt, **RUN, engine="sharded",
+                         device="cpu", mesh=mesh, node_axis=node_axis,
+                         telemetry=tel, serve_hook=hook if armed else None)
+    served = {}
+    for p, srv in servers.items():
+        srv.flush()
+        st = srv.stats()
+        served[p] = {"voted": srv.answers(), "fresh": srv.answers_fresh(),
+                     "batches": [(b.cycle, b.size, b.assign.copy(),
+                                  b.query_ids.copy()) for b in srv.batches],
+                     "queries": st.queries, "n_batches": st.batches}
+    return {"res": res, "snaps": snaps, "served": served, "places": places,
+            "streams": None if tel is None else dict(tel.streams),
+            "span_ranks": None if tel is None else sorted(
+                {s.args.get("rank") for s in tel.spans}, key=str),
+            "report": None if tel is None else tel.phase_report()}
+
+
+def serving_ranks(rank, world):
+    """Every serving case armed and plain on a ``("nodes",)`` mesh of all
+    ranks, their one-device runs (case i on rank i % W), and an armed
+    run on an axis of size 1 beside the one-device one on rank 0."""
+    torch.set_num_threads(1)
+    mesh = make_mesh((world,), ("nodes",), "cpu")
+    data = toy()
+    out = {"mesh": [], "plain": [], "one": {}}
+    for case in SERVE_CASES:
+        cfg = GossipLinearConfig(**engine_config(**case))
+        out["mesh"].append(_serve_run(cfg, data, mesh))
+        out["plain"].append(_serve_run(cfg, data, mesh, armed=False)["res"])
+    for i in range(rank, len(SERVE_CASES), world):
+        cfg = GossipLinearConfig(**engine_config(**SERVE_CASES[i]))
+        out["one"][i] = _serve_run(cfg, data)
+    flat = make_mesh((world, 1), ("nodes", "model"), "cpu")
+    cfg = GossipLinearConfig(**engine_config(**SERVE_CASES[0]))
+    out["size1"] = (_serve_run(cfg, data, flat, node_axis="model"),
+                    _serve_run(cfg, data) if rank == 0 else None)
     return out
 
 
@@ -521,6 +605,175 @@ def lm_ranks(rank, world):
     return out
 
 
-# the groups a test session starts, by size: the smoke mesh's one rank,
-# and the three files' 2- and 4-rank groups
-GROUPS = {1: smoke_rank, 2: mesh_ranks, 4: mesh_ranks}
+# the groups a test session starts, by name: (ranks, body). The smoke
+# mesh's one rank, the 2- and 4-rank groups of the engine, serving,
+# gossip and LM files, and the families' own 2- and 4-rank groups
+GROUPS = {1: (1, smoke_rank), 2: (2, mesh_ranks), 4: (4, mesh_ranks)}
+
+
+# ---------------------------------------------------------------------------
+# the ssm, hybrid, audio and vlm families on a mesh (their own groups)
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("mamba2-780m", "recurrentgemma-9b", "whisper-medium",
+                "llama-3.2-vision-11b")
+GATES = ("gate_attn", "gate_ffn")
+
+
+def family_config(arch: str, train: bool = False, bf16: bool = False):
+    """A family's reduced config (``reduced_config`` at d_model 256,
+    vocab 1024, float32: the mixers' projections pass the rules' 2^16
+    elements), with ``bf16`` computing in bfloat16 (the published
+    configs' compute dtype) on its float32 weights; kernel #8 on its
+    attention layers (the chunked attention to train)."""
+    from repro_torch.config import get_config, reduced_config
+    cfg = reduced_config(get_config(arch), d_model=256, vocab=1024)
+    if bf16:
+        cfg = cfg.replace(compute_dtype=torch.bfloat16)
+    if train:
+        return cfg.replace(attn_impl="chunked", attn_chunk=16,
+                           xent_chunk=16)
+    return cfg.replace(attn_impl="flash")
+
+
+def family_params(cfg, seed: int):
+    """The port's seeded weights, every cross layer's gates set to seeded
+    values in [0.3, 1) (at their zero init a cross layer adds nothing)."""
+    from repro_torch.models import transformer as T
+    params = T.init_params(cfg, device="cpu", seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    for lp in params["blocks"]:
+        for name in GATES:
+            if name in lp:
+                lp[name].data.fill_(float(torch.rand((), generator=g) * 0.7
+                                          + 0.3))
+    return params
+
+
+def family_source(cfg, batch: int, seed: int):
+    """The patch embeddings (vlm) or frames (audio) as numpy, or None."""
+    if cfg.family not in ("vlm", "audio"):
+        return None
+    src = (cfg.cross_attn or cfg.encoder).source_len
+    return (0.02 * np.random.default_rng(seed).standard_normal(
+        (batch, src, cfg.d_model))).astype(np.float32)
+
+
+def _digest(tree) -> dict:
+    """Each leaf's bytes, hashed: the other ranks' copy of rank 0's."""
+    import hashlib
+    from repro_torch.utils.tree import tree_leaves_with_path
+    return {"/".join(map(str, p)): hashlib.sha1(
+        np.ascontiguousarray(t).tobytes()).hexdigest()
+        for p, t in tree_leaves_with_path(tree)}
+
+
+def family_case(mesh, arch: str, profiles, keep: bool, bf16: bool = False):
+    """A family's prefill step, its fused prefill into each profile's
+    cache and LM_STEPS decode steps, and one all-reduce SGD train step at
+    LM_TRAIN_STEP: logits, caches, parameters (whole where ``keep``, else
+    their digest), placements and kernel #8's local shapes. ``bf16``: the
+    serving half only, computing in bfloat16."""
+    from repro_torch.config import InputShape
+    from repro_torch.launch import specs
+    from repro_torch.models.layers import zeros_of
+    from repro_torch.sharding.rules import distribute_params
+    cfg = family_config(arch, bf16=bf16)
+    params = family_params(cfg, 7)
+    batch = {"tokens": torch.from_numpy(lm_tokens(3, (LM_BATCH, LM_PROMPT),
+                                                  cfg.vocab_size))}
+    src = family_source(cfg, LM_BATCH, 4)
+    if src is not None:
+        batch["encoder_out"] = torch.from_numpy(src)
+    shape = InputShape("t", LM_PROMPT, LM_BATCH, "prefill")
+    seen, undo = _flash_recorder()
+    try:
+        fn, _, pl = specs.build_prefill_step(cfg, shape, mesh)
+        dp = distribute_params(params, mesh, pl[0])
+        db = distribute_params(batch, mesh, pl[1])
+        out = {"prefill": _np_tree(fn(dp, db)), "params_pl": _placed(dp),
+               "decode": {}}
+        out["flash"] = list(seen)
+        if cfg.family == "audio":
+            # the decoder's cross K/V from the encoder, as a server fills
+            # its cache
+            from repro_torch.models import encdec
+            from repro_torch.sharding.act import activation_sharding
+            with activation_sharding(mesh, ("data",)):
+                kv = encdec.encoder_cross_kv(dp, cfg, db["encoder_out"])
+            out["cross_kv"] = [_np_tree(t) for t in kv]
+        for profile in profiles:
+            dshape = InputShape("d", LM_CACHE, LM_BATCH, "decode")
+            dfn, _, dpl = specs.build_decode_step(cfg, dshape, mesh,
+                                                  profile=profile)
+            pfn, _, _ = specs.build_prefill_step(
+                cfg, shape, mesh, cache_len=LM_CACHE, decode_profile=profile)
+            first, cache = pfn(dp, db)
+            tok = torch.argmax(first.full_tensor(), -1).to(torch.int32)
+            steps = []
+            for i in range(LM_STEPS):
+                dtok = distribute_params({"t": tok}, mesh, {"t": dpl[1]})
+                lg, cache = dfn(dp, dtok["t"], cache, LM_PROMPT + i)
+                steps.append(_np_tree(lg))
+                tok = torch.argmax(lg.full_tensor(), -1).to(torch.int32)
+            out["decode"][profile] = {
+                "first": _np_tree(first), "steps": steps,
+                "cache": _np_tree(cache), "cache_pl": _placed(cache)}
+    finally:
+        undo()
+    if bf16:
+        return out
+    # one all-reduce SGD step
+    tcfg = family_config(arch, train=True)
+    tshape = InputShape("t", 32, 4, "train")
+    fn, args, pl = specs.build_train_step(tcfg, tshape, mesh,
+                                          optimizer="sgd")
+    toks = lm_tokens(30, (4, 33), tcfg.vocab_size)
+    tb = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+          "labels": torch.from_numpy(toks[:, 1:].copy())}
+    tsrc = family_source(tcfg, 4, 8)
+    if tsrc is not None:
+        tb["encoder_out"] = torch.from_numpy(tsrc)
+    dp = distribute_params(family_params(tcfg, 20), mesh, pl[0])
+    dopt = distribute_params(zeros_of(args[1], "cpu"), mesh, pl[1])
+    step = distribute_params({"s": torch.tensor(LM_TRAIN_STEP,
+                                                dtype=torch.int32)}, mesh,
+                             {"s": pl[2]})["s"]
+    placed = _placed(dp)
+    new_p, _, _, loss = fn(dp, dopt, step, distribute_params(tb, mesh,
+                                                             pl[3]))
+    whole = _np_tree(new_p)
+    out["train"] = {"loss": float(loss.full_tensor()
+                                  if hasattr(loss, "full_tensor") else loss),
+                    "params": whole if keep else None,
+                    "digest": _digest(whole), "params_pl": placed}
+    return out
+
+
+FAMILY_MESHES = {2: {"tp": ((1, 2), ("context",))},
+                 4: {"tp2x2": ((2, 2), ("context", "batch")),
+                     "tp1x4": ((1, 4), ("context",))}}
+
+
+def family_ranks(rank, world):
+    """Every family on the group's meshes: (1, 2) on two ranks, (2, 2)
+    (both decode profiles) and (1, 4) on four; on (1, 2) also mamba2's
+    serving half at bfloat16 compute (``BF16_MESH``)."""
+    torch.set_num_threads(1)
+    out = {}
+    for name, (shape, profiles) in FAMILY_MESHES[world].items():
+        mesh = make_mesh(shape, ("data", "model"), "cpu")
+        out[name] = {arch: family_case(mesh, arch, profiles, rank == 0)
+                     for arch in FAMILY_ARCHS}
+        if name == BF16_MESH:
+            out["bf16"] = family_case(mesh, "mamba2-780m", profiles, True,
+                                      bf16=True)
+    return out
+
+
+# the mesh of the bfloat16 case
+BF16_MESH = "tp"
+
+
+GROUPS.update({"families2": (2, family_ranks),
+               "families4": (4, family_ranks)})
